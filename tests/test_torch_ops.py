@@ -158,4 +158,7 @@ def test_port_imports_no_jax():
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|tmdiff_tpu(?!_torch))\b")
     offenders = [f"{f}:{i}" for f in files
                  for i, line in enumerate(open(f, encoding="utf-8"), 1) if bad.match(line)]
+    names = {os.path.relpath(f, REPO) for f in files}
+    assert {"tmdiff_tpu_torch/ops/attention.py", "tmdiff_tpu_torch/ops/cuda/conv2d.py",
+            "tmdiff_tpu_torch/ops/cuda/flash_attention.py"} <= names
     assert len(files) > 10 and not offenders, offenders

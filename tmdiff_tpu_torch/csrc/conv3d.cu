@@ -1,29 +1,38 @@
-// SAME, stride-1 3x3x3 convolution over (B, D, H, W, C) activations with the
-// spectral bands as depth, fp32 in and out, fp32 accumulation:
+// SAME, stride-1 convolutions with a 3x3 spatial window over channels-last
+// activations, fp32 in and out, fp32 accumulation. Two entries share one
+// kernel template over the number of depth taps KD:
+//
+//   KD = 3, tmdiff_conv3d_333: (B, D, H, W, Cin) with the spectral bands as
+//     depth, kernel (3, 3, 3, Cin, Cout);
+//   KD = 1, tmdiff_conv2d_33: (B, H, W, Cin) NHWC, kernel (3, 3, Cin, Cout),
+//     run as D = 1.
 //
 //   y[b,d,h,w,o] = bias[o] (+ y[b,d,h,w,o] when accumulating)
-//                + sum_{i,j,k,c} W[i,j,k,c,o] * s[b,c] * x[b,d+i-1,h+j-1,w+k-1,c]
+//                + sum_{i,j,k,c} W[i,j,k,c,o] * s[b,c] * x[b,d+i-KD/2,h+j-1,w+k-1,c]
 //
 // with zeros outside the input. `s` (B, Cin) is the per-sample style of a
 // modulated conv and `bias` (Cout) the conv bias; both are optional. The
-// accumulate mode lets a decoder conv over a channel concat run one launch per
-// part without materialising the concat.
+// accumulate mode (3x3x3 entry only) lets a decoder conv over a channel concat
+// run one launch per part without materialising the concat.
 //
 // Replaces the Pallas TPU kernels tmdiff_tpu/ops/pallas/banded_conv3d.py
-// `banded_conv3d` (_kernel) and `banded_conv3d_v2` (_kernel_v2). Those fold
-// bands into the 128 MXU lanes with a block-banded weight; this kernel ports
-// the function, not that tiling.
+// `banded_conv3d` (_kernel) and `banded_conv3d_v2` (_kernel_v2) with KD = 3,
+// and tmdiff_tpu/ops/pallas/conv2d.py `conv3x3_nhwc` (_kernel: 9 accumulated
+// MXU matmuls per 8-row strip plus a 2-row halo) with KD = 1. The TPU kernels
+// fold bands into the 128 MXU lanes and tile H in 8-row strips; this kernel
+// ports the functions, not that tiling, and takes any H and W.
 //
-// What bounds it on an H100: operations. A WavBEST conv does 2*27*Cin FLOPs
-// per output element against about (Cin + Cout) * 4 bytes of traffic, i.e.
-// 1-2 kFLOP per 100-300 bytes, far above the fp32 ridge (67 TFLOP/s over
+// What bounds it on an H100: operations. A WavBEST 3x3x3 conv does 2*27*Cin
+// FLOPs per output element against about (Cin + Cout) * 4 bytes of traffic,
+// and the band-folded 2-D conv (Cin, Cout = D x 32..64 = 128..512) 2*9*Cin:
+// 1-5 kFLOP per 100-4000 bytes, far above the fp32 ridge (67 TFLOP/s over
 // 3.35 TB/s = 20 FLOP/byte). The design is an implicit GEMM on the fp32 FMA
-// pipes (M = positions, N = Cout, K = 27 * Cin):
+// pipes (M = positions, N = Cout, K = KD * 9 * Cin):
 //   * one block per output tile of TD x TH x TW positions by BN channels;
-//   * per step of kBK input channels, the input halo (TD+2)(TH+2)(TW+2) is
-//     staged in shared memory once, with the style scale applied and the
-//     zero padding written in, and reused by all 27 taps; the 27 weight
-//     slices of those channels are staged beside it;
+//   * per step of kBK input channels, the input halo
+//     (TD+KD-1)(TH+2)(TW+2) is staged in shared memory once, with the style
+//     scale applied and the zero padding written in, and reused by all
+//     KD * 9 taps; the weight slices of those channels are staged beside it;
 //   * each thread keeps an 8 x 8 register tile (8 consecutive W positions by
 //     8 channels): 16 shared loads per 64 FMAs;
 //   * the bias and the accumulate read sit in the epilogue.
@@ -38,31 +47,31 @@ constexpr int kBK = 8;  // input channels staged per step
 constexpr int kTM = 8;  // consecutive W positions per thread
 constexpr int kTN = 8;  // output channels per thread
 
-template <int BN, int TD, int TH, int TW>
+template <int KD, int BN, int TD, int TH, int TW>
 struct Tile {
   static constexpr int NG = BN / kTN;        // channel groups per block
   static constexpr int PG = kThreads / NG;   // position groups per block
   static_assert(PG * kTM == TD * TH * TW, "tile does not match the threads");
   static_assert(TW % kTM == 0, "TW must be a multiple of kTM");
-  static constexpr int HD = TD + 2, HH = TH + 2, HW = TW + 2;
+  static constexpr int HD = TD + KD - 1, HH = TH + 2, HW = TW + 2;
   static constexpr int HALO = HD * HH * HW;
   static constexpr int HALO_LD = HALO | 1;  // odd channel stride: fewer bank conflicts on stores
   static constexpr int XS_FLOATS = (kBK * HALO_LD + 3) / 4 * 4;  // keeps the weights 16-byte aligned
-  static constexpr int WS_FLOATS = 27 * kBK * BN;
+  static constexpr int WS_FLOATS = KD * 9 * kBK * BN;
   static constexpr int SMEM_BYTES = (XS_FLOATS + WS_FLOATS) * 4;
 };
 
-template <int BN, int TD, int TH, int TW>
+template <int KD, int BN, int TD, int TH, int TW>
 __global__ void __launch_bounds__(kThreads, 2)
-conv3d_333_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ style, const float* __restrict__ bias,
-                  float* __restrict__ y, int B, int D, int H, int W, int Cin,
-                  int Cout, long long w_stride_tap, long long w_stride_c,
-                  int accumulate) {
-  using T = Tile<BN, TD, TH, TW>;
+conv_3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ style, const float* __restrict__ bias,
+                float* __restrict__ y, int B, int D, int H, int W, int Cin,
+                int Cout, long long w_stride_tap, long long w_stride_c,
+                int accumulate) {
+  using T = Tile<KD, BN, TD, TH, TW>;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [kBK][HALO_LD]
-  float* ws = xs + T::XS_FLOATS;                // [27][kBK][BN]
+  float* ws = xs + T::XS_FLOATS;                // [KD * 9][kBK][BN]
 
   const int tiles_w = (W + TW - 1) / TW;
   const int tiles_h = (H + TH - 1) / TH;
@@ -101,7 +110,7 @@ conv3d_333_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int pos = e / kBK;
       const int gw = w0 + pos % T::HW - 1;
       const int gh = h0 + (pos / T::HW) % T::HH - 1;
-      const int gd = d0 + pos / (T::HW * T::HH) - 1;
+      const int gd = d0 + pos / (T::HW * T::HH) - KD / 2;
       const int gc = c0 + c;
       float v = 0.f;
       if (gc < Cin && gd >= 0 && gd < D && gh >= 0 && gh < H && gw >= 0 && gw < W) {
@@ -110,7 +119,7 @@ conv3d_333_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
       xs[c * T::HALO_LD + pos] = v;
     }
-    // The 27 weight slices of these channels, output channel fastest.
+    // The KD * 9 weight slices of these channels, output channel fastest.
     for (int e = tid; e < T::WS_FLOATS; e += kThreads) {
       const int n = e % BN;
       const int c = (e / BN) % kBK;
@@ -121,7 +130,7 @@ conv3d_333_kernel(const float* __restrict__ x, const float* __restrict__ w,
     __syncthreads();
 
 #pragma unroll 1
-    for (int kd = 0; kd < 3; ++kd) {
+    for (int kd = 0; kd < KD; ++kd) {
 #pragma unroll 1
       for (int kh = 0; kh < 3; ++kh) {
 #pragma unroll 1
@@ -184,12 +193,12 @@ conv3d_333_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int BN, int TD, int TH, int TW>
+template <int KD, int BN, int TD, int TH, int TW>
 int launch(const float* x, const float* w, const float* style, const float* bias, float* y,
            int B, int D, int H, int W, int Cin, int Cout, long long w_stride_tap,
            long long w_stride_c, int accumulate, cudaStream_t stream) {
-  using T = Tile<BN, TD, TH, TW>;
-  auto kernel = conv3d_333_kernel<BN, TD, TH, TW>;
+  using T = Tile<KD, BN, TD, TH, TW>;
+  auto kernel = conv_3x3_kernel<KD, BN, TD, TH, TW>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -216,10 +225,24 @@ int tmdiff_conv3d_333(const float* x, const float* w, const float* style,
                       int accumulate, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Cout % 64 == 0)
-    return launch<64, 2, 4, 32>(x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                                w_stride_c, accumulate, s);
-  return launch<32, 2, 8, 32>(x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                              w_stride_c, accumulate, s);
+    return launch<3, 64, 2, 4, 32>(x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
+                                   w_stride_c, accumulate, s);
+  return launch<3, 32, 2, 8, 32>(x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
+                                 w_stride_c, accumulate, s);
+}
+
+// The same for a 3x3 NHWC conv, (B, H, W, Cin) -> (B, H, W, Cout): one depth
+// tap and a tile one position deep, so the 256 threads cover 8 or 16 rows.
+// It writes y and never accumulates into it.
+int tmdiff_conv2d_33(const float* x, const float* w, const float* style,
+                     const float* bias, float* y, int B, int H, int W, int Cin, int Cout,
+                     long long w_stride_tap, long long w_stride_c, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cout % 64 == 0)
+    return launch<1, 64, 1, 8, 32>(x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
+                                   w_stride_c, 0, s);
+  return launch<1, 32, 1, 16, 32>(x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
+                                  w_stride_c, 0, s);
 }
 
 const char* tmdiff_cuda_error_string(int err) {

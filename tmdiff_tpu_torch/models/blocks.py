@@ -23,8 +23,9 @@ out. Decoder inputs may be tuples of channel parts; they are convolved as
 their concat without materialising it.
 
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
-CUDA kernel on a CUDA tensor; True sends them to the kernel's plain version
-(see WavBEST.use_plain_conv).
+CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
+(see WavBEST.use_plain_conv). Its `impl` attribute picks the 3x3x3 lowering,
+"banded" or "auto" (ops/modconv.py; see WavBEST.use_conv_impl).
 """
 from __future__ import annotations
 
@@ -75,11 +76,12 @@ class Conv3d(nn.Module):
         self.weight = _lecun_normal((k, k, k, cin, cout), k ** 3 * cin)
         self.bias = nn.Parameter(torch.zeros(cout))
         self.plain = False
+        self.impl = "banded"
 
     def forward(self, x):
         if isinstance(x, tuple):
-            return conv3d_cat(x, self.weight, bias=self.bias, plain=self.plain)
-        return conv3d(x, self.weight, bias=self.bias, plain=self.plain)
+            return conv3d_cat(x, self.weight, bias=self.bias, plain=self.plain, impl=self.impl)
+        return conv3d(x, self.weight, bias=self.bias, plain=self.plain, impl=self.impl)
 
 
 class ModConv3d(nn.Module):
@@ -90,9 +92,10 @@ class ModConv3d(nn.Module):
         super().__init__()
         self.weight = _lecun_normal((k, k, k, cin, cout), k ** 3 * cin)
         self.plain = False
+        self.impl = "banded"
 
     def forward(self, x, style):
-        return modulated_conv3d(x, self.weight, style, plain=self.plain)
+        return modulated_conv3d(x, self.weight, style, plain=self.plain, impl=self.impl)
 
 
 class ResBlockModulate(nn.Module):
@@ -177,12 +180,13 @@ class GroupedSkipConv(nn.Module):
         self.weight = _lecun_normal((3, 3, 3, cin, groups * features), 27 * cin)
         self.bias = nn.Parameter(torch.zeros(groups * features))
         self.plain = False
+        self.impl = "banded"
 
     def forward(self, parts):
         f = self.features
         return tuple(
             conv3d(p, self.weight[..., g * f:(g + 1) * f],
-                   bias=self.bias[g * f:(g + 1) * f], plain=self.plain)
+                   bias=self.bias[g * f:(g + 1) * f], plain=self.plain, impl=self.impl)
             for g, p in enumerate(parts))
 
 

@@ -28,6 +28,7 @@ from tmdiff_tpu_torch.models.blocks import (
     swish,
 )
 from tmdiff_tpu_torch.ops.embedding import gamma_embedding
+from tmdiff_tpu_torch.ops.modconv import IMPLS
 from tmdiff_tpu_torch.utils.device import resolve_device
 
 
@@ -78,6 +79,19 @@ class WavBEST(nn.Module):
         for m in self.modules():
             if hasattr(m, "plain"):
                 m.plain = flag
+        return self
+
+    def use_conv_impl(self, impl: str = "banded") -> "WavBEST":
+        """Pick the 3x3x3 conv lowering of every conv (ops/modconv.py):
+        "banded", the default, runs each through the 3x3x3 kernel; "auto"
+        folds the bands of the lane-starved convs into channels and runs
+        them through the 3x3 NHWC kernel, as the JAX package does under
+        TMDIFF_CONV3D_IMPL=auto and TMDIFF_BANDLANES_CONV=pallas."""
+        if impl not in IMPLS:
+            raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
+        for m in self.modules():
+            if hasattr(m, "impl"):
+                m.impl = impl
         return self
 
     # -- embeddings -----------------------------------------------------------

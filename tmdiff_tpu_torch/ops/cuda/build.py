@@ -1,5 +1,6 @@
 """Builds the CUDA sources under `tmdiff_tpu_torch/csrc/` into shared
-libraries with a plain C interface and loads them with ctypes.
+libraries with a plain C interface and loads them with ctypes; also holds the
+operand checks that every kernel wrapper makes before a launch.
 
 Each library is compiled by `nvcc` for `sm_90a` at first use, into
 `tmdiff_tpu_torch/build/` (git-ignored), under a name that carries a hash of
@@ -15,6 +16,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,6 +64,36 @@ def build(name: str) -> str:
     return lib
 
 
+def sources() -> list[str]:
+    """Names of the CUDA sources under `csrc/`, without `.cu`."""
+    return sorted(n[:-3] for n in os.listdir(CSRC) if n.endswith(".cu"))
+
+
+def build_all() -> list[str]:
+    """Compile every source under `csrc/` at once, one nvcc each; returns
+    the libraries' paths."""
+    names = sources()
+    with ThreadPoolExecutor(len(names)) as pool:
+        return list(pool.map(build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Loads the library of `csrc/<name>.cu`, built first if needed."""
     return ctypes.CDLL(build(name))
+
+
+def check_operands(kernel_name: str, /, **tensors) -> None:
+    """The checks every kernel wrapper makes: each given tensor is float32,
+    on the first one's device, and needs no gradient (no kernel here has a
+    backward)."""
+    first, ref = next(iter(tensors.items()))
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, {first} on {ref.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError(f"the {kernel_name} kernel has no backward; "
+                               "call it under torch.no_grad()")

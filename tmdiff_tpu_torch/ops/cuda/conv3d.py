@@ -12,9 +12,10 @@ with fp32 accumulation. Given `out`, the result is added into `out` in place
 `banded_conv3d` replaces the Pallas TPU kernel
 `tmdiff_tpu/ops/pallas/banded_conv3d.py::banded_conv3d` and
 `banded_conv3d_v2` its second entry point of the same function; both launch
-the kernel of `tmdiff_tpu_torch/csrc/conv3d.cu` (its header says what bounds
-it on an H100 and how it is tiled). On a CPU tensor they compute the plain
-version; on a CUDA tensor they launch the kernel or raise.
+the kernel of `tmdiff_tpu_torch/csrc/conv3d.cu` with three depth taps (its
+header says what bounds it on an H100 and how it is tiled). On a CPU tensor
+they compute the plain version; on a CUDA tensor they launch the kernel or
+raise.
 
 The kernel has no backward: the wrappers refuse inputs that need a gradient.
 """
@@ -59,7 +60,9 @@ _lib = None
 
 
 def library():
-    """The kernel's ctypes library, built and loaded at first use."""
+    """The kernel's ctypes library, built and loaded at first use. It also
+    holds the 3x3 NHWC entry of ops/cuda/conv2d.py, the same kernel with one
+    depth tap."""
     global _lib
     if _lib is None:
         lib = build.load("conv3d")
@@ -67,6 +70,10 @@ def library():
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
         lib.tmdiff_conv3d_333.restype = ctypes.c_int
+        lib.tmdiff_conv2d_33.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+        lib.tmdiff_conv2d_33.restype = ctypes.c_int
         lib.tmdiff_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tmdiff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -74,16 +81,7 @@ def library():
 
 
 def _check(x, kernel, style, bias, out):
-    tensors = {"x": x, "kernel": kernel, "style": style, "bias": bias, "out": out}
-    for name, t in tensors.items():
-        if t is None:
-            continue
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError("the conv3d kernel has no backward; call it under torch.no_grad()")
+    build.check_operands("conv3d", x=x, kernel=kernel, style=style, bias=bias, out=out)
     if x.dim() != 5 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, D, H, W, Cin) tensor, got {tuple(x.shape)}")
     b, d, h, w, cin = x.shape

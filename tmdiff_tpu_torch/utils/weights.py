@@ -8,7 +8,10 @@ holds.
     unused `dense2`, and the condition branch's time projections.
   * `from_flax`: a JAX package param tree as nested dicts of numpy arrays
     (flax conv kernels (kd, kh, kw, I, O), Dense kernels (I, O)), mapped onto
-    the reference keys by `torch_key`.
+    the reference keys by `torch_key`. It also fills the attention library
+    (ops/attention.py), whose modules carry the flax names: Dense (I, O) and
+    1x1 2-D Conv (1, 1, I, O) kernels become Linear weights, and the
+    LayerNorm/GroupNorm `scale` becomes `weight`.
 
 The port keeps conv weights in the (kd, kh, kw, I, O) layout and Linear
 weights in torch's (O, I). Both loaders are strict: a key the model does not
@@ -25,6 +28,10 @@ import torch
 _MODCONV_STYLE = {"conv21": "dense2", "Conv_1": "dense1", "conv24": "dense2"}
 # flax TimeMLP / PromptMLP layer -> index in the reference's nn.Sequential
 _MLP_INDEX = {"lin0": "0", "lin1": "2", "lin2": "4"}
+# attention-library layers that are nn.Linear in the port: flax Dense
+# (I, O) and 1x1 2-D Conv (1, 1, I, O) kernels
+_ATTN_LINEAR = {"to_q", "to_k", "to_v", "to_out", "proj", "lin_in", "lin_out",
+                "proj_in", "proj_out", "q", "k", "v", "NIN_0", "NIN_1", "NIN_2", "NIN_3"}
 
 
 def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
@@ -32,6 +39,11 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
     'linear', 'none' (the layout change from flax to torch)."""
     parts = [p for p in path if p != "params"]
     leaf, mods = parts[-1], parts[:-1]
+    if leaf == "scale":  # LayerNorm / GroupNorm
+        return ".".join(mods) + ".weight", "none"
+    if mods and mods[-1] in _ATTN_LINEAR:
+        base = ".".join(mods)
+        return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
     if mods and mods[0] in ("embed", "embed2") and mods[-1] in _MLP_INDEX:
         base = ".".join(mods[:-1] + [_MLP_INDEX[mods[-1]]])
         return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
@@ -101,10 +113,11 @@ def _flatten(tree, path=()):
 
 
 def from_flax(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Fill `model` from a JAX WavBEST param tree of numpy arrays."""
+    """Fill `model` from a JAX param tree of numpy arrays: a WavBEST, or a
+    module of the attention library."""
     arrays = {}
     for path, leaf in _flatten(params):
         key, kind = torch_key(path)
         arr = np.asarray(leaf)
-        arrays[key] = arr.T if kind == "linear" else arr
+        arrays[key] = arr.reshape(arr.shape[-2:]).T if kind == "linear" else arr
     return _load_strict(model, arrays)
