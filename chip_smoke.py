@@ -41,9 +41,15 @@ Phases (any failure ends the run with a non-zero exit code):
                F.scaled_dot_product_attention (a yardstick only) at
                self-attention over 64x64 tokens (8 heads x 64), cross-attention
                to a one-token 768-wide prompt context, and a 32x32x256
-               SpatialSelfAttention; then a SpatialTransformer forward
-               (8 x 64 heads, 64x64x256 image, that context) through K4 and
-               through the plain attention, counts reset just before.
+               SpatialSelfAttention; each shape names its variant (it must
+               be the tensor-core one), split count and key tile, gives the
+               same bits on a second launch, and is timed (CUDA events, and
+               each kernel's device time under torch.profiler) beside its
+               bound at 3xTF32 (the fp32 FMA bound beside it); one D % 4 != 0
+               shape holds the FMA variant against the plain version; then
+               a SpatialTransformer forward (8 x 64 heads, 64x64x256 image,
+               that context) through K4 and through the plain attention,
+               counts reset just before.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
 {"kernels": [...]} summary.
@@ -92,6 +98,8 @@ ATTENTION_SHAPES = (
     ("cross-attention to a 1-token prompt context", (BATCH, 8, 4096, 64), 1),
     ("SpatialSelfAttention, 32x32 x 256 channels", (BATCH, 1, 1024, 256), 1024),
 )
+# A head dim that is not a multiple of 4 takes the FMA variant.
+FMA_ATTENTION_SHAPE = ((BATCH, 2, 300, 42), 200)
 PROMPT_DIM = 768
 DEV = "cuda"
 
@@ -484,37 +492,70 @@ def auto_serve_phase(model, K, K3, K4, banded_results, seed):
     return counts
 
 
-def attention_bound(b, h, sq, skv, d):
+def attention_bound(b, h, sq, skv, d, peak):
     flops = 4.0 * b * h * sq * skv * d  # q.kT and p.v
     nbytes = 4.0 * b * h * d * (2 * sq + 2 * skv)
-    return bound(flops, nbytes)
+    return bound(flops, nbytes, peak)
+
+
+def attention_inputs(gen, b, h, sq, d, skv):
+    return (torch.randn(b, h, sq, d, device=DEV, generator=gen),
+            torch.randn(b, h, skv, d, device=DEV, generator=gen),
+            torch.randn(b, h, skv, d, device=DEV, generator=gen))
 
 
 def attention_phase(K4, gen):
+    from tmdiff_tpu_torch.bench_attention import kernel_ms
     from tmdiff_tpu_torch.ops.attention import SpatialTransformer
 
     per_shape, max_err = [], 0.0
     for label, (b, h, sq, d), skv in ATTENTION_SHAPES:
-        q = torch.randn(b, h, sq, d, device=DEV, generator=gen)
-        k = torch.randn(b, h, skv, d, device=DEV, generator=gen)
-        v = torch.randn(b, h, skv, d, device=DEV, generator=gen)
+        q, k, v = attention_inputs(gen, b, h, sq, d, skv)
         with torch.no_grad():
-            got = K4.flash_attention(q, k, v)
+            got, variant = launched_variant(K4, lambda: K4.flash_attention(q, k, v))
             ref = K4.attention_reference(q, k, v)
+            again = K4.flash_attention(q, k, v)
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             if not err <= ATTENTION_ATOL:
                 fail(f"attention {label}: max abs err {err} > {ATTENTION_ATOL}")
+            if variant != "tc":
+                fail(f"attention {label} took the {variant} variant, not the tensor cores")
+            if not torch.equal(got, again):
+                fail(f"attention {label}: two launches on one input differ")
             max_err = max(max_err, err)
             ms_k = cuda_ms(lambda: K4.flash_attention(q, k, v), 10)
             ms_p = cuda_ms(lambda: K4.attention_reference(q, k, v), 3)
             ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
-        bnd, bound_by = attention_bound(b, h, sq, skv, d)
+            per_kernel = kernel_ms(lambda: K4.flash_attention(q, k, v), 10)
+            dev_l = sum(kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10).values())
+        dev_k = sum(per_kernel.values())
+        plan = K4.device_plan(q, skv)
+        parts = ", ".join(f"{name} {t:.4f}" for name, t in per_kernel.items())
+        bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_TF32X3_FLOPS)
+        ffma_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_FP32_FLOPS)
         per_shape.append({"ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": bnd,
                           "bound_by": bound_by})
-        print(f"[attention] {label}: q {(b, h, sq, d)} Skv {skv} ms={ms_k:.4f} "
-              f"plain_ms={ms_p:.4f} library_ms={ms_l:.4f} bound_ms={bnd:.4f} ({bound_by}) "
-              f"max abs err {err:.3g} (atol {ATTENTION_ATOL})", flush=True)
+        print(f"[attention] {label}: q {(b, h, sq, d)} Skv {skv} variant={variant} "
+              f"splits={plan.splits} key_tile={plan.key_tile} rows/block={plan.rows} "
+              f"ms={ms_k:.4f} plain_ms={ms_p:.4f} library_ms={ms_l:.4f} "
+              f"device_ms={dev_k:.4f} ({parts}) library_device_ms={dev_l:.4f} "
+              f"bound_ms={bnd:.4f} ({bound_by}) fp32_ffma_bound_ms={ffma_bnd:.4f} "
+              f"share_of_bound={bnd / ms_k:.3f} max abs err {err:.3g} (atol {ATTENTION_ATOL}), "
+              f"second launch bit-identical", flush=True)
+
+    (b, h, sq, d), skv = FMA_ATTENTION_SHAPE
+    q, k, v = attention_inputs(gen, b, h, sq, d, skv)
+    with torch.no_grad():
+        got, variant = launched_variant(K4, lambda: K4.flash_attention(q, k, v))
+        ref = K4.attention_reference(q, k, v)
+        torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    print(f"[attention] FMA variant: q {(b, h, sq, d)} Skv {skv} variant={variant} "
+          f"max abs err {err:.3g} (atol {ATTENTION_ATOL})", flush=True)
+    if variant != "fma" or not err <= ATTENTION_ATOL:
+        fail(f"attention at D = {d}: variant {variant}, max abs err {err}")
+    max_err = max(max_err, err)
 
     # The module's entry point: a SpatialTransformer over a 64x64x256 image
     # attending to the 768-wide prompt embedding as a one-token context. Its
@@ -534,7 +575,7 @@ def attention_phase(K4, gen):
         y = st(x, ctx)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-        launches = K4.launches
+        launches, variants = K4.launches, dict(K4.variant_launches)
         for m in st.modules():
             if hasattr(m, "use_flash"):
                 m.use_flash = False
@@ -544,20 +585,21 @@ def attention_phase(K4, gen):
         sec_plain = time.perf_counter() - t0
     err = (y - ref).abs().max().item()
     print(f"[attention] SpatialTransformer(8 x 64 heads) on {tuple(x.shape)} with a "
-          f"{tuple(ctx.shape)} context: {sec * 1e3:.2f} ms through K4 ({launches} launches), "
+          f"{tuple(ctx.shape)} context: {sec * 1e3:.2f} ms through K4 ({launches} launches, "
+          f"by variant {variants}), "
           f"{sec_plain * 1e3:.2f} ms through the plain attention; max abs err {err:.3g} "
           f"(atol {FORWARD_ATOL}), output max |y| {ref.abs().max().item():.3g}", flush=True)
     if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all():
         fail("SpatialTransformer output has the wrong shape or is not finite")
-    if launches != 2:
-        fail(f"SpatialTransformer launched the attention kernel {launches} times")
+    if launches != 2 or variants["tc"] != 2:
+        fail(f"SpatialTransformer launched the attention kernel {launches} times ({variants})")
     if not err <= FORWARD_ATOL:
         fail(f"SpatialTransformer differs from the plain attention by {err}")
     # its two attentions are the first two shapes
     totals = {key: sum(p[key] for p in per_shape[:2])
               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     totals["bound_by"] = per_shape[0]["bound_by"]
-    return totals, max_err, launches
+    return totals, max_err, launches, variants
 
 
 def kernel_name(line: str) -> str:
@@ -621,7 +663,7 @@ def main() -> int:
     if k1_launches == 0:
         fail("the main path launched no conv3d kernel")
     auto_counts = auto_serve_phase(model, K, K3, K4, banded_results, SEED)
-    k4_totals, k4_err, k4_launches = attention_phase(K4, gen)
+    k4_totals, k4_err, k4_launches, k4_variants = attention_phase(K4, gen)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     per_request = (f"summed over the launches of one dpm++ request, 8 bands, batch {BATCH}, "
@@ -647,7 +689,7 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "tmdiff_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tmdiff_tpu/ops/pallas/flash_attention.py:80",
-         "launches": k4_launches, "max_abs_err": k4_err,
+         "launches": k4_launches, "variant_launches": k4_variants, "max_abs_err": k4_err,
          "ms": k4_totals["ms"], "plain_ms": k4_totals["plain_ms"],
          "bound_ms": k4_totals["bound_ms"], "bound_by": k4_totals["bound_by"],
          "library_ms": k4_totals["library_ms"],

@@ -2,8 +2,10 @@
 entries), the 3x3 NHWC conv (K3) and flash attention (K4) against their plain
 versions at edge shapes, the conv kernel's variants (3xTF32 tensor cores,
 with split-K, and the fp32 FMA kernel for Cin % 4 != 0) and its
-determinism, the wrappers' refusals, and the model's kernel paths
-("banded" and "auto") and a SpatialTransformer against their plain paths. Marked `cuda`; each test
+determinism, K4's variants (3xTF32 with split-KV, fp32 FMA for D % 4 != 0),
+plan, determinism and error at its deepest sums, the wrappers' refusals,
+and the model's kernel paths ("banded" and "auto") and a SpatialTransformer
+against their plain paths. Marked `cuda`; each test
 skips where no GPU is present. This file imports neither jax nor the JAX
 package, so it runs where only the port is installed:
 
@@ -334,28 +336,105 @@ def test_conv3x3_wrapper_refuses(cuda):
         K3.conv3x3_nhwc(x.detach(), k.cpu())
 
 
+def _random_attention(device, q_shape, kv_len, seed=0):
+    b, h, sq, d = q_shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(q_shape, device=device, generator=g),
+            torch.randn(b, h, kv_len, d, device=device, generator=g),
+            torch.randn(b, h, kv_len, d, device=device, generator=g))
+
+
 @pytest.mark.parametrize("q_shape,kv_len", [
     ((2, 8, 4096, 64), 4096), ((2, 8, 4096, 64), 1), ((2, 1, 1024, 256), 1024),
     ((1, 2, 48, 32), 130), ((1, 2, 100, 40), 100), ((3, 1, 1, 8), 77), ((1, 1, 70, 200), 33),
     ((1, 3, 129, 128), 65),
+    ((1, 2, 50, 64), 7), ((1, 2, 50, 64), 8), ((1, 2, 50, 64), 9), ((1, 2, 50, 64), 63),
+    ((1, 2, 50, 64), 4097), ((2, 2, 77, 42), 50),
 ])
 def test_flash_attention_matches_reference(cuda, q_shape, kv_len):
     """K4 against attention_reference at unit-normal inputs: masked key
-    tails, a single key, ragged query tiles, D from 8 to 256; atol 2e-5."""
+    tails, a single key, key counts around the 8/16/64-key tiles, ragged
+    query tiles, D from 8 to 256 on the tensor cores and D = 42 on the FMA
+    variant; atol 2e-5."""
     from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
 
-    b, h, sq, d = q_shape
-    g = torch.Generator(device=cuda).manual_seed(0)
-    q = torch.randn(q_shape, device=cuda, generator=g)
-    k = torch.randn(b, h, kv_len, d, device=cuda, generator=g)
-    v = torch.randn(b, h, kv_len, d, device=cuda, generator=g)
+    q, k, v = _random_attention(cuda, q_shape, kv_len)
     with torch.no_grad():
-        before = K4.launches
+        K4.reset_launches()
         got = K4.flash_attention(q, k, v)
-        assert K4.launches == before + 1
+        assert K4.launches == 1
+        assert K4.variant_launches["fma" if q_shape[3] % 4 else "tc"] == 1
         ref = K4.attention_reference(q, k, v)
         torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("q_shape,kv_len,key_tile,splits", [
+    ((2, 8, 4096, 64), 4096, 64, 1), ((2, 8, 4096, 64), 1, 8, 1), ((2, 1, 1024, 256), 1024, 16, 4),
+])
+def test_flash_attention_plan_at_the_chip_shapes(cuda, q_shape, kv_len, key_tile, splits):
+    """chip_smoke.py's shapes take the tensor cores with these key tiles and
+    split counts on a 132-SM H100 (SpatialSelfAttention splits its keys
+    four ways: 32 blocks of 64 queries become 128)."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    if torch.cuda.get_device_properties(cuda).multi_processor_count != 132:
+        pytest.skip("split counts are those of a 132-SM card")
+    q, k, v = _random_attention(cuda, q_shape, kv_len)
+    p = K4.device_plan(q, kv_len)
+    assert (p.variant, p.key_tile, p.splits) == ("tc", key_tile, splits)
+    with torch.no_grad():
+        K4.reset_launches()
+        K4.flash_attention(q, k, v)
+    assert K4.variant_launches == {"fma": 0, "tc": 1}
+
+
+def test_flash_attention_split_kv_is_deterministic(cuda):
+    """The split shape merges its partial sums in split order, without
+    atomics: two launches on one input agree bit for bit."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q, k, v = _random_attention(cuda, (2, 1, 1024, 256), 1024, seed=5)
+    assert K4.device_plan(q, 1024).splits > 1
+    with torch.no_grad():
+        first, second = K4.flash_attention(q, k, v), K4.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+# The largest error K4 may show at its deepest sums, half the 2e-5 bar, so
+# that growth shows before the bar is crossed. Each key tile's P.V goes into
+# a fresh accumulator folded into O in fp32, so the tensor cores' own
+# accumulation spans one tile, not the key range.
+DEEP_SUM_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [((2, 8, 4096, 64), 4096), ((2, 4, 1024, 256), 1024)])
+def test_flash_attention_error_at_the_deepest_sums(cuda, q_shape, kv_len):
+    """Self-attention over 4096 keys at D = 64 and 1024 keys at D = 256,
+    neither split over blocks (one block walks every key tile)."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q, k, v = _random_attention(cuda, q_shape, kv_len, seed=6)
+    assert K4.device_plan(q, kv_len).splits == 1
+    with torch.no_grad():
+        got = K4.flash_attention(q, k, v)
+        ref = K4.attention_reference(q, k, v)
+        torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    print(f"{q_shape} Skv {kv_len}: max abs err {err:.3g}")
+    assert err <= DEEP_SUM_ATOL
+
+
+def test_flash_attention_refuses_unaligned_rows(cuda):
+    """The tensor-core variant reads 16-byte rows: a view that starts off a
+    16-byte boundary is refused, not read misaligned."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q = torch.randn(1 + 2 * 8 * 16, device=cuda)[1:].view(1, 2, 8, 16)
+    k = torch.randn(1, 2, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K4.flash_attention(q, k, k)
 
 
 def test_flash_attention_wrapper_refuses(cuda):

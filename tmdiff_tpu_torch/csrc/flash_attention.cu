@@ -9,32 +9,83 @@
 // Replaces the Pallas TPU kernel tmdiff_tpu/ops/pallas/flash_attention.py
 // `flash_attention` (_kernel). That kernel pads D to 128 lanes and S to the
 // block size in device memory and walks the K/V blocks as a sequential third
-// grid axis, carrying (m, l, acc) in VMEM scratch. Here one block owns a
-// (batch*head, 64-query tile) pair and loops over 64-key K/V tiles itself;
+// grid axis, carrying (m, l, acc) in VMEM scratch. Here a block owns a
+// (batch*head, query tile[, key range]) and loops over the key tiles itself;
 // the ragged edges (keys at or past Skv, queries past Sq, columns past D) are
-// masked or zero-filled in shared memory, so nothing is padded in device
-// memory.
+// masked or zero-filled, so nothing is padded in the caller's tensors.
 //
 // What bounds it on an H100: operations. Each query row does 4 * Skv * D
 // FLOPs (two products) against 8 * D bytes of q and o, and each K/V row is
 // reused by every query tile: at S = 1024..4096 that is 0.5-2 kFLOP per byte,
-// far above the fp32 ridge of 20 FLOP/byte. Only cross-attention to a short
-// context (Skv of 1 to a few tokens) is bound by bytes. The design uses the
-// fp32 FMA pipes:
-//   * 256 threads as 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3;
-//     for the scores it owns keys tx, tx+16, tx+32, tx+48 of the tile, for
-//     the output the value columns 64c + 4tx .. 64c + 4tx + 3;
-//   * Q (64 x D), the K and V tiles (64 x D) and the probabilities P (64 x 64)
-//     sit in dynamic shared memory (217 KB at D = 256), rows padded to an odd
-//     multiple of 4 floats so the float4 reads of 16 neighbouring rows fall in
-//     distinct banks;
-//   * the row max and row sum are reduced across the 16 threads of a row with
-//     warp shuffles; P goes through shared memory to the P.V product.
-// No tensor cores (wgmma), TMA or double buffering yet: those are later work.
+// far above the ridge of any rate. Only cross-attention to a short context
+// (Skv of 1 to a few tokens) is bound by bytes (reading q, writing o).
+//
+// Two variants, chosen by the caller's plan (ops/cuda/flash_attention.py
+// `plan`), a function of D alone:
+//
+// 3xTF32 tensor cores (flash_attention_tf32x3_kernel), D % 4 == 0. fp32
+// accuracy costs three TF32 products per multiply-add (hi*lo + lo*hi +
+// hi*hi with hi = rna_tf32(v), lo = rna_tf32(v - hi)), on both products, so
+// the bound is the TF32 rate over three, 165 TFLOP/s.
+//   * A first pass (attention_kv_split_kernel) writes K and V^T of every
+//     (batch*head, key tile) into the workspace, split into hi and lo and in
+//     wgmma's no-swizzle K-major core-matrix layout: one contiguous image
+//     [K hi | K lo | V^T hi | V^T lo] per tile, keys past Skv and columns
+//     past D zero. It reads K and V once; the main loop stages a tile with
+//     two bulk copies. Inside each k8 group the k order is permuted to
+//     0 2 4 6 1 3 5 7 (K over d, V^T over keys), so that an A fragment's
+//     columns t and t + 4 are neighbouring elements: Q's come from one
+//     float2 load, and P's are the S accumulator's own pair (2t, 2t + 1)
+//     without a shuffle.
+//   * S = Q.K^T: wgmma.m64nBKk8 with A = Q from registers (split once per
+//     block where D <= 64; else Q stays fp32 in shared memory, rows padded
+//     by 8 floats against bank conflicts, and is split per k8 step), B = the
+//     K tile. O += P.V: A = P built from S's fragment (mask, exp2, split),
+//     B = the V^T tile. Each tile's P.V goes into a fresh accumulator that
+//     is folded into O as O = O * alpha + tile in fp32: the tensor cores'
+//     truncating accumulation then spans one tile (at most 8 k8 steps x 3
+//     products), not the whole key range.
+//   * Block: two consumer warpgroups and one producer warpgroup (setmaxnreg
+//     40 / 232). The producer keeps a ring of 2-4 stages in flight on
+//     full/empty mbarriers. D <= 128: each consumer owns 64 query rows (128
+//     per block) and all D columns. D <= 256: both consumers take the same
+//     64 rows and each owns half of the output columns (n128 each), which
+//     keeps O and the fresh tile accumulator in registers at 64 each; each
+//     computes S over its half of d and the halves are swapped through
+//     shared memory, so S is issued once. D <= 64: the two consumers take
+//     turns to issue S (named barriers 2 and 3), so that one's softmax runs
+//     under the other's products (5 % at self-attention, 4096 x 64).
+//   * Key tile: 8, 16, 32 or 64 keys (the smallest that covers Skv, at most
+//     64 / 32 / 16 for D <= 64 / 128 / 256): cross-attention to one key does
+//     8 keys of work.
+//   * Split-KV: where the query tiles underfill the card the plan splits
+//     the key tiles over blocks; each split writes its unnormalised O and
+//     (m, l) to the workspace and attention_merge_kernel combines them in
+//     split order (no atomics: one input gives one output).
+//   * Softmax in exp2 with scale * log2(e) folded into the scores; row max
+//     over the 4 lanes of a quad by shuffles; keys past Skv at -inf.
+//
+// fp32 FMA (flash_attention_ffma_kernel), D % 4 != 0: 256 threads as 16 x
+// 16, thread (ty, tx) owns query rows 4ty..4ty+3; 64-query by 64-key tiles in
+// dynamic shared memory (217 KB at D = 256), rows padded to an odd multiple
+// of 4 floats; P goes through shared memory to the P.V product.
 
 #include <cuda_runtime.h>
 
+#include <cmath>
+#include <cstdint>
+
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
+
+int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
+
+// ---------------------------------------------------------------------------
+// fp32 FMA variant: D % 4 != 0.
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;        // query rows per block
@@ -44,9 +95,9 @@ constexpr float kNegInf = -1e30f;
 
 template <int NQ>  // value-column chunks of 64: D <= 64 * NQ
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
-                       int D, int DP, int LD, float scale) {
+flash_attention_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
+                            int D, int DP, int LD, float scale) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
   float* ks = qs + kBQ * LD;                    // [kBK][LD]
@@ -182,12 +233,12 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int NQ>
-int launch(const float* q, const float* k, const float* v, float* o, int BH, int Sq, int Skv,
-           int D, float scale, cudaStream_t stream) {
+int launch_ffma(const float* q, const float* k, const float* v, float* o, int BH, int Sq,
+                int Skv, int D, float scale, cudaStream_t stream) {
   const int DP = (D + 3) / 4 * 4;
   const int LD = DP % 8 == 0 ? DP + 4 : DP;  // an odd multiple of 4
   const int smem = ((kBQ + 2 * kBK) * LD + kBQ * kLDP) * 4;
-  auto kernel = flash_attention_kernel<NQ>;
+  auto kernel = flash_attention_ffma_kernel<NQ>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -195,21 +246,500 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH, int
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_ffma_entry(const float* q, const float* k, const float* v, float* o, int BH, int Sq,
+                      int Skv, int D, float scale, cudaStream_t s) {
+  if (D <= 64) return launch_ffma<1>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  if (D <= 128) return launch_ffma<2>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  if (D <= 192) return launch_ffma<3>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  return launch_ffma<4>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 tensor-core variant: D % 4 == 0.
+// ---------------------------------------------------------------------------
+
+constexpr int kConsumers = 256;               // two consumer warpgroups
+constexpr int kTcThreads = kConsumers + 128;  // and one producer warpgroup
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
+constexpr int kSmemBudget = 227 * 1024;
+
+// The head-dim tile (D padded up to it in the staged operands) and the
+// longest key tile it fits in shared memory; the plan in
+// ops/cuda/flash_attention.py mirrors both.
+__host__ __device__ constexpr int head_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+__host__ __device__ constexpr int max_key_tile(int dt) { return dt == 64 ? 64 : dt == 128 ? 32 : 16; }
+
+template <int DT, int BK>
+struct TcCfg {
+  static constexpr int DSPLIT = DT == 256 ? 2 : 1;  // consumers sharing one 64-row block
+  static constexpr int DN = DT / DSPLIT;            // output columns per consumer
+  static constexpr int ROWS = 128 / DSPLIT;         // query rows per block
+  static constexpr bool QREG = DT <= 64;            // Q split once, kept in registers
+  static constexpr int KS = DT / 8 / DSPLIT;       // k8 steps of Q.K^T per consumer
+  static constexpr int QC = 16;                     // k8 steps per Q chunk from shared memory
+  static constexpr int PJ = BK / 8 < 4 ? BK / 8 : 4;  // key steps per P.V chunk
+  static constexpr int LDQ = DT + 8;                // Q row stride in shared memory (floats)
+  static constexpr int Q_BYTES = QREG ? 0 : ROWS * LDQ * 4;
+  static constexpr int PART = DT * BK;              // floats of one hi or lo operand
+  static constexpr int HALF_BYTES = 2 * PART * 4;   // K hi + lo, or V^T hi + lo
+  static constexpr int STAGE_BYTES = 2 * HALF_BYTES;
+  // DSPLIT = 2: each consumer's half of S, two tiles deep, [tile % 2][dh][BK / 2][128]
+  static constexpr int X_BYTES = DSPLIT == 2 ? 2 * 2 * (BK / 2) * 128 * 4 : 0;
+  static constexpr int FIT = (kSmemBudget - Q_BYTES - X_BYTES - 64) / STAGE_BYTES;
+  static constexpr int NSTAGE = FIT < 4 ? FIT : 4;
+  static constexpr int SMEM_BYTES = NSTAGE * STAGE_BYTES + Q_BYTES + X_BYTES + 2 * NSTAGE * 8;
+  static_assert(NSTAGE >= 2, "fewer than two stages fit");
+  static_assert(BK <= max_key_tile(DT) && DT == head_tile(DT), "unsupported tile");
+  static_assert(QREG || KS % QC == 0, "Q chunks");
+};
+
+// K and V^T of every (batch*head, key tile) as the main kernel stages them:
+// per tile [K hi | K lo | V^T hi | V^T lo], each dt * bk floats. K is the
+// B operand of S = Q.K^T (N = keys, K = d), V^T that of O = P.V (N = d,
+// K = keys); within a k8 step position c holds element 0 2 4 6 1 3 5 7 [c].
+// One block per tile: K and V come in through shared memory with float4
+// loads (D % 4 == 0), and the image goes out in order.
+__global__ void __launch_bounds__(256)
+attention_kv_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                          float* __restrict__ img, int Skv, int D, int n_tiles, int dt, int bk) {
+  extern __shared__ float4 kv4[];
+  float* kv = reinterpret_cast<float*>(kv4);  // [2][bk][ld]: K, then V
+  const int ld = dt + 4;
+  const long long tile = blockIdx.x;  // bh * n_tiles + key tile
+  const int k0 = static_cast<int>(tile % n_tiles) * bk;
+  const long long row0 = tile / n_tiles * Skv + k0;  // first key's row in k and v
+  const int q4 = dt / 4;
+  for (int e = threadIdx.x; e < 2 * bk * q4; e += blockDim.x) {
+    const int c = (e % q4) * 4, r = (e / q4) % bk, is_v = e / (q4 * bk);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < Skv && c < D)
+      val = *reinterpret_cast<const float4*>((is_v ? v : k) + (row0 + r) * D + c);
+    *reinterpret_cast<float4*>(kv + (is_v * bk + r) * ld + c) = val;
+  }
+  __syncthreads();
+  const int part = dt * bk;
+  float* dst = img + tile * 4 * part;
+  for (int e = threadIdx.x; e < 2 * part; e += blockDim.x) {
+    const int is_v = e / part, idx = e % part;
+    const int nrows = is_v ? dt : bk;
+    const int s = idx / (8 * nrows), f = idx % (8 * nrows);
+    const int n = (f >> 6) * 8 + ((f >> 2) & 7);  // core-matrix row
+    const int c = ((f >> 5) & 1) * 4 + (f & 3);   // K half, then column in it
+    const int pc = c < 4 ? 2 * c : 2 * c - 7;
+    const float val = is_v ? kv[(bk + 8 * s + pc) * ld + n] : kv[n * ld + 8 * s + pc];
+    uint32_t hi, lo;
+    split_tf32(val, hi, lo);
+    dst[is_v * 2 * part + idx] = __uint_as_float(hi);
+    dst[is_v * 2 * part + part + idx] = __uint_as_float(lo);
+  }
+}
+
+// The consumer warpgroups: S, the online softmax, P.V and the epilogue.
+template <int DT, int BK>
+__device__ __forceinline__ void consume(const unsigned char* stages, const float* qs,
+                                        float* xch, uint64_t* full, uint64_t* empty,
+                                        const float* __restrict__ q, float* __restrict__ o,
+                                        float* __restrict__ part_o, float* __restrict__ part_ml,
+                                        int bh, int q0, int Sq, int Skv, int D, int t_begin,
+                                        int t_end, float scale_log2) {
+  using C = TcCfg<DT, BK>;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int dh = wg % C::DSPLIT;                        // which output columns
+  const int lrow = 64 * (wg / C::DSPLIT) + 16 * warp + g;  // rows lrow and lrow + 8
+  const int row0 = q0 + lrow, row1 = row0 + 8;
+
+  // Q fragment of k8 step s: {(g, 8s + 2t), (g + 8, 8s + 2t), (g, 8s + 2t + 1),
+  // (g + 8, 8s + 2t + 1)}, the k order of the staged K.
+  uint32_t qhi[C::QREG ? C::KS : 1][4], qlo[C::QREG ? C::KS : 1][4];
+  if constexpr (C::QREG) {
+    const float* qb = q + (long long)bh * Sq * D;
+#pragma unroll
+    for (int s = 0; s < C::KS; ++s) {
+      const int d = 8 * s + 2 * t;
+      float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
+      if (d < D) {
+        if (row0 < Sq) a = *reinterpret_cast<const float2*>(qb + (long long)row0 * D + d);
+        if (row1 < Sq) b = *reinterpret_cast<const float2*>(qb + (long long)row1 * D + d);
+      }
+      split_tf32(a.x, qhi[s][0], qlo[s][0]);
+      split_tf32(b.x, qhi[s][1], qlo[s][1]);
+      split_tf32(a.y, qhi[s][2], qlo[s][2]);
+      split_tf32(b.y, qhi[s][3], qlo[s][3]);
+    }
+  }
+
+  float acc[C::DN / 2];
+#pragma unroll
+  for (int c = 0; c < C::DN / 2; ++c) acc[c] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  // Q in registers: the two consumers take turns to issue S, so that one's
+  // softmax overlaps the other's products. Consumer wg waits on named
+  // barrier 2 + wg before issuing and, once it has, arrives on the other's;
+  // consumer 0 goes first.
+  if (C::QREG && wg == 1) asm volatile("bar.arrive 2, %0;" ::"n"(kConsumers) : "memory");
+
+  for (int i = 0; i < t_end - t_begin; ++i) {
+    const int st = i % C::NSTAGE;
+    mbar_wait(&full[st], (i / C::NSTAGE) & 1);
+    const uint32_t kb = smem_u32(stages + st * C::STAGE_BYTES);
+    const uint32_t vb = kb + C::HALF_BYTES;
+
+    // S = Q.K^T, three products per k8 step, smallest first.
+    float s[BK / 2];
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) s[j] = 0.f;
+    if constexpr (C::QREG) {
+      if (wg == 0) asm volatile("bar.sync 2, %0;" ::"n"(kConsumers) : "memory");
+      else asm volatile("bar.sync 3, %0;" ::"n"(kConsumers) : "memory");
+      fence_regs<BK / 2>(s);
+      fence_regs<4 * C::KS>(&qhi[0][0]);
+      fence_regs<4 * C::KS>(&qlo[0][0]);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::KS; ++ks) {
+        const uint64_t dhi = b_desc(kb + ks * BK * 32), dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
+        Wgmma<BK>::mma(s, qhi[ks], dlo);
+        Wgmma<BK>::mma(s, qlo[ks], dhi);
+        Wgmma<BK>::mma(s, qhi[ks], dhi);
+      }
+      wgmma_commit();
+      if (wg == 0) asm volatile("bar.arrive 3, %0;" ::"n"(kConsumers) : "memory");
+      else if (i + 1 < t_end - t_begin) asm volatile("bar.arrive 2, %0;" ::"n"(kConsumers) : "memory");
+      wgmma_wait_all();
+      fence_regs<BK / 2>(s);
+    } else {
+#pragma unroll 1
+      for (int c0 = dh * C::KS; c0 < (dh + 1) * C::KS; c0 += C::QC) {
+        uint32_t ahi[C::QC][4], alo[C::QC][4];
+#pragma unroll
+        for (int j = 0; j < C::QC; ++j) {
+          const float* qr = qs + lrow * C::LDQ + 8 * (c0 + j) + 2 * t;
+          const float2 a = *reinterpret_cast<const float2*>(qr);
+          const float2 b = *reinterpret_cast<const float2*>(qr + 8 * C::LDQ);
+          split_tf32(a.x, ahi[j][0], alo[j][0]);
+          split_tf32(b.x, ahi[j][1], alo[j][1]);
+          split_tf32(a.y, ahi[j][2], alo[j][2]);
+          split_tf32(b.y, ahi[j][3], alo[j][3]);
+        }
+        fence_regs<BK / 2>(s);
+        fence_regs<4 * C::QC>(&ahi[0][0]);
+        fence_regs<4 * C::QC>(&alo[0][0]);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < C::QC; ++j) {
+          const int ks = c0 + j;
+          const uint64_t dhi = b_desc(kb + ks * BK * 32), dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
+          Wgmma<BK>::mma(s, ahi[j], dlo);
+          Wgmma<BK>::mma(s, alo[j], dhi);
+          Wgmma<BK>::mma(s, ahi[j], dhi);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs<BK / 2>(s);
+      }
+      if constexpr (C::DSPLIT == 2) {
+        // S = the two consumers' halves over d, swapped through shared
+        // memory; a + b == b + a, so both hold the same bits. The buffers
+        // alternate by tile: a consumer can reach tile i + 2's writes only
+        // after the other has passed tile i + 1's barrier, past its reads.
+        const int ti = threadIdx.x & 127;
+        float* mine = xch + ((i & 1) * 2 + dh) * (BK / 2) * 128;
+        const float* theirs = xch + ((i & 1) * 2 + (dh ^ 1)) * (BK / 2) * 128;
+#pragma unroll
+        for (int c = 0; c < BK / 2; ++c) mine[c * 128 + ti] = s[c];
+        asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+#pragma unroll
+        for (int c = 0; c < BK / 2; ++c) s[c] += theirs[c * 128 + ti];
+      }
+    }
+
+    // Online softmax in log2 units. s[4j + e]: row g (e < 2) or g + 8, key
+    // 8j + 2t + (e & 1) of the tile.
+    const int kbase = (t_begin + i) * BK;
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = kbase + 8 * j + 2 * t + (e & 1) < Skv ? s[4 * j + e] * scale_log2 : -INFINITY;
+        s[4 * j + e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[4 * j + e] = exp2f(s[4 * j + e] - (e < 2 ? m0 : m1));
+        if (e < 2) ps0 += s[4 * j + e]; else ps1 += s[4 * j + e];
+      }
+    l0 = l0 * alpha0 + ps0;  // this lane's columns; the quad is summed at the end
+    l1 = l1 * alpha1 + ps1;
+
+    // This tile's P.V in a fresh accumulator, PJ key steps at a time so that
+    // only one chunk's split P is live. P as the A fragment of key step j:
+    // {(g, 2t), (g + 8, 2t), (g, 2t + 1), (g + 8, 2t + 1)} = s[4j + {0, 2, 1, 3}],
+    // the k order of the staged V^T.
+    float tile[C::DN / 2];
+#pragma unroll
+    for (int c = 0; c < C::DN / 2; ++c) tile[c] = 0.f;
+#pragma unroll
+    for (int j0 = 0; j0 < BK / 8; j0 += C::PJ) {
+      uint32_t phi[4 * C::PJ], plo[4 * C::PJ];
+#pragma unroll
+      for (int jj = 0; jj < C::PJ; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int slot = 4 * jj + (((e & 1) << 1) | (e >> 1));
+          split_tf32(s[4 * (j0 + jj) + e], phi[slot], plo[slot]);
+        }
+      fence_regs<C::DN / 2>(tile);
+      fence_regs<4 * C::PJ>(phi);
+      fence_regs<4 * C::PJ>(plo);
+      wgmma_fence();
+#pragma unroll
+      for (int jj = 0; jj < C::PJ; ++jj) {
+        const uint32_t vs = vb + (j0 + jj) * DT * 32 + dh * (C::DN / 8) * 256;
+        const uint64_t dhi = b_desc(vs), dlo = b_desc(vs + C::PART * 4);
+        Wgmma<C::DN>::mma(tile, &phi[4 * jj], dlo);
+        Wgmma<C::DN>::mma(tile, &plo[4 * jj], dhi);
+        Wgmma<C::DN>::mma(tile, &phi[4 * jj], dhi);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs<C::DN / 2>(tile);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+#pragma unroll
+    for (int c = 0; c < C::DN / 2; ++c) acc[c] = fmaf(acc[c], (c & 2) ? alpha1 : alpha0, tile[c]);
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+
+  // Epilogue: o = acc / l, or the split's unnormalised acc and (m, l).
+  const long long rows = (long long)gridDim.y * Sq;
+  float* out = part_o ? part_o + blockIdx.z * rows * D : o;
+  const long long r0 = (long long)bh * Sq + row0, r1 = r0 + 8;
+#pragma unroll
+  for (int j = 0; j < C::DN / 8; ++j) {
+    const int d = dh * C::DN + 8 * j + 2 * t;
+    if (d >= D) continue;
+    const float* a = &acc[4 * j];
+    if (row0 < Sq)
+      *reinterpret_cast<float2*>(out + r0 * D + d) =
+          part_o ? make_float2(a[0], a[1]) : make_float2(a[0] / l0, a[1] / l0);
+    if (row1 < Sq)
+      *reinterpret_cast<float2*>(out + r1 * D + d) =
+          part_o ? make_float2(a[2], a[3]) : make_float2(a[2] / l1, a[3] / l1);
+  }
+  if (part_o && dh == 0 && t == 0) {
+    float2* ml = reinterpret_cast<float2*>(part_ml) + blockIdx.z * rows;
+    if (row0 < Sq) ml[r0] = make_float2(m0, l0);
+    if (row1 < Sq) ml[r1] = make_float2(m1, l1);
+  }
+}
+
+template <int DT, int BK>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ img,
+                              float* __restrict__ o, float* __restrict__ part_o,
+                              float* __restrict__ part_ml, int Sq, int Skv, int D, int n_tiles,
+                              int tiles_per_split, float scale_log2) {
+  using C = TcCfg<DT, BK>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* stages = smem;  // [NSTAGE][STAGE_BYTES]
+  float* qs = reinterpret_cast<float*>(smem + C::NSTAGE * C::STAGE_BYTES);  // [ROWS][LDQ]
+  float* xch = qs + C::Q_BYTES / 4;                                        // X_BYTES
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::NSTAGE * C::STAGE_BYTES + C::Q_BYTES +
+                                               C::X_BYTES);
+  uint64_t* empty = full + C::NSTAGE;
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * C::ROWS;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < C::NSTAGE; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if constexpr (!C::QREG) {
+    // Q's rows once, zero past Sq and D (D % 4 == 0: whole float4s).
+    const float* qb = q + (long long)bh * Sq * D;
+    for (int e = threadIdx.x; e < C::ROWS * (DT / 4); e += kTcThreads) {
+      const int r = e / (DT / 4), c = (e % (DT / 4)) * 4;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < Sq && c < D) val = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * D + c);
+      *reinterpret_cast<float4*>(qs + r * C::LDQ + c) = val;
+    }
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // Producer: one thread keeps the K / V^T stages in flight.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x != kConsumers) return;
+    const float* base = img + (long long)bh * n_tiles * (C::STAGE_BYTES / 4);
+    for (int i = 0; i < t_end - t_begin; ++i) {
+      const int st = i % C::NSTAGE;
+      mbar_wait(&empty[st], ((i / C::NSTAGE) & 1) ^ 1);
+      mbar_expect_tx(&full[st], C::STAGE_BYTES);
+      const float* src = base + (long long)(t_begin + i) * (C::STAGE_BYTES / 4);
+      unsigned char* dst = stages + st * C::STAGE_BYTES;
+      bulk_load(dst, src, C::HALF_BYTES, &full[st]);
+      bulk_load(dst + C::HALF_BYTES, src + C::HALF_BYTES / 4, C::HALF_BYTES, &full[st]);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+    consume<DT, BK>(stages, qs, xch, full, empty, q, o, part_o, part_ml, bh, q0, Sq, Skv, D, t_begin,
+                    t_end, scale_log2);
+  }
+}
+
+// o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, the
+// splits in order: the result is the same from run to run.
+__global__ void attention_merge_kernel(const float* __restrict__ part_o,
+                                       const float* __restrict__ part_ml, float* __restrict__ o,
+                                       long long rows, int D, int splits) {
+  const float2* ml = reinterpret_cast<const float2*>(part_ml);
+  const int dq = D / 4;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < rows * dq;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / dq;
+    const int c = static_cast<int>(i % dq) * 4;
+    float mx = -INFINITY;
+    for (int s = 0; s < splits; ++s) mx = fmaxf(mx, ml[s * rows + r].x);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float2 p = ml[s * rows + r];
+      const float w = exp2f(p.x - mx);
+      l = fmaf(w, p.y, l);
+      const float4 po = *reinterpret_cast<const float4*>(part_o + (s * rows + r) * D + c);
+      acc.x = fmaf(w, po.x, acc.x);
+      acc.y = fmaf(w, po.y, acc.y);
+      acc.z = fmaf(w, po.z, acc.z);
+      acc.w = fmaf(w, po.w, acc.w);
+    }
+    *reinterpret_cast<float4*>(o + r * D + c) =
+        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+  }
+}
+
+// Workspace: the K / V^T images, then (splits > 1) the partial O and (m, l).
+struct TcLayout {
+  int n_tiles = 0, tiles_per_split = 0;
+  long long image_bytes = 0, partial_offset = 0, bytes = 0;
+};
+
+TcLayout tc_layout(int BH, int Sq, int Skv, int D, int bk, int splits) {
+  TcLayout L;
+  const int dt = head_tile(D);
+  L.n_tiles = cdiv(Skv, bk);
+  L.tiles_per_split = cdiv(L.n_tiles, splits);
+  L.image_bytes = (long long)BH * L.n_tiles * 16 * dt * bk;
+  L.partial_offset = (L.image_bytes + 255) / 256 * 256;
+  L.bytes = splits > 1 ? L.partial_offset + 4LL * splits * BH * Sq * (D + 2) : L.image_bytes;
+  return L;
+}
+
+template <int DT, int BK>
+int launch_tc(const float* q, const float* k, const float* v, float* o, int BH, int Sq, int Skv,
+              int D, float scale, int splits, void* workspace, long long workspace_bytes,
+              cudaStream_t stream) {
+  using C = TcCfg<DT, BK>;
+  const TcLayout L = tc_layout(BH, Sq, Skv, D, BK, splits);
+  // Every split must own at least one key tile: the plan's split count.
+  if (cdiv(L.n_tiles, L.tiles_per_split) != splits || !workspace || workspace_bytes < L.bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* img = static_cast<float*>(workspace);
+  float* part_o = nullptr;
+  float* part_ml = nullptr;
+  const long long rows = (long long)BH * Sq;
+  if (splits > 1) {
+    part_o = reinterpret_cast<float*>(static_cast<char*>(workspace) + L.partial_offset);
+    part_ml = part_o + splits * rows * D;
+  }
+
+  attention_kv_split_kernel<<<BH * L.n_tiles, 256, 2 * BK * (DT + 4) * 4, stream>>>(
+      k, v, img, Skv, D, L.n_tiles, DT, BK);
+
+  auto kernel = flash_attention_tf32x3_kernel<DT, BK>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale_log2 = static_cast<float>(static_cast<double>(scale) * 1.4426950408889634);
+  dim3 grid(cdiv(Sq, C::ROWS), BH, splits);
+  kernel<<<grid, kTcThreads, C::SMEM_BYTES, stream>>>(q, img, o, part_o, part_ml, Sq, Skv, D,
+                                                      L.n_tiles, L.tiles_per_split, scale_log2);
+  if (splits > 1) {
+    const long long n = rows * (D / 4);
+    const int blocks = cdiv(n, 256) < 8192 ? cdiv(n, 256) : 8192;
+    attention_merge_kernel<<<blocks, 256, 0, stream>>>(part_o, part_ml, o, rows, D, splits);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tc_entry(int key_tile, const float* q, const float* k, const float* v, float* o,
+                    int BH, int Sq, int Skv, int D, float scale, int splits, void* ws,
+                    long long ws_bytes, cudaStream_t s) {
+  switch (head_tile(D) * 1000 + key_tile) {
+    case 64008: return launch_tc<64, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64016: return launch_tc<64, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64032: return launch_tc<64, 32>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64064: return launch_tc<64, 64>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128008: return launch_tc<128, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128016: return launch_tc<128, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128032: return launch_tc<128, 32>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 256008: return launch_tc<256, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 256016: return launch_tc<256, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), all contiguous fp32.
-// Returns a cudaError_t value: 0 when the launch was accepted.
+// The plan (ops/cuda/flash_attention.py `plan`) names the variant (0: fp32
+// FMA, 1: 3xTF32 tensor cores, which needs D % 4 == 0 and 16-byte aligned
+// tensors), the query rows per block, the key tile, the split count and the
+// workspace bytes; the entry refuses a plan that does not match the shape.
+// Returns a cudaError_t value: 0 when the launches were accepted.
 int tmdiff_flash_attention(const float* q, const float* k, const float* v, float* o, int BH,
-                           int Sq, int Skv, int D, float scale, void* stream) {
+                           int Sq, int Skv, int D, float scale, int variant, int rows,
+                           int key_tile, int splits, void* workspace, long long workspace_bytes,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (BH < 1 || BH > 65535 || Sq < 1 || Skv < 1 || D < 1 || D > 256)
+  if (BH < 1 || BH > 65535 || Sq < 1 || Skv < 1 || D < 1 || D > 256 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D <= 64) return launch<1>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  if (D <= 128) return launch<2>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  if (D <= 192) return launch<3>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  return launch<4>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  if (variant == 0) {
+    if (rows != kBQ || key_tile != kBK || splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_ffma_entry(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (variant != 1 || D % 4 != 0 || align % 16 != 0 || rows != (head_tile(D) == 256 ? 64 : 128) ||
+      key_tile > max_key_tile(head_tile(D)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc_entry(key_tile, q, k, v, o, BH, Sq, Skv, D, scale, splits, workspace,
+                         workspace_bytes, s);
 }
 
 const char* tmdiff_flash_error_string(int err) {

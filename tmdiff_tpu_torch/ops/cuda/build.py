@@ -4,7 +4,8 @@ operand checks that every kernel wrapper makes before a launch.
 
 Each library is compiled by `nvcc` for `sm_90a` at first use, into
 `tmdiff_tpu_torch/build/` (git-ignored), under a name that carries a hash of
-its source, so an edited source is rebuilt and an unchanged one is not.
+its source and of the shared headers (`csrc/*.cuh`), so an edited source or
+header is rebuilt and an unchanged one is not.
 Nothing here runs at import time: this module is imported on machines with
 no CUDA toolkit.
 """
@@ -41,13 +42,24 @@ def nvcc_path() -> str:
     return path
 
 
+def digest(name: str) -> str:
+    """Hash of `csrc/<name>.cu`, every header `csrc/*.cuh` (a source may
+    include any of them) and the nvcc flags: the library's name carries it,
+    so an edit to the source or to a header rebuilds it."""
+    h = hashlib.sha256()
+    headers = sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh"))
+    for part in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, part), "rb") as f:
+            h.update(part.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` unless a library of the same source exists;
-    returns the library's path."""
+    """Compile `csrc/<name>.cu` unless a library of the same source and
+    headers exists; returns the library's path."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"lib{name}-{digest(name)}.so")
     if os.path.exists(lib):
         build_info.setdefault(name, {"seconds": 0.0, "log": "cached"})
         return lib

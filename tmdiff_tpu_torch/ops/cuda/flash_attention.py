@@ -1,5 +1,5 @@
-"""Non-causal attention over (B, H, S, D) tensors: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Non-causal attention over (B, H, S, D) tensors: the CUDA kernel's wrapper,
+its plan, and its plain PyTorch versions.
 
 Both compute softmax(q kᵀ · scale) v with an fp32 softmax, scale defaulting
 to D ** -0.5, for q (B, H, Sq, D) and k, v (B, H, Skv, D); Sq and Skv may
@@ -9,13 +9,24 @@ differ (cross-attention).
 `tmdiff_tpu/ops/pallas/flash_attention.py::flash_attention` and launches the
 kernel of `tmdiff_tpu_torch/csrc/flash_attention.cu` (its header says what
 bounds it on an H100 and how it is tiled). It takes D up to 256 and masks
-the ragged edges itself, so nothing is padded. On a CPU tensor it computes
-`attention_reference`; on a CUDA tensor it launches the kernel or raises.
-The kernel has no backward: the wrapper refuses inputs that need a gradient.
+the ragged edges itself, so nothing is padded. `plan` picks the kernel's
+variant by D alone: the 3xTF32 tensor-core kernel for D % 4 == 0 (with
+split-KV where the query tiles underfill the card), else the fp32 FMA
+kernel; `variant_launches` counts the launches of each. On a CPU tensor it
+computes `attention_reference`; on a CUDA tensor it launches the kernel or
+raises. The kernel has no backward: the wrapper refuses inputs that need a
+gradient.
+
+`attention_partials` and `merge_partials` are the plain versions of the
+kernel's split-KV: each split's unnormalised output and softmax statistics,
+and their combination. The tests hold them against the JAX package; the
+card path does not use them.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -23,14 +34,19 @@ from tmdiff_tpu_torch.ops.cuda import build
 
 MAX_HEAD_DIM = 256
 MAX_BATCH_HEADS = 65535  # the kernel's second grid dimension
+KEY_TILES = (8, 16, 32, 64)
 
-# Launches of the CUDA kernel since the last reset_launches().
+# Launches of the CUDA kernel since the last reset_launches(), in all and by
+# variant.
+VARIANTS = ("fma", "tc")
 launches = 0
+variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    variant_launches.update(dict.fromkeys(VARIANTS, 0))
 
 
 def attention_reference(q, k, v, scale=None):
@@ -42,6 +58,99 @@ def attention_reference(q, k, v, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def attention_partials(q, k, v, splits, key_tile=64, scale=None):
+    """The kernel's split-KV in plain PyTorch: the keys, cut into tiles of
+    `key_tile`, go to `splits` ranges of ceil(tiles / splits) whole tiles;
+    split i gives its unnormalised output O_i = sum_j exp(s_j - m_i) v_j,
+    its row max m_i and its sum l_i = sum_j exp(s_j - m_i), each stacked
+    over the splits. A split past the last key gives O = 0, m = -inf,
+    l = 0."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    skv = k.shape[2]
+    per = _cdiv(_cdiv(skv, key_tile), splits) * key_tile  # keys per split
+    outs, maxes, sums = [], [], []
+    for i in range(splits):
+        lo, hi = i * per, min(skv, (i + 1) * per)
+        if lo >= hi:
+            outs.append(torch.zeros_like(q, dtype=torch.float32))
+            maxes.append(torch.full(q.shape[:-1], -math.inf, device=q.device))
+            sums.append(torch.zeros(q.shape[:-1], device=q.device))
+            continue
+        s = torch.einsum("bhqd,bhkd->bhqk", q, k[:, :, lo:hi]).float() * scale
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p, v[:, :, lo:hi].float()))
+        maxes.append(m)
+        sums.append(p.sum(-1))
+    return torch.stack(outs), torch.stack(maxes), torch.stack(sums)
+
+
+def merge_partials(o, m, l):
+    """Combines attention_partials' splits, in split order:
+    sum_i exp(m_i - M) O_i / sum_i exp(m_i - M) l_i with M = max_i m_i."""
+    mx = m.amax(0)
+    num, den = torch.zeros_like(o[0]), torch.zeros_like(l[0])
+    for oi, mi, li in zip(o, m, l):
+        w = torch.exp(mi - mx)
+        num += w[..., None] * oi
+        den += w * li
+    return num / den[..., None]
+
+
+class Plan(NamedTuple):
+    variant: str          # "tc" (3xTF32 tensor cores) or "fma" (fp32 FMA)
+    rows: int             # query rows per block
+    key_tile: int         # keys per staged K/V tile
+    splits: int           # blocks that share one query tile's keys
+    workspace_bytes: int  # K/V images and split partials ("tc" only)
+
+
+def head_tile(d: int) -> int:
+    """D padded up to the tensor-core kernel's head-dim tile."""
+    return 64 if d <= 64 else 128 if d <= 128 else 256
+
+
+def max_key_tile(dt: int) -> int:
+    """The longest key tile whose stages fit shared memory at head tile dt."""
+    return {64: 64, 128: 32, 256: 16}[dt]
+
+
+def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int) -> Plan:
+    """The kernel's variant and tiling for q (b, h, sq, d) and Skv keys on a
+    card of `sm_count` SMs (one block per SM):
+      * variant "tc" where D % 4 == 0 (16-byte rows), else the fp32 FMA kernel;
+      * 128 query rows per block (two consumer warpgroups of 64), 64 at
+        D > 128, where both consumers share the rows and split the columns;
+      * key tile: the smallest of 8, 16, 32, 64 that covers Skv, else 64,
+        at most 64 / 32 / 16 at head tile 64 / 128 / 256;
+      * splits: where the blocks fall short of one wave, the key tiles are
+        shared out over floor(SMs / blocks) blocks (at most one per tile),
+        whole tiles each, so the grid comes as close to one wave as it can
+        without passing it;
+      * workspace: the split K/V^T images (16 * head tile * key tile bytes
+        per (batch*head, key tile)), then, split, the 256-byte aligned
+        partial O and (m, l) of every split and query row.
+    """
+    if d % 4:
+        return Plan("fma", 64, 64, 1, 0)
+    dt = head_tile(d)
+    rows = 64 if dt == 256 else 128
+    key_tile = min(next((t for t in KEY_TILES if t >= skv), KEY_TILES[-1]), max_key_tile(dt))
+    n_tiles = _cdiv(skv, key_tile)
+    blocks = b * h * _cdiv(sq, rows)
+    splits = max(1, min(n_tiles, sm_count // blocks))
+    splits = _cdiv(n_tiles, _cdiv(n_tiles, splits))  # every split owns a tile
+    nbytes = b * h * n_tiles * 16 * dt * key_tile
+    if splits > 1:
+        nbytes = _cdiv(nbytes, 256) * 256 + 4 * splits * b * h * sq * (d + 2)
+    return Plan("tc", rows, key_tile, splits, nbytes)
+
+
 _lib = None
 
 
@@ -51,12 +160,31 @@ def library():
     if _lib is None:
         lib = build.load("flash_attention")
         lib.tmdiff_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+            + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
         lib.tmdiff_flash_attention.restype = ctypes.c_int
         lib.tmdiff_flash_error_string.argtypes = [ctypes.c_int]
         lib.tmdiff_flash_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# (B, H, Sq, Skv, D, device index) -> Plan; device index -> SM count.
+_plans: dict[tuple, Plan] = {}
+_sm_counts: dict[int, int] = {}
+
+
+def device_plan(q, skv: int) -> Plan:
+    """`plan` for q on its card, asked of the card once per device and
+    kept per shape."""
+    dev = q.device.index
+    key = (*q.shape, skv, dev)
+    if key not in _plans:
+        if dev not in _sm_counts:
+            _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+        b, h, sq, d = q.shape
+        _plans[key] = plan(b, h, sq, skv, d, _sm_counts[dev])
+    return _plans[key]
 
 
 def _check(q, k, v):
@@ -74,6 +202,10 @@ def _check(q, k, v):
         raise ValueError(f"unsupported attention size q {tuple(q.shape)}, Skv {skv}")
     if max(q.numel(), k.numel()) >= 2**31:
         raise ValueError(f"tensors of {max(q.numel(), k.numel())} elements exceed 32-bit indexing")
+    if d % 4 == 0:  # the tensor-core variant reads and writes 16-byte rows
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned when D % 4 == 0")
 
 
 def flash_attention(q, k, v, scale=None):
@@ -82,18 +214,27 @@ def flash_attention(q, k, v, scale=None):
         return attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
+    if q.device.index != torch.cuda.current_device():
+        with torch.cuda.device(q.device):
+            return flash_attention(q, k, v, scale)
     _check(q, k, v)
     b, h, sq, d = q.shape
+    skv = k.shape[2]
     if scale is None:
         scale = d ** -0.5
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        lib = library()
-        err = lib.tmdiff_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                         b * h, sq, k.shape[2], d, float(scale), stream)
+    p = device_plan(q, skv)
+    ws = (torch.empty(p.workspace_bytes, dtype=torch.uint8, device=q.device)
+          if p.workspace_bytes else None)
+    lib = library()
+    err = lib.tmdiff_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq, skv, d,
+        float(scale), VARIANTS.index(p.variant), p.rows, p.key_tile, p.splits,
+        None if ws is None else ws.data_ptr(), p.workspace_bytes,
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {lib.tmdiff_flash_error_string(err).decode()}")
     global launches
     launches += 1
+    variant_launches[p.variant] += 1
     return o
