@@ -50,6 +50,21 @@ Phases (any failure ends the run with a non-zero exit code):
                a SpatialTransformer forward (8 x 64 heads, 64x64x256 image,
                that context) through K4 and through the plain attention,
                counts reset just before.
+  8. train     the training step (Trainer.train_step) of the full-width model
+               with init_type "torch", on synthetic PanCollection-format
+               scenes of 64x64 (WV3 8 bands, QB and GF2 4 bands), batch 8,
+               the 4:4:8 SensorMixer through a DeviceFeeder of depth 2, the
+               general_multi preset's settings (lr 1e-4, warmup 100, wd
+               1e-4, EMA 0.9999, remat, L1, cosine schedule of 1000 steps):
+               every parameter's gradient through K1 (forward and input
+               gradient) against the plain convs at 8 and 4 bands; remat on
+               and off with dropout on; 20 steps with the counts reset just
+               before and read just after (K1 forward and input-gradient
+               launches and weight gradients per step, K3 and K4 at 0);
+               five steps twice from one seed; 30 steps at lr 2e-4 on one
+               batch; the median step time at 8 and at 4 bands, a device-time
+               breakdown of a step under torch.profiler, and K1's input
+               gradient against the library's at every shape of a step.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
 {"kernels": [...]} summary.
@@ -59,7 +74,12 @@ to 1e-4 of the output's largest magnitude (fp32 sums of up to 27 * 256 or
 9 * 512 terms in another order); attention to 2e-5 absolute at unit-normal
 inputs (the JAX package's flash-attention bar); a forward pass to 5e-4
 absolute, the repository's forward parity bar; a sampled image to 2e-3, its
-sampling bar.
+sampling bar. Training: the loss through K1 agrees with the plain convs'
+to 1e-4 relative and each parameter's gradient to 1e-3 of its largest
+magnitude (fp32 sums over a whole backward pass, 3xTF32 in K1, cuDNN's
+fp32 weight gradient), except at most five gradients that cancel to a small
+fraction of the others' scale, held to 1e-2 of theirs and named in the
+output (CANCELLING_RTOL); remat on and off agree bit for bit.
 """
 from __future__ import annotations
 
@@ -602,6 +622,448 @@ def attention_phase(K4, gen):
     return totals, max_err, launches, variants
 
 
+# The training step at the general_multi preset (tmdiff_tpu/config/presets):
+# batch 8 of 64x64 patches per sensor, lr 1e-4 with 100 warmup steps of
+# max_iter 300000, AdamW wd 1e-4, EMA 0.9999, remat, L1, cosine schedule of
+# 1000 steps, init_type "torch".
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_SCENES = 64, 8, 24
+TRAIN_STEPS, REPEAT_STEPS, LEARN_STEPS, TIMED_STEPS, PROFILED_STEPS = 20, 5, 30, 10, 3
+TRAIN_SENSORS = {"QB": (4, 1), "GF2": (4, 2), "WV3": (8, 3)}  # bands, data seed
+GRAD_LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
+# A few gradients cancel to 1e-2..1e-5 of the others' scale (the HF skip
+# convs' convH_0, whose gradient is a sum over positions of Haar detail
+# coefficients), so K1's own error (3xTF32 with the tensor cores'
+# accumulation, up to 6e-5 of a conv's scale; the plain path differs from
+# itself reordered by 3e-7 there) reaches 1e-3..2.4e-3 of theirs. At most
+# CANCELLING_MAX gradients may sit between GRAD_RTOL and CANCELLING_RTOL.
+CANCELLING_RTOL, CANCELLING_MAX = 1e-2, 5
+# twice the preset's lr from the third step on (its warmup would give 3e-5 by
+# step 30); at 2e-3 the loss of a tiny model first jumps up before it falls
+LEARN_LR = 2e-4
+TRAIN_CONVS = ENCODE_CONVS + DENOISE_CONVS  # one model call
+# record_function ranges of the trainer and the conv backward
+PROFILE_LABELS = ("train.loss", "train.optimizer", "conv3d.weight_grad")
+
+
+def rel_to_scale(got, ref) -> float:
+    return (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def train_setup():
+    from tmdiff_tpu_torch.data.h5 import PanDataset
+    from tmdiff_tpu_torch.data.synthetic import make_arrays
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.clip_text import load_prompt_table
+    from tmdiff_tpu_torch.models.init_styles import apply_init_style
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    def new_model():
+        model = WavBEST(CHANNELS, device=DEV, seed=SEED)
+        return apply_init_style(model, "torch", torch.Generator().manual_seed(SEED))
+
+    def new_trainer(model, **overrides):
+        kw = dict(lr=1e-4, weight_decay=1e-4, warmup_steps=100, max_iter=300_000,
+                  loss_type="l1", ema_decay=0.9999, remat=True, seed=SEED)
+        kw.update(overrides)
+        return Trainer(model, NoiseSchedule.create("cosine", 1000), **kw)
+
+    table, index, _ = load_prompt_table()
+    prompts = {s: torch.as_tensor(table[index[s]], device=DEV) for s in TRAIN_SENSORS}
+    datasets = {s: PanDataset(make_arrays(TRAIN_SCENES, bands, TRAIN_SIZE, seed=seed))
+                for s, (bands, seed) in TRAIN_SENSORS.items()}
+    return new_model, new_trainer, prompts, datasets
+
+
+def mixer_for(datasets, seed):
+    from tmdiff_tpu_torch.data.pipeline import BatchIterator, SensorMixer
+
+    return SensorMixer({s: BatchIterator(ds, TRAIN_BATCH, seed=seed + i)
+                        for i, (s, ds) in enumerate(datasets.items())}, seed=seed)
+
+
+def device_batch(ds, gen):
+    batch = ds.batch(np.arange(TRAIN_BATCH))
+    batch = {k: torch.as_tensor(batch[k], device=DEV) for k in ("Res", "PAN", "MS")}
+    t = torch.randint(1, 1001, (TRAIN_BATCH,), generator=gen, device=DEV)
+    noise = torch.randn(batch["Res"].shape, generator=gen, device=DEV)
+    return batch, t, noise
+
+
+def fixed_loss(model, schedule, batch, prompt, t, noise):
+    from tmdiff_tpu_torch.diffusion import gaussian
+
+    return gaussian.diffusion_loss(lambda x, tt, pan, ms: model(x, tt, pan, ms, prompt), schedule,
+                                   None, batch["Res"], batch["PAN"], batch["MS"], "l1",
+                                   t=t, noise=noise)
+
+
+def counts(K, K3, K4) -> dict:
+    return {"k1_forward": K.launches - K.input_grad_launches,
+            "k1_input_grad": K.input_grad_launches, "weight_grad": K.weight_grad_calls,
+            "k1_off_tensor_cores": K.variant_launches["ffma"], "k3": K3.launches,
+            "k4": K4.launches}
+
+
+def reset_counts(*modules):
+    torch.cuda.synchronize()
+    for mod in modules:
+        mod.reset_launches()
+
+
+def train_grads_phase(K, new_model, new_trainer, prompts, datasets, gen):
+    """Loss and every gradient through K1 against the plain convs, fixed t
+    and noise, dropout off; then remat on and off with dropout on."""
+    model = new_model()
+    trainer = new_trainer(model)
+    params = dict(model.named_parameters())
+    worst_all = 0.0
+    for sensor in ("WV3", "QB"):
+        batch, t, noise = device_batch(datasets[sensor], gen)
+        out = {}
+        for plain in (False, True):
+            model.use_plain_conv(plain)
+            K.reset_launches()
+            loss = fixed_loss(model, trainer.schedule, batch, prompts[sensor], t, noise)
+            out[plain] = (loss.detach(), torch.autograd.grad(loss, list(params.values())),
+                          K.launches, K.input_grad_launches, K.weight_grad_calls)
+        model.use_plain_conv(False)
+        (lk, gk, n_k, n_in, n_w), (lp, gp, n_p, _, _) = out[False], out[True]
+        # both paths again on the batch reversed: the plain path's own
+        # reordering noise, and whether K1's difference repeats
+        rev = torch.arange(TRAIN_BATCH - 1, -1, -1, device=DEV)
+        again = {}
+        for plain in (False, True):
+            model.use_plain_conv(plain)
+            loss = fixed_loss(model, trainer.schedule, {k: v[rev] for k, v in batch.items()},
+                              prompts[sensor], t[rev], noise[rev])
+            again[plain] = torch.autograd.grad(loss, list(params.values()))
+        model.use_plain_conv(False)
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        errs = {name: rel_to_scale(a, b) for name, a, b in zip(params, gk, gp)}
+        scales = {name: b.abs().max().item() for name, b in zip(params, gp)}
+        worst = max(errs, key=errs.get)
+        worst_all = max(worst_all, errs[worst])
+        over = {n: e for n, e in errs.items() if e > GRAD_RTOL}
+        bands = batch["MS"].shape[1]
+        print(f"[train] gradients {sensor} {bands}-band batch {TRAIN_BATCH} {TRAIN_SIZE}x"
+              f"{TRAIN_SIZE}, fixed t and noise, dropout off: loss K1 {lk.item():.7f} plain "
+              f"{lp.item():.7f} (rel {loss_rel:.3g}, rtol {GRAD_LOSS_RTOL}); worst gradient "
+              f"{worst} at {errs[worst]:.3g} of its scale; {len(errs) - len(over)} of "
+              f"{len(errs)} within {GRAD_RTOL}, median scale "
+              f"{float(np.median(list(scales.values()))):.3g}; K1 launches {n_k} "
+              f"({n_k - n_in} forward, {n_in} input gradient), {n_w} weight gradients; "
+              f"plain path {n_p} launches", flush=True)
+        index = {name: i for i, name in enumerate(params)}
+        for name, e in sorted(over.items(), key=lambda kv: -kv[1]):
+            i = index[name]
+            print(f"[train]   over {GRAD_RTOL}: {name} {e:.3g} of its scale {scales[name]:.3g} "
+                  f"(bar {CANCELLING_RTOL}); on the batch reversed: K1 "
+                  f"{rel_to_scale(again[False][i], gp[i]):.3g}, plain "
+                  f"{rel_to_scale(again[True][i], gp[i]):.3g}", flush=True)
+        noise_floor = max(rel_to_scale(a, b) for a, b in zip(again[True], gp))
+        print(f"[train]   plain path on the batch reversed against itself: worst gradient "
+              f"{noise_floor:.3g} of its scale", flush=True)
+        if (not loss_rel <= GRAD_LOSS_RTOL or len(over) > CANCELLING_MAX
+                or not errs[worst] <= CANCELLING_RTOL):
+            fail(f"{sensor} training gradients differ from the plain path")
+        if (n_k - n_in, n_in, n_w, n_p) != (TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS, 0):
+            fail(f"{sensor} gradient pass: launches {n_k - n_in}/{n_in}/{n_w}/{n_p}")
+
+    batch, _, _ = device_batch(datasets["WV3"], gen)
+    got = {}
+    for remat in (True, False):
+        trainer.remat = remat
+        loss = trainer.loss(1, batch, prompts["WV3"])
+        got[remat] = (loss.detach(), torch.autograd.grad(loss, list(params.values())))
+    trainer.remat = True
+    same = torch.equal(got[True][0], got[False][0]) and all(
+        torch.equal(a, b) for a, b in zip(got[True][1], got[False][1]))
+    diff = max(rel_to_scale(a, b) for a, b in zip(got[True][1], got[False][1]))
+    print(f"[train] remat on vs off, dropout on, step seed 1: loss {got[True][0].item():.7f} / "
+          f"{got[False][0].item():.7f}, bit-identical {same}, largest gradient difference "
+          f"{diff:.3g} of scale", flush=True)
+    if not same:
+        fail("remat on and off differ")
+    return worst_all
+
+
+def run_steps(trainer, state, feeder, prompts, n):
+    losses = []
+    for _ in range(n):
+        batch, sensor = next(feeder)
+        state, metrics = trainer.train_step(state, batch, prompts[sensor])
+        losses.append(metrics["l_pix"])
+    return [x.item() for x in losses]
+
+
+def train_main_phase(K, K3, K4, new_model, new_trainer, prompts, datasets):
+    """The main path: TRAIN_STEPS of the preset through the mixer and feeder,
+    counts reset just before and read just after; then REPEAT_STEPS twice
+    from one seed."""
+    from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
+
+    model = new_model()
+    trainer = new_trainer(model)
+    state = trainer.init_state()
+    start = [p.detach().clone() for p in model.parameters()]
+    feeder = DeviceFeeder(mixer_for(datasets, SEED), device=DEV, depth=2)
+    try:
+        reset_counts(K, K3, K4)
+        t0 = time.perf_counter()
+        losses = run_steps(trainer, state, feeder, prompts, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = counts(K, K3, K4)
+    finally:
+        feeder.close()
+    moved = max((p.detach() - s).abs().max().item() for p, s in zip(model.parameters(), start))
+    ema_moved = max((e - s).abs().max().item() for e, s in zip(state.ema_params, start))
+    per_step = {k: v / TRAIN_STEPS for k, v in n.items()}
+    print(f"[train] {TRAIN_STEPS} steps of the preset through SensorMixer 4:4:8 and DeviceFeeder "
+          f"(depth 2): {sec:.3f} s; losses {[round(x, 6) for x in losses]}; largest parameter "
+          f"change {moved:.3g}, EMA change {ema_moved:.3g}; per step {per_step}", flush=True)
+    if not all(np.isfinite(losses)) or not moved > 0 or not ema_moved > 0:
+        fail("training losses not finite, or parameters or EMA did not move")
+    expected = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
+                "weight_grad": TRAIN_CONVS, "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
+    if per_step != expected:
+        fail(f"launches per training step {per_step}, expected {expected}")
+
+    runs = []
+    for _ in range(2):
+        trainer = new_trainer(new_model())
+        state = trainer.init_state()
+        feeder = DeviceFeeder(mixer_for(datasets, SEED + 1), device=DEV, depth=2)
+        try:
+            runs.append(run_steps(trainer, state, feeder, prompts, REPEAT_STEPS))
+        finally:
+            feeder.close()
+    print(f"[train] {REPEAT_STEPS} steps twice from one seed: {runs[0]} / {runs[1]}, equal "
+          f"{runs[0] == runs[1]}", flush=True)
+    if runs[0] != runs[1]:
+        fail("two runs from one seed gave different losses")
+    return n, losses
+
+
+def train_learn_phase(new_model, new_trainer, prompts, datasets, gen):
+    """LEARN_STEPS at LEARN_LR (warmup 2) on one batch with fixed t and noise:
+    the loss (dropout off) must fall below its start."""
+    model = new_model()
+    trainer = new_trainer(model, lr=LEARN_LR, warmup_steps=2, max_iter=1000)
+    state = trainer.init_state()
+    batch, t, noise = device_batch(datasets["WV3"], gen)
+    with torch.no_grad():
+        before = fixed_loss(model, trainer.schedule, batch, prompts["WV3"], t, noise).item()
+    losses = [trainer.train_step(state, batch, prompts["WV3"], t=t, noise=noise)[1]["l_pix"]
+              for _ in range(LEARN_STEPS)]
+    with torch.no_grad():
+        after = fixed_loss(model, trainer.schedule, batch, prompts["WV3"], t, noise).item()
+    print(f"[train] {LEARN_STEPS} steps at lr {LEARN_LR} on one 8-band batch, fixed t and noise: loss "
+          f"(dropout off) {before:.6f} -> {after:.6f}; step losses "
+          f"{[round(x.item(), 6) for x in losses[::5]]} (every fifth)", flush=True)
+    if not after < before:
+        fail("the loss did not fall on a fixed batch")
+
+
+def _step_part(event) -> str:
+    """The part of a training step that a CPU op's kernels belong to, by
+    the op and its parents: autograd records the conv Function's forward as
+    an op ("Conv3dFunction", in the first pass and in remat's recompute) and
+    its backward as a backward node; the trainer and the weight gradient
+    mark their ranges with record_function."""
+    node = event
+    while node is not None:
+        name = node.name
+        if name == "conv3d.weight_grad":
+            return "weight_grad"
+        if name == "Conv3dFunction":
+            return "k1_forward"
+        if "Conv3dFunctionBackward" in name:
+            return "conv_backward"
+        if name == "train.optimizer":
+            return "optimizer_and_ema"
+        if name == "train.loss":
+            return "forward"
+        node = node.cpu_parent
+    return "rest_of_backward"
+
+
+def profile_breakdown(prof, wall: float, steps: int, k1_input_grad_ms: float) -> dict:
+    """Device ms per step by part: each kernel goes to the part of the CPU op
+    it was launched from (_step_part), K1's kernels (conv_3x3_*) inside the
+    conv backward to the input gradient. Where the profiler links K1's
+    ctypes launches to no op, its input gradients take `k1_input_grad_ms`,
+    their time by CUDA events at each shape of a step."""
+    from torch.autograd import DeviceType
+
+    parts = dict.fromkeys(("k1_forward", "k1_input_grad", "weight_grad",
+                           "forward_elementwise_and_matmuls", "rest_of_backward",
+                           "optimizer_and_ema"), 0.0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name not in PROFILE_LABELS:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+            continue
+        part = _step_part(e)
+        for k in e.kernels:
+            k1 = "conv_3x3" in k.name
+            if part == "conv_backward":
+                key = "k1_input_grad" if k1 else "rest_of_backward"
+            elif part == "forward":
+                key = "k1_forward" if k1 else "forward_elementwise_and_matmuls"
+            else:
+                key = part
+            parts[key] += k.duration
+    ms = lambda us: us / 1e3 / steps
+    parts = {k: ms(v) for k, v in parts.items()}
+    total = ms(sum(by_name.values()))
+    k1_total = ms(sum(us for name, us in by_name.items() if "conv_3x3" in name))
+    linked = parts["k1_input_grad"] > 0
+    if not linked:
+        parts["k1_input_grad"] = k1_input_grad_ms
+        parts["k1_forward"] = k1_total - k1_input_grad_ms
+    parts["unattributed"] = total - sum(parts.values())
+    host = sorted((e for e in prof.key_averages() if e.key not in PROFILE_LABELS),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    return {"device_ms": total, "wall_ms": wall * 1e3 / steps,
+            "busy_share": total / 1e3 / wall * steps, "parts": parts, "k1_linked": linked,
+            "k1_ms": k1_total,
+            "top_kernels_ms": {name[:90]: ms(us) for name, us in
+                               sorted(by_name.items(), key=lambda kv: -kv[1])[:8]},
+            "top_host_ms": {f"{e.key[:60]} x{e.count // steps}": ms(e.self_cpu_time_total)
+                            for e in host}}
+
+
+def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_ms):
+    """Median step seconds at 8 and at 4 bands, then a profiled window;
+    `input_grad_ms` = {bands: K1's input-gradient ms a step, by events}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tmdiff_tpu_torch.data.pipeline import BatchIterator
+    from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
+
+    trainer = new_trainer(new_model())
+    state = trainer.init_state()
+    timing = {}
+    for sensor in ("WV3", "QB"):
+        bands = TRAIN_SENSORS[sensor][0]
+        source = ((b, sensor) for b in BatchIterator(datasets[sensor], TRAIN_BATCH, seed=SEED))
+        feeder = DeviceFeeder(source, device=DEV, depth=2)
+        try:
+            run_steps(trainer, state, feeder, prompts, 3)  # warm-up
+            secs = []
+            for _ in range(TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_steps(trainer, state, feeder, prompts, 1)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run_steps(trainer, state, feeder, prompts, PROFILED_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            feeder.close()
+        med = float(np.median(secs))
+        br = profile_breakdown(prof, wall, PROFILED_STEPS, input_grad_ms[bands])
+        timing[bands] = {"median_s": med, "img_per_s": TRAIN_BATCH / med, "steps_s": secs, **br}
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in br["parts"].items())
+        print(f"[train] {bands}-band step, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: median "
+              f"{med:.4f} s over {TIMED_STEPS} ({min(secs):.4f}-{max(secs):.4f}), "
+              f"{TRAIN_BATCH / med:.1f} img/s; profiled {PROFILED_STEPS} steps: wall "
+              f"{br['wall_ms']:.2f} ms/step, device {br['device_ms']:.2f} ms/step, busy share "
+              f"{br['busy_share']:.3f}; device ms/step by part: {parts}; all K1 kernels "
+              f"{br['k1_ms']:.3f} (K1 launches linked to their ops: {br['k1_linked']})",
+              flush=True)
+        for name, v in br["top_kernels_ms"].items():
+            print(f"[train]   device {v:9.3f} ms/step  {name}", flush=True)
+        for name, v in br["top_host_ms"].items():
+            print(f"[train]   host   {v:9.3f} ms/step  {name}", flush=True)
+    return timing
+
+
+def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
+    """K1's input gradient at every shape of one step of `sensor` against the
+    library's (aten.convolution_backward for the input, TF32 off, cuDNN in
+    benchmark mode) and the plain version, beside its bound; and the weight
+    gradient's time at the same shapes."""
+    trainer = new_trainer(new_model())
+    state = trainer.init_state()
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in datasets[sensor].batch(
+        np.arange(TRAIN_BATCH)).items()}
+    shapes = {}
+    launch = K._launch
+
+    def recorder(x, kernel, style, bias, out, input_grad=False):
+        if input_grad:
+            key = tuple(x.shape) + (kernel.shape[-1],)
+            shapes[key] = shapes.get(key, 0) + 1
+        return launch(x, kernel, style, bias, out, input_grad)
+
+    K._launch = recorder
+    try:
+        trainer.train_step(state, batch, prompts[sensor])
+    finally:
+        K._launch = launch
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "weight_grad_ms": 0.0,
+           "ops_s": 0.0, "bytes_s": 0.0}
+    max_err = 0.0
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    for (b, d, h, w, cout, cin), n in sorted(shapes.items()):
+        dy = torch.randn(b, d, h, w, cout, device=DEV, generator=gen)
+        k = torch.randn(3, 3, 3, cin, cout, device=DEV, generator=gen) / (27 * cin) ** 0.5
+        x = torch.randn(b, d, h, w, cin, device=DEV, generator=gen)
+        kt = k.flip((0, 1, 2)).transpose(3, 4).contiguous()
+        with torch.no_grad():
+            got = K._launch(dy, kt, None, None, None, True)
+            ref = K.conv3d_plain(dy, kt)
+            err = rel_to_scale(got, ref)
+            if not err <= CONV_RTOL:
+                fail(f"input gradient {(b, d, h, w, cout, cin)}: {err} of scale")
+            max_err = max(max_err, (got - ref).abs().max().item())
+            ms_k = cuda_ms(lambda: K._launch(dy, kt, None, None, None, True), 10)
+            ms_p = cuda_ms(lambda: K.conv3d_plain(dy, kt), 3)
+            wl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+            ms_l = library_ms(lambda: torch.ops.aten.convolution_backward(
+                dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), wl, None, [1, 1, 1],
+                [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [True, False, False]), 10)
+            ms_w = cuda_ms(lambda: K.conv3d_weight_grad(x, dy), 10)
+        bnd, bound_by = conv_bound(b, d, h, w, cout, cin, False, False, False, PEAK_TF32X3_FLOPS)
+        print(f"[train] input gradient B{b} D{d} {h}x{w} {cout}->{cin} x{n}/step: K1 "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f}, library {ms_l:.4f}, bound {bnd:.4f} "
+              f"({bound_by}); weight gradient (cuDNN, deterministic) {ms_w:.4f} ms; err "
+              f"{err:.3g} of scale", flush=True)
+        for key, v in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l), ("bound_ms", bnd),
+                       ("weight_grad_ms", ms_w)):
+            tot[key] += n * v
+        tot["ops_s" if bound_by == "operations" else "bytes_s"] += n * bnd
+    tot["bound_by"] = "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"
+    print(f"[train] one {TRAIN_SENSORS[sensor][0]}-band step's input gradients, summed: K1 "
+          f"{tot['ms']:.2f} ms, plain "
+          f"{tot['plain_ms']:.2f}, library {tot['library_ms']:.2f}, bound {tot['bound_ms']:.2f} "
+          f"({tot['bound_by']}); weight gradients {tot['weight_grad_ms']:.2f} ms; "
+          f"{sum(shapes.values())} launches at {len(shapes)} shapes", flush=True)
+    return tot, max_err
+
+
+def train_phase(K, K3, K4, gen):
+    new_model, new_trainer, prompts, datasets = train_setup()
+    grad_err = train_grads_phase(K, new_model, new_trainer, prompts, datasets, gen)
+    n, losses = train_main_phase(K, K3, K4, new_model, new_trainer, prompts, datasets)
+    train_learn_phase(new_model, new_trainer, prompts, datasets, gen)
+    input_grad = {TRAIN_SENSORS[sensor][0]: input_grad_phase(K, new_model, new_trainer, prompts,
+                                                               datasets, sensor)
+                  for sensor in ("WV3", "QB")}
+    timing = train_timing_phase(K, new_model, new_trainer, prompts, datasets,
+                                {bands: tot["ms"] for bands, (tot, _) in input_grad.items()})
+    return {"counts": n, "grad_err": grad_err, "timing": timing, "input_grad": input_grad[8][0],
+            "input_grad_err": max(err for _, err in input_grad.values())}
+
+
 def kernel_name(line: str) -> str:
     """`conv_3x3_kernel<1,64,1,8,32>` from ptxas' line on a mangled
     template instance; the line itself where it is not one."""
@@ -664,6 +1126,7 @@ def main() -> int:
         fail("the main path launched no conv3d kernel")
     auto_counts = auto_serve_phase(model, K, K3, K4, banded_results, SEED)
     k4_totals, k4_err, k4_launches, k4_variants = attention_phase(K4, gen)
+    train = train_phase(K, K3, K4, gen)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     per_request = (f"summed over the launches of one dpm++ request, 8 bands, batch {BATCH}, "
@@ -677,7 +1140,19 @@ def main() -> int:
          "ms": k1_totals["ms"], "plain_ms": k1_totals["plain_ms"],
          "bound_ms": k1_totals["bound_ms"], "bound_by": k1_totals["bound_by"],
          "library_ms": k1_totals["library_ms"],
-         "times_are": per_request + ' through the "banded" model'},
+         "times_are": per_request + ' through the "banded" model',
+         "train_launches": train["counts"],
+         "train_launches_are": f"over {TRAIN_STEPS} training steps of batch {TRAIN_BATCH} "
+                               f"{TRAIN_SIZE}x{TRAIN_SIZE}, full width, remat on",
+         "train_input_grad": {k: train["input_grad"][k] for k in
+                              ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                               "weight_grad_ms")},
+         "train_input_grad_max_abs_err": train["input_grad_err"],
+         "train_grad_max_err_of_scale": train["grad_err"],
+         "train_step": {f"{b}_band": {k: v for k, v in tm.items()
+                                      if k not in ("steps_s", "top_kernels_ms",
+                                                   "top_host_ms")}
+                        for b, tm in train["timing"].items()}},
         {"name": "conv3x3_nhwc", "route": "cuda", "source": "tmdiff_tpu_torch/csrc/conv3d.cu",
          "replaces": "tmdiff_tpu/ops/pallas/conv2d.py:43",
          "launches": auto_counts["K3"], "variant_launches": auto_counts["K3_variants"],

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: the 3x3x3 conv kernel (K1 and K2
-entries), the 3x3 NHWC conv (K3) and flash attention (K4) against their plain
-versions at edge shapes, the conv kernel's variants (3xTF32 tensor cores,
+entries, forward and, through its autograd Function, the input gradient;
+the training step around it), the 3x3 NHWC conv (K3) and flash attention
+(K4) against their plain versions at edge shapes, the conv kernel's variants (3xTF32 tensor cores,
 with split-K, and the fp32 FMA kernel for Cin % 4 != 0) and its
 determinism, K4's variants (3xTF32 with split-KV, fp32 FMA for D % 4 != 0),
 plan, determinism and error at its deepest sums, the wrappers' refusals,
@@ -271,9 +272,13 @@ def test_wrapper_refuses(cuda):
     with pytest.raises(TypeError, match="float32"):
         K.banded_conv3d(x.double(), k.double())
     with pytest.raises(RuntimeError, match="no backward"):
-        K.banded_conv3d(x.requires_grad_(), k)
+        K._launch(x.requires_grad_(), k, None, None, None)
     with pytest.raises(ValueError, match="is on"):
         K.banded_conv3d(x.detach(), k.cpu())
+    # the entries take a gradient through their autograd Function
+    K.reset_launches()
+    y = K.banded_conv3d(x, k)
+    assert y.grad_fn is not None and K.launches == 1
 
 
 def test_model_kernel_path_matches_plain(cuda):
@@ -493,3 +498,175 @@ def test_spatial_transformer_kernel_matches_plain(cuda):
                 mod.use_flash = False
         ref = m(x, ctx)
     assert (y - ref).abs().max().item() <= 1e-4
+
+
+# -- training: K1 under autograd ----------------------------------------------
+
+
+@pytest.mark.parametrize("shape,variant", [
+    ((2, 8, 64, 64, 32, 64), "tf32x3"), ((1, 4, 8, 8, 3, 6), "ffma"),
+    ((2, 4, 32, 32, 256, 256), "tf32x3_splitk"),
+])
+def test_conv_gradients_match_plain(cuda, shape, variant):
+    """Every operand's gradient through Conv3dFunction (forward and input
+    gradient on the kernel: tensor cores, FMA at Cin and Cout % 4 != 0, and
+    split-K; weight gradient on cuDNN) against autograd through the plain
+    version on the card, with style and bias, with concat parts whose kernel
+    slices are views, and with Cout views of one weight; to 1e-4 of each
+    gradient's largest magnitude."""
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, k, s, bias, _ = _random_conv(cuda, shape, seed=7)
+    s = 1.0 + 0.5 * s
+    gy = torch.randn(x.shape[:-1] + (k.shape[-1],), device=cuda)
+    cin = x.shape[-1]
+    cut = [0, cin // 3, cin // 3 + cin // 4 + 1, cin]
+
+    def grads(plain, case):
+        xs, ks, ss, bs = (t.clone().requires_grad_() for t in (x, k, s, bias))
+        if case == "style_bias":
+            y = modconv.conv3d(xs, ks, style=ss, bias=bs, plain=plain)
+        elif case == "parts":
+            y = modconv.conv3d_cat(tuple(xs[..., a:b].contiguous() for a, b in zip(cut, cut[1:])),
+                                   ks, bias=bs, plain=plain)
+        else:
+            half = ks.shape[-1] // 2
+            y = torch.cat([modconv.conv3d(xs, ks[..., :half], bias=bs[:half], plain=plain),
+                           modconv.conv3d(xs, ks[..., half:], bias=bs[half:], plain=plain)], -1)
+        (y * gy).sum().backward()
+        return [t.grad for t in (xs, ks, ss, bs)]
+
+    for case in ("style_bias", "parts", "views"):
+        K.reset_launches()
+        got = grads(False, case)
+        if case == "style_bias":
+            assert K.variant_launches[variant] >= 1 and K.input_grad_launches == 1
+            assert K.weight_grad_calls == 1
+        ref = grads(True, case)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("x", "kernel", "style", "bias"), got, ref):
+            if r is None:
+                assert g is None, (case, name)
+                continue
+            err = (g - r).abs().max().item() / r.abs().max().item()
+            assert err <= 1e-4, (case, name, err)
+
+
+def test_full_width_model_gradients_match_plain(cuda):
+    """The full-width WavBEST (32, 64, 128, 256), 8 bands, batch 2 at 32x32:
+    the x0 loss and every parameter's gradient through K1 against the plain
+    convs, dropout off; loss to 1e-4 relative, each gradient to 1e-3 of its
+    largest magnitude (chip_smoke.py's bars)."""
+    from tmdiff_tpu_torch.diffusion import gaussian
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.init_styles import apply_init_style
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    model = apply_init_style(WavBEST(seed=0), "torch", torch.Generator().manual_seed(0))
+    ns = NoiseSchedule.create("cosine", 1000).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    res = 0.1 * torch.randn(2, 8, 32, 32, device=cuda, generator=g)
+    pan = torch.rand(2, 1, 32, 32, device=cuda, generator=g)
+    ms = torch.rand(2, 8, 32, 32, device=cuda, generator=g)
+    prompt = torch.randn(768, device=cuda, generator=g)
+    t = torch.tensor([17, 640], device=cuda)
+    noise = torch.randn(res.shape, device=cuda, generator=g)
+    params = list(model.parameters())
+    out = []
+    for plain in (False, True):
+        model.use_plain_conv(plain)
+        K.reset_launches()
+        loss = gaussian.diffusion_loss(lambda x, tt, p, m: model(x, tt, p, m, prompt), ns, None,
+                                       res, pan, ms, t=t, noise=noise)
+        out.append((loss.item(), torch.autograd.grad(loss, params), K.launches))
+    model.use_plain_conv(False)
+    (lk, gk, nk), (lp, gp, np_) = out
+    assert nk == 2 * 65 and np_ == 0
+    assert abs(lk - lp) <= 1e-4 * abs(lp)
+    for a, b in zip(gk, gp):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+def _card_trainer(cuda, **kw):
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    return Trainer(WavBEST((8, 16, 32, 64), seed=0), NoiseSchedule.create("cosine", 1000),
+                   lr=1e-3, warmup_steps=2, **kw)
+
+
+def _card_batch(cuda, bands=8):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    return {"Res": 0.1 * torch.randn(2, bands, 32, 32, device=cuda, generator=g),
+            "PAN": torch.rand(2, 1, 32, 32, device=cuda, generator=g),
+            "MS": torch.rand(2, bands, 32, 32, device=cuda, generator=g)}
+
+
+def test_remat_gives_the_same_gradients_on_the_card(cuda):
+    """Dropout on: remat on and off give the same loss and gradients bit for
+    bit (the recompute rebuilds the dropout generator; K1 and the weight
+    gradient are deterministic)."""
+    batch, prompt = _card_batch(cuda), torch.randn(768, device=cuda)
+    got = []
+    for remat in (True, False):
+        trainer = _card_trainer(cuda, remat=remat)
+        loss = trainer.loss(3, batch, prompt)
+        got.append((loss.detach(), torch.autograd.grad(loss, list(trainer.model.parameters()))))
+    assert torch.equal(got[0][0], got[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+
+
+def test_training_steps_repeat_bit_for_bit(cuda):
+    """Two trainers from one seed take the same two steps: equal losses,
+    parameters and EMA, bit for bit; every launch on the tensor cores."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    batch, prompt = _card_batch(cuda), torch.randn(768, device=cuda)
+    runs = []
+    for _ in range(2):
+        trainer = _card_trainer(cuda)
+        state = trainer.init_state()
+        K.reset_launches()
+        losses = [trainer.train_step(state, batch, prompt)[1]["l_pix"] for _ in range(2)]
+        assert K.variant_launches["ffma"] == 0
+        assert K.launches == 2 * (2 * 65 + 65) and K.input_grad_launches == 2 * 65
+        runs.append((torch.stack(losses), list(trainer.model.parameters()), state.ema_params))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+def test_device_feeder_on_a_side_stream(cuda):
+    """Pinned host copies on the feeder's side stream: items arrive on the
+    card, in order and whole, while the consumer's stream is busy, and the
+    source's last item is not lost."""
+    import numpy as np
+
+    from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
+
+    items = [({"Res": np.full((256, 1024), i, np.float32)}, i) for i in range(6)]
+    feeder = DeviceFeeder(iter(items), device=cuda, depth=2)
+    assert feeder._stream is not None
+    busy = torch.randn(4096, 4096, device=cuda)
+    seen = []
+    for batch, i in feeder:
+        busy = (busy @ busy).tanh_()  # keep the consumer's stream busy
+        assert batch["Res"].device.type == "cuda"
+        seen.append((i, batch["Res"].sum().item()))
+    feeder.close()
+    assert seen == [(i, float(i) * 256 * 1024) for i in range(6)]
+
+
+def test_auto_lowering_refuses_gradients_on_the_card(cuda):
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+
+    model = WavBEST((8, 16, 32, 64), seed=0).use_conv_impl("auto")
+    b = _card_batch(cuda, bands=4)
+    t = torch.tensor([3.0, 600.0], device=cuda)
+    with pytest.raises(ValueError, match='"auto" conv lowering has no backward'):
+        model(b["Res"], t, b["PAN"], b["MS"], torch.randn(768, device=cuda))
+    with torch.no_grad():
+        assert model(b["Res"], t, b["PAN"], b["MS"], torch.randn(768, device=cuda)).isfinite().all()

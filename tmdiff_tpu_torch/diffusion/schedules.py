@@ -8,9 +8,11 @@ float64 numpy, as the reference defines them
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
+import torch
 
 
 def make_beta_schedule(schedule: str, n_timestep: int) -> np.ndarray:
@@ -30,3 +32,23 @@ def betas_for_alpha_bar(n: int, alpha_bar, max_beta: float = 0.999) -> np.ndarra
         t2 = (i + 1) / n
         betas.append(min(1 - alpha_bar(t2) / alpha_bar(t1), max_beta))
     return np.array(betas, dtype=np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseSchedule:
+    """The training part of the JAX package's NoiseSchedule: T and the
+    length-(T + 1) fp32 table sqrt(append(1, alphas_cumprod)), so that index
+    t in [1, T] gives sqrt(alpha_bar_t) (computed in float64, rounded once)."""
+
+    num_timesteps: int
+    sqrt_alphas_cumprod_prev: torch.Tensor
+
+    @classmethod
+    def create(cls, schedule: str = "cosine", n_timestep: int = 1000) -> "NoiseSchedule":
+        acp = np.cumprod(1.0 - make_beta_schedule(schedule, n_timestep), axis=0)
+        table = torch.as_tensor(np.sqrt(np.append(1.0, acp)).astype(np.float32))
+        return cls(int(n_timestep), table)
+
+    def to(self, device) -> "NoiseSchedule":
+        return dataclasses.replace(
+            self, sqrt_alphas_cumprod_prev=self.sqrt_alphas_cumprod_prev.to(device))

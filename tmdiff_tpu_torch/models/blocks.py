@@ -1,4 +1,4 @@
-"""WavBEST building blocks (port of tmdiff_tpu/models/blocks.py), eval mode.
+"""WavBEST building blocks (port of tmdiff_tpu/models/blocks.py).
 
 Activations are (B, D, H, W, C) with the spectral bands as conv depth D.
 Conv weights are kept in the JAX layout (kd, kh, kw, Cin, Cout); Linear
@@ -18,9 +18,15 @@ A modulated conv's style Linear is a sibling of its conv in the reference
 (`dense2` of a ResBlock's `conv21`, `dense1` of a wavelet block's `Conv_1`),
 so it is one here too. The reference's dead parameters (the modulated convs'
 biases, the wavelet blocks' `dense2`, the condition branch's time
-projections) are not created. Dropout is identity in eval mode and is left
-out. Decoder inputs may be tuples of channel parts; they are convolved as
-their concat without materialising it.
+projections) are not created. Decoder inputs may be tuples of channel parts;
+they are convolved as their concat without materialising it.
+
+Dropout (rate 0.2) sits at the JAX package's five sites: before a ResBlock's
+conv20 (per part for a tuple input) and conv21, and before a wavelet block's
+Conv_1. A block's `rng`, a torch.Generator on the activations' device, draws
+the masks (train mode); None leaves dropout out (eval mode). Each part and
+site draws its own mask from the generator in turn, so one generator state
+gives the same masks again (the trainer's recompute relies on that).
 
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
 CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
@@ -41,6 +47,20 @@ from tmdiff_tpu_torch.ops.modconv import conv3d, conv3d_cat, modulated_conv3d
 
 def swish(x):
     return F.silu(x)
+
+
+# The JAX package's dropout rate at every site (its blocks' `dropout` field).
+DROPOUT = 0.2
+
+
+def dropout(x, rate: float, rng):
+    """Inverted dropout: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), the mask drawn from `rng`; identity when rng
+    is None."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def _lecun_normal(shape, fan_in):
@@ -112,7 +132,7 @@ class ResBlockModulate(nn.Module):
         if cin != features:
             self.res_conv = Conv3d(cin, features, 1)
 
-    def forward(self, x, temb, zemb):
+    def forward(self, x, temb, zemb, rng=None):
         parts = x if isinstance(x, tuple) else (x,)
         hs = parts
         if self.use_temb:
@@ -121,9 +141,9 @@ class ResBlockModulate(nn.Module):
             for p in parts:
                 hs.append(p + d[..., off:off + p.shape[-1]])
                 off += p.shape[-1]
-        hs = tuple(swish(p) for p in hs)
+        hs = tuple(dropout(swish(p), DROPOUT, rng) for p in hs)
         h = self.conv20(hs if isinstance(x, tuple) else hs[0])
-        h = self.conv21(swish(h), self.dense2(zemb))
+        h = self.conv21(dropout(swish(h), DROPOUT, rng), self.dense2(zemb))
         if hasattr(self, "res_conv"):
             x = self.res_conv(x)
         elif isinstance(x, tuple):
@@ -158,7 +178,7 @@ class WaveletDown(nn.Module):
         if use_temb:
             self.Dense_0 = linear(embed_dim, features)
 
-    def forward(self, x, temb, zemb):
+    def forward(self, x, temb, zemb, rng=None):
         h = self.Conv_0(swish(x))
         x = self.Conv_2(x)
         h_ll, h_lh, h_hl, h_hh = wavelet.dwt2d(h)
@@ -166,7 +186,7 @@ class WaveletDown(nn.Module):
         x = wavelet.dwt2d_ll(x) * 0.5
         if self.use_temb:
             h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(swish(h), self.dense1(zemb))
+        h = self.Conv_1(dropout(swish(h), DROPOUT, rng), self.dense1(zemb))
         return x + h, (h_lh, h_hl, h_hh)
 
 
@@ -203,14 +223,14 @@ class WaveletUp(nn.Module):
         self.dense1 = Dense(embed_dim, features, 1.0)
         self.Dense_0 = linear(embed_dim, features)
 
-    def forward(self, x, temb, zemb, skip):
+    def forward(self, x, temb, zemb, skip, rng=None):
         h = self.Conv_0(swish(x))
         x = self.Conv_2(x)
         lh, hl, hh = (s * 2.0 for s in self.convH_0[0](tuple(s * 0.5 for s in skip)))
         h = wavelet.idwt2d(2.0 * h, lh, hl, hh)
         x = wavelet.idwt2d(2.0 * x, lh, hl, hh)
         h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(swish(h), self.dense1(zemb))
+        h = self.Conv_1(dropout(swish(h), DROPOUT, rng), self.dense1(zemb))
         return x + h
 
 
@@ -222,8 +242,8 @@ class DownStage(nn.Module):
         self.conv20 = ResBlockModulate(cin, features, embed_dim, use_temb)
         self.down = WaveletDown(features, embed_dim, use_temb)
 
-    def forward(self, x, temb, zemb):
-        return self.down(self.conv20(x, temb, zemb), temb, zemb)
+    def forward(self, x, temb, zemb, rng=None):
+        return self.down(self.conv20(x, temb, zemb, rng), temb, zemb, rng)
 
 
 class UpStage(nn.Module):
@@ -234,8 +254,8 @@ class UpStage(nn.Module):
         self.conv20 = ResBlockModulate(cin, features, embed_dim)
         self.up1 = WaveletUp(features, skip_channels, embed_dim)
 
-    def forward(self, x, temb, zemb, skip):
-        return self.up1(self.conv20(x, temb, zemb), temb, zemb, skip)
+    def forward(self, x, temb, zemb, skip, rng=None):
+        return self.up1(self.conv20(x, temb, zemb, rng), temb, zemb, skip, rng)
 
 
 class FinalBlock(nn.Module):
@@ -250,9 +270,9 @@ class FinalBlock(nn.Module):
         self.conv24 = ModConv3d(features, out_features, 1)
         self.dense2 = Dense(embed_dim, features, 1.0)
 
-    def forward(self, x, temb, zemb):
-        h = self.conv20(x, temb, zemb)
-        h = self.conv21(h, temb, zemb)
-        h = self.conv22(h, temb, zemb)
-        h = self.conv23(h, temb, zemb)
+    def forward(self, x, temb, zemb, rng=None):
+        h = self.conv20(x, temb, zemb, rng)
+        h = self.conv21(h, temb, zemb, rng)
+        h = self.conv22(h, temb, zemb, rng)
+        h = self.conv23(h, temb, zemb, rng)
         return self.conv24(swish(h), self.dense2(zemb))

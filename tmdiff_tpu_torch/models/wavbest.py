@@ -1,5 +1,5 @@
 """WavBEST: text-modulated wavelet UNet denoiser (port of
-tmdiff_tpu/models/wavbest.py), eval mode.
+tmdiff_tpu/models/wavbest.py).
 
 Inputs are the noisy residual x_t (B, bands, H, W), timesteps (B,), PAN
 (B, 1, H, W), upsampled MS (B, bands, H, W) and a sensor prompt embedding
@@ -10,6 +10,10 @@ conv is a 3-D conv with the bands as depth and one network serves 4- and
 The condition branch takes no time embedding, so its features are the same
 at every diffusion step: `encode_condition` computes them once per image and
 `denoise` consumes them. `forward` is the two together.
+
+Each takes `train` (False by default, as serving runs): with train=True,
+dropout draws its masks from `rng`, a torch.Generator on the model's device,
+as the JAX model draws from its "dropout" rng collection.
 """
 from __future__ import annotations
 
@@ -106,41 +110,52 @@ class WavBEST(nn.Module):
 
     # -- condition branch (time-independent) ----------------------------------
 
-    def encode_condition(self, pan, ms, prompt_emb):
+    @staticmethod
+    def _dropout_rng(train: bool, rng):
+        if not train:
+            return None
+        if rng is None:
+            raise ValueError("train=True draws dropout masks from rng: pass a torch.Generator")
+        return rng
+
+    def encode_condition(self, pan, ms, prompt_emb, *, train: bool = False, rng=None):
         """-> dict of condition features and HF skips, constant across steps."""
         h, w = ms.shape[-2], ms.shape[-1]
         if h % 8 or w % 8:
             raise ValueError(
                 f"WavBEST needs H and W divisible by 8 (three Haar wavelet "
                 f"halvings); got {h}x{w}")
+        rng = self._dropout_rng(train, rng)
         zemb = self.prompt_embed(prompt_emb, ms.shape[0])
         cond = (pan - ms).to(torch.float32)[..., None]
         c_h0 = self.conv1(cond, zemb)
-        c_h1, c_s1 = self.down1_1(c_h0, None, zemb)
-        c_h2, c_s2 = self.down2_1(c_h1, None, zemb)
-        c_h3, c_s3 = self.down3_1(c_h2, None, zemb)
+        c_h1, c_s1 = self.down1_1(c_h0, None, zemb, rng)
+        c_h2, c_s2 = self.down2_1(c_h1, None, zemb, rng)
+        c_h3, c_s3 = self.down3_1(c_h2, None, zemb, rng)
         return {"zemb": zemb, "feats": (c_h0, c_h1, c_h2, c_h3),
                 "skips": (c_s1, c_s2, c_s3)}
 
     # -- denoising given the cached condition ---------------------------------
 
-    def denoise(self, x_t, t, cond_cache):
+    def denoise(self, x_t, t, cond_cache, *, train: bool = False, rng=None):
         """(B, bands, H, W) x0-prediction of the clean residual."""
+        rng = self._dropout_rng(train, rng)
         zemb = cond_cache["zemb"]
         c_h0, c_h1, c_h2, c_h3 = cond_cache["feats"]
         c_s1, c_s2, c_s3 = cond_cache["skips"]
         temb = self.time_embed(t)
         xt = x_t.to(torch.float32)[..., None]
         x_h0 = self.conv2(xt, zemb)
-        x_h1, _ = self.down1(x_h0, temb, zemb)
-        x_h2, _ = self.down2(x_h1, temb, zemb)
-        x_h3, _ = self.down3(x_h2, temb, zemb)
-        h = self.middle1(x_h3, temb, zemb)
-        h = self.up1((h, c_h3, x_h3), temb, zemb, c_s3)
-        h = self.up2((h, c_h2, x_h2), temb, zemb, c_s2)
-        h = self.up3((h, c_h1, x_h1), temb, zemb, c_s1)
-        out = self.final((h, c_h0, x_h0), temb, zemb)
+        x_h1, _ = self.down1(x_h0, temb, zemb, rng)
+        x_h2, _ = self.down2(x_h1, temb, zemb, rng)
+        x_h3, _ = self.down3(x_h2, temb, zemb, rng)
+        h = self.middle1(x_h3, temb, zemb, rng)
+        h = self.up1((h, c_h3, x_h3), temb, zemb, c_s3, rng)
+        h = self.up2((h, c_h2, x_h2), temb, zemb, c_s2, rng)
+        h = self.up3((h, c_h1, x_h1), temb, zemb, c_s1, rng)
+        out = self.final((h, c_h0, x_h0), temb, zemb, rng)
         return out[..., 0]
 
-    def forward(self, x_t, t, pan, ms, prompt_emb):
-        return self.denoise(x_t, t, self.encode_condition(pan, ms, prompt_emb))
+    def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
+        cache = self.encode_condition(pan, ms, prompt_emb, train=train, rng=rng)
+        return self.denoise(x_t, t, cache, train=train, rng=rng)

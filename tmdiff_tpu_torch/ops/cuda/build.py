@@ -95,9 +95,12 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_operands(kernel_name: str, /, **tensors) -> None:
-    """The checks every kernel wrapper makes: each given tensor is float32,
-    on the first one's device, and needs no gradient (no kernel here has a
-    backward)."""
+    """The checks every kernel wrapper makes before a launch: each given
+    tensor is float32, on the first one's device, and needs no gradient. A
+    launch records no backward: the 3x3x3 conv's entries take a gradient
+    through their autograd Function (ops/cuda/conv3d.py), whose forward and
+    backward launch under no gradient; K3 and K4 have no backward, as their
+    Pallas kernels have no VJP, so their wrappers refuse such inputs."""
     first, ref = next(iter(tensors.items()))
     for name, t in tensors.items():
         if t is None:
@@ -107,5 +110,5 @@ def check_operands(kernel_name: str, /, **tensors) -> None:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.requires_grad and torch.is_grad_enabled():
-            raise RuntimeError(f"the {kernel_name} kernel has no backward; "
+            raise RuntimeError(f"a {kernel_name} kernel launch has no backward; "
                                "call it under torch.no_grad()")

@@ -20,7 +20,20 @@ else the fp32 FMA kernel. `variant_launches` counts the launches of each.
 On a CPU tensor they compute the plain version; on a CUDA tensor they
 launch the kernel or raise.
 
-The kernel has no backward: the wrappers refuse inputs that need a gradient.
+Under a gradient both entries go through `Conv3dFunction`, on every device.
+Its backward takes the input gradient through the same kernel: with y =
+conv(x * s, W) + b,
+
+    d(x * s) = conv_same(dy, W'),  W'[i, j, k] = W[2 - i, 2 - j, 2 - k].T
+
+which is the forward function with Cin and Cout swapped. Then dx = d(x * s)
+* s, ds = sum over (D, H, W) of x * d(x * s), and db = sum of dy. The weight
+gradient goes to `aten.convolution_backward` (cuDNN on the card, fp32, TF32
+off, deterministic algorithms), as the JAX package takes it from XLA's conv
+VJP outside its Pallas kernel. `input_grad_launches` counts the kernel's
+launches for input gradients (a part of `launches`), `weight_grad_calls` the
+weight gradients computed on the card. Without a gradient the entries launch
+the kernel directly, so serving pays no autograd bookkeeping.
 """
 from __future__ import annotations
 
@@ -32,15 +45,19 @@ import torch.nn.functional as F
 from tmdiff_tpu_torch.ops.cuda import build
 
 # Launches of the CUDA kernel since the last reset_launches(), in all and by
-# variant (tmdiff_conv_plan's numbering).
+# variant (tmdiff_conv_plan's numbering); of them, those for input gradients;
+# and the weight gradients computed on the card (library calls, not launches
+# of the kernel).
 VARIANTS = ("ffma", "tf32x3", "tf32x3_splitk")
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+input_grad_launches = 0
+weight_grad_calls = 0
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, input_grad_launches, weight_grad_calls
+    launches = input_grad_launches = weight_grad_calls = 0
     variant_launches.update(dict.fromkeys(VARIANTS, 0))
 
 
@@ -123,7 +140,8 @@ def _check(x, kernel, style, bias, out):
         raise ValueError(f"kernel must be (3, 3, 3, {cin}, Cout), got {tuple(kernel.shape)}")
     cout = kernel.shape[4]
     st = kernel.stride()
-    if st[4] != 1 or st[0] != 3 * st[1] or st[1] != 3 * st[2]:
+    # (a size-1 Cout dimension's stride is never read)
+    if (st[4] != 1 and cout > 1) or st[0] != 3 * st[1] or st[1] != 3 * st[2]:
         raise ValueError(f"kernel strides {st} do not give one tap stride and unit Cout stride")
     if style is not None and (tuple(style.shape) != (b, cin) or not style.is_contiguous()):
         raise ValueError(f"style must be a contiguous ({b}, {cin}) tensor")
@@ -139,7 +157,7 @@ def _check(x, kernel, style, bias, out):
         raise ValueError(f"unsupported conv size {tuple(x.shape)} -> Cout {cout}")
 
 
-def _launch(x, kernel, style, bias, out):
+def _launch(x, kernel, style, bias, out, input_grad: bool = False):
     if x.device.type == "cpu":
         return conv3d_plain(x, kernel, style, bias, out)
     if x.device.type != "cuda":
@@ -161,19 +179,83 @@ def _launch(x, kernel, style, bias, out):
             int(out is not None), splits, ptr(workspace), stream)
     if err:
         raise RuntimeError(f"conv3d kernel launch failed: {lib.tmdiff_cuda_error_string(err).decode()}")
-    global launches
+    global launches, input_grad_launches
     launches += 1
+    input_grad_launches += input_grad
     variant_launches[variant] += 1
     return y
 
 
+def conv3d_weight_grad(xs, dy):
+    """dW (3, 3, 3, Cin, Cout) of the SAME conv of xs (B, D, H, W, Cin) with
+    output gradient dy (B, D, H, W, Cout): `aten.convolution_backward` on
+    channels-last-3d views of both (no copy), fp32 with TF32 off and
+    deterministic algorithms, so that a step repeats bit for bit."""
+    global weight_grad_calls
+    cin, cout = xs.shape[-1], dy.shape[-1]
+    # read for its shape and layout only
+    weight = torch.empty((cout, cin, 3, 3, 3), device=xs.device, memory_format=torch.channels_last_3d)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        _, dw, _ = torch.ops.aten.convolution_backward(
+            dy.permute(0, 4, 1, 2, 3), xs.permute(0, 4, 1, 2, 3), weight, None,
+            [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [False, True, False])
+    if xs.device.type == "cuda":
+        weight_grad_calls += 1
+    return dw.permute(2, 3, 4, 1, 0)
+
+
+class Conv3dFunction(torch.autograd.Function):
+    """y = conv3d_same(x * s, kernel) + bias with the backward of the module
+    doc; style and bias may be None. The forward and the input gradient run
+    the kernel on a CUDA tensor and the plain version on a CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, style, bias):
+        ctx.save_for_backward(x, kernel, style)
+        return _launch(x, kernel, style, bias, None)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, kernel, style = ctx.saved_tensors
+        need_x, need_k, need_s, need_b = ctx.needs_input_grad
+        dy = dy.contiguous()
+        dx = dk = ds = db = None
+        if need_x or need_s:
+            flipped = kernel.flip((0, 1, 2)).transpose(3, 4).contiguous()
+            dxs = _launch(dy, flipped, None, None, None, input_grad=True)
+            if need_x:
+                dx = dxs if style is None else dxs * style[:, None, None, None, :]
+            if need_s:
+                ds = (x * dxs).sum((1, 2, 3))
+        if need_k:
+            xs = x if style is None else x * style[:, None, None, None, :]
+            with torch.profiler.record_function("conv3d.weight_grad"):
+                dk = conv3d_weight_grad(xs, dy)
+        if need_b:
+            db = dy.sum((0, 1, 2, 3))
+        return dx, dk, ds, db
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on these tensors (None allowed)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def _apply(x, kernel, style, bias, out):
+    if not needs_grad(x, kernel, style, bias):
+        return _launch(x, kernel, style, bias, out)
+    y = Conv3dFunction.apply(x, kernel, style, bias)
+    return y if out is None else out.add_(y)
+
+
 def banded_conv3d(x, kernel, style=None, bias=None, out=None):
     """SAME 3x3x3 conv (see module doc); the port of K1, `banded_conv3d`."""
-    return _launch(x, kernel, style, bias, out)
+    return _apply(x, kernel, style, bias, out)
 
 
 def banded_conv3d_v2(x, kernel, style=None, bias=None, out=None):
     """The port of K2, `banded_conv3d_v2`: the same function as K1 on TPU,
     tiled differently there. On Hopper one tiling serves both, so this entry
-    launches the same kernel."""
-    return _launch(x, kernel, style, bias, out)
+    launches the same kernel, with the same backward."""
+    return _apply(x, kernel, style, bias, out)

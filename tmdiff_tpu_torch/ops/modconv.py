@@ -16,6 +16,13 @@ kernels are (kd, kh, kw, Cin, Cout). Two kernel sizes occur:
     kernel's plain version runs on a CPU tensor or when `plain=True`.
   * 1x1x1: a (B*D*H*W, Cin) @ (Cin, Cout) matrix product, under either impl.
 
+Under a gradient every 3x3x3 conv takes "banded" (K1's autograd Function:
+the forward and the input gradient through the kernel, ops/cuda/conv3d.py);
+"auto" raises there, since K3 has no backward, as the JAX package's Pallas
+3x3 conv has no VJP. `out` is then added out of place, so no tensor that
+autograd saved is written; without a gradient it accumulates in place in the
+kernel's epilogue, one launch per concat part.
+
 The reference's per-sample modulated conv, w_b[o, i] = w[o, i] * s[b, i] with
 no bias and no demodulation, equals conv(x_b * s_b, w) because the style
 scales input channels only (tmdiff_tpu/ops/modconv.py pins this identity
@@ -26,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from tmdiff_tpu_torch.ops.cuda.conv2d import conv3x3_nhwc, conv3x3_nhwc_plain
-from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain
+from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad
 
 IMPLS = ("banded", "auto")
 
@@ -85,9 +92,16 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
            impl: str = "banded"):
     """SAME stride-1 conv of x (B, D, H, W, Cin) with kernel (k, k, k, Cin,
     Cout), k in {1, 3}, of the style-scaled input, plus bias; added into `out`
-    in place when given. `impl` picks the 3x3x3 lowering (module doc)."""
+    when given (in place without a gradient). `impl` picks the 3x3x3 lowering
+    (module doc)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
+    if needs_grad(x, kernel, style, bias, out):
+        if impl == "auto":
+            raise ValueError('the "auto" conv lowering has no backward (its 3x3 kernel has '
+                             'none); train with impl="banded" (WavBEST.use_conv_impl)')
+        if out is not None:
+            return out + conv3d(x, kernel, style=style, bias=bias, plain=plain)
     size = tuple(kernel.shape[:3])
     if size == (3, 3, 3):
         if impl == "auto" and _bandlanes_wins(x.shape[1], 3, kernel.shape[-1], x.shape[2]):
@@ -107,8 +121,9 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
 
 def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "banded"):
     """conv3d(cat(parts, -1), kernel) + bias without materialising the concat:
-    each part convolves with its slice of the kernel's input channels, and
-    the parts accumulate into one output."""
+    each part convolves with its slice of the kernel's input channels (a
+    view, through which its gradient reaches the kernel), and the parts
+    accumulate into one output."""
     off, out = 0, None
     for p in parts:
         kpart = kernel[..., off:off + p.shape[-1], :]
