@@ -12,6 +12,8 @@ package, so it runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import contextlib
+
 import pytest
 import torch
 
@@ -203,6 +205,199 @@ def test_kernel_error_at_the_deepest_sums(cuda, shape):
             print(f"{shape} style={st is not None} bias={bi is not None} "
                   f"out={o is not None}: max err / output scale {rel:.3g}")
             assert rel <= DEEP_SUM_RTOL
+
+
+CHAIN_SPLITS = (1, 2, 4, 8, 16)
+# K1 with an accumulation chain at every channel step: 3.04e-6 of the
+# output's scale at K = 27 x 256 on N tiles of 64, 3.13e-6 on N tiles of 128
+# split 16 ways (NVIDIA H100 80GB HBM3, 700 W)
+ONE_STEP_CHAIN_RTOL = 1e-5
+
+
+@contextlib.contextmanager
+def forced_splits(K, splits):
+    """Within the block every tensor-core launch of the conv3d module splits
+    its 16-channel steps over `splits` blocks (at most one a step), as the
+    C plan gives that count with its workspace; each accumulation chain then
+    spans fewer steps."""
+    import ctypes
+
+    planned = K.plan
+
+    def plan(kd, x, d, cout):
+        b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
+        nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
+        variant = K.library().tmdiff_conv_plan(kd, b, d, h, w, cin, cout, x.data_ptr(),
+                                               ctypes.byref(nbytes), ctypes.byref(count))
+        workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
+        return K.VARIANTS[variant], count.value, workspace
+
+    K.plan = plan
+    try:
+        yield
+    finally:
+        K.plan = planned
+
+
+@pytest.mark.parametrize("cout", [256, 64])
+def test_kernel_error_against_chain_length(cuda, cout):
+    """K = 27 x 256 at the 8-band 64x64 level (256 -> 256 on N tiles of
+    128, 256 -> 64 on one of 64), the 16 channel steps forced over 1, 2, 4,
+    8 and 16 splits, so that each accumulation chain of the N tiles of 128
+    spans 16 down to 1 steps (the partial sums added in order in fp32 by the
+    second pass). Prints the error against the plain version per split
+    count. The tensor cores' accumulation makes it grow with the chain, so
+    at 16 splits it falls to ONE_STEP_CHAIN_RTOL; the N tiles of 64 start a
+    chain at every channel step and stay there at every split count."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, k, s, bias, _ = _random_conv(cuda, (2, 8, 64, 64, 256, cout), seed=4)
+    errs = {}
+    with torch.no_grad():
+        ref = K.conv3d_plain(x, k)
+        for splits in (None,) + CHAIN_SPLITS:
+            with forced_splits(K, splits) if splits else contextlib.nullcontext():
+                got = K.banded_conv3d(x, k)
+            torch.cuda.synchronize()
+            errs[splits or "planned"] = (got - ref).abs().max().item() / ref.abs().max().item()
+    print(f"256 -> {cout}: max err / output scale by split count {errs}")
+    assert errs["planned"] <= DEEP_SUM_RTOL and errs[16] <= ONE_STEP_CHAIN_RTOL
+    if cout == 64:
+        assert max(errs.values()) <= ONE_STEP_CHAIN_RTOL
+
+
+class _Float64Torch:
+    """The torch module with `float32` read as `float64`: the model's own
+    casts to float32 (time embedding, condition streams) then keep float64."""
+
+    def __getattr__(self, name):
+        return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+def _preset_case(cuda, bands):
+    """chip_smoke.py's gradient check: the full-width model with init
+    "torch" (seed 0), synthetic scenes (WV3 8 bands or QB 4) at batch 8,
+    64x64, fixed t and noise, dropout off."""
+    import numpy as np
+
+    from tmdiff_tpu_torch.data.h5 import PanDataset
+    from tmdiff_tpu_torch.data.synthetic import make_arrays
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.clip_text import load_prompt_table
+    from tmdiff_tpu_torch.models.init_styles import apply_init_style
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+
+    model = apply_init_style(WavBEST(seed=0), "torch", torch.Generator().manual_seed(0))
+    ns = NoiseSchedule.create("cosine", 1000)
+    sensor, seed = ("WV3", 3) if bands == 8 else ("QB", 1)
+    batch = PanDataset(make_arrays(8, bands, 64, seed=seed)).batch(np.arange(8))
+    batch = {k: torch.as_tensor(batch[k], device=cuda) for k in ("Res", "PAN", "MS")}
+    table, index, _ = load_prompt_table()
+    prompt = torch.as_tensor(table[index[sensor]], device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    t = torch.randint(1, 1001, (8,), generator=g, device=cuda)
+    noise = torch.randn(batch["Res"].shape, generator=g, device=cuda)
+    return model, ns, batch, prompt, t, noise
+
+
+def _preset_prediction(case, dtype=torch.float32):
+    """The model's x0 prediction on the case, and the target."""
+    from tmdiff_tpu_torch.diffusion import gaussian
+    from tmdiff_tpu_torch.models import wavbest
+    from tmdiff_tpu_torch.ops import embedding
+
+    model, ns, batch, prompt, t, noise = case
+    gamma = ns.sqrt_alphas_cumprod_prev.to(device=noise.device, dtype=dtype)[t]
+    res, pan, ms = (batch[k].to(dtype) for k in ("Res", "PAN", "MS"))
+    x_t = gaussian.q_sample(res, gamma[:, None, None, None], noise.to(dtype))
+    saved = wavbest.torch, embedding.torch
+    if dtype == torch.float64:
+        wavbest.torch = embedding.torch = _Float64Torch()
+    try:
+        return model(x_t, t, pan, ms, prompt.to(dtype)), res
+    finally:
+        wavbest.torch, embedding.torch = saved
+
+
+def _errors(names, got, ref):
+    return {n: ((a.double() - b.double()).abs().max() / b.double().abs().max()).item()
+            for n, a, b in zip(names, got, ref)}
+
+
+def _summary(errs):
+    worst = max(errs, key=errs.get)
+    return (f"up2.up1.convH_0.0.bias {errs['up2.up1.convH_0.0.bias']:.3g}, "
+            f"worst {worst} {errs[worst]:.3g}")
+
+
+@pytest.mark.parametrize("bands", [8, 4])
+def test_preset_gradients_match_plain(cuda, bands):
+    """chip_smoke.py's gradient check, with the float64 plain path beside.
+    The L1 loss's gradient is sign(pred - target): an element whose
+    prediction lies within the forward's rounding of its target can take
+    another sign on each path (one of 262144 at 8 bands, at |pred - target|
+    = 3.4e-8, moved up2.up1.convH_0.0.bias's gradient, a cancelling sum, by
+    1.6e-3 of its scale; the same through the float64 path), so both paths
+    take the plain path's signs there. Then each of the 216 gradients lies
+    within 1e-3 of its scale of the plain path's and of the float64 path's;
+    it prints the L1 gradients with each path's own signs, the count of
+    elements whose sign differs, K1 with a chain at every channel step
+    (16 splits), and the L2 loss's gradients."""
+    import copy
+
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    case = _preset_case(cuda, bands)
+    model = case[0]
+    names, params = zip(*model.named_parameters())
+    kinds = ("l1_plain_signs", "l1", "l2")
+
+    def all_grads(pred, target, ps, sign):
+        out = {}
+        for i, kind in enumerate(kinds):
+            if kind == "l1":
+                loss = (target - pred).abs().mean()
+            elif kind == "l1_plain_signs":
+                loss = ((pred - target) * sign.to(pred.dtype)).mean()
+            else:
+                loss = ((target - pred) ** 2).mean()
+            out[kind] = torch.autograd.grad(loss, ps, retain_graph=i + 1 < len(kinds))
+        return out
+
+    model.use_plain_conv(True)
+    pred, res = _preset_prediction(case)
+    pred_plain = pred.detach()
+    sign_plain = torch.sign(pred_plain - res)
+    g_plain = all_grads(pred, res, params, sign_plain)
+    model.use_plain_conv(False)
+    pred, _ = _preset_prediction(case)
+    forward_err = (pred.detach() - pred_plain).abs().max().item()
+    flips = torch.sign(pred.detach() - res) != sign_plain
+    margin = (pred_plain - res).abs()
+    g_k1 = all_grads(pred, res, params, sign_plain)
+    with forced_splits(K, 16):
+        pred, _ = _preset_prediction(case)
+        g_k1_16 = all_grads(pred, res, params, sign_plain)
+    model64 = copy.deepcopy(model).double().use_plain_conv(True)
+    pred, res64 = _preset_prediction((model64,) + case[1:], torch.float64)
+    flips64 = int((torch.sign(pred.detach() - res64).float() != sign_plain).sum())
+    g_64 = all_grads(pred, res64, list(model64.parameters()), sign_plain)
+    del pred, model64
+    print(f"{bands} bands: forward K1 vs plain {forward_err:.3g}; {int(flips.sum())} of "
+          f"{flips.numel()} elements take another L1 sign through K1 (|pred - target| there "
+          f"{margin[flips].max().item() if flips.any() else 0:.3g} at most, "
+          f"{margin.min().item():.3g} at the least of all); the float64 path flips {flips64}")
+    errs = {}
+    for kind in kinds:
+        errs[kind] = (_errors(names, g_k1[kind], g_plain[kind]),
+                      _errors(names, g_k1[kind], g_64[kind]))
+        print(f"{bands} bands {kind}: K1 vs plain: {_summary(errs[kind][0])}; K1 with a chain a "
+              f"channel step vs plain: {_summary(_errors(names, g_k1_16[kind], g_plain[kind]))}"
+              f"; plain vs float64: {_summary(_errors(names, g_plain[kind], g_64[kind]))}; "
+              f"K1 vs float64: {_summary(errs[kind][1])}")
+    assert forward_err <= 5e-4 and bool((margin[flips] <= forward_err).all())
+    vs_plain, vs_64 = errs["l1_plain_signs"]
+    assert max(vs_plain.values()) <= 1e-3 and max(vs_64.values()) <= 1e-3
 
 
 @pytest.mark.parametrize("shape,variant", [
@@ -670,3 +865,35 @@ def test_auto_lowering_refuses_gradients_on_the_card(cuda):
         model(b["Res"], t, b["PAN"], b["MS"], torch.randn(768, device=cuda))
     with torch.no_grad():
         assert model(b["Res"], t, b["PAN"], b["MS"], torch.randn(768, device=cuda)).isfinite().all()
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A state on the card saved and restored into a fresh one: weights,
+    AdamW's moments (and their step counts, which stay on the host), the lr,
+    the schedule and the EMA bit for bit; one more step on each gives the
+    same bits."""
+    from tmdiff_tpu_torch.train import checkpoint as ckpt
+
+    batch, prompt = _card_batch(cuda), torch.randn(768, device=cuda)
+    trainer = _card_trainer(cuda)
+    state = trainer.init_state()
+    for _ in range(2):
+        trainer.train_step(state, batch, prompt)
+    ckpt.save_checkpoint(str(tmp_path), state, keep=1)
+    other = _card_trainer(cuda)
+    fresh = other.init_state()
+    ckpt.restore_checkpoint(str(tmp_path), fresh)
+
+    def parts(s):
+        opt = s.optimizer.state_dict()
+        tensors = [t for _, t in sorted(s.model.state_dict().items())] + list(s.ema_params)
+        for i in sorted(opt["state"]):
+            tensors += [opt["state"][i][k] for k in sorted(opt["state"][i])]
+        return s.step, [g["lr"] for g in opt["param_groups"]], tensors
+
+    for _ in range(2):
+        (step_a, lr_a, a), (step_b, lr_b, b) = parts(state), parts(fresh)
+        assert step_a == step_b and lr_a == lr_b and len(a) == len(b)
+        assert all(x.device == y.device and torch.equal(x, y) for x, y in zip(a, b))
+        trainer.train_step(state, batch, prompt)
+        other.train_step(fresh, batch, prompt)

@@ -151,14 +151,24 @@ def test_wrapper_checks_and_no_fallback(rng):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax/flax nor tmdiff_tpu."""
+    """The port and chip_smoke.py import neither jax/flax/orbax, cv2 nor
+    tmdiff_tpu; h5py only inside the functions that read or write an h5
+    file (the card's machine has no h5py)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "tmdiff_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|tmdiff_tpu(?!_torch))\b")
-    offenders = [f"{f}:{i}" for f in files
-                 for i, line in enumerate(open(f, encoding="utf-8"), 1) if bad.match(line)]
+    bad = re.compile(r"^\s*(import|from)\s+(jax|flax|orbax|cv2|tmdiff_tpu(?!_torch))\b")
+    h5 = re.compile(r"^(\s*)(import|from)\s+h5py\b")
+    lines = [(os.path.relpath(f, REPO), i, line) for f in files
+             for i, line in enumerate(open(f, encoding="utf-8"), 1)]
+    offenders = [f"{f}:{i}" for f, i, line in lines if bad.match(line)]
+    h5_imports = [(f, h5.match(line).group(1)) for f, i, line in lines if h5.match(line)]
     names = {os.path.relpath(f, REPO) for f in files}
     assert {"tmdiff_tpu_torch/ops/attention.py", "tmdiff_tpu_torch/ops/cuda/conv2d.py",
-            "tmdiff_tpu_torch/ops/cuda/flash_attention.py"} <= names
+            "tmdiff_tpu_torch/ops/cuda/flash_attention.py", "tmdiff_tpu_torch/cli.py",
+            "tmdiff_tpu_torch/config/config.py", "tmdiff_tpu_torch/eval/harness.py",
+            "tmdiff_tpu_torch/eval/metrics.py", "tmdiff_tpu_torch/eval/metrics_torch.py",
+            "tmdiff_tpu_torch/train/checkpoint.py", "tmdiff_tpu_torch/utils/export.py"} <= names
     assert len(files) > 10 and not offenders, offenders
+    readers = {"tmdiff_tpu_torch/data/h5.py", "tmdiff_tpu_torch/data/synthetic.py"}
+    assert h5_imports and all(f in readers and indent for f, indent in h5_imports), h5_imports

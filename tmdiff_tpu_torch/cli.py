@@ -1,0 +1,323 @@
+"""Config-driven train / val entry point (port of tmdiff_tpu/cli.py):
+
+    python -m tmdiff_tpu_torch.cli -c config.json -p train|val [-debug] [--device cpu]
+
+Builds per-sensor train iterators (the train_qb / train_gf2 / train_wv3
+dataset entries) mixed 4:4:8 by length-weighted probability, validates every
+`train.val_freq` steps on val_QB / val_GF2 / val_WV3 with .mat artifacts and
+metric logs, and checkpoints after each validation and at the end of the run
+(`train/checkpoint.py`). A SIGTERM or SIGINT ends training after the current
+step with a checkpoint, and `path.resume: "auto"` continues from the newest
+one. `path.resume` may also name a checkpoint root, one `I{step}` directory
+or a reference `.pth`.
+
+Runs on CUDA unless `--device` says otherwise, and raises without a card.
+`-gpu` is accepted for the reference's command line and ignored. Not ported
+yet: `-p distill` and the samplers other than dpm++, which the parser
+refuses by name.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import os
+import shutil
+import signal
+import subprocess
+import sys
+import threading
+import time
+
+import torch
+
+from tmdiff_tpu_torch.config import dict2str, parse_config
+
+PHASES = ("train", "val")
+SAMPLERS = ("dpm++",)
+# the JAX CLI's choices, refused here by name until the port has them
+_JAX_PHASES = ("train", "val", "distill")
+_JAX_SAMPLERS = ("dpm++", "dpm++_noise", "ancestral", "regression", "ddim")
+
+
+def setup_logger(name, root, filename, screen=False):
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.INFO)
+    # drop the handlers of an earlier run in this process, which would
+    # otherwise keep writing into that run's files
+    for h in list(logger.handlers):
+        logger.removeHandler(h)
+        h.close()
+    fmt = logging.Formatter("%(asctime)s.%(msecs)03d - %(levelname)s: %(message)s",
+                            "%y-%m-%d %H:%M:%S")
+    fh = logging.FileHandler(os.path.join(root, f"{filename}.log"), mode="w")
+    fh.setFormatter(fmt)
+    logger.addHandler(fh)
+    if screen:
+        sh = logging.StreamHandler()
+        sh.setFormatter(fmt)
+        logger.addHandler(sh)
+    return logger
+
+
+def snapshot_provenance(opt, config_path: str):
+    """Copies the package's source (without builds and caches) and the config
+    into the experiments directory, and records the git revision, the
+    resolved config and the command line in provenance.json."""
+    root = opt["path"]["experiments_root"]
+    code_dir = os.path.join(root, "code")
+    pkg_dir = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.exists(code_dir):
+        shutil.copytree(pkg_dir, os.path.join(code_dir, "tmdiff_tpu_torch"),
+                        ignore=shutil.ignore_patterns("build", "__pycache__", "*.pyc", "*.so"))
+    shutil.copyfile(config_path, os.path.join(root, os.path.basename(config_path)))
+    try:
+        rev = subprocess.run(["git", "rev-parse", "HEAD"], cwd=pkg_dir, capture_output=True,
+                             text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        rev = ""
+    with open(os.path.join(root, "provenance.json"), "w") as f:
+        json.dump({"git_rev": rev, "config": dict(opt), "argv": sys.argv}, f, indent=2,
+                  default=str)
+
+
+SENSOR_OF_PHASE = {
+    "train_qb": "QB", "train_gf2": "GF2", "train_wv3": "WV3",
+    "val_QB": "QB", "val_GF2": "GF2", "val_WV3": "WV3",
+}
+
+
+def train_seed(opt) -> int:
+    # a None check: seed 0 is a valid seed of its own
+    seed = (opt["train"] or {}).get("seed")
+    return 3407 if seed is None else int(seed)
+
+
+def build_datasets(opt, phase):
+    """(SensorMixer over the train sets or None, {sensor: val PanDataset})
+    from the config's dataset entries (h5 files)."""
+    from tmdiff_tpu_torch.data.h5 import PanDataset
+    from tmdiff_tpu_torch.data.pipeline import BatchIterator, SensorMixer
+
+    seed = train_seed(opt)
+    train_iters, val_sets = {}, {}
+    for name, ds_opt in (opt["datasets"] or {}).items():
+        sensor = SENSOR_OF_PHASE.get(name)
+        if sensor is None:
+            continue
+        if name.startswith("train") and phase == "train":
+            ds = PanDataset(ds_opt["dataroot"], data_len=ds_opt["data_len"] or -1)
+            train_iters[sensor] = BatchIterator(ds, batch_size=ds_opt["batch_size"] or 8,
+                                                shuffle=bool(ds_opt["use_shuffle"]), seed=seed)
+        elif name.startswith("val"):
+            val_sets[sensor] = PanDataset(ds_opt["dataroot"], data_len=ds_opt["data_len"] or -1)
+    mixer = SensorMixer(train_iters, seed=seed) if train_iters else None
+    return mixer, val_sets
+
+
+def make_feeder(mixer, sharp, train_opt):
+    """The train loop's input: host batches assembled on a worker thread,
+    sent to the card one step ahead (runtime/prefetch.py::DeviceFeeder;
+    `train.prefetch = 0` runs it serially), each with its sensor's prompt
+    row, which the sampler's table holds on the card already. Yields
+    (batch {Res, PAN, MS}, prompt (768,), batch size); closing the
+    generator stops the worker."""
+    from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
+
+    depth = train_opt.get("prefetch")
+    source = (({k: batch[k] for k in ("Res", "PAN", "MS")}, sensor) for batch, sensor in mixer)
+    feeder = DeviceFeeder(source, device=sharp.device, depth=2 if depth is None else int(depth))
+    try:
+        for batch, sensor in feeder:
+            yield batch, sharp.prompt_embedding(sensor), len(batch["Res"])
+    finally:
+        feeder.close()
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(prog="python -m tmdiff_tpu_torch.cli")
+    parser.add_argument("-c", "--config", type=str, required=True)
+    parser.add_argument("-p", "--phase", type=str, default="val", choices=_JAX_PHASES)
+    parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)  # accepted, unused
+    parser.add_argument("-debug", "-d", action="store_true", dest="debug")
+    parser.add_argument("-log_eval", action="store_true")
+    parser.add_argument("--sampler", type=str, default="dpm++", choices=_JAX_SAMPLERS)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device; CUDA when not given")
+    args = parser.parse_args(argv)
+    if args.phase not in PHASES:
+        parser.error(f"-p {args.phase} is not ported to tmdiff_tpu_torch yet; "
+                     f"it runs {' and '.join(PHASES)}")
+    if args.sampler not in SAMPLERS:
+        parser.error(f"--sampler {args.sampler} is not ported to tmdiff_tpu_torch yet; "
+                     f"it samples with {', '.join(SAMPLERS)}")
+    return args
+
+
+@contextlib.contextmanager
+def stop_on_signals(active: bool = True):
+    """Yields a {"flag": False} that SIGTERM or SIGINT sets, so the train
+    loop ends after its current step with a checkpoint; a second SIGINT
+    raises KeyboardInterrupt. The previous handlers come back on exit.
+    Signals can be caught only in the main thread; elsewhere (or with
+    active=False) nothing is installed."""
+    stop = {"flag": False}
+    previous = {}
+
+    def request_stop(signum, frame):
+        if stop["flag"] and signum == signal.SIGINT:
+            raise KeyboardInterrupt
+        stop["flag"] = True
+
+    if active and threading.current_thread() is threading.main_thread():
+        for s in (signal.SIGTERM, signal.SIGINT):
+            previous[s] = signal.signal(s, request_stop)
+    try:
+        yield stop
+    finally:
+        for s, h in previous.items():
+            signal.signal(s, h)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    opt = parse_config(args.config, phase=args.phase, debug=args.debug)
+    opt["log_eval"] = args.log_eval
+    # the handlers go in before the model is built, so that a SIGTERM at any
+    # point after start-up asks for a clean checkpoint-and-exit
+    with stop_on_signals(args.phase == "train") as stop:
+        _run(args, opt, stop)
+
+
+def _run(args, opt, stop, datasets=None):
+    """The run of a parsed config. `datasets` = (mixer, val_sets) as
+    build_datasets returns them, to run on data built in memory; None reads
+    the config's h5 files. Returns (trainer, state) at the end."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.eval.harness import validate
+    from tmdiff_tpu_torch.models.init_styles import apply_init_style
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
+    from tmdiff_tpu_torch.train.trainer import Trainer
+    from tmdiff_tpu_torch.utils.device import resolve_device
+
+    logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
+    val_logger = setup_logger("val", opt["path"]["log"], "val")
+    logger.info(opt.get("info", opt["name"]))
+    logger.info(dict2str(opt))
+    snapshot_provenance(opt, args.config)
+
+    device = resolve_device(args.device)
+    mixer, val_sets = datasets if datasets is not None else build_datasets(opt, args.phase)
+    if args.phase == "train":
+        # the JAX CLI draws the mixer's first batch to shape its state; drawing
+        # it here too trains on the same sequence of batches
+        next(mixer)
+    logger.info("Initial Dataset Finished")
+
+    sched_opt = opt["model"]["beta_schedule"]["val" if args.phase == "val" else "train"]
+    channels = tuple(opt["model"]["unet"]["channel_multiplier"] or (32, 64, 128, 256))
+    seed = train_seed(opt)
+    model = WavBEST(channels, device=device, seed=seed)
+    init_type = opt["model"]["init_type"]
+    if args.phase == "train" and init_type:
+        # the JAX CLI's init key: 7 with no train.seed, else the seed + 7
+        seed_opt = (opt["train"] or {}).get("seed")
+        init_seed = 7 if seed_opt is None else int(seed_opt) + 7
+        apply_init_style(model, init_type, torch.Generator().manual_seed(init_seed))
+        logger.info(f"Applied init_type [{init_type}]")
+
+    train_opt = opt["train"] or {}
+    trainer = Trainer(
+        model, NoiseSchedule.create(sched_opt["schedule"], sched_opt["n_timestep"]),
+        lr=(train_opt.get("optimizer") or {}).get("lr", 1e-4),
+        max_iter=train_opt.get("max_iter", 300_000),
+        loss_type=(opt["model"]["diffusion"] or {}).get("loss_type", "l1"),
+        p_uncond=train_opt.get("p_uncond", 0.0), seed=seed)
+    state = trainer.init_state()
+    # one sampler for the run: its prompt table serves the train loop too;
+    # `params` picks the online or the EMA weights per validation
+    sharp = Pansharpener(model, schedule_name=sched_opt["schedule"],
+                         n_timestep=sched_opt["n_timestep"], device=device)
+
+    resume = opt["path"]["resume"]
+    ckpt_dir = opt["path"]["checkpoint"]
+    if resume == "auto":
+        if ckpt_lib.latest_step(ckpt_dir) is not None:
+            ckpt_lib.restore_checkpoint(ckpt_dir, state)
+            logger.info(f"Auto-resumed from {ckpt_dir} at step {state.step}")
+        else:
+            logger.info(f"Auto-resume: no checkpoint in {ckpt_dir}, fresh start")
+    elif resume:
+        if resume.endswith(".pth") or os.path.exists(resume + "_gen.pth"):
+            path = resume if resume.endswith(".pth") else resume + "_gen.pth"
+            ckpt_lib.import_reference_checkpoint(path, state)
+            logger.info(f"Imported reference torch checkpoint {path}")
+        else:
+            root, name = os.path.split(os.path.normpath(resume))
+            step = int(name[1:]) if name[:1] == "I" and name[1:].isdigit() else None
+            ckpt_lib.restore_checkpoint(resume if step is None else root, state, step=step)
+            logger.info(f"Restored checkpoint from {resume} at step {state.step}")
+    current_step = state.step
+    logger.info("Initial Model Finished")
+
+    def run_validation():
+        use_ema = bool(train_opt.get("use_ema_eval"))
+        params = (dict(zip((n for n, _ in model.named_parameters()), state.ema_params))
+                  if use_ema else None)
+        for sensor, ds in val_sets.items():
+            scores = validate(
+                sharp, ds, sensor, result_dir=os.path.join(opt["path"]["results"], sensor),
+                method=args.sampler, batch_size=int(opt.get("val_batch_size") or 4),
+                max_images=int(opt.get("val_max_images") or -1), params=params,
+                log_file=(os.path.join(opt["path"]["results"], "eval_metrics.jsonl")
+                          if opt["log_eval"] else None))
+            logger.info(f"step {state.step} {sensor} {scores}")
+            val_logger.info(f"step {state.step} {sensor} {scores}")
+            print(state.step, sensor, scores)
+
+    if args.phase == "train":
+        max_iter = train_opt.get("max_iter", 300_000)
+        print_freq = train_opt.get("print_freq", 50)
+        val_freq = train_opt.get("val_freq", 5000)
+        keep = train_opt.get("ckpt_keep")  # None keeps every checkpoint, as the reference
+        last_print = (time.monotonic(), current_step)
+        last_saved = current_step  # the resume point (or step 0) is on disk already
+        feeder = make_feeder(mixer, sharp, train_opt)
+        try:
+            while current_step < max_iter and not stop["flag"]:
+                batch, emb, bsz = next(feeder)
+                state, metrics = trainer.train_step(state, batch, emb)
+                current_step += 1
+                if current_step % print_freq == 0:
+                    now = time.monotonic()
+                    dt, dsteps = now - last_print[0], current_step - last_print[1]
+                    last_print = (now, current_step)
+                    logger.info(f"step {current_step} "
+                                + " ".join(f"{k}: {float(v):.3e}" for k, v in metrics.items())
+                                + f" img/s: {dsteps * bsz / dt if dt > 0 else 0.0:.1f}")
+                if current_step % val_freq == 0:
+                    run_validation()
+                    ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep)
+                    last_saved = current_step
+        finally:
+            feeder.close()
+        if current_step != last_saved:
+            # the end of the run (or a stop) between validations: the state
+            # still goes to disk
+            path = ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep)
+            if stop["flag"]:
+                logger.info(f"Preemption signal: checkpointed step {current_step} to {path}; "
+                            "resume with path.resume='auto'")
+            else:
+                logger.info(f"Final checkpoint: step {current_step} to {path}")
+    else:
+        logger.info("Begin Model Evaluation.")
+        run_validation()
+    return trainer, state
+
+
+if __name__ == "__main__":
+    main()

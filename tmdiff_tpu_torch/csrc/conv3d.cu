@@ -294,6 +294,17 @@ __host__ __device__ constexpr int tc_min_blocks(int bn) { return bn == 32 ? 2 : 
 __host__ __device__ constexpr int tc_consumer_regs(int bn) { return bn == 32 ? 104 : 232; }
 __host__ __device__ constexpr int tc_producer_regs(int bn) { return bn == 32 ? 32 : 40; }
 
+// Accumulation chains. The tensor cores add each wgmma's products into the
+// fp32 accumulator without IEEE round-to-nearest: the error grows with the
+// adds in one chain (5.96e-5 of the output's scale over the 16 channel steps
+// of K = 27 x 256, 3.4e-6 over one step, the steps' partial sums added in
+// fp32; an NVIDIA H100 80GB HBM3 at 700 W). So the BN = 64 instances start
+// a chain at every channel step and add it into a second accumulator. BN =
+// 128 has no registers for that, and BN = 32 (two blocks an SM, 80
+// registers a thread at compile time) spills with it: they keep one chain a
+// split, within 8e-5 of the output's scale at the main path's deepest sums.
+__host__ __device__ constexpr bool tc_promotes(int bn) { return bn == 64; }
+
 template <int KD, int BN>
 struct TcTile {
   static constexpr int TW = 16, TD = KD == 3 ? 4 : 1, TH = 16 / TD;  // 16 lines of 16
@@ -370,11 +381,14 @@ __device__ __forceinline__ void consume(
     const int L = 4 * (2 * wg + mb) + warp;
     row0[mb] = ((L / T::TH) * T::HH + L % T::TH) * T::HW + g;
   }
-  float acc[2][BN / 2];
+  // acc takes one accumulation chain's wgmmas; with promotion each channel
+  // step starts a fresh chain and adds it into sum with IEEE fp32 adds.
+  constexpr bool kPromote = tc_promotes(BN);
+  float acc[2][BN / 2], sum[2][BN / 2];
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb)
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[mb][i] = 0.f;
+    for (int i = 0; i < BN / 2; ++i) acc[mb][i] = sum[mb][i] = 0.f;
 
   const float* sb = style ? style + (long long)b * Cin : nullptr;
   int step = 0;
@@ -445,6 +459,15 @@ __device__ __forceinline__ void consume(
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&halo_empty[hs]);
+    if constexpr (kPromote) {
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          sum[mb][i] += acc[mb][i];
+          acc[mb][i] = 0.f;
+        }
+    }
   }
 
   // Epilogue. Accumulator j of a row block holds (row g, col 8 j + 2 t),
@@ -459,7 +482,7 @@ __device__ __forceinline__ void consume(
     const long long line = (((long long)b * D + gd) * H + gh) * W;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
-      const float* a = &acc[mb][4 * j];
+      const float* a = kPromote ? &sum[mb][4 * j] : &acc[mb][4 * j];
       if (vec) {
         // Lanes t and t ^ 1 trade halves: an even t stores row g, channels
         // 8 j + 2 t .. + 3; an odd t row g + 8, channels 8 j + 2 (t - 1) .. + 3.
@@ -641,8 +664,8 @@ int sm_count() {
 }
 
 // The variant and tiling of one shape. splits <= 0 chooses the split count
-// from the card's SMs (the split-K rule above); splits > 0 takes the count
-// that an earlier plan of the same shape chose, and never gives more.
+// from the card's SMs (the split-K rule above); splits > 0 takes that count,
+// at most one split a channel step.
 Plan make_plan(int kd, int B, int D, int H, int W, int Cin, int Cout, const void* x,
                int splits) {
   Plan p;
@@ -760,9 +783,11 @@ extern "C" {
 // tensor cores, 2: the same with split-K), the split count to pass them and
 // the workspace bytes it needs (0 for the FMA variant), on the current
 // device; kd = 3 for tmdiff_conv3d_333, 1 for tmdiff_conv2d_33 (with D = 1).
+// *splits comes in as the split count wanted (0: the split-K rule's) and
+// goes out as the count the entries will take.
 int tmdiff_conv_plan(int kd, int B, int D, int H, int W, int Cin, int Cout, const void* x,
                      long long* workspace_bytes, int* splits) {
-  const Plan p = make_plan(kd, B, D, H, W, Cin, Cout, x, 0);
+  const Plan p = make_plan(kd, B, D, H, W, Cin, Cout, x, *splits);
   *workspace_bytes = p.bytes;
   *splits = p.splits;
   return p.variant;

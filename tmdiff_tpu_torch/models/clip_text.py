@@ -107,3 +107,37 @@ def load_prompt_table() -> tuple[np.ndarray, dict[str, int], bool]:
         return table, index, is_real
     table = np.stack([placeholder_text_embedding(SENSOR_PROMPTS[s]) for s in SENSORS])
     return table, index, False
+
+
+def get_prompt_embedding(sensor: str) -> np.ndarray:
+    """The (768,) row of one sensor."""
+    table, index, _ = load_prompt_table()
+    if sensor not in index:
+        raise ValueError(f"unknown sensor {sensor!r}; known: {list(index)}")
+    return table[index[sensor]]
+
+
+def is_real_clip() -> bool:
+    return load_prompt_table()[2]
+
+
+def clip_mode() -> str:
+    """The stamp every evaluation artifact carries (.mat files): 'real-clip'
+    when the table came from the true clip-vit-large-patch14 export, else
+    'placeholder-clip', so that outputs conditioned on the placeholder never
+    pass for results of the reference's conditioning."""
+    return "real-clip" if is_real_clip() else "placeholder-clip"
+
+
+def require_real_clip(context: str) -> None:
+    """Refuses what depends on the true CLIP conditioning (importing a
+    trained reference checkpoint, a reference-parity evaluation) while the
+    table is the placeholder. TMDIFF_ALLOW_FAKE_CLIP=1 lets structural work
+    through (shapes, weight transplants) that claims no fidelity."""
+    if is_real_clip() or os.environ.get("TMDIFF_ALLOW_FAKE_CLIP"):
+        return
+    raise RuntimeError(
+        f"{context} requires the real CLIP prompt-embedding table, but {_TABLE_PATH} is "
+        "absent or a placeholder (is_real_clip=False). Copy there the table that "
+        "tools/export_clip_embeddings.py writes from openai/clip-vit-large-patch14, or set "
+        "TMDIFF_ALLOW_FAKE_CLIP=1 to proceed without fidelity claims.")

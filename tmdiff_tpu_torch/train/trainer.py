@@ -23,6 +23,7 @@ kernel has no backward.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Optional
 
@@ -61,6 +62,32 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     ema_params: list  # one tensor per model parameter, in model.parameters() order
+
+    def state_dict(self) -> dict:
+        """Everything a resumed run needs, as tensors and Python scalars
+        (references to the live tensors, not copies): the step, the model's
+        weights, AdamW's moments and step counts, the schedule's position and
+        the EMA."""
+        return {"step": int(self.step), "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": self.scheduler.state_dict(), "ema_params": list(self.ema_params)}
+
+    def load_state_dict(self, sd: dict) -> "TrainState":
+        """Loads a `state_dict()` into this state in place (the model's and
+        the EMA's tensors keep their devices) and shares no tensor with
+        `sd`; returns it."""
+        self.model.load_state_dict(sd["model"], strict=True)
+        # the optimiser would keep the given moment tensors themselves
+        self.optimizer.load_state_dict(copy.deepcopy(sd["optimizer"]))
+        self.scheduler.load_state_dict(sd["scheduler"])
+        if len(sd["ema_params"]) != len(self.ema_params):
+            raise ValueError(f"{len(sd['ema_params'])} EMA tensors for {len(self.ema_params)} "
+                             "parameters")
+        with torch.no_grad():
+            for e, v in zip(self.ema_params, sd["ema_params"]):
+                e.copy_(v)
+        self.step = int(sd["step"])
+        return self
 
 
 @dataclasses.dataclass
