@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100 is the
 target): builds the CUDA kernels from `tmdiff_tpu_torch/csrc/`, holds each
 against its plain PyTorch version at the shapes its path gives it, then
-serves dpm++ pansharpening requests on a seeded full-width WavBEST (channels
-32, 64, 128, 256; 256x256, batch 2) under both conv lowerings, and runs the
-attention library at SD-style widths.
+serves pansharpening requests on a seeded full-width WavBEST (channels
+32, 64, 128, 256; 256x256, batch 2) under both conv lowerings with every
+sampler, runs the attention library at SD-style widths, trains, and drives
+the CLI's train, val and distill phases.
 
     python3 chip_smoke.py
 
@@ -42,6 +43,22 @@ Phases (any failure ends the run with a non-zero exit code):
   6. auto      the WV3 and QB requests again through the "auto" model (K1 and
                K3), counts reset just before and read just after, by
                variant as in serve; each image against the "banded" one.
+     samplers  every other sampler of the Pansharpener, each request with
+               the counts reset just before and read just after and its
+               denoise, denoise_deep and denoise_reuse calls counted:
+               dpm++_noise (51 calls), dpm++_cfg at guidance 3 and (3, 1.5)
+               (50 calls at batch 4), regression (1), ddim 50 and 20,
+               ddim_cached 20 at refresh_every 2 and cache levels 1 and 3
+               and on a static 7-refresh schedule, all WV3 8-band batch 2
+               256x256 "banded"; ancestral (T = 1000, 10 frames) on a QB
+               4-band 128x128 image, batch 1; dpm++_cfg and ddim_cached
+               through "auto" (K3); sample_tiled on a 512x512 QB scene
+               (256 tiles, overlap 32, 8 crops a call, ddim 10). Each
+               image (and the frames) against the same request through the
+               plain convs; K1 and K3 launches by variant against the
+               count the calls give; seconds and calls/s. Then each
+               wrapper against its plain version at every (shape, options)
+               the requests gave it.
   7. attention K4: flash attention against attention_reference and
                F.scaled_dot_product_attention (a yardstick only) at
                self-attention over 64x64 tokens (8 heads x 64), cross-attention
@@ -85,6 +102,16 @@ Phases (any failure ends the run with a non-zero exit code):
                back bit for bit. Prints s/step and img/s of the CLI loop,
                sec_per_image per sensor, checkpoint bytes and save/restore
                seconds.
+ 10. distill   `-p distill` through the CLI's `_run` from the cli phase's
+               I7 checkpoint (EMA teacher): phases N = 10 and 5 of 6 steps
+               on the train phase's batches, each student checkpointed
+               (distill_N10, distill_N5, the student in both weight slots)
+               and validated with ddim at N steps; counts reset just before
+               and read just after (per step: two teacher calls and the
+               student's forward and remat recompute through K1, its input
+               and weight gradients). Then the distillation loss and every
+               gradient through K1 against the plain convs at 8 and 4 bands
+               from I7, with the plain path's L1 signs; prints s/step.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
 {"kernels": [...]} summary.
@@ -104,7 +131,10 @@ difference of its target; remat on and off agree bit for bit. The CLI:
 a restored checkpoint and a step after it bit for bit; the scores on the
 card against the host's: SAM to 1e-5 relative (the numpy suite's), SSIM to
 1e-3 (the host's Gaussian-window SSIM, the same statistic; the numpy
-suite's uniform-window SSIM is printed beside it).
+suite's uniform-window SSIM is printed beside it). Distillation: the loss
+to 1e-4 relative and every gradient to 1e-3 of its scale as in training;
+(prediction - target) to 1e-4 absolute, since the target passes two
+teacher calls and a division by down to 0.155.
 """
 from __future__ import annotations
 
@@ -113,8 +143,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -488,23 +520,30 @@ def model_phase(model, K, gen):
 
 
 class DenoiseCounter:
-    """Counts the model's denoise calls while installed."""
+    """Counts the model's denoise calls while installed: `calls` all of
+    them (denoise, denoise_deep, denoise_reuse), `reuse_calls` those on a
+    cached trunk."""
+
+    NAMES = ("denoise", "denoise_deep", "denoise_reuse")
 
     def __init__(self, model):
-        self.model, self.calls = model, 0
+        self.model, self.calls, self.reuse_calls = model, 0, 0
 
     def __enter__(self):
-        denoise = self.model.denoise
+        for name in self.NAMES:
+            fn = getattr(self.model, name)
 
-        def counted(*args, **kw):
-            self.calls += 1
-            return denoise(*args, **kw)
+            def counted(*args, _fn=fn, _reuse=name == "denoise_reuse", **kw):
+                self.calls += 1
+                self.reuse_calls += _reuse
+                return _fn(*args, **kw)
 
-        self.model.denoise = counted
+            setattr(self.model, name, counted)
         return self
 
     def __exit__(self, *exc):
-        del self.model.denoise
+        for name in self.NAMES:
+            delattr(self.model, name)
 
 
 def check_image(img, batch) -> bool:
@@ -1261,7 +1300,7 @@ def run_cli(cfg_path, phase, datasets, stop=None):
     args = cli.parse_args(["-c", cfg_path, "-p", phase])
     opt = parse_config(cfg_path, phase=phase)
     opt["log_eval"] = False
-    with cli.stop_on_signals(phase == "train") as stop:
+    with cli.stop_on_signals(phase in ("train", "distill")) as stop:
         return cli._run(args, opt, stop, datasets=datasets)
 
 
@@ -1325,176 +1364,561 @@ def cli_val_scores(state, val_sets, ref_scores):
     return worst
 
 
-def cli_phase(K, K3, K4, train_median_s):
-    """The main path of this slice: the CLI's train run, counts reset just
-    before and read just after, then the checks listed in the docstring."""
-    import shutil
+def cli_val_sets():
+    """Two 256x256 synthetic scenes a sensor, the CLI's validation sets."""
+    from tmdiff_tpu_torch.data.h5 import PanDataset
+    from tmdiff_tpu_torch.data.synthetic import make_arrays
+
+    return {s: PanDataset(make_arrays(CLI_VAL_SCENES, bands, CLI_VAL_SIZE, seed=20 + seed))
+            for s, (bands, seed) in TRAIN_SENSORS.items()}
+
+
+def cli_phase(K, K3, K4, train_median_s, root):
+    """The CLI's train run under `root` (its I7 checkpoint stays there for the
+    distill phase), counts reset just before and read just after, then the
+    checks listed in the docstring."""
     import signal
-    import tempfile
     import threading
 
     import scipy.io as scio
 
-    from tmdiff_tpu_torch.data.h5 import PanDataset
-    from tmdiff_tpu_torch.data.synthetic import make_arrays
     from tmdiff_tpu_torch.models.clip_text import clip_mode, get_prompt_embedding
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
-    from tmdiff_tpu_torch.train.trainer import Trainer
 
     _, _, _, train_sets = train_setup()
-    val_sets = {s: PanDataset(make_arrays(CLI_VAL_SCENES, bands, CLI_VAL_SIZE, seed=20 + seed))
-                for s, (bands, seed) in TRAIN_SENSORS.items()}
-    root = tempfile.mkdtemp(prefix="tmdiff_cli_")
-    try:
-        cfg = cli_config(root, "train")
-        with CliProbe() as probe:
-            reset_counts(K, K3, K4)
-            t0 = time.perf_counter()
-            trainer, state = run_cli(cfg, "train", (mixer_for(train_sets, SEED), val_sets))
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n = counts(K, K3, K4)
-        ckpt_dir = os.path.join(root, "train", "checkpoint")
-        kept = sorted(os.listdir(ckpt_dir))
-        steps = np.diff(probe.step_ends)
-        # intervals inside a stretch of training, not across a validation
-        loop = [d for i, d in enumerate(steps, 2) if (i - 1) % CLI_VAL_FREQ]
-        s_step = float(np.median(loop))
-        print(f"[cli] train: {CLI_MAX_ITER} steps of batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} "
-              f"with validation at {list(range(CLI_VAL_FREQ, CLI_MAX_ITER + 1, CLI_VAL_FREQ))}: "
-              f"{wall:.2f} s in all; the loop's median {s_step:.4f} s/step "
-              f"({TRAIN_BATCH / s_step:.1f} img/s) over {len(loop)} steps (the train phase's "
-              f"8-band step {train_median_s[8]:.4f} s, 4-band {train_median_s[4]:.4f} s); "
-              f"launches {n}; checkpoints on disk {kept}", flush=True)
-        if n["k1_forward"] == 0 or n["k1_input_grad"] == 0 or n["k3"] or n["k4"]:
-            fail(f"the CLI's run launched {n}")
-        if kept != ["I6", "I7"]:
-            fail(f"checkpoints {kept}, expected I6 and I7 (I3 pruned)")
-        saves = probe.saves
-        for step, sec, nbytes in saves:
-            print(f"[cli] checkpoint I{step}: {nbytes} bytes, saved in {sec:.3f} s", flush=True)
-        mats = 0
-        for sensor, ds in val_sets.items():
-            for i in range(len(ds)):
-                mat = scio.loadmat(os.path.join(root, "train", "results", sensor,
-                                                f"output_mulExm_{i}.mat"))
-                if (mat["sr"].shape != (CLI_VAL_SIZE, CLI_VAL_SIZE, ds.bands)
-                        or str(mat["clip_mode"][0]) != clip_mode()):
-                    fail(f"{sensor} .mat {i}: shape {mat['sr'].shape}, stamp {mat['clip_mode']}")
-                mats += 1
-        scores = probe.scores
-        if len(scores) != 2 * len(val_sets) or not all(
-                np.isfinite(v) for sc in scores for v in sc.values()):
-            fail(f"validation scores {scores}")
-        sec_per_image = {k: v for sc in scores[-len(val_sets):] for k, v in sc.items()
-                         if k.startswith("sec_per_image")}
-        print(f"[cli] validations: {len(scores)} (EMA weights); {mats} .mat files of "
-              f"{CLI_VAL_SIZE}x{CLI_VAL_SIZE}, stamped {clip_mode()!r}; last scores "
-              f"{scores[-len(val_sets):]}", flush=True)
-
-        # restore I7 into a fresh state: bit for bit; then one step on each
-        new_trainer = dataclasses.replace(trainer, model=WavBEST(CHANNELS, device=DEV, seed=1))
-        fresh = new_trainer.init_state()
-        torch.cuda.synchronize()
+    val_sets = cli_val_sets()
+    cfg = cli_config(root, "train")
+    with CliProbe() as probe:
+        reset_counts(K, K3, K4)
         t0 = time.perf_counter()
-        ckpt_lib.restore_checkpoint(ckpt_dir, fresh, step=CLI_MAX_ITER)
+        trainer, state = run_cli(cfg, "train", (mixer_for(train_sets, SEED), val_sets))
         torch.cuda.synchronize()
-        restore_s = time.perf_counter() - t0
-        diff = same_state(state, fresh)
-        print(f"[cli] I7 restored in {restore_s:.3f} s into a fresh state: parts that differ "
-              f"{diff or 'none'}", flush=True)
-        if diff:
-            fail(f"the restored state differs: {diff[:8]}")
-        batch, sensor = next(mixer_for(train_sets, SEED + 7))
-        prompt = torch.as_tensor(get_prompt_embedding(sensor), device=DEV)
-        trainer.train_step(state, batch, prompt)
-        new_trainer.train_step(fresh, batch, prompt)
-        diff = same_state(state, fresh)
-        print(f"[cli] one more step on the state in memory and on the restored one: parts "
-              f"that differ {diff or 'none'}", flush=True)
-        if diff:
-            fail(f"a step after the restore differs: {diff[:8]}")
+        wall = time.perf_counter() - t0
+        n = counts(K, K3, K4)
+    ckpt_dir = os.path.join(root, "train", "checkpoint")
+    kept = sorted(os.listdir(ckpt_dir))
+    steps = np.diff(probe.step_ends)
+    # intervals inside a stretch of training, not across a validation
+    loop = [d for i, d in enumerate(steps, 2) if (i - 1) % CLI_VAL_FREQ]
+    s_step = float(np.median(loop))
+    print(f"[cli] train: {CLI_MAX_ITER} steps of batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} "
+          f"with validation at {list(range(CLI_VAL_FREQ, CLI_MAX_ITER + 1, CLI_VAL_FREQ))}: "
+          f"{wall:.2f} s in all; the loop's median {s_step:.4f} s/step "
+          f"({TRAIN_BATCH / s_step:.1f} img/s) over {len(loop)} steps (the train phase's "
+          f"8-band step {train_median_s[8]:.4f} s, 4-band {train_median_s[4]:.4f} s); "
+          f"launches {n}; checkpoints on disk {kept}", flush=True)
+    if n["k1_forward"] == 0 or n["k1_input_grad"] == 0 or n["k3"] or n["k4"]:
+        fail(f"the CLI's run launched {n}")
+    if kept != ["I6", "I7"]:
+        fail(f"checkpoints {kept}, expected I6 and I7 (I3 pruned)")
+    saves = probe.saves
+    for step, sec, nbytes in saves:
+        print(f"[cli] checkpoint I{step}: {nbytes} bytes, saved in {sec:.3f} s", flush=True)
+    mats = 0
+    for sensor, ds in val_sets.items():
+        for i in range(len(ds)):
+            mat = scio.loadmat(os.path.join(root, "train", "results", sensor,
+                                            f"output_mulExm_{i}.mat"))
+            if (mat["sr"].shape != (CLI_VAL_SIZE, CLI_VAL_SIZE, ds.bands)
+                    or str(mat["clip_mode"][0]) != clip_mode()):
+                fail(f"{sensor} .mat {i}: shape {mat['sr'].shape}, stamp {mat['clip_mode']}")
+            mats += 1
+    scores = probe.scores
+    if len(scores) != 2 * len(val_sets) or not all(
+            np.isfinite(v) for sc in scores for v in sc.values()):
+        fail(f"validation scores {scores}")
+    sec_per_image = {k: v for sc in scores[-len(val_sets):] for k, v in sc.items()
+                     if k.startswith("sec_per_image")}
+    print(f"[cli] validations: {len(scores)} (EMA weights); {mats} .mat files of "
+          f"{CLI_VAL_SIZE}x{CLI_VAL_SIZE}, stamped {clip_mode()!r}; last scores "
+          f"{scores[-len(val_sets):]}", flush=True)
 
-        # SIGTERM after step 2, then path.resume "auto"
-        cfg = cli_config(root, "auto", max_iter=1000, val_freq=1000)
-        log = os.path.join(root, "auto", "logs", "train.log")
-        done = threading.Event()
+    # restore I7 into a fresh state: bit for bit; then one step on each
+    new_trainer = dataclasses.replace(trainer, model=WavBEST(CHANNELS, device=DEV, seed=1))
+    fresh = new_trainer.init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt_lib.restore_checkpoint(ckpt_dir, fresh, step=CLI_MAX_ITER)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    diff = same_state(state, fresh)
+    print(f"[cli] I7 restored in {restore_s:.3f} s into a fresh state: parts that differ "
+          f"{diff or 'none'}", flush=True)
+    if diff:
+        fail(f"the restored state differs: {diff[:8]}")
+    batch, sensor = next(mixer_for(train_sets, SEED + 7))
+    prompt = torch.as_tensor(get_prompt_embedding(sensor), device=DEV)
+    trainer.train_step(state, batch, prompt)
+    new_trainer.train_step(fresh, batch, prompt)
+    diff = same_state(state, fresh)
+    print(f"[cli] one more step on the state in memory and on the restored one: parts "
+          f"that differ {diff or 'none'}", flush=True)
+    if diff:
+        fail(f"a step after the restore differs: {diff[:8]}")
 
-        def stop_after(marker):
-            while not done.is_set():
-                try:
-                    with open(log) as f:
-                        if marker in f.read():
-                            os.kill(os.getpid(), signal.SIGTERM)
-                            return
-                except OSError:
-                    pass
-                time.sleep(0.02)
+    # SIGTERM after step 2, then path.resume "auto"
+    cfg = cli_config(root, "auto", max_iter=1000, val_freq=1000)
+    log = os.path.join(root, "auto", "logs", "train.log")
+    done = threading.Event()
 
-        killer = threading.Thread(target=stop_after, args=(f"step {CLI_STOP_AFTER} ",))
-        killer.start()
-        try:
-            run_cli(cfg, "train", (mixer_for(train_sets, SEED), {}))
-        finally:
-            done.set()
-            killer.join(10)
-        auto_dir = os.path.join(root, "auto", "checkpoint")
-        stopped = ckpt_lib.latest_step(auto_dir)
-        if stopped is None or not CLI_STOP_AFTER <= stopped < 1000:
-            fail(f"SIGTERM left checkpoint {stopped}")
-        cfg = cli_config(root, "auto", max_iter=stopped + 1, val_freq=1000)
-        with open(cfg) as f:
-            auto = json.load(f)
-        auto["path"]["resume"] = "auto"
-        with open(cfg, "w") as f:
-            json.dump(auto, f)
+    def stop_after(marker):
+        while not done.is_set():
+            try:
+                with open(log) as f:
+                    if marker in f.read():
+                        os.kill(os.getpid(), signal.SIGTERM)
+                        return
+            except OSError:
+                pass
+            time.sleep(0.02)
+
+    killer = threading.Thread(target=stop_after, args=(f"step {CLI_STOP_AFTER} ",))
+    killer.start()
+    try:
         run_cli(cfg, "train", (mixer_for(train_sets, SEED), {}))
-        with open(log) as f:
-            resumed = f"Auto-resumed from {auto_dir} at step {stopped}" in f.read()
-        resumed_to = ckpt_lib.latest_step(auto_dir)
-        print(f"[cli] SIGTERM after step {CLI_STOP_AFTER}: checkpoint I{stopped}; the run with "
-              f"path.resume 'auto' resumed there: {resumed}, ended at I{resumed_to}", flush=True)
-        if not resumed or resumed_to != stopped + 1:
-            fail("path.resume 'auto' did not continue from the saved step")
-
-        # -p val on I7 with the EMA weights
-        cfg = cli_config(root, "val")
-        with open(cfg) as f:
-            val = json.load(f)
-        val["path"]["resume"] = os.path.join(ckpt_dir, f"I{CLI_MAX_ITER}")
-        with open(cfg, "w") as f:
-            json.dump(val, f)
-        with CliProbe() as probe:
-            _, val_state = run_cli(cfg, "val", (None, val_sets))
-        ref = {s: sc for s, sc in zip(val_sets, probe.scores)}
-        metric_err = cli_val_scores(val_state, val_sets, ref)
-
-        # I7 as a reference .pth and back
-        exported = os.path.join(root, f"I{CLI_MAX_ITER}_gen.pth")
-        ckpt_lib.export_reference_checkpoint(val_state, exported)
-        back = dataclasses.replace(trainer, model=WavBEST(CHANNELS, device=DEV, seed=2))
-        back = back.init_state()
-        allow = os.environ.get("TMDIFF_ALLOW_FAKE_CLIP")
-        os.environ["TMDIFF_ALLOW_FAKE_CLIP"] = "1"  # structural: no fidelity claimed
-        try:
-            ckpt_lib.import_reference_checkpoint(exported, back)
-        finally:
-            if allow is None:
-                del os.environ["TMDIFF_ALLOW_FAKE_CLIP"]
-        same = back.step == CLI_MAX_ITER and all(
-            torch.equal(a, b)
-            for a, b in zip(back.model.parameters(), val_state.model.parameters()))
-        print(f"[cli] I{CLI_MAX_ITER}_gen.pth ({os.path.getsize(exported)} bytes) exported and "
-              f"imported back: weights and step bit-identical {same}", flush=True)
-        if not same:
-            fail("the reference .pth round trip changed the weights")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        done.set()
+        killer.join(10)
+    auto_dir = os.path.join(root, "auto", "checkpoint")
+    stopped = ckpt_lib.latest_step(auto_dir)
+    if stopped is None or not CLI_STOP_AFTER <= stopped < 1000:
+        fail(f"SIGTERM left checkpoint {stopped}")
+    cfg = cli_config(root, "auto", max_iter=stopped + 1, val_freq=1000)
+    with open(cfg) as f:
+        auto = json.load(f)
+    auto["path"]["resume"] = "auto"
+    with open(cfg, "w") as f:
+        json.dump(auto, f)
+    run_cli(cfg, "train", (mixer_for(train_sets, SEED), {}))
+    with open(log) as f:
+        resumed = f"Auto-resumed from {auto_dir} at step {stopped}" in f.read()
+    resumed_to = ckpt_lib.latest_step(auto_dir)
+    print(f"[cli] SIGTERM after step {CLI_STOP_AFTER}: checkpoint I{stopped}; the run with "
+          f"path.resume 'auto' resumed there: {resumed}, ended at I{resumed_to}", flush=True)
+    if not resumed or resumed_to != stopped + 1:
+        fail("path.resume 'auto' did not continue from the saved step")
+
+    # -p val on I7 with the EMA weights
+    cfg = cli_config(root, "val")
+    with open(cfg) as f:
+        val = json.load(f)
+    val["path"]["resume"] = os.path.join(ckpt_dir, f"I{CLI_MAX_ITER}")
+    with open(cfg, "w") as f:
+        json.dump(val, f)
+    with CliProbe() as probe:
+        _, val_state = run_cli(cfg, "val", (None, val_sets))
+    ref = {s: sc for s, sc in zip(val_sets, probe.scores)}
+    metric_err = cli_val_scores(val_state, val_sets, ref)
+
+    # I7 as a reference .pth and back
+    exported = os.path.join(root, f"I{CLI_MAX_ITER}_gen.pth")
+    ckpt_lib.export_reference_checkpoint(val_state, exported)
+    back = dataclasses.replace(trainer, model=WavBEST(CHANNELS, device=DEV, seed=2))
+    back = back.init_state()
+    allow = os.environ.get("TMDIFF_ALLOW_FAKE_CLIP")
+    os.environ["TMDIFF_ALLOW_FAKE_CLIP"] = "1"  # structural: no fidelity claimed
+    try:
+        ckpt_lib.import_reference_checkpoint(exported, back)
+    finally:
+        if allow is None:
+            del os.environ["TMDIFF_ALLOW_FAKE_CLIP"]
+    same = back.step == CLI_MAX_ITER and all(
+        torch.equal(a, b)
+        for a, b in zip(back.model.parameters(), val_state.model.parameters()))
+    print(f"[cli] I{CLI_MAX_ITER}_gen.pth ({os.path.getsize(exported)} bytes) exported and "
+          f"imported back: weights and step bit-identical {same}", flush=True)
+    if not same:
+        fail("the reference .pth round trip changed the weights")
     return {"launches": n, "s_per_step": s_step, "img_per_s": TRAIN_BATCH / s_step,
             "sec_per_image": sec_per_image, "checkpoint_bytes": saves[-1][2],
             "save_s": [sec for _, sec, _ in saves], "restore_s": restore_s,
             "score_err_vs_host": metric_err}
+
+
+# -- samplers ------------------------------------------------------------------
+
+# 3x3x3 convs of one denoise_reuse call: denoise's 52 less the skipped blocks
+# (a down stage 4, the middle 2, an up stage 9) at each cache level
+REUSE_CONVS = {1: DENOISE_CONVS - 6, 2: DENOISE_CONVS - 15, 3: DENOISE_CONVS - 28}
+# a static refresh schedule of 7 refreshes in 20 steps, front-loaded
+SAMPLER_MASK = tuple(i in (0, 1, 2, 4, 8, 12, 16) for i in range(20))
+TILE, TILE_OVERLAP, TILE_BATCH = 256, 32, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplerRequest:
+    label: str
+    sensor: str
+    bands: int
+    batch: int
+    size: int
+    impl: str
+    kwargs: dict
+    nfe: int  # denoise calls the request must make
+    encodes: int  # encode_condition calls
+    # What the image is held against: "plain", the same request through the
+    # plain convs; "twin", the plain image of `twin` (the same request under
+    # the other lowering); "rows", row i against row i of request rows[i]'s
+    # image; "path", nothing of its own: `twin` holds the same solver and
+    # cache path against the plain convs.
+    hold: str = "plain"
+    twin: str = ""  # an earlier request whose batch and seed this one reuses
+    rows: tuple = ()
+    n_timestep: int = 1000
+
+
+CFG3, CFG15 = "dpm++_cfg g=3", "dpm++_cfg g=1.5"
+DDIM20, CACHED1 = "ddim 20", "ddim_cached 20 r=2 level 1"
+ANCESTRAL_SHORT = "ancestral T=100, 10 frames"
+SAMPLER_REQUESTS = (
+    SamplerRequest("dpm++_noise", "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_noise"), 51, 1),
+    SamplerRequest(CFG3, "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_cfg", guidance=3.0), 50, 2),
+    SamplerRequest(CFG15, "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_cfg", guidance=1.5), 50, 2, hold="path", twin=CFG3),
+    SamplerRequest("dpm++_cfg g=(3, 1.5)", "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_cfg", guidance=np.array([3.0, 1.5], np.float32)), 50, 2,
+                   hold="rows", twin=CFG3, rows=(CFG3, CFG15)),
+    SamplerRequest("regression", "WV3", 8, BATCH, SIZE, "banded", dict(method="regression"), 1, 1),
+    SamplerRequest(DDIM20, "WV3", 8, BATCH, SIZE, "banded", dict(method="ddim", steps=20), 20, 1),
+    SamplerRequest("ddim 50", "WV3", 8, BATCH, SIZE, "banded", dict(method="ddim", steps=50), 50, 1,
+                   hold="path", twin=DDIM20),
+    SamplerRequest(CACHED1, "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="ddim_cached", steps=20, refresh_every=2, cache_level=1), 20, 1),
+    SamplerRequest("ddim_cached 20 r=2 level 3", "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="ddim_cached", steps=20, refresh_every=2, cache_level=3), 20, 1),
+    SamplerRequest("ddim_cached 20 static mask (7 refreshes) level 1", "WV3", 8, BATCH, SIZE,
+                   "banded", dict(method="ddim_cached", steps=20, refresh_mask=SAMPLER_MASK,
+                                  refresh_mask_static=True, cache_level=1), 20, 1,
+                   hold="path", twin=CACHED1),
+    # the ancestral loop is held against the plain convs on a 100-step
+    # schedule, and timed on the 1000-step one
+    SamplerRequest(ANCESTRAL_SHORT, "QB", 4, 1, 128, "banded",
+                   dict(method="ancestral", num_frames=10), 100, 1, n_timestep=100),
+    SamplerRequest("ancestral T=1000, 10 frames", "QB", 4, 1, 128, "banded",
+                   dict(method="ancestral", num_frames=10), 1000, 1, hold="path",
+                   twin=ANCESTRAL_SHORT),
+    SamplerRequest("dpm++_cfg g=3 auto", "WV3", 8, BATCH, SIZE, "auto",
+                   dict(method="dpm++_cfg", guidance=3.0), 50, 2, hold="twin", twin=CFG3),
+    SamplerRequest("ddim_cached 20 r=2 level 1 auto", "WV3", 8, BATCH, SIZE, "auto",
+                   dict(method="ddim_cached", steps=20, refresh_every=2, cache_level=1), 20, 1,
+                   hold="twin", twin=CACHED1),
+    SamplerRequest(f"sample_tiled 512x512 ddim 10 (tile {TILE}, overlap {TILE_OVERLAP}, "
+                   f"{TILE_BATCH} crops a call)", "QB", 4, 1, 2 * SIZE, "banded",
+                   dict(method="ddim", steps=10, tiled=True), 20, 2),
+)
+
+
+def sized_batch(rng, bands, b, size):
+    ms = rng.uniform(0.05, 0.95, (b, bands, size, size)).astype(np.float32)
+    pan = (ms.mean(1, keepdims=True)
+           + 0.05 * rng.standard_normal((b, 1, size, size))).astype(np.float32)
+    return {"PAN": pan, "MS": ms}
+
+
+@contextlib.contextmanager
+def recording(modconv, seen):
+    """Records the (shape, options) of every call to modconv's K1 and K3
+    wrappers in seen["K1"] / seen["K3"] while the block runs."""
+    originals = {"K1": modconv.banded_conv3d, "K3": modconv.conv3x3_nhwc}
+
+    def recorder(name):
+        def call(x, kernel, *rest):
+            key = (tuple(x.shape), tuple(kernel.shape), tuple(a is not None for a in rest))
+            seen[name][key] = seen[name].get(key, 0) + 1
+            return originals[name](x, kernel, *rest)
+        return call
+
+    modconv.banded_conv3d, modconv.conv3x3_nhwc = recorder("K1"), recorder("K3")
+    try:
+        yield seen
+    finally:
+        modconv.banded_conv3d, modconv.conv3x3_nhwc = originals["K1"], originals["K3"]
+
+
+def sampler_request(sharp, req, batch, seed):
+    kw = dict(req.kwargs)
+    if kw.pop("tiled", False):
+        return sharp.sample_tiled(batch, sensor=req.sensor, seed=seed, tile=TILE,
+                                  overlap=TILE_OVERLAP, tile_batch=TILE_BATCH, **kw)
+    return sharp.sample(batch, sensor=req.sensor, seed=seed, **kw)
+
+
+def hold_shapes(K, K3, seen, gen):
+    """Each kernel's wrapper against its plain version at every (shape,
+    options) the sampler requests gave it, on random operands: the conv to
+    CONV_RTOL of its output's scale. Returns the worst error of each."""
+    worst = {"K1": 0.0, "K3": 0.0}
+    cases = [("K1", K.banded_conv3d, K.conv3d_plain), ("K3", K3.conv3x3_nhwc,
+                                                        K3.conv3x3_nhwc_plain)]
+    with torch.no_grad():
+        for name, kernel_fn, plain_fn in cases:
+            for (xs, ks, flags) in sorted(seen[name]):
+                cin, cout = ks[-2], ks[-1]
+                taps = int(np.prod(ks[:-2]))
+                x = torch.randn(xs, device=DEV, generator=gen)
+                k = torch.randn(ks, device=DEV, generator=gen) / (taps * cin) ** 0.5
+                opts = [1.0 + 0.5 * torch.randn(xs[0], cin, device=DEV, generator=gen),
+                        torch.randn(cout, device=DEV, generator=gen),
+                        torch.randn(xs[:-1] + (cout,), device=DEV, generator=gen)]
+                args = [o if f else None for o, f in zip(opts, flags)]
+                got = kernel_fn(x, k, *[a.clone() if a is not None and a.dim() > 2 else a
+                                        for a in args])
+                ref = plain_fn(x, k, *[a.clone() if a is not None and a.dim() > 2 else a
+                                       for a in args])
+                err = rel_to_scale(got, ref)
+                worst[name] = max(worst[name], err)
+                if not err <= CONV_RTOL:
+                    fail(f"{name} at {xs} x {ks} {flags}: {err} of its scale")
+    print(f"[samplers] K1 held against its plain version at {len(seen['K1'])} (shape, "
+          f"options) of the sampler requests, worst {worst['K1']:.3g} of scale; K3 at "
+          f"{len(seen['K3'])}, worst {worst['K3']:.3g} (rtol {CONV_RTOL})", flush=True)
+    return worst
+
+
+def held_against(req, outs, images, plains):
+    """The reference images `req` is held against (see SamplerRequest.hold)
+    and what they are, or (None, what holds its path)."""
+    if req.hold == "plain":
+        return plains[req.label], "the plain convs"
+    if req.hold == "twin":
+        return plains[req.twin], f"the plain convs' {req.twin!r}"
+    if req.hold == "rows":
+        rows = [images[label][0][i] for i, label in enumerate(req.rows)]
+        return (np.stack(rows),) + outs[1:], "rows of " + " / ".join(repr(r) for r in req.rows)
+    return None, f"its path held by {req.twin!r}"
+
+
+def samplers_phase(model, K, K3, K4, modconv, seed):
+    """The main path of this slice: every sampler of the Pansharpener at
+    full width through its "banded" (K1) or "auto" (K1 and K3) model, each
+    request with the counts reset just before and read just after, its
+    denoise calls counted, its image (and frames) against the reference that
+    its `hold` names, at SAMPLE_ATOL; then each wrapper against its plain
+    version at every shape the requests gave it."""
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+
+    sharps = {}
+    rng = np.random.default_rng(seed + 100)
+    seen = {"K1": {}, "K3": {}}
+    results, images, plains, inputs = {}, {}, {}, {}
+    for i, req in enumerate(SAMPLER_REQUESTS):
+        if req.n_timestep not in sharps:
+            sharps[req.n_timestep] = Pansharpener(model, device=DEV, n_timestep=req.n_timestep)
+        sharp = sharps[req.n_timestep]
+        batch, req_seed = inputs[req.twin] if req.twin else (
+            sized_batch(rng, req.bands, req.batch, req.size), seed + i)
+        inputs[req.label] = (batch, req_seed)
+        model.use_conv_impl(req.impl)
+        plain, plain_sec = None, None
+        try:
+            with DenoiseCounter(model) as nfe:
+                with recording(modconv, seen):
+                    reset_counts(K, K3, K4)
+                    t0 = time.perf_counter()
+                    out = sampler_request(sharp, req, batch, req_seed)
+                    sec = time.perf_counter() - t0
+                v1, v3 = dict(K.variant_launches), dict(K3.variant_launches)
+                n4, calls, reuse = K4.launches, nfe.calls, nfe.reuse_calls
+            if req.hold == "plain":
+                model.use_plain_conv(True)
+                try:
+                    t0 = time.perf_counter()
+                    plain = sampler_request(sharp, req, batch, req_seed)
+                    plain_sec = time.perf_counter() - t0
+                finally:
+                    model.use_plain_conv(False)
+        finally:
+            model.use_conv_impl("banded")
+        outs = out if isinstance(out, tuple) else (out,)
+        images[req.label] = outs
+        if plain is not None:
+            plains[req.label] = plain if isinstance(plain, tuple) else (plain,)
+        refs, against = held_against(req, outs, images, plains)
+        err = None if refs is None else max(float(np.abs(a - b).max())
+                                            for a, b in zip(outs, refs))
+        ok = (outs[0].shape == batch["MS"].shape and all(
+            bool(np.isfinite(a).all()) and a.min() >= 0.0 and a.max() <= 1.0 for a in outs))
+        if len(outs) == 2:  # ancestral frames
+            ok = ok and outs[1].shape[1:] == batch["MS"].shape and outs[1].shape[0] == 10
+        k1, k3 = sum(v1.values()), sum(v3.values())
+        level = req.kwargs.get("cache_level", 1)
+        expected = (ENCODE_CONVS * req.encodes + DENOISE_CONVS * (calls - reuse)
+                    + REUSE_CONVS[level] * reuse)
+        held = (f"plain convs {plain_sec:.3f} s, " if plain_sec is not None else "") + (
+            f"max abs err vs {against} {err:.3g} (atol {SAMPLE_ATOL})" if err is not None
+            else f"not held on its own: {against}")
+        print(f"[samplers] {req.label}: {req.sensor} {req.bands}-band batch {req.batch} "
+              f"{req.size}x{req.size} ({req.impl}): {sec:.3f} s, NFE {calls} ({reuse} on a "
+              f"cached trunk), {calls / sec:.2f} NFE/s; K1 launches {k1} {v1}, K3 launches "
+              f"{k3} {v3} (expected {expected} in all); {held}; finite and in [0, 1]: {ok}",
+              flush=True)
+        if not ok or calls != req.nfe or k1 + k3 != expected or n4:
+            fail(f"{req.label}: ok={ok} nfe={calls} launches={k1}+{k3}+{n4}")
+        if v1["ffma"] or v3["ffma"] or (k3 == 0) == (req.impl == "auto"):
+            fail(f"{req.label}: launches by variant K1 {v1} K3 {v3} under {req.impl!r}")
+        if err is not None and not err <= SAMPLE_ATOL:
+            fail(f"{req.label} differs from {against} by {err}")
+        results[req.label] = {"s": sec, "nfe": calls, "nfe_per_s": calls / sec,
+                              "k1_launches": k1, "k3_launches": k3, "k1_variants": v1,
+                              "k3_variants": v3, "plain_s": plain_sec, "held_against": against,
+                              "max_abs_err": err}
+    cached, plain20 = results[CACHED1], results[DDIM20]
+    level3 = results["ddim_cached 20 r=2 level 3"]
+    print(f"[samplers] ddim_cached 20 r=2 (levels 1 / 3) {cached['s']:.3f} / "
+          f"{level3['s']:.3f} s against ddim 20 {plain20['s']:.3f} s: "
+          f"{plain20['s'] / cached['s']:.3f}x / {plain20['s'] / level3['s']:.3f}x; K1 launches "
+          f"{cached['k1_launches']} / {level3['k1_launches']} against "
+          f"{plain20['k1_launches']}", flush=True)
+    worst = hold_shapes(K, K3, seen, torch.Generator(device=DEV).manual_seed(seed))
+    return results, worst
+
+
+# -- distillation ----------------------------------------------------------------
+
+DISTILL_PHASES, DISTILL_STEPS = (10, 5), 6
+# the x0 target passes two teacher calls and the one-jump solve, which
+# divides by alpha_t'' - (sigma_t'' / sigma_t) alpha_t, 0.155 at t = 1000 of
+# N = 10: (prediction - target) through K1 against the plain convs
+DISTILL_DIFF_ATOL = 1e-4
+
+
+def distill_grads_phase(K, root, gen):
+    """The distillation loss (N = 10, SNR weight) and every gradient through
+    K1 against the plain convs from the CLI phase's I7 checkpoint (teacher:
+    its EMA weights; the student starts as the teacher), fixed i and noise,
+    dropout off, both backward passes taking the plain path's L1 signs, as
+    the train phase does: (prediction - target) agrees to DISTILL_DIFF_ATOL
+    and every element of another sign lies within that difference of zero."""
+    from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
+    from tmdiff_tpu_torch.train.distill import DistillTrainer
+
+    new_model, new_trainer, prompts, datasets = train_setup()
+    model = new_model()
+    trainer = new_trainer(model)
+    state = trainer.init_state()
+    ckpt_lib.restore_checkpoint(os.path.join(root, "train", "checkpoint"), state,
+                                step=CLI_MAX_ITER)
+    names = [n for n, _ in model.named_parameters()]
+    teacher = {n: e.detach().clone() for n, e in zip(names, state.ema_params)}
+    model.load_state_dict(teacher)
+    n_steps = DISTILL_PHASES[0]
+    d_trainer = DistillTrainer(model, trainer.schedule, n_student_steps=n_steps)
+    params = dict(model.named_parameters())
+    worst_all = 0.0
+    for sensor in ("WV3", "QB"):
+        batch, _, noise = device_batch(datasets[sensor], gen)
+        i = torch.randint(1, n_steps + 1, (TRAIN_BATCH,), generator=gen, device=DEV)
+        out = {}
+        for plain in (True, False):
+            model.use_plain_conv(plain)
+            K.reset_launches()
+            x_t, t, target, w = d_trainer.teacher_target(batch, prompts[sensor], teacher, i, noise)
+            diff = model(x_t, t, batch["PAN"], batch["MS"], prompts[sensor]) - target
+            if plain:
+                sign = torch.sign(diff.detach())
+            held = torch.mean(w * diff * sign)
+            grads = torch.autograd.grad(held, list(params.values()), retain_graph=True)
+            launches = (K.launches, K.input_grad_launches, K.weight_grad_calls)
+            own = torch.autograd.grad(torch.mean(w * diff.abs()), list(params.values()))
+            out[plain] = (torch.mean(w * diff.detach().abs()), grads, own, launches, diff.detach())
+        model.use_plain_conv(False)
+        (lk, gk, ok, (n_k, n_in, n_w), dk), (lp, gp, op, (n_p, _, _), dp) = out[False], out[True]
+        loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+        errs = {name: rel_to_scale(a, b) for name, a, b in zip(params, gk, gp)}
+        own_errs = {name: rel_to_scale(a, b) for name, a, b in zip(params, ok, op)}
+        worst, own_worst = max(errs, key=errs.get), max(own_errs, key=own_errs.get)
+        worst_all = max(worst_all, errs[worst])
+        over = {n: e for n, e in errs.items() if e > GRAD_RTOL}
+        flips = torch.sign(dk) != sign
+        diff_err = (dk - dp).abs().max().item()
+        flip_margin = dp.abs()[flips].max().item() if flips.any() else 0.0
+        print(f"[distill] gradients {sensor} {batch['MS'].shape[1]}-band batch {TRAIN_BATCH} "
+              f"{TRAIN_SIZE}x{TRAIN_SIZE}, N={n_steps}, i={i.tolist()}, fixed noise, dropout "
+              f"off: loss K1 {lk.item():.7f} plain {lp.item():.7f} (rel {loss_rel:.3g}, rtol "
+              f"{GRAD_LOSS_RTOL}); with the plain path's signs, worst gradient {worst} at "
+              f"{errs[worst]:.3g} of its scale, {len(errs) - len(over)} of {len(errs)} within "
+              f"{GRAD_RTOL}; K1 launches {n_k} ({n_k - n_in} forward: two teacher calls and the "
+              f"student's; {n_in} input gradient), {n_w} weight gradients; plain path {n_p}",
+              flush=True)
+        print(f"[distill]   with each path's own signs: worst gradient {own_worst} at "
+              f"{own_errs[own_worst]:.3g} of its scale; {int(flips.sum())} of {flips.numel()} "
+              f"elements take another sign through K1, at |pred - target| <= {flip_margin:.3g}; "
+              f"(pred - target) K1 vs plain {diff_err:.3g} (atol {DISTILL_DIFF_ATOL})",
+              flush=True)
+        if not loss_rel <= GRAD_LOSS_RTOL or over:
+            fail(f"{sensor} distillation gradients differ from the plain path: {sorted(over)}")
+        if not (diff_err <= DISTILL_DIFF_ATOL and flip_margin <= diff_err):
+            fail(f"{sensor} distillation: (pred - target) K1 vs plain {diff_err}, an element of "
+                 f"another sign at {flip_margin}")
+        if (n_k - n_in, n_in, n_w, n_p) != (3 * TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS, 0):
+            fail(f"{sensor} distillation gradient pass: launches {n_k - n_in}/{n_in}/{n_w}/{n_p}")
+    return worst_all
+
+
+def distill_phase(K, K3, K4, root):
+    """`-p distill` through the CLI's `_run` from the cli phase's I7
+    checkpoint: phases N = 10 and 5 of DISTILL_STEPS steps on the train
+    phase's batches (4:4:8 mixer, batch 8, 64x64), each student validated
+    with ddim at N steps on the cli phase's scenes; counts reset just
+    before and read just after. Then the checkpoints, the student in both
+    weight slots, and the gradient check above."""
+    from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
+
+    _, _, _, train_sets = train_setup()
+    val_sets = cli_val_sets()
+    cfg = cli_config(root, "distill")
+    with open(cfg) as f:
+        opt = json.load(f)
+    opt["path"]["resume"] = os.path.join(root, "train", "checkpoint", f"I{CLI_MAX_ITER}")
+    opt["train"]["distill"] = {"phases": list(DISTILL_PHASES), "steps_per_phase": DISTILL_STEPS,
+                               "lr": 1e-4}
+    with open(cfg, "w") as f:
+        json.dump(opt, f)
+    with CliProbe() as probe:
+        reset_counts(K, K3, K4)
+        t0 = time.perf_counter()
+        run_cli(cfg, "distill", (mixer_for(train_sets, SEED), val_sets))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = counts(K, K3, K4)
+    steps = len(DISTILL_PHASES) * DISTILL_STEPS
+    ends = probe.step_ends
+    # intervals within a phase, not across a phase's checkpoint and validation
+    loop = [b - a for j, (a, b) in enumerate(zip(ends, ends[1:]), 1) if j % DISTILL_STEPS]
+    s_step = float(np.median(loop))
+    val_convs = sum(len(val_sets) * (ENCODE_CONVS + DENOISE_CONVS * m) for m in DISTILL_PHASES)
+    expected = {"k1_forward": steps * 4 * TRAIN_CONVS + val_convs,
+                "k1_input_grad": steps * TRAIN_CONVS, "weight_grad": steps * TRAIN_CONVS,
+                "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
+    ckpt_root = os.path.join(root, "distill", "checkpoint")
+    kept = sorted(os.path.relpath(os.path.join(d, s), ckpt_root)
+                  for d, subs, _ in os.walk(ckpt_root) for s in subs if s.startswith("I"))
+    both_slots = []
+    for m in DISTILL_PHASES:
+        sd = torch.load(os.path.join(ckpt_root, f"distill_N{m}", f"I{DISTILL_STEPS}",
+                                     ckpt_lib.STATE_FILE), map_location=DEV, weights_only=True)
+        both_slots.append(all(torch.equal(e, v) for e, v in zip(sd["ema_params"],
+                                                                 sd["model"].values())))
+    scores = probe.scores
+    print(f"[distill] -p distill from I{CLI_MAX_ITER}: phases {list(DISTILL_PHASES)} of "
+          f"{DISTILL_STEPS} steps, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: {wall:.2f} s "
+          f"in all; median {s_step:.4f} s/step ({TRAIN_BATCH / s_step:.1f} img/s) over "
+          f"{len(loop)} steps; launches {n} (expected {expected}); checkpoints {kept}; the "
+          f"student in both weight slots {both_slots}; ddim validations {len(scores)}, last "
+          f"{scores[-len(val_sets):]}", flush=True)
+    if n != expected:
+        fail(f"the distill run launched {n}")
+    if kept != sorted(f"distill_N{m}/I{DISTILL_STEPS}" for m in DISTILL_PHASES):
+        fail(f"distill checkpoints {kept}")
+    if not all(both_slots) or len(scores) != len(DISTILL_PHASES) * len(val_sets) or not all(
+            np.isfinite(v) for sc in scores for v in sc.values()):
+        fail(f"distill students or validation scores: {both_slots} {scores}")
+    grad_err = distill_grads_phase(K, root, torch.Generator(device=DEV).manual_seed(SEED))
+    return {"launches": n, "s_per_step": s_step, "img_per_s": TRAIN_BATCH / s_step,
+            "grad_err": grad_err}
 
 
 def kernel_name(line: str) -> str:
@@ -1547,22 +1971,37 @@ def main() -> int:
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
     t_start = time.perf_counter()
-    build_phase(build)
+    took = {}
 
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    timed("build", build_phase, build)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     model = WavBEST(CHANNELS, device=DEV, seed=SEED)
-    k1_totals, k1_err = kernel_phase(model, K, modconv, gen)
-    accumulation_phase(K, gen)
-    k3_totals, k3_err = conv2d_phase(model, K3, modconv, gen)
-    model_phase(model, K, gen)
-    k1_launches, k1_variants, banded_results = serve_phase(model, K, SEED)
+    k1_totals, k1_err = timed("kernel", kernel_phase, model, K, modconv, gen)
+    timed("accumulation", accumulation_phase, K, gen)
+    k3_totals, k3_err = timed("conv2d", conv2d_phase, model, K3, modconv, gen)
+    timed("model", model_phase, model, K, gen)
+    k1_launches, k1_variants, banded_results = timed("serve", serve_phase, model, K, SEED)
     if k1_launches == 0:
         fail("the main path launched no conv3d kernel")
-    auto_counts = auto_serve_phase(model, K, K3, K4, banded_results, SEED)
-    k4_totals, k4_err, k4_launches, k4_variants = attention_phase(K4, gen)
-    train = train_phase(K, K3, K4, gen)
-    cli = cli_phase(K, K3, K4, {b: tm["median_s"] for b, tm in train["timing"].items()})
-    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
+    auto_counts = timed("auto", auto_serve_phase, model, K, K3, K4, banded_results, SEED)
+    samplers, sampler_hold = timed("samplers", samplers_phase, model, K, K3, K4, modconv, SEED)
+    k4_totals, k4_err, k4_launches, k4_variants = timed("attention", attention_phase, K4, gen)
+    train = timed("train", train_phase, K, K3, K4, gen)
+    root = tempfile.mkdtemp(prefix="tmdiff_cli_")
+    try:
+        cli = timed("cli", cli_phase, K, K3, K4,
+                    {b: tm["median_s"] for b, tm in train["timing"].items()}, root)
+        distill = timed("distill", distill_phase, K, K3, K4, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; seconds by phase "
+          f"{took}", flush=True)
 
     per_request = (f"summed over the launches of one dpm++ request, 8 bands, batch {BATCH}, "
                    f"{SIZE}x{SIZE}, full width")
@@ -1593,7 +2032,17 @@ def main() -> int:
                              f"{TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} and two validations of "
                              f"{CLI_VAL_SCENES} {CLI_VAL_SIZE}x{CLI_VAL_SIZE} scenes a sensor",
          "cli": {k: cli[k] for k in ("s_per_step", "img_per_s", "sec_per_image",
-                                      "checkpoint_bytes", "save_s", "restore_s")}},
+                                      "checkpoint_bytes", "save_s", "restore_s")},
+         "sampler_launches": {label: r["k1_launches"] for label, r in samplers.items()},
+         "sampler_launches_are": "per request of the samplers phase (NFE and seconds beside "
+                                 "each in its [samplers] line)",
+         "sampler_shapes_max_err_of_scale": sampler_hold["K1"],
+         "distill_launches": distill["launches"],
+         "distill_launches_are": f"over the CLI's -p distill run: phases {list(DISTILL_PHASES)} "
+                                 f"of {DISTILL_STEPS} steps of batch {TRAIN_BATCH} "
+                                 f"{TRAIN_SIZE}x{TRAIN_SIZE} and a ddim validation a phase",
+         "distill_s_per_step": distill["s_per_step"],
+         "distill_grad_max_err_of_scale": distill["grad_err"]},
         {"name": "conv3x3_nhwc", "route": "cuda", "source": "tmdiff_tpu_torch/csrc/conv3d.cu",
          "replaces": "tmdiff_tpu/ops/pallas/conv2d.py:43",
          "launches": auto_counts["K3"], "variant_launches": auto_counts["K3_variants"],
@@ -1601,7 +2050,10 @@ def main() -> int:
          "ms": k3_totals["ms"], "plain_ms": k3_totals["plain_ms"],
          "bound_ms": k3_totals["bound_ms"], "bound_by": k3_totals["bound_by"],
          "library_ms": k3_totals["library_ms"],
-         "times_are": per_request + ' through the "auto" model'},
+         "times_are": per_request + ' through the "auto" model',
+         "sampler_launches": {label: r["k3_launches"] for label, r in samplers.items()
+                              if r["k3_launches"]},
+         "sampler_shapes_max_err_of_scale": sampler_hold["K3"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "tmdiff_tpu_torch/csrc/flash_attention.cu",
          "replaces": "tmdiff_tpu/ops/pallas/flash_attention.py:80",

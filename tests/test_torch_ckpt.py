@@ -22,7 +22,7 @@ from tmdiff_tpu_torch.pipeline import Pansharpener
 from tmdiff_tpu_torch.train import checkpoint as ckpt
 from tmdiff_tpu_torch.train.trainer import Trainer
 
-from test_torch_wavbest import random_flax_params
+from flax_params import random_flax_params
 
 torch.set_num_threads(2)
 

@@ -3,8 +3,9 @@
 16x16: the JAX package's tests/test_cli.py cases (train with validation,
 .mat artifacts and a final checkpoint off the validation boundary; val from
 a checkpoint; SIGTERM with a checkpoint, then `path.resume: "auto"`), the
-reference `.pth` as a resume point, the refusals of what is not ported, and
-one run of the same config through both CLIs side by side."""
+reference `.pth` as a resume point, -p val with every --sampler choice, the
+refusals, and one run of the same config through both CLIs side by side
+(-p distill: tests/test_torch_distill.py)."""
 import json
 import os
 import re
@@ -194,14 +195,54 @@ def test_auto_resume_and_preemption(workspace, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["-p", "distill"], "-p distill is not ported"),
-    (["-p", "val", "--sampler", "ddim"], "--sampler ddim is not ported"),
-    (["-p", "train", "--sampler", "regression"], "--sampler regression is not ported"),
+    (["-p", "serve"], "invalid choice: 'serve'"),
+    (["-p", "val", "--sampler", "dpm++_cfg"], "invalid choice: 'dpm++_cfg'"),
+    (["-p", "train", "--sampler", "euler"], "invalid choice: 'euler'"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, message, capsys):
+    """The parser takes the JAX CLI's phases and samplers and refuses the
+    rest as its parser does (the facade's dpm++_cfg and ddim_cached are not
+    among the JAX CLI's --sampler choices)."""
+    assert cli.PHASES == ("train", "val", "distill")
+    assert cli.SAMPLERS == ("dpm++", "dpm++_noise", "ancestral", "regression", "ddim")
     with pytest.raises(SystemExit) as exc:
         cli.main(["-c", "unused.json", *argv])
     assert exc.value.code == 2 and message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sampler", cli.SAMPLERS)
+def test_val_phase_with_each_sampler(workspace, monkeypatch, sampler):
+    """-p val from the trained checkpoint with every --sampler choice: the
+    .mat files of each sensor and finite scores. The ancestral sampler walks
+    every step of the validation schedule: T = 20 keeps it short."""
+    root, cfg = workspace
+    monkeypatch.chdir(root)
+    if not (root / "experiments").exists():
+        _train(root, cfg)
+    name = "smoke_sampler_" + sampler.replace("+", "p")
+    val_cfg = json.loads(json.dumps(cfg))
+    val_cfg["name"] = name
+    val_cfg["path"]["resume"] = str(_experiment(root, "smoke") / "checkpoint")
+    if sampler == "ancestral":
+        val_cfg["model"]["beta_schedule"]["val"]["n_timestep"] = 20
+    cli.main(["-c", _write(root, val_cfg, name), "-p", "val", "--device", "cpu",
+              "--sampler", sampler])
+    exp = _experiment(root, name)
+    mats = sorted(exp.rglob("output_mulExm_*.mat"))
+    assert [m.parent.name for m in mats] == ["GF2", "QB", "WV3"]
+    val_log = (exp / "logs" / "val.log").read_text()
+    scores = [float(v) for v in re.findall(r"'(?:ssim|sam)_\w+': ([-+\d.e]+)", val_log)]
+    assert len(scores) == 6 and np.isfinite(scores).all(), val_log
+
+
+def test_distill_needs_a_teacher(workspace, monkeypatch):
+    root, cfg = workspace
+    monkeypatch.chdir(root)
+    no_teacher = json.loads(json.dumps(cfg))
+    no_teacher["name"] = "smoke_no_teacher"
+    with pytest.raises(ValueError, match="requires path.resume"):
+        cli.main(["-c", _write(root, no_teacher, "smoke_no_teacher"), "-p", "distill",
+                  "--device", "cpu"])
 
 
 def test_cli_needs_a_card_unless_told(workspace, monkeypatch):

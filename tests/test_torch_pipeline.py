@@ -21,28 +21,12 @@ from tmdiff_tpu_torch.models.clip_text import load_prompt_table
 from tmdiff_tpu_torch.models.wavbest import WavBEST
 from tmdiff_tpu_torch.pipeline import Pansharpener
 from tmdiff_tpu_torch.utils.weights import from_flax, from_reference_state_dict
+from flax_params import random_flax_params
 
 torch.set_num_threads(2)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CHANNELS = (8, 16, 32, 64)
-
-
-def _random_flax_params(model, seed=0):
-    x = jnp.zeros((1, 4, 16, 16))
-    tree = jax.eval_shape(model.init, jax.random.key(0), x, jnp.ones(1), x[:, :1], x,
-                          jnp.zeros(768))
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        names = [str(p.key) for p in path]
-        if names[-1] == "kernel":
-            fan_in = int(np.prod(leaf.shape[:-1]))
-            return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
-        base = 1.0 if "style" in names else 0.0
-        return (base + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, tree)
 
 
 def test_dpm_golden():
@@ -62,7 +46,7 @@ def test_matches_jax_pansharpener():
     """Same random weights, same numpy x_T, a mixed-sensor batch; atol 2e-3,
     the sampling bar."""
     jmodel = JaxWavBEST(channels=CHANNELS)
-    params = _random_flax_params(jmodel, seed=7)
+    params = random_flax_params(jmodel, seed=7)
     port = from_flax(WavBEST(CHANNELS, device="cpu"), jax.tree.map(np.asarray, params))
     rng = np.random.default_rng(11)
     ms = rng.uniform(0.1, 0.9, (2, 4, 16, 16)).astype(np.float32)
@@ -161,7 +145,7 @@ def test_sampler_api(monkeypatch):
     np.testing.assert_array_equal(a, sharp.sample(batch, seed=4, steps=3))
     assert not np.array_equal(a, sharp.sample(batch, seed=5, steps=3))
     with pytest.raises(ValueError, match="unknown sampler"):
-        sharp.sample(batch, method="ancestral")
+        sharp.sample(batch, method="euler")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Pansharpener(model)

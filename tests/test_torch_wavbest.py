@@ -3,7 +3,6 @@ and the JAX WavBEST on the same random weights, on the CPU (plain convs)."""
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -11,6 +10,7 @@ import torch
 from tmdiff_tpu.models import WavBEST as JaxWavBEST
 from tmdiff_tpu_torch.models.wavbest import WavBEST
 from tmdiff_tpu_torch.utils.weights import from_flax, from_reference_state_dict
+from flax_params import random_flax_params
 
 torch.set_num_threads(2)
 
@@ -20,26 +20,6 @@ CHANNELS = (8, 16, 32, 64)
 
 def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
-
-
-def random_flax_params(model, seed=0):
-    """A JAX WavBEST param tree of seeded numpy values: lecun-scaled kernels,
-    small random biases, style biases near 1 (eval_shape gives the tree
-    without compiling init)."""
-    x = jnp.zeros((1, 4, 16, 16))
-    tree = jax.eval_shape(model.init, jax.random.key(0), x, jnp.ones(1), x[:, :1], x,
-                          jnp.zeros(768))
-    rng = np.random.default_rng(seed)
-
-    def fill(path, leaf):
-        names = [str(p.key) for p in path]
-        if names[-1] == "kernel":
-            fan_in = int(np.prod(leaf.shape[:-1]))
-            return (rng.standard_normal(leaf.shape) / np.sqrt(fan_in)).astype(np.float32)
-        base = 1.0 if "style" in names else 0.0
-        return (base + 0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(fill, tree)
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,7 @@
-"""Config-driven train / val entry point (port of tmdiff_tpu/cli.py):
+"""Config-driven train / val / distill entry point (port of tmdiff_tpu/cli.py):
 
-    python -m tmdiff_tpu_torch.cli -c config.json -p train|val [-debug] [--device cpu]
+    python -m tmdiff_tpu_torch.cli -c config.json -p train|val|distill [-debug]
+        [--sampler dpm++|dpm++_noise|ancestral|regression|ddim] [--device cpu]
 
 Builds per-sensor train iterators (the train_qb / train_gf2 / train_wv3
 dataset entries) mixed 4:4:8 by length-weighted probability, validates every
@@ -9,12 +10,19 @@ metric logs, and checkpoints after each validation and at the end of the run
 (`train/checkpoint.py`). A SIGTERM or SIGINT ends training after the current
 step with a checkpoint, and `path.resume: "auto"` continues from the newest
 one. `path.resume` may also name a checkpoint root, one `I{step}` directory
-or a reference `.pth`.
+or a reference `.pth`. Validation samples with `--sampler`.
+
+`-p distill` runs progressive distillation (train/distill.py) from the
+teacher checkpoint `path.resume` names, over `train.distill.phases` (N = 10
+then 5 by default) of `steps_per_phase` steps at `lr`; the teacher is the
+checkpoint's EMA weights when `train.use_ema_eval`, else its online weights
+(`train.distill.teacher` overrides). Each phase's student is saved in both
+weight slots under `checkpoint/distill_N{N}` and validated with ddim at N
+steps; a SIGTERM mid-phase saves `distill_N{N}_partial` and skips its
+validation.
 
 Runs on CUDA unless `--device` says otherwise, and raises without a card.
-`-gpu` is accepted for the reference's command line and ignored. Not ported
-yet: `-p distill` and the samplers other than dpm++, which the parser
-refuses by name.
+`-gpu` is accepted for the reference's command line and ignored.
 """
 from __future__ import annotations
 
@@ -34,11 +42,8 @@ import torch
 
 from tmdiff_tpu_torch.config import dict2str, parse_config
 
-PHASES = ("train", "val")
-SAMPLERS = ("dpm++",)
-# the JAX CLI's choices, refused here by name until the port has them
-_JAX_PHASES = ("train", "val", "distill")
-_JAX_SAMPLERS = ("dpm++", "dpm++_noise", "ancestral", "regression", "ddim")
+PHASES = ("train", "val", "distill")
+SAMPLERS = ("dpm++", "dpm++_noise", "ancestral", "regression", "ddim")
 
 
 def setup_logger(name, root, filename, screen=False):
@@ -138,21 +143,14 @@ def make_feeder(mixer, sharp, train_opt):
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(prog="python -m tmdiff_tpu_torch.cli")
     parser.add_argument("-c", "--config", type=str, required=True)
-    parser.add_argument("-p", "--phase", type=str, default="val", choices=_JAX_PHASES)
+    parser.add_argument("-p", "--phase", type=str, default="val", choices=PHASES)
     parser.add_argument("-gpu", "--gpu_ids", type=str, default=None)  # accepted, unused
     parser.add_argument("-debug", "-d", action="store_true", dest="debug")
     parser.add_argument("-log_eval", action="store_true")
-    parser.add_argument("--sampler", type=str, default="dpm++", choices=_JAX_SAMPLERS)
+    parser.add_argument("--sampler", type=str, default="dpm++", choices=SAMPLERS)
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; CUDA when not given")
-    args = parser.parse_args(argv)
-    if args.phase not in PHASES:
-        parser.error(f"-p {args.phase} is not ported to tmdiff_tpu_torch yet; "
-                     f"it runs {' and '.join(PHASES)}")
-    if args.sampler not in SAMPLERS:
-        parser.error(f"--sampler {args.sampler} is not ported to tmdiff_tpu_torch yet; "
-                     f"it samples with {', '.join(SAMPLERS)}")
-    return args
+    return parser.parse_args(argv)
 
 
 @contextlib.contextmanager
@@ -186,7 +184,7 @@ def main(argv=None):
     opt["log_eval"] = args.log_eval
     # the handlers go in before the model is built, so that a SIGTERM at any
     # point after start-up asks for a clean checkpoint-and-exit
-    with stop_on_signals(args.phase == "train") as stop:
+    with stop_on_signals(args.phase in ("train", "distill")) as stop:
         _run(args, opt, stop)
 
 
@@ -210,8 +208,10 @@ def _run(args, opt, stop, datasets=None):
     snapshot_provenance(opt, args.config)
 
     device = resolve_device(args.device)
-    mixer, val_sets = datasets if datasets is not None else build_datasets(opt, args.phase)
-    if args.phase == "train":
+    train_phase = args.phase in ("train", "distill")
+    mixer, val_sets = (datasets if datasets is not None
+                       else build_datasets(opt, "train" if train_phase else args.phase))
+    if train_phase:
         # the JAX CLI draws the mixer's first batch to shape its state; drawing
         # it here too trains on the same sequence of batches
         next(mixer)
@@ -263,14 +263,16 @@ def _run(args, opt, stop, datasets=None):
     current_step = state.step
     logger.info("Initial Model Finished")
 
-    def run_validation():
-        use_ema = bool(train_opt.get("use_ema_eval"))
+    def run_validation(state, method=None, steps=None, use_ema=None):
+        if use_ema is None:
+            use_ema = bool(train_opt.get("use_ema_eval"))
         params = (dict(zip((n for n, _ in model.named_parameters()), state.ema_params))
                   if use_ema else None)
         for sensor, ds in val_sets.items():
             scores = validate(
                 sharp, ds, sensor, result_dir=os.path.join(opt["path"]["results"], sensor),
-                method=args.sampler, batch_size=int(opt.get("val_batch_size") or 4),
+                method=method or args.sampler, steps=steps,
+                batch_size=int(opt.get("val_batch_size") or 4),
                 max_images=int(opt.get("val_max_images") or -1), params=params,
                 log_file=(os.path.join(opt["path"]["results"], "eval_metrics.jsonl")
                           if opt["log_eval"] else None))
@@ -299,7 +301,7 @@ def _run(args, opt, stop, datasets=None):
                                 + " ".join(f"{k}: {float(v):.3e}" for k, v in metrics.items())
                                 + f" img/s: {dsteps * bsz / dt if dt > 0 else 0.0:.1f}")
                 if current_step % val_freq == 0:
-                    run_validation()
+                    run_validation(state)
                     ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep)
                     last_saved = current_step
         finally:
@@ -313,10 +315,81 @@ def _run(args, opt, stop, datasets=None):
                             "resume with path.resume='auto'")
             else:
                 logger.info(f"Final checkpoint: step {current_step} to {path}")
+    elif args.phase == "distill":
+        state = _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger,
+                         run_validation)
     else:
         logger.info("Begin Model Evaluation.")
-        run_validation()
+        run_validation(state)
     return trainer, state
+
+
+def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger, run_validation):
+    """The distill phase's chain of students (see the module docstring);
+    returns the last phase's state."""
+    from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
+    from tmdiff_tpu_torch.train.distill import DistillTrainer
+
+    if not opt["path"]["resume"]:
+        raise ValueError("distill phase requires path.resume = the teacher checkpoint")
+    d_opt = train_opt.get("distill") or {}
+    phases = [int(n) for n in (d_opt.get("phases") or [10, 5])]
+    steps_per_phase = int(d_opt.get("steps_per_phase") or 600)
+    print_freq = train_opt.get("print_freq", 50)
+    teacher_kind = d_opt.get("teacher") or ("ema" if train_opt.get("use_ema_eval") else "online")
+    if teacher_kind not in ("ema", "online"):
+        raise ValueError(f"train.distill.teacher must be 'ema' or 'online', got {teacher_kind!r}")
+    names = [n for n, _ in model.named_parameters()]
+    weights = state.ema_params if teacher_kind == "ema" else [p for _, p in
+                                                             model.named_parameters()]
+    # copies: the student's steps update the model's tensors in place
+    teacher = {n: w.detach().clone() for n, w in zip(names, weights)}
+    logger.info(f"Begin progressive distillation: phases={phases} "
+                f"steps_per_phase={steps_per_phase} from step {state.step} "
+                f"{teacher_kind} teacher")
+    p_state = state
+    feeder = make_feeder(mixer, sharp, train_opt)
+    try:
+        for n in phases:
+            if stop["flag"]:
+                break
+            done_steps = 0
+            d_trainer = DistillTrainer(model, trainer.schedule, n_student_steps=n,
+                                       lr=float(d_opt.get("lr") or 1e-4), warmup_steps=20,
+                                       max_iter=steps_per_phase, loss_type=trainer.loss_type)
+            p_state = d_trainer.state_from_params(teacher)
+            for k in range(steps_per_phase):
+                if stop["flag"]:
+                    break
+                batch, emb, _ = next(feeder)
+                p_state, m = d_trainer.train_step(p_state, batch, emb, teacher)
+                done_steps = k + 1
+                if (k + 1) % print_freq == 0:
+                    logger.info(f"distill N={n} step {k + 1} "
+                                f"l_distill: {float(m['l_pix']):.3e}")
+            # the student in both weight slots: the phase's EMA starts at the
+            # teacher and barely moves in a short phase, and a few-step
+            # sampler must not deploy the teacher through it
+            with torch.no_grad():
+                for e, p in zip(p_state.ema_params, model.parameters()):
+                    e.copy_(p)
+            if stop["flag"] and done_steps < steps_per_phase:
+                # no validation inside the preemption window; the partial
+                # student is a record, not a resume point
+                path = ckpt_lib.save_checkpoint(
+                    os.path.join(opt["path"]["checkpoint"], f"distill_N{n}_partial"), p_state)
+                logger.info(f"Preemption signal: phase N={n} stopped at step "
+                            f"{done_steps}/{steps_per_phase}; PARTIAL student "
+                            f"checkpointed to {path}, validation skipped")
+                break
+            teacher = {k: v.detach().clone() for k, v in zip(names, model.parameters())}
+            path = ckpt_lib.save_checkpoint(
+                os.path.join(opt["path"]["checkpoint"], f"distill_N{n}"), p_state)
+            logger.info(f"distill N={n} done -> {path}")
+            run_validation(p_state, method="ddim", steps=n, use_ema=False)
+    finally:
+        feeder.close()
+    return p_state
 
 
 if __name__ == "__main__":

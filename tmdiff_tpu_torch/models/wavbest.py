@@ -9,7 +9,8 @@ conv is a 3-D conv with the bands as depth and one network serves 4- and
 
 The condition branch takes no time embedding, so its features are the same
 at every diffusion step: `encode_condition` computes them once per image and
-`denoise` consumes them. `forward` is the two together.
+`denoise` consumes them. `forward` is the two together. `denoise_deep` and
+`denoise_reuse` split `denoise` at the deep trunk for block-cached sampling.
 
 Each takes `train` (False by default, as serving runs): with train=True,
 dropout draws its masks from `rng`, a torch.Generator on the model's device,
@@ -137,8 +138,19 @@ class WavBEST(nn.Module):
 
     # -- denoising given the cached condition ---------------------------------
 
-    def denoise(self, x_t, t, cond_cache, *, train: bool = False, rng=None):
-        """(B, bands, H, W) x0-prediction of the clean residual."""
+    def _denoise_impl(self, x_t, t, cond_cache, deep=None, *, cache_level: int = 1,
+                      train: bool = False, rng=None):
+        """The shared denoise body. Given `deep`, the cached deep-trunk state
+        of an earlier call, the blocks it stands for are skipped:
+          * cache_level=1: deep = (x_h3, h_mid); skips down3 + middle1;
+          * cache_level=2: deep = h_up1 (the up1 output); skips down3 +
+            middle1 + up1;
+          * cache_level=3: deep = h_up2 (the up2 output); skips down2 +
+            down3 + middle1 + up1 + up2, the whole trunk at 1/4 resolution
+            and below.
+        Returns (out, deep_out), deep_out at the same level."""
+        if cache_level not in (1, 2, 3):
+            raise ValueError(f"cache_level must be 1, 2 or 3, got {cache_level}")
         rng = self._dropout_rng(train, rng)
         zemb = cond_cache["zemb"]
         c_h0, c_h1, c_h2, c_h3 = cond_cache["feats"]
@@ -147,14 +159,49 @@ class WavBEST(nn.Module):
         xt = x_t.to(torch.float32)[..., None]
         x_h0 = self.conv2(xt, zemb)
         x_h1, _ = self.down1(x_h0, temb, zemb, rng)
-        x_h2, _ = self.down2(x_h1, temb, zemb, rng)
-        x_h3, _ = self.down3(x_h2, temb, zemb, rng)
-        h = self.middle1(x_h3, temb, zemb, rng)
-        h = self.up1((h, c_h3, x_h3), temb, zemb, c_s3, rng)
-        h = self.up2((h, c_h2, x_h2), temb, zemb, c_s2, rng)
+        if deep is not None and cache_level == 3:
+            h = deep
+        else:
+            x_h2, _ = self.down2(x_h1, temb, zemb, rng)
+            if deep is not None and cache_level == 2:
+                h = deep
+            else:
+                if deep is None:
+                    x_h3, _ = self.down3(x_h2, temb, zemb, rng)
+                    h = self.middle1(x_h3, temb, zemb, rng)
+                else:
+                    x_h3, h = deep
+                if cache_level == 1:
+                    deep_out = (x_h3, h)
+                h = self.up1((h, c_h3, x_h3), temb, zemb, c_s3, rng)
+            if cache_level == 2:
+                deep_out = h
+            h = self.up2((h, c_h2, x_h2), temb, zemb, c_s2, rng)
+        if cache_level == 3:
+            deep_out = h
         h = self.up3((h, c_h1, x_h1), temb, zemb, c_s1, rng)
         out = self.final((h, c_h0, x_h0), temb, zemb, rng)
-        return out[..., 0]
+        return out[..., 0], deep_out
+
+    def denoise(self, x_t, t, cond_cache, *, train: bool = False, rng=None):
+        """(B, bands, H, W) x0-prediction of the clean residual."""
+        return self._denoise_impl(x_t, t, cond_cache, train=train, rng=rng)[0]
+
+    def denoise_deep(self, x_t, t, cond_cache, *, cache_level: int = 1, train: bool = False,
+                     rng=None):
+        """`denoise` that also returns the deep-trunk features, for a
+        sampler to reuse over the next steps (block caching; see
+        `_denoise_impl` for what each level holds)."""
+        return self._denoise_impl(x_t, t, cond_cache, cache_level=cache_level, train=train,
+                                  rng=rng)
+
+    def denoise_reuse(self, x_t, t, cond_cache, deep, *, cache_level: int = 1,
+                      train: bool = False, rng=None):
+        """`denoise` on a cached deep trunk: the skipped blocks' features
+        carry the earlier step's t; the shallow encoder, the decoder and the
+        time embedding run at this t."""
+        return self._denoise_impl(x_t, t, cond_cache, deep, cache_level=cache_level,
+                                  train=train, rng=rng)[0]
 
     def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
         cache = self.encode_condition(pan, ms, prompt_emb, train=train, rng=rng)

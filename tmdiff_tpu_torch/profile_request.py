@@ -1,13 +1,15 @@
-"""Where the device time of one dpm++ request goes, on a CUDA card.
+"""Where the device time of one sampling request goes, on a CUDA card.
 
     python3 -m tmdiff_tpu_torch.profile_request [--bands 8|4] [--impl banded|auto]
+        [--method dpm++|ancestral|...] [--batch 2] [--size 256] [--n-timestep 1000]
 
 Builds the full-width WavBEST (channels 32, 64, 128, 256) from a seed with
 the given 3x3x3 conv lowering (ops/modconv.py), warms up with one request
-(batch 2, 256x256), then runs one under
-torch.profiler and prints the request's wall seconds, the device's busy
-share (summed kernel time over wall time) and the kernel time by group and
-by name. fp32, TF32 off.
+(`dpm++`, batch 2, 256x256 unless told otherwise), then runs one under
+torch.profiler and prints the request's wall seconds, its denoise calls,
+the device's busy share (summed kernel time over wall time) and the kernel
+time by group and by name. fp32, TF32 off. `--n-timestep` sets the
+schedule's T, which is the ancestral sampler's step count.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from tmdiff_tpu_torch.models.wavbest import WavBEST
 from tmdiff_tpu_torch.ops.modconv import IMPLS
-from tmdiff_tpu_torch.pipeline import Pansharpener
+from tmdiff_tpu_torch.pipeline import METHODS, Pansharpener
 
-BATCH, SIZE, SEED = 2, 256, 0
+SEED = 0
 GROUPS = (("conv_3x3 kernels (K1, K3: tensor-core or FMA variant, weight split, "
            "split-K reduce)", ("conv_3x3_",)),
           ("matmul (1x1x1 convs, Linear)", ("gemm", "cutlass", "cublas")),
@@ -42,21 +44,36 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--bands", type=int, choices=(8, 4), default=8)
     parser.add_argument("--impl", choices=IMPLS, default="banded")
+    parser.add_argument("--method", choices=METHODS, default="dpm++")
+    parser.add_argument("--batch", type=int, default=2)
+    parser.add_argument("--size", type=int, default=256)
+    parser.add_argument("--n-timestep", type=int, default=1000)
     args = parser.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     rng = np.random.default_rng(SEED)
-    ms = rng.uniform(0.05, 0.95, (BATCH, args.bands, SIZE, SIZE)).astype(np.float32)
+    ms = rng.uniform(0.05, 0.95, (args.batch, args.bands, args.size, args.size))
+    ms = ms.astype(np.float32)
     batch = {"PAN": ms.mean(1, keepdims=True), "MS": ms}
     sensor = "WV3" if args.bands == 8 else "QB"
-    sharp = Pansharpener(WavBEST(seed=SEED).use_conv_impl(args.impl))
-    sharp.sample(batch, sensor=sensor, seed=SEED)
+    model = WavBEST(seed=SEED).use_conv_impl(args.impl)
+    sharp = Pansharpener(model, n_timestep=args.n_timestep)
+    sharp.sample(batch, sensor=sensor, method=args.method, seed=SEED)
     torch.cuda.synchronize()
+    calls, denoise = [], model._denoise_impl
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return denoise(*a, **kw)
+
+    # counts the profiled request's denoise calls: denoise, denoise_deep and
+    # denoise_reuse all run the shared body
+    model._denoise_impl = counted
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sharp.sample(batch, sensor=sensor, seed=SEED)
+        sharp.sample(batch, sensor=sensor, method=args.method, seed=SEED)
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -64,10 +81,11 @@ def main() -> None:
     by_group: dict[str, float] = {}
     for e in kernels:
         by_group[group_of(e.key)] = by_group.get(group_of(e.key), 0.0) + e.self_device_time_total
-    print(f"{smi}; request {sensor} {args.bands}-band batch {BATCH} {SIZE}x{SIZE}, "
-          f"{args.impl} convs: "
+    print(f"{smi}; {args.method} request {sensor} {args.bands}-band batch {args.batch} "
+          f"{args.size}x{args.size}, {args.impl} convs, {len(calls)} denoise calls: "
           f"wall {wall:.3f} s under the profiler, device kernel time {total_us / 1e6:.3f} s, "
-          f"busy share {total_us / 1e6 / wall:.3f}")
+          f"busy share {total_us / 1e6 / wall:.3f}, {len(kernels)} kernel names, "
+          f"{sum(e.count for e in kernels)} kernel launches")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {group}: {us / 1e6:.3f} s ({us / total_us:.3f} of kernel time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:

@@ -167,11 +167,13 @@ class Trainer:
         return gaussian.diffusion_loss(denoise, self.schedule, gen, batch["Res"], batch["PAN"],
                                        ms, self.loss_type, t=t, noise=noise)
 
-    def train_step(self, state: TrainState, batch: dict, prompt_emb, *, t=None, noise=None):
+    def train_step(self, state: TrainState, batch: dict, prompt_emb, *extra, **draws):
         """One optimisation step on `batch` ({"Res", "PAN", "MS"}: numpy
         arrays or tensors); returns (state, {"l_pix", "lr", "grad_norm"}),
         the loss and norm as 0-d device tensors (reading them waits for the
-        step). t and noise fix those draws (tests)."""
+        step). `extra` goes to `loss` after the prompt (a subclass's
+        operands, e.g. the distillation teacher's weights); `draws` (t and
+        noise here) fix the step's draws (tests)."""
         dev = self.device
         batch = {k: torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
                  for k in ("Res", "PAN", "MS")}
@@ -179,7 +181,7 @@ class Trainer:
         state.optimizer.zero_grad(set_to_none=True)
         # profiler ranges (chip_smoke.py's step breakdown reads them)
         with torch.profiler.record_function("train.loss"):
-            loss = self.loss(state.step, batch, prompt_emb, t=t, noise=noise)
+            loss = self.loss(state.step, batch, prompt_emb, *extra, **draws)
         loss.backward()
         lr = self.lr_fn(state.step)
         with torch.profiler.record_function("train.optimizer"):
