@@ -4,8 +4,9 @@ target): builds the CUDA kernels from `tmdiff_tpu_torch/csrc/`, holds each
 against its plain PyTorch version at the shapes its path gives it, then
 serves pansharpening requests on a seeded full-width WavBEST (channels
 32, 64, 128, 256; 256x256, batch 2) under both conv lowerings with every
-sampler, runs the attention library at SD-style widths, trains, and drives
-the CLI's train, val and distill phases.
+sampler, in fp32 and in bf16, serves both serving presets through the HTTP
+server (`python -m tmdiff_tpu_torch.serve`), runs the attention library at
+SD-style widths, trains, and drives the CLI's train, val and distill phases.
 
     python3 chip_smoke.py
 
@@ -43,11 +44,35 @@ Phases (any failure ends the run with a non-zero exit code):
   6. auto      the WV3 and QB requests again through the "auto" model (K1 and
                K3), counts reset just before and read just after, by
                variant as in serve; each image against the "banded" one.
+     bf16      the bf16 instances (K1/K2 with three depth taps, K3 with one)
+               at every conv shape and option set of the bf16 model, 8 and
+               4 bands ("banded" for K1, "auto" for K3): each entry against
+               its plain bf16 version within one bf16 step, the variant a
+               bf16 one, timings against the bf16 bound (989 TFLOP/s or
+               3.35 TB/s) and the bf16 library conv; then the serve phase's
+               WV3 request on the bf16 model through "banded" and "auto",
+               counts reset just before and read just after: 1625 bf16
+               launches and no fp32 one, the image within 1e-2 of the
+               "banded" request through the plain bf16 convs and within
+               5e-2 of the fp32 kernel request.
+     http      a port checkpoint of the seeded model (EMA = weights) served
+               by `python -m tmdiff_tpu_torch.serve` with each preset
+               (serve_quality: 8 bands, ddim_cached 20; serve_lowlatency: 4
+               bands, ddim 1; both bf16 and EMA, warmed up before binding)
+               as subprocesses started together (nothing timed until both
+               are healthy): per preset 16 concurrent 256x256 requests
+               (WV2/WV3, QB/GF2), every reply 200; latency p50/p99, img/s,
+               /v1/stats; the server's own launch counts (printed when
+               SIGINT stops it): bf16 conv launches only; each image
+               against a direct request in this process at its seed and
+               bucket, to 2e-3.
      samplers  every other sampler of the Pansharpener, each request with
                the counts reset just before and read just after and its
                denoise, denoise_deep and denoise_reuse calls counted:
-               dpm++_noise (51 calls), dpm++_cfg at guidance 3 and (3, 1.5)
-               (50 calls at batch 4), regression (1), ddim 50 and 20,
+               dpm++_noise 20 steps (21 calls), dpm++_cfg 20 steps at
+               guidance 3 and (3, 1.5) (20 calls at batch 4; both were 50
+               steps before the bf16 and http phases came), regression
+               (1), ddim 50 and 20,
                ddim_cached 20 at refresh_every 2 and cache levels 1 and 3
                and on a static 7-refresh schedule, all WV3 8-band batch 2
                256x256 "banded"; ancestral (T = 1000, 10 frames) on a QB
@@ -134,7 +159,13 @@ card against the host's: SAM to 1e-5 relative (the numpy suite's), SSIM to
 suite's uniform-window SSIM is printed beside it). Distillation: the loss
 to 1e-4 relative and every gradient to 1e-3 of its scale as in training;
 (prediction - target) to 1e-4 absolute, since the target passes two
-teacher calls and a division by down to 0.155.
+teacher calls and a division by down to 0.155. bf16: a conv within one
+bf16 step of its plain bf16 version (each element within half a bf16 step
+of each side's value, two roundings of fp32 sums taken in another order,
+plus the fp32 conv bar for the accumulation); a bf16 request within 1e-2
+of the plain bf16 convs' (bf16 noise over 31 calls: a quantum of bf16 is
+3.9e-3 at 1) and within 5e-2 of the fp32 request; a served image within
+2e-3 of the same batch sampled in this process.
 """
 from __future__ import annotations
 
@@ -144,6 +175,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -326,7 +358,7 @@ def kernel_phase(model, K, modconv, gen):
             st, bi = path
             out = out0.clone() if acc else None
             ms_k = cuda_ms(lambda: K.banded_conv3d(x, k, st, bi, out), 10)
-            ms_p = cuda_ms(lambda: K.conv3d_plain(x, k, st, bi, out), 3)
+            ms_p = cuda_ms(lambda: K.conv3d_plain(x, k, st, bi, out), 1)
             xs = (x * s[:, None, None, None, :] if has_style else x).permute(0, 4, 1, 2, 3)
             wl = k.permute(4, 3, 0, 1, 2).contiguous()
             ms_l = library_ms(lambda: F.conv3d(xs, wl, bi, padding=1), 10)
@@ -374,8 +406,9 @@ def forced_splits(K, splits):
     def plan(kd, x, d, cout):
         b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
         nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
-        variant = K.library().tmdiff_conv_plan(kd, b, d, h, w, cin, cout, x.data_ptr(),
-                                               ctypes.byref(nbytes), ctypes.byref(count))
+        variant = K.library().tmdiff_conv_plan(kd, K.DTYPES[x.dtype], b, d, h, w, cin, cout,
+                                               x.data_ptr(), ctypes.byref(nbytes),
+                                               ctypes.byref(count))
         workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
         return K.VARIANTS[variant], count.value, workspace
 
@@ -455,7 +488,7 @@ def conv2d_phase(model, K3, modconv, gen):
                 errs.append(err)
                 max_err, max_rel = max(max_err, err), max(max_rel, err / scale)
             ms_k = cuda_ms(lambda: K3.conv3x3_nhwc(x, w2, st, bi), 10)
-            ms_p = cuda_ms(lambda: K3.conv3x3_nhwc_plain(x, w2, st, bi), 3)
+            ms_p = cuda_ms(lambda: K3.conv3x3_nhwc_plain(x, w2, st, bi), 1)
             xs = (x * s[:, None, None, :] if has_style else x).permute(0, 3, 1, 2)
             wl = w2.permute(3, 2, 0, 1).contiguous()
             ms_l = library_ms(lambda: F.conv2d(xs, wl, bi, padding=1), 10)
@@ -642,6 +675,370 @@ def auto_serve_phase(model, K, K3, K4, banded_results, seed):
     if counts["K4"] != 0:
         fail("the auto requests launched a kernel off their path")
     return counts
+
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
+# A bf16 conv against its plain version: every element within half a bf16
+# step of each side's value (two roundings of fp32 sums taken in another
+# order land at most one step apart) plus the fp32 conv bar for the tensor
+# cores' accumulation.
+BF16_CONV_RTOL = CONV_RTOL
+BF16_SAMPLE_ATOL = 1e-2  # a bf16 request against itself through the plain bf16 convs
+BF16_VS_FP32 = 5e-2      # a bf16 request against the fp32 kernel request
+BF16_VARIANTS = {"bf16", "bf16_splitk"}
+
+
+def bf16_half_step(t):
+    a = t.float().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 8), torch.zeros_like(a))
+
+
+def bf16_check(got, ref, what):
+    """Holds a bf16 kernel output against its plain version (module note
+    above BF16_CONV_RTOL); returns the largest |got - ref|."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        fail(f"{what}: dtypes {got.dtype} / {ref.dtype}, expected bfloat16")
+    diff = (got.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    over = diff > bf16_half_step(got) + bf16_half_step(ref) + BF16_CONV_RTOL * scale
+    if over.any():
+        fail(f"{what}: {int(over.sum())} elements beyond one bf16 step of the plain version")
+    return diff.max().item()
+
+
+def bf16_conv_shapes(K, K3, modconv, model, gen):
+    """The bf16 K1 and K3 instances at every conv shape (with options) of the
+    bf16 model's one encode + one denoise at 8 and 4 bands, "banded" for K1
+    and "auto" for K3: each entry (the path's options, then all of them;
+    K1's shapes also through the K2 entry) against its plain version, the
+    variant taken, and times of kernel, plain version and the bf16 library
+    conv (cuDNN, benchmark mode) beside the bf16 bound. Returns per-request
+    totals (8-band request) for each kernel and the largest error."""
+    out = {}
+    for name, mod, impl in (("conv3d", K, "banded"), ("conv3x3_nhwc", K3, "auto")):
+        model.use_conv_impl(impl)
+        try:
+            shapes = path_shapes(model, modconv, "banded_conv3d" if mod is K else "conv3x3_nhwc",
+                                 gen)
+        finally:
+            model.use_conv_impl("banded")
+        totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                  "ops_s": 0.0, "bytes_s": 0.0, "max_abs_err": 0.0, "shapes": len(shapes)}
+        for (bands, shape, flags), n in sorted(shapes.items()):
+            *lead, cin, cout = shape
+            taps = (3, 3, 3) if mod is K else (3, 3)
+            x = torch.randn(*lead, cin, device=DEV, generator=gen).bfloat16()
+            n_taps = 27 if mod is K else 9
+            k = (torch.randn(*taps, cin, cout, device=DEV, generator=gen)
+                 / (n_taps * cin) ** 0.5).bfloat16()
+            s = (1.0 + 0.5 * torch.randn(lead[0], cin, device=DEV, generator=gen)).bfloat16()
+            bias = torch.randn(cout, device=DEV, generator=gen).bfloat16()
+            acc = torch.randn(*lead, cout, device=DEV, generator=gen).bfloat16()
+            plain_fn = K.conv3d_plain if mod is K else K3.conv3x3_nhwc_plain
+            entry = getattr(mod, "banded_conv3d" if mod is K else "conv3x3_nhwc")
+            entries = [(entry, flags), (entry, (True,) * len(flags))]
+            if mod is K:
+                entries.append((K.banded_conv3d_v2, (False, False, False)))
+            errs = []
+            with torch.no_grad():
+                for fn, given in entries:
+                    opts = [t if f else None for t, f in zip((s, bias, acc), given)]
+                    fresh = lambda: [t.clone() if t is acc else t for t in opts]
+                    got, variant = launched_variant(mod, lambda: fn(x, k, *fresh()))
+                    if variant not in BF16_VARIANTS:
+                        fail(f"bf16 {name} {shape} took the {variant} variant")
+                    errs.append(bf16_check(got, plain_fn(x, k, *fresh()),
+                                           f"bf16 {name} {shape} {fn.__name__} {given}"))
+                opts = [t if f else None for t, f in zip((s, bias, acc), flags)]
+                ms_k = cuda_ms(lambda: entry(x, k, *opts), 10)
+                ms_p = cuda_ms(lambda: plain_fn(x, k, *opts), 1)
+                perm = (0, 4, 1, 2, 3) if mod is K else (0, 3, 1, 2)
+                xs = (x * s.view(lead[0], *[1] * (len(lead) - 1), cin) if flags[0] else x)
+                wl = k.permute(len(taps) + 1, len(taps), *range(len(taps))).contiguous()
+                conv = F.conv3d if mod is K else F.conv2d
+                bi = bias if flags[1] else None
+                ms_l = library_ms(lambda: conv(xs.permute(*perm), wl, bi, padding=1), 10)
+            positions = int(np.prod(lead))
+            if mod is K:
+                b, d, h, w = lead
+                flops = 2.0 * b * cin * cout * valid_taps(d) * valid_taps(h) * valid_taps(w)
+            else:
+                b, h, w = lead
+                flops = 2.0 * b * cin * cout * valid_taps(h) * valid_taps(w)
+            nbytes = 2.0 * (positions * (cin + cout * (2 if len(flags) > 2 and flags[2] else 1))
+                            + n_taps * cin * cout + (lead[0] * cin if flags[0] else 0)
+                            + (cout if flags[1] else 0))
+            bnd, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+            print(f"[bf16] {name} bands={bands} {tuple(lead)} {cin}->{cout} options={flags} "
+                  f"variant={variant} launches/request={n} ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+                  f"library_ms(bf16)={ms_l:.4f} bound_ms={bnd:.4f} ({bound_by}) "
+                  f"share_of_bound={bnd / ms_k:.3f} max abs err={max(errs):.3g}", flush=True)
+            totals["max_abs_err"] = max(totals["max_abs_err"], *errs)
+            if bands == 8:
+                for key, v in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
+                               ("bound_ms", bnd)):
+                    totals[key] += n * v
+                totals["ops_s" if bound_by == "operations" else "bytes_s"] += n * bnd
+        totals["bound_by"] = "operations" if totals["ops_s"] >= totals["bytes_s"] else "bytes"
+        print(f"[bf16] {name}: {totals['shapes']} shapes; one 8-band batch-{BATCH} {impl} bf16 "
+              f"request, summed: kernel {totals['ms']:.1f} ms, plain {totals['plain_ms']:.1f} ms, "
+              f"library {totals['library_ms']:.1f} ms, bound {totals['bound_ms']:.1f} ms "
+              f"({totals['bound_by']}); max abs err {totals['max_abs_err']:.3g}", flush=True)
+        out[name] = totals
+    return out
+
+
+def bf16_phase(K, K3, modconv, gen, banded_results, seed):
+    """The bf16 instances at every bf16 path shape, then the serve phase's
+    WV3 8-band dpm++ request on the bf16 model (same seed, same weights)
+    through "banded" and "auto": counts reset just before each request and
+    read just after, every conv launch a bf16 one; each image against the
+    "banded" request through the plain bf16 convs and against the fp32
+    kernel request."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+
+    model = WavBEST(CHANNELS, device=DEV, seed=SEED, dtype=torch.bfloat16)
+    totals = bf16_conv_shapes(K, K3, modconv, model, gen)
+    sharp = Pansharpener(model, device=DEV)
+    sensor, batch, img32, sec32 = banded_results[0][:4]
+    requests, plain, plain_sec = {}, None, None
+    for impl in ("banded", "auto"):
+        model.use_conv_impl(impl)
+        try:
+            sharp.sample(batch, sensor=sensor, seed=seed, steps=2)  # warm-up, outside the count
+            torch.cuda.synchronize()
+            K.reset_launches()
+            K3.reset_launches()
+            t0 = time.perf_counter()
+            img = sharp.sample(batch, sensor=sensor, method="dpm++", seed=seed)
+            sec = time.perf_counter() - t0
+            k1, k3 = dict(K.dtype_launches), dict(K3.dtype_launches)
+            variants = {v for m in (K, K3) for v, n in m.variant_launches.items() if n}
+            if plain is None:  # the "auto" request is held against its "banded" twin's
+                model.use_plain_conv(True)
+                try:
+                    t0 = time.perf_counter()
+                    plain = sharp.sample(batch, sensor=sensor, method="dpm++", seed=seed)
+                    plain_sec = time.perf_counter() - t0
+                finally:
+                    model.use_plain_conv(False)
+        finally:
+            model.use_conv_impl("banded")
+        err, gap = float(np.abs(img - plain).max()), float(np.abs(img - img32).max())
+        n = k1["bfloat16"] + k3["bfloat16"]
+        print(f"[bf16] {impl} dpm++ request sensor={sensor} 8 bands batch {BATCH} {SIZE}x{SIZE}: "
+              f"{sec:.3f} s (fp32 banded {sec32:.3f} s, ratio {sec32 / sec:.2f}x); K1 launches "
+              f"by dtype {k1}, K3 {k3}, variants {sorted(variants)}; max abs err {err:.3g} "
+              f"against the banded request through the plain bf16 convs ({plain_sec:.3f} s; atol "
+              f"{BF16_SAMPLE_ATOL}); gap to the fp32 kernel request {gap:.3g} "
+              f"(bar {BF16_VS_FP32})", flush=True)
+        if not check_image(img, batch) or n != ENCODE_CONVS + NFE * DENOISE_CONVS:
+            fail(f"bf16 {impl} request: image ok={check_image(img, batch)}, {n} bf16 launches")
+        if k1["float32"] or k3["float32"] or not variants <= BF16_VARIANTS:
+            fail(f"bf16 {impl} request launched {k1} / {k3}, variants {variants}")
+        if impl == "auto" and k3["bfloat16"] == 0:
+            fail("the bf16 auto request launched no K3 instance")
+        if not (err <= BF16_SAMPLE_ATOL and gap <= BF16_VS_FP32):
+            fail(f"bf16 {impl} request: err {err} vs plain, gap {gap} vs fp32")
+        requests[impl] = {"s": sec, "fp32_s": sec32, "plain_s": plain_sec, "err": err,
+                          "gap_to_fp32": gap, "K1": k1["bfloat16"], "K3": k3["bfloat16"]}
+    return totals, requests
+
+
+HTTP_REQUESTS = 16
+HTTP_PRESETS = (("serve_quality.json", 8, ("WV2", "WV3")),
+                ("serve_lowlatency.json", 4, ("QB", "GF2")))
+HTTP_START_TIMEOUT = 300.0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_post(base, **arrays):
+    """(status, npz reply or error body, seconds) of one POST /v1/pansharpen."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    req = urllib.request.Request(f"{base}/v1/pansharpen", data=buf.getvalue(), method="POST")
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body = r.read()
+            return r.status, dict(np.load(io.BytesIO(body))), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode(errors="replace"), time.perf_counter() - t0
+
+
+def http_get(base, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}{path}", timeout=30) as r:
+        return json.load(r)
+
+
+def wait_healthy(base, proc, log_path, timeout):
+    import urllib.error
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            fail(f"the server exited with {proc.returncode} before it was healthy:\n"
+                 + open(log_path).read()[-4000:])
+        try:
+            if http_get(base, "/healthz") == {"ok": True}:
+                return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(0.5)
+    fail(f"the server was not healthy within {timeout} s")
+
+
+def stop_server(proc):
+    """SIGINT (the server prints its launch report and exits), then kill
+    after 60 s."""
+    if proc.poll() is not None:
+        return
+    proc.send_signal(signal.SIGINT)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def http_phase(seed, root):
+    """`python -m tmdiff_tpu_torch.serve` with each serving preset (bf16,
+    EMA weights) on a port checkpoint of the seeded full-width model (EMA =
+    the weights), as subprocesses started together (their start-up and
+    warm-up overlap; nothing is timed until every one is healthy): per
+    preset, 16 concurrent requests through HTTP, all 200; latency, img/s
+    and /v1/stats; then that server is stopped and its kernel launches (it
+    prints them when stopped by SIGINT) checked: every conv launch a bf16
+    one; each image against a direct Pansharpener.sample in this process on
+    the bf16 model at the reply's seed and bucket, its batch rebuilt from
+    the replies."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.serve import __main__ as serve_main
+    from tmdiff_tpu_torch.train.checkpoint import save_checkpoint
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    model = WavBEST(CHANNELS, device=DEV, seed=SEED)
+    ckpt = save_checkpoint(os.path.join(root, "checkpoint"),
+                           Trainer(model, NoiseSchedule.create("cosine", 1000)).init_state())
+    del model
+    direct = Pansharpener(WavBEST(CHANNELS, device=DEV, seed=SEED, dtype=torch.bfloat16),
+                          device=DEV)
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    servers = []
+    t_start = time.perf_counter()
+    try:
+        for preset, bands, sensors in HTTP_PRESETS:
+            cfg = os.path.join(repo, "tmdiff_tpu_torch", "config", "presets", preset)
+            argv = ["-c", cfg, "--ckpt", ckpt, "--host", "127.0.0.1", "--port", str(free_port())]
+            args, _, sampler_kw = serve_main.prepare(argv)
+            if not (args.bf16 and args.use_ema):
+                fail(f"{preset} does not serve bf16 EMA weights")
+            log_path = os.path.join(root, preset + ".log")
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen([sys.executable, "-m", "tmdiff_tpu_torch.serve", *argv],
+                                        stdout=log, stderr=subprocess.STDOUT, cwd=repo)
+            servers.append((preset, bands, sensors, args, sampler_kw, log_path, proc))
+        ready = {}
+        for preset, _, _, args, _, log_path, proc in servers:
+            wait_healthy(f"http://127.0.0.1:{args.port}", proc, log_path, HTTP_START_TIMEOUT)
+            ready[preset] = time.perf_counter() - t_start
+        results = {}
+        for preset, bands, sensors, args, sampler_kw, log_path, proc in servers:
+            results[preset] = http_preset(preset, bands, sensors, args, sampler_kw, log_path,
+                                          proc, direct, rng, ready[preset])
+    finally:
+        for *_, proc in servers:
+            stop_server(proc)
+    return results
+
+
+def http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc, direct, rng, ready_s):
+    """One healthy server's requests, its launch report and the replays."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    base = f"http://127.0.0.1:{args.port}"
+    reqs = []
+    for i in range(HTTP_REQUESTS):
+        ms = rng.uniform(0.05, 0.95, (bands, SIZE, SIZE)).astype(np.float32)
+        pan = (ms.mean(0, keepdims=True)
+               + 0.05 * rng.standard_normal((1, SIZE, SIZE))).astype(np.float32)
+        reqs.append({"pan": pan, "ms": ms, "sensor": sensors[i % len(sensors)]})
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_REQUESTS) as pool:
+            replies = list(pool.map(lambda r: http_post(base, **r), reqs))
+        wall = time.perf_counter() - t0
+        stats = http_get(base, "/v1/stats")
+    finally:
+        stop_server(proc)
+    server_log = open(log_path).read()
+    bad = [(code, body) for code, body, _ in replies if code != 200]
+    if bad:
+        fail(f"{preset}: {len(bad)} replies were not 200: {bad[:2]}")
+    report = [json.loads(line)["kernel_launches"] for line in server_log.splitlines()
+              if line.startswith('{"kernel_launches"')]
+    if not report:
+        fail(f"{preset}: the server printed no launch report:\n{server_log[-4000:]}")
+    launches = report[-1]
+    conv = launches["conv3d"]
+    if conv["dtypes"]["float32"] or launches["conv3x3_nhwc"]["launches"] or not (
+            conv["dtypes"]["bfloat16"] and set(k for k, n in conv["variants"].items() if n)
+            <= BF16_VARIANTS):
+        fail(f"{preset}: the server's conv launches {launches}")
+    # rebuild each served batch from the replies that rode it
+    groups = {}
+    for req, (_, reply, _) in zip(reqs, replies):
+        key = (int(reply["seed"]), int(reply["bucket"]))
+        groups.setdefault(key, {})[int(reply["row"])] = (req, reply["sr"])
+    max_err = 0.0
+    for (bseed, bucket), rows in sorted(groups.items()):
+        order = [rows[i][0] for i in range(len(rows))]
+        order += [order[-1]] * (bucket - len(order))
+        ref = direct.sample({"PAN": np.stack([r["pan"] for r in order]),
+                             "MS": np.stack([r["ms"] for r in order])},
+                            sensor=[r["sensor"] for r in order], method=args.sampler,
+                            steps=args.steps, seed=bseed, **(sampler_kw or {}))
+        for i, (_, sr) in rows.items():
+            if not check_image(sr, {"MS": ref[i]}):
+                fail(f"{preset}: reply image not finite in [0, 1] of shape {ref.shape[1:]}")
+            max_err = max(max_err, float(np.abs(sr - ref[i]).max()))
+    if max_err > SAMPLE_ATOL:
+        fail(f"{preset}: served images differ from the direct requests by {max_err}")
+    lat = np.array([t for _, _, t in replies]) * 1e3
+    result = {"sampler": args.sampler, "steps": args.steps, "bands": bands,
+              "img_per_s": HTTP_REQUESTS / wall, "wall_s": wall,
+              "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+              "ready_s": ready_s, "stats": stats, "server_launches": launches,
+              "batches": sorted(groups), "max_abs_err": max_err}
+    print(f"[http] {preset}: sampler {args.sampler} steps {args.steps} {sampler_kw or {}} "
+          f"bf16, {bands} bands {SIZE}x{SIZE}; healthy {ready_s:.1f} s after the servers were "
+          f"started together (warm-up {args.warmup}); {HTTP_REQUESTS} concurrent requests in "
+          f"{wall:.3f} s = {HTTP_REQUESTS / wall:.2f} img/s; latency ms p50 "
+          f"{result['p50_ms']:.1f} p99 {result['p99_ms']:.1f} (all: "
+          f"{np.round(np.sort(lat), 1).tolist()}); batches (seed, bucket) {sorted(groups)}; "
+          f"/v1/stats {json.dumps(stats)}; server launches {json.dumps(launches)}; images vs "
+          f"direct requests max abs err {max_err:.3g} (atol {SAMPLE_ATOL})", flush=True)
+    return result
 
 
 def attention_bound(b, h, sq, skv, d, peak):
@@ -1568,18 +1965,20 @@ class SamplerRequest:
     n_timestep: int = 1000
 
 
-CFG3, CFG15 = "dpm++_cfg g=3", "dpm++_cfg g=1.5"
+CFG3, CFG15 = "dpm++_cfg 20 g=3", "dpm++_cfg 20 g=1.5"
 DDIM20, CACHED1 = "ddim 20", "ddim_cached 20 r=2 level 1"
 ANCESTRAL_SHORT = "ancestral T=100, 10 frames"
 SAMPLER_REQUESTS = (
-    SamplerRequest("dpm++_noise", "WV3", 8, BATCH, SIZE, "banded",
-                   dict(method="dpm++_noise"), 51, 1),
+    SamplerRequest("dpm++_noise 20", "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_noise", steps=20), 21, 1),
     SamplerRequest(CFG3, "WV3", 8, BATCH, SIZE, "banded",
-                   dict(method="dpm++_cfg", guidance=3.0), 50, 2),
+                   dict(method="dpm++_cfg", guidance=3.0, steps=20), 20, 2),
     SamplerRequest(CFG15, "WV3", 8, BATCH, SIZE, "banded",
-                   dict(method="dpm++_cfg", guidance=1.5), 50, 2, hold="path", twin=CFG3),
-    SamplerRequest("dpm++_cfg g=(3, 1.5)", "WV3", 8, BATCH, SIZE, "banded",
-                   dict(method="dpm++_cfg", guidance=np.array([3.0, 1.5], np.float32)), 50, 2,
+                   dict(method="dpm++_cfg", guidance=1.5, steps=20), 20, 2, hold="path",
+                   twin=CFG3),
+    SamplerRequest("dpm++_cfg 20 g=(3, 1.5)", "WV3", 8, BATCH, SIZE, "banded",
+                   dict(method="dpm++_cfg", guidance=np.array([3.0, 1.5], np.float32), steps=20),
+                   20, 2,
                    hold="rows", twin=CFG3, rows=(CFG3, CFG15)),
     SamplerRequest("regression", "WV3", 8, BATCH, SIZE, "banded", dict(method="regression"), 1, 1),
     SamplerRequest(DDIM20, "WV3", 8, BATCH, SIZE, "banded", dict(method="ddim", steps=20), 20, 1),
@@ -1600,8 +1999,9 @@ SAMPLER_REQUESTS = (
     SamplerRequest("ancestral T=1000, 10 frames", "QB", 4, 1, 128, "banded",
                    dict(method="ancestral", num_frames=10), 1000, 1, hold="path",
                    twin=ANCESTRAL_SHORT),
-    SamplerRequest("dpm++_cfg g=3 auto", "WV3", 8, BATCH, SIZE, "auto",
-                   dict(method="dpm++_cfg", guidance=3.0), 50, 2, hold="twin", twin=CFG3),
+    SamplerRequest("dpm++_cfg 20 g=3 auto", "WV3", 8, BATCH, SIZE, "auto",
+                   dict(method="dpm++_cfg", guidance=3.0, steps=20), 20, 2, hold="twin",
+                   twin=CFG3),
     SamplerRequest("ddim_cached 20 r=2 level 1 auto", "WV3", 8, BATCH, SIZE, "auto",
                    dict(method="ddim_cached", steps=20, refresh_every=2, cache_level=1), 20, 1,
                    hold="twin", twin=CACHED1),
@@ -1990,6 +2390,13 @@ def main() -> int:
     if k1_launches == 0:
         fail("the main path launched no conv3d kernel")
     auto_counts = timed("auto", auto_serve_phase, model, K, K3, K4, banded_results, SEED)
+    bf16_totals, bf16_requests = timed("bf16", bf16_phase, K, K3, modconv, gen, banded_results,
+                                       SEED)
+    http_root = tempfile.mkdtemp(prefix="tmdiff_http_")
+    try:
+        served = timed("http", http_phase, SEED, http_root)
+    finally:
+        shutil.rmtree(http_root, ignore_errors=True)
     samplers, sampler_hold = timed("samplers", samplers_phase, model, K, K3, K4, modconv, SEED)
     k4_totals, k4_err, k4_launches, k4_variants = timed("attention", attention_phase, K4, gen)
     train = timed("train", train_phase, K, K3, K4, gen)
@@ -2005,6 +2412,15 @@ def main() -> int:
 
     per_request = (f"summed over the launches of one dpm++ request, 8 bands, batch {BATCH}, "
                    f"{SIZE}x{SIZE}, full width")
+    bf16_entry = lambda name, totals, launches: {
+        "route": "cuda", "source": "tmdiff_tpu_torch/csrc/conv3d.cu", "launches": launches,
+        "max_abs_err": totals["max_abs_err"], "ms": totals["ms"], "plain_ms": totals["plain_ms"],
+        "bound_ms": totals["bound_ms"], "bound_by": totals["bound_by"],
+        "library_ms": totals["library_ms"], "peak_flops": PEAK_BF16_FLOPS,
+        "times_are": per_request + f' in bf16 through the "{name}" model (library: the bf16 '
+                                   "library conv)",
+        "requests": bf16_requests,
+        "http": {p: {k: v for k, v in r.items() if k != "stats"} for p, r in served.items()}}
     kernels = [
         {"name": "conv3d_333", "route": "cuda", "source": "tmdiff_tpu_torch/csrc/conv3d.cu",
          "replaces": "tmdiff_tpu/ops/pallas/banded_conv3d.py:101",
@@ -2063,6 +2479,11 @@ def main() -> int:
          "library_ms": k4_totals["library_ms"],
          "times_are": f"summed over the two attentions of one SpatialTransformer forward, "
                       f"batch {BATCH}, 64x64x256, 8 heads x 64"},
+        {"name": "conv3d_333_bf16", "replaces": "tmdiff_tpu/ops/pallas/banded_conv3d.py:101",
+         "replaces_also": "tmdiff_tpu/ops/pallas/banded_conv3d.py:182",
+         **bf16_entry("banded", bf16_totals["conv3d"], bf16_requests["banded"]["K1"])},
+        {"name": "conv3x3_nhwc_bf16", "replaces": "tmdiff_tpu/ops/pallas/conv2d.py:43",
+         **bf16_entry("auto", bf16_totals["conv3x3_nhwc"], bf16_requests["auto"]["K3"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

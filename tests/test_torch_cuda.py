@@ -102,7 +102,8 @@ def test_kernel_split_k_with_all_options(cuda):
     with torch.no_grad():
         K.reset_launches()
         got = K.banded_conv3d(x, k, s, bias, out.clone())
-        assert K.variant_launches == {"ffma": 0, "tf32x3": 0, "tf32x3_splitk": 1}
+        assert K.variant_launches == {"ffma": 0, "tf32x3": 0, "tf32x3_splitk": 1, "bf16": 0,
+                                      "bf16_splitk": 0}
         _assert_close_to_plain(got, K.conv3d_plain(x, k, s, bias, out.clone()))
 
 
@@ -198,7 +199,8 @@ def test_kernel_error_at_the_deepest_sums(cuda, shape):
         for kernel_fn, plain_fn, (st, bi, o) in runs:
             module.reset_launches()
             got = kernel_fn(st, bi, None if o is None else o.clone())
-            assert module.variant_launches == {"ffma": 0, "tf32x3": 1, "tf32x3_splitk": 0}
+            assert module.variant_launches == {"ffma": 0, "tf32x3": 1, "tf32x3_splitk": 0,
+                                               "bf16": 0, "bf16_splitk": 0}
             ref = plain_fn(st, bi, None if o is None else o.clone())
             torch.cuda.synchronize()
             rel = (got - ref).abs().max().item() / ref.abs().max().item()
@@ -227,8 +229,9 @@ def forced_splits(K, splits):
     def plan(kd, x, d, cout):
         b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
         nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
-        variant = K.library().tmdiff_conv_plan(kd, b, d, h, w, cin, cout, x.data_ptr(),
-                                               ctypes.byref(nbytes), ctypes.byref(count))
+        variant = K.library().tmdiff_conv_plan(kd, K.DTYPES[x.dtype], b, d, h, w, cin, cout,
+                                               x.data_ptr(), ctypes.byref(nbytes),
+                                               ctypes.byref(count))
         workspace = torch.empty(nbytes.value, dtype=torch.uint8, device=x.device)
         return K.VARIANTS[variant], count.value, workspace
 
@@ -267,11 +270,23 @@ def test_kernel_error_against_chain_length(cuda, cout):
 
 
 class _Float64Torch:
-    """The torch module with `float32` read as `float64`: the model's own
-    casts to float32 (time embedding, condition streams) then keep float64."""
+    """The torch module with `float32` read as `float64`: the time
+    embedding's own float32 arithmetic then runs in float64."""
 
     def __getattr__(self, name):
         return torch.float64 if name == "float32" else getattr(torch, name)
+
+
+def _float64_model(model):
+    """A float64 copy of the model: its parameters and its compute dtype
+    (the `dtype` its blocks and Linear layers cast to) in float64."""
+    import copy
+
+    model64 = copy.deepcopy(model).double()
+    for m in model64.modules():
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    return model64
 
 
 def _preset_case(cuda, bands):
@@ -303,20 +318,19 @@ def _preset_case(cuda, bands):
 def _preset_prediction(case, dtype=torch.float32):
     """The model's x0 prediction on the case, and the target."""
     from tmdiff_tpu_torch.diffusion import gaussian
-    from tmdiff_tpu_torch.models import wavbest
     from tmdiff_tpu_torch.ops import embedding
 
     model, ns, batch, prompt, t, noise = case
     gamma = ns.sqrt_alphas_cumprod_prev.to(device=noise.device, dtype=dtype)[t]
     res, pan, ms = (batch[k].to(dtype) for k in ("Res", "PAN", "MS"))
     x_t = gaussian.q_sample(res, gamma[:, None, None, None], noise.to(dtype))
-    saved = wavbest.torch, embedding.torch
+    saved = embedding.torch
     if dtype == torch.float64:
-        wavbest.torch = embedding.torch = _Float64Torch()
+        embedding.torch = _Float64Torch()
     try:
         return model(x_t, t, pan, ms, prompt.to(dtype)), res
     finally:
-        wavbest.torch, embedding.torch = saved
+        embedding.torch = saved
 
 
 def _errors(names, got, ref):
@@ -343,8 +357,6 @@ def test_preset_gradients_match_plain(cuda, bands):
     it prints the L1 gradients with each path's own signs, the count of
     elements whose sign differs, K1 with a chain at every channel step
     (16 splits), and the L2 loss's gradients."""
-    import copy
-
     from tmdiff_tpu_torch.ops.cuda import conv3d as K
 
     case = _preset_case(cuda, bands)
@@ -378,7 +390,7 @@ def test_preset_gradients_match_plain(cuda, bands):
     with forced_splits(K, 16):
         pred, _ = _preset_prediction(case)
         g_k1_16 = all_grads(pred, res, params, sign_plain)
-    model64 = copy.deepcopy(model).double().use_plain_conv(True)
+    model64 = _float64_model(model).use_plain_conv(True)
     pred, res64 = _preset_prediction((model64,) + case[1:], torch.float64)
     flips64 = int((torch.sign(pred.detach() - res64).float() != sign_plain).sum())
     g_64 = all_grads(pred, res64, list(model64.parameters()), sign_plain)
@@ -897,3 +909,167 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         assert all(x.device == y.device and torch.equal(x, y) for x, y in zip(a, b))
         trainer.train_step(state, batch, prompt)
         other.train_step(fresh, batch, prompt)
+
+
+# -- the bf16 instances (K1/K2 with KD = 3, K3 with KD = 1) --------------------
+
+# Held against their plain versions: every element within half a bf16 step
+# of the kernel's value and of the plain value (two roundings to bf16 of
+# fp32 sums taken in another order may land one step apart), plus 1e-4 of the
+# output's scale, the fp32 kernel's bar, for the tensor cores' fp32
+# accumulation (it cannot move a large element by a step, only a small one).
+BF16_ACC_RTOL = 1e-4
+
+
+def bf16_half_step(a):
+    """Half the spacing of bf16 values at |a|: one rounding's largest error."""
+    a = a.float().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 8), torch.zeros_like(a))
+
+
+def assert_bf16_close(got, ref, what=""):
+    assert got.dtype == ref.dtype == torch.bfloat16, (got.dtype, ref.dtype)
+    torch.cuda.synchronize()
+    scale = ref.float().abs().max().item()
+    bar = bf16_half_step(got) + bf16_half_step(ref) + BF16_ACC_RTOL * scale
+    over = (got.float() - ref.float()).abs() > bar
+    assert not over.any().item(), f"{what}: {int(over.sum())} elements beyond one bf16 step"
+
+
+def _full_width_bf16_shapes(cuda, impl):
+    """{(wrapper name, x shape + (Cout,), flags)} of every conv launch of one
+    encode + one denoise of the full-width bf16 WavBEST at 256x256, batch 2,
+    8 and 4 bands, under `impl`."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops import modconv
+
+    model = WavBEST((32, 64, 128, 256), seed=0, dtype=torch.bfloat16).use_conv_impl(impl)
+    seen = set()
+    originals = {n: getattr(modconv, n) for n in ("banded_conv3d", "conv3x3_nhwc")}
+
+    def recorder(name):
+        def rec(x, kernel, *rest):
+            seen.add((name, tuple(x.shape) + (kernel.shape[-1],),
+                      tuple(a is not None for a in rest)))
+            return originals[name](x, kernel, *rest)
+        return rec
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    try:
+        for n in originals:
+            setattr(modconv, n, recorder(n))
+        with torch.no_grad():
+            for bands in (8, 4):
+                pan = torch.rand(2, 1, 256, 256, device=cuda, generator=g)
+                ms = torch.rand(2, bands, 256, 256, device=cuda, generator=g)
+                cache = model.encode_condition(pan, ms, torch.randn(768, device=cuda, generator=g))
+                model.denoise(torch.randn(2, bands, 256, 256, device=cuda, generator=g),
+                              torch.full((2,), 500.0, device=cuda), cache)
+    finally:
+        for n, fn in originals.items():
+            setattr(modconv, n, fn)
+    return seen
+
+
+@pytest.mark.parametrize("impl", ["banded", "auto"])
+def test_bf16_instances_match_plain_at_the_path_shapes(cuda, impl):
+    """Every bf16 conv shape (with its options) of the full-width bf16 model
+    under each lowering: the wrapper launches a bf16 instance (by variant
+    and dtype counters) and agrees with the plain bf16 version within one
+    bf16 step; with all options (style, bias, accumulation) too."""
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    shapes = _full_width_bf16_shapes(cuda, impl)
+    assert {n for n, _, _ in shapes} == ({"banded_conv3d"} if impl == "banded"
+                                         else {"banded_conv3d", "conv3x3_nhwc"})
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for name, shape, flags in sorted(shapes):
+        mod = K if name == "banded_conv3d" else K3
+        *xs, cin, cout = shape
+        x = torch.randn(*xs, cin, device=cuda, generator=g).bfloat16()
+        taps = (3, 3, 3) if mod is K else (3, 3)
+        k = (torch.randn(*taps, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5).bfloat16()
+        s = (1 + 0.5 * torch.randn(xs[0], cin, device=cuda, generator=g)).bfloat16()
+        bias = torch.randn(cout, device=cuda, generator=g).bfloat16()
+        out = torch.randn(*xs, cout, device=cuda, generator=g).bfloat16()
+        everything = (True,) * len(flags)
+        for given in (flags, everything):  # the path's options, then all of them
+            opts = [t if f else None for t, f in zip((s, bias, out), given)]
+            fresh = lambda: [t.clone() if t is out else t for t in opts]
+            with torch.no_grad():
+                mod.reset_launches()
+                got = getattr(mod, name)(x, k, *fresh())
+                plain = (K.conv3d_plain if mod is K else K3.conv3x3_nhwc_plain)(x, k, *fresh())
+            variants = {v for v, n in mod.variant_launches.items() if n}
+            assert variants <= {"bf16", "bf16_splitk"} and mod.dtype_launches == {
+                "float32": 0, "bfloat16": 1}, (name, shape, variants)
+            assert_bf16_close(got, plain, f"{name} {shape} {variants}")
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 16, 8, 32), (1, 3, 5, 7, 24, 5), (2, 4, 2, 2, 64, 256), (2, 8, 33, 40, 96, 33),
+    (1, 1, 1, 1, 8, 8), (2, 4, 32, 32, 256, 128),
+])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_bf16_kernel_off_the_tile_and_split(cuda, shape, splits):
+    """The bf16 K1 instance with style, bias and accumulation at ragged
+    shapes (Cin % 16 != 0, odd Cout, a window over a 2x2 or 1x1 image),
+    with the plan's split count and forced ones; within one bf16 step."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, k, s, bias, out = (t.bfloat16() for t in _random_conv(cuda, shape))
+    with forced_splits(K, splits) if splits else contextlib.nullcontext(), torch.no_grad():
+        got = K.banded_conv3d_v2(x, k, s, bias, out.clone())
+    assert_bf16_close(got, K.conv3d_plain(x, k, s, bias, out.clone()), f"{shape} splits={splits}")
+
+
+def test_bf16_refusals(cuda):
+    """No bf16 instance for Cin % 8 != 0: the wrapper raises instead of
+    taking an fp32 kernel or the plain version; one launch takes one dtype;
+    a bf16 conv under a gradient raises."""
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x = torch.randn(1, 4, 8, 8, 4, device=cuda).bfloat16()
+    k = torch.randn(3, 3, 3, 4, 8, device=cuda).bfloat16()
+    K.reset_launches()
+    with pytest.raises(ValueError, match="Cin % 8"):
+        K.banded_conv3d(x, k)
+    with pytest.raises(ValueError, match="Cin % 8"):
+        K3.conv3x3_nhwc(x[:, 0], k[0])
+    assert K.launches == 0
+    x8 = torch.randn(1, 4, 8, 8, 8, device=cuda).bfloat16()
+    with pytest.raises(TypeError, match="one dtype"):
+        K.banded_conv3d(x8, torch.randn(3, 3, 3, 8, 8, device=cuda))
+    with pytest.raises(TypeError, match="float32 only"):
+        K.banded_conv3d(x8.requires_grad_(), torch.randn(3, 3, 3, 8, 8, device=cuda).bfloat16())
+
+
+def test_bf16_model_runs_on_bf16_instances(cuda):
+    """A bf16 WavBEST on the card: every 3x3x3 conv of a forward is a bf16
+    launch under both lowerings, the output is float32, and it is within
+    5e-2 of the output's scale of the fp32 model on the same weights."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    fp32 = WavBEST((16, 32, 64, 128), seed=0)
+    bf16 = WavBEST((16, 32, 64, 128), seed=0, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    args = (torch.randn(2, 8, 64, 64, device=cuda, generator=g), torch.tensor([3.0, 600.0],
+                                                                               device=cuda),
+            torch.rand(2, 1, 64, 64, device=cuda, generator=g),
+            torch.rand(2, 8, 64, 64, device=cuda, generator=g),
+            torch.randn(768, device=cuda, generator=g))
+    with torch.no_grad():
+        ref = fp32(*args)
+        for impl in ("banded", "auto"):
+            K.reset_launches()
+            K3.reset_launches()
+            y = bf16.use_conv_impl(impl)(*args)
+            assert y.dtype == torch.float32
+            assert K.dtype_launches["bfloat16"] + K3.dtype_launches["bfloat16"] == 13 + 52
+            assert K.dtype_launches["float32"] == K3.dtype_launches["float32"] == 0
+            assert (y - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()

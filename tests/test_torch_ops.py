@@ -168,7 +168,9 @@ def test_port_imports_no_jax():
             "tmdiff_tpu_torch/ops/cuda/flash_attention.py", "tmdiff_tpu_torch/cli.py",
             "tmdiff_tpu_torch/config/config.py", "tmdiff_tpu_torch/eval/harness.py",
             "tmdiff_tpu_torch/eval/metrics.py", "tmdiff_tpu_torch/eval/metrics_torch.py",
-            "tmdiff_tpu_torch/train/checkpoint.py", "tmdiff_tpu_torch/utils/export.py"} <= names
+            "tmdiff_tpu_torch/train/checkpoint.py", "tmdiff_tpu_torch/utils/export.py",
+            "tmdiff_tpu_torch/serve/engine.py", "tmdiff_tpu_torch/serve/server.py",
+            "tmdiff_tpu_torch/serve/__main__.py"} <= names
     assert len(files) > 10 and not offenders, offenders
     readers = {"tmdiff_tpu_torch/data/h5.py", "tmdiff_tpu_torch/data/synthetic.py"}
     assert h5_imports and all(f in readers and indent for f, indent in h5_imports), h5_imports

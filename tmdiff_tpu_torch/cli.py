@@ -251,15 +251,9 @@ def _run(args, opt, stop, datasets=None):
         else:
             logger.info(f"Auto-resume: no checkpoint in {ckpt_dir}, fresh start")
     elif resume:
-        if resume.endswith(".pth") or os.path.exists(resume + "_gen.pth"):
-            path = resume if resume.endswith(".pth") else resume + "_gen.pth"
-            ckpt_lib.import_reference_checkpoint(path, state)
-            logger.info(f"Imported reference torch checkpoint {path}")
-        else:
-            root, name = os.path.split(os.path.normpath(resume))
-            step = int(name[1:]) if name[:1] == "I" and name[1:].isdigit() else None
-            ckpt_lib.restore_checkpoint(resume if step is None else root, state, step=step)
-            logger.info(f"Restored checkpoint from {resume} at step {state.step}")
+        _, pth = ckpt_lib.restore_path(resume, state)
+        logger.info(f"Imported reference torch checkpoint {pth}" if pth
+                    else f"Restored checkpoint from {resume} at step {state.step}")
     current_step = state.step
     logger.info("Initial Model Finished")
 

@@ -1,6 +1,7 @@
 // SAME, stride-1 convolutions with a 3x3 spatial window over channels-last
-// activations, fp32 in and out, fp32-accurate accumulation. Two entries share
-// one kernel template over the number of depth taps KD:
+// activations, fp32 in and out with fp32-accurate accumulation, or bf16 in and
+// out with fp32 accumulation. Two entries share one kernel template over the
+// number of depth taps KD:
 //
 //   KD = 3, tmdiff_conv3d_333: (B, D, H, W, Cin) with the spectral bands as
 //     depth, kernel (3, 3, 3, Cin, Cout);
@@ -74,9 +75,33 @@
 // make_plan(); tmdiff_conv_plan() tells the wrapper which variant a shape
 // takes, its split count and how many workspace bytes it needs, and the
 // entries take that split count back, so the card is asked once per shape.
+//
+// bf16 (dtype 1): what the Pallas kernels compute for bf16 operands, A =
+// bf16(x * s) (the style product rounded once, as the JAX package's
+// `x * style.astype(x.dtype)`), B = bf16(W), fp32 accumulation, then bias and
+// the accumulated `y` added in fp32 and one rounding to bf16 (the JAX package
+// adds its bias and concat parts after the conv, in bf16). One kernel,
+// conv_3x3_bf16_kernel, on the 3xTF32 variant's tiling, producer and split-K
+// rule, with one product where 3xTF32 takes three:
+//   * wgmma.mma_async.m64nBNk16.f32.bf16.bf16, A from registers (two bf16 per
+//     register), B from shared memory; one k16 step per 16-channel stage.
+//   * A: the halo is bf16, 32-byte rows (half the 3xTF32 variant's bytes);
+//     the k order of a stage is permuted so that a thread's four fragment
+//     columns 2t, 2t+1, 2t+8, 2t+9 are the neighbouring channels 4t..4t+3,
+//     one 8-byte load per row and tap.
+//   * B: conv_3x3_weight_bf16_kernel writes the bf16 weight in the k16
+//     no-swizzle core-matrix layout with that k order, BN * 32 bytes per
+//     (N tile, channel step, tap).
+//   * Split-K keeps fp32 partial sums; the reduce pass rounds once to bf16.
+// Bound on an H100: operations at the dense bf16 rate, 989 TFLOP/s. It takes
+// Cin % 8 == 0 (the tensor map's 16-byte strides) and a 16-byte aligned x;
+// there is no bf16 FMA variant, so the plan refuses every other bf16 shape
+// (variant -1) and the entries return cudaErrorInvalidValue for it.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cuda_bf16.h>
 
 #include <atomic>
 #include <cstdint>
@@ -327,6 +352,58 @@ __device__ __forceinline__ void tma_load_halo(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The stage ring's mbarriers: two halo buffers and kStages weight stages,
+// each with a "full" barrier (the producer's copy landed) and an "empty" one
+// (every consumer warp is done with it).
+__device__ __forceinline__ void init_stage_barriers(uint64_t* halo_full, uint64_t* halo_empty,
+                                                    uint64_t* w_full, uint64_t* w_empty) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&halo_full[i], 1);
+      mbar_init(&halo_empty[i], kConsumers / 32);
+    }
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&w_full[i], 1);
+      mbar_init(&w_empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer thread: the halo of each channel step (TMA, two buffers) and
+// the weight image of each (channel step, tap) (bulk copy, kStages buffers),
+// in the consumers' order. `wblk` is this block's N tile of the weight
+// images, W_BYTES per (channel step, tap).
+template <int KD, int TAPS, int HALO_BYTES, int W_BYTES>
+__device__ __forceinline__ void produce(const CUtensorMap* map, const unsigned char* wblk,
+                                        unsigned char* halo, unsigned char* wst,
+                                        uint64_t* halo_full, uint64_t* halo_empty,
+                                        uint64_t* w_full, uint64_t* w_empty, int cb_begin,
+                                        int cb_end, int w0, int h0, int d0, int b) {
+  auto load_halo = [&](int c) {
+    const int i = c - cb_begin, s = i & 1;
+    mbar_wait(&halo_empty[s], ((i >> 1) & 1) ^ 1);
+    mbar_expect_tx(&halo_full[s], HALO_BYTES);
+    tma_load_halo(halo + s * HALO_BYTES, map, &halo_full[s], c * kCK, w0 - 1, h0 - 1,
+                  d0 - KD / 2, b);
+  };
+  if (cb_begin < cb_end) load_halo(cb_begin);
+  int step = 0;
+  for (int c = cb_begin; c < cb_end; ++c) {
+    for (int tap = 0; tap < TAPS; ++tap, ++step) {
+      const int s = step % kStages;
+      mbar_wait(&w_empty[s], ((step / kStages) & 1) ^ 1);
+      mbar_expect_tx(&w_full[s], W_BYTES);
+      bulk_load(wst + s * W_BYTES, wblk + ((long long)c * TAPS + tap) * W_BYTES, W_BYTES,
+                &w_full[s]);
+      // By now the consumers have finished step (c, 0), so the other halo
+      // buffer (step c - 1) is free: the next halo lands during this step.
+      if (tap == kStages && c + 1 < cb_end) load_halo(c + 1);
+    }
+  }
+}
+
 // The weight's B operand: for each (N tile, channel step of 16, tap) one
 // W_FLOATS image of the stage as the main kernel stages it, hi then lo, each
 // two k8 steps of an N x 8 K-major no-swizzle matrix. Within a step s the k8
@@ -557,46 +634,16 @@ conv_3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap, const float* __
   const int cb_begin = blockIdx.z * cb_per_split;
   const int cb_end = min(n_cb, cb_begin + cb_per_split);
 
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
-      mbar_init(&halo_full[i], 1);
-      mbar_init(&halo_empty[i], kConsumers / 32);
-    }
-    for (int i = 0; i < kStages; ++i) {
-      mbar_init(&w_full[i], 1);
-      mbar_init(&w_empty[i], kConsumers / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
+  init_stage_barriers(halo_full, halo_empty, w_full, w_empty);
 
   if (threadIdx.x >= kConsumers) {
     // Producer: one thread keeps the halo and weight stages in flight.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(tc_producer_regs(BN)));
     if (threadIdx.x != kConsumers) return;
     const float* wblk = wsplit + (long long)blockIdx.y * n_cb * T::TAPS * T::W_FLOATS;
-    const CUtensorMap* map = &xmap;
-    auto load_halo = [&](int c) {
-      const int i = c - cb_begin, s = i & 1;
-      mbar_wait(&halo_empty[s], ((i >> 1) & 1) ^ 1);
-      mbar_expect_tx(&halo_full[s], T::HALO_BYTES);
-      tma_load_halo(halo + s * T::HALO_BYTES, map, &halo_full[s], c * kCK, w0 - 1, h0 - 1,
-                    d0 - KD / 2, b);
-    };
-    if (cb_begin < cb_end) load_halo(cb_begin);
-    int step = 0;
-    for (int c = cb_begin; c < cb_end; ++c) {
-      for (int tap = 0; tap < T::TAPS; ++tap, ++step) {
-        const int s = step % kStages;
-        mbar_wait(&w_empty[s], ((step / kStages) & 1) ^ 1);
-        mbar_expect_tx(&w_full[s], T::W_BYTES);
-        bulk_load(wst + s * T::W_BYTES, wblk + ((long long)c * T::TAPS + tap) * T::W_FLOATS,
-                  T::W_BYTES, &w_full[s]);
-        // By now the consumers have finished step (c, 0), so the other halo
-        // buffer (step c - 1) is free: the next halo lands during this step.
-        if (tap == kStages && c + 1 < cb_end) load_halo(c + 1);
-      }
-    }
+    produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES>(
+        &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full, halo_empty,
+        w_full, w_empty, cb_begin, cb_end, w0, h0, d0, b);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(tc_consumer_regs(BN)));
     consume<KD, BN>(halo, wst, halo_full, halo_empty, w_full, w_empty, style, bias, y, partial,
@@ -635,10 +682,278 @@ __global__ void conv_3x3_splitk_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 tensor-core variant.
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int KD, int BN>
+struct BfTile {
+  static constexpr int TW = 16, TD = KD == 3 ? 4 : 1, TH = 16 / TD;  // 16 lines of 16
+  static constexpr int TAPS = KD * 9;
+  static constexpr int HD = TD + KD - 1, HH = TH + 2, HW = TW + 2;
+  static constexpr int ROW_BYTES = kCK * 2;  // one halo position: 16 bf16 channels
+  static constexpr int HALO_BYTES = HD * HH * HW * ROW_BYTES;
+  static constexpr int W_BYTES = BN * kCK * 2;  // one k16 step of BN x 16 bf16, K-major
+  static constexpr int SMEM_BYTES = 2 * HALO_BYTES + kStages * W_BYTES + (4 + 2 * kStages) * 8;
+  static_assert(HALO_BYTES % 128 == 0 && W_BYTES % 128 == 0, "stage alignment");
+};
+
+// Input channel (within a 16-channel step) of k16 column kc: thread t's
+// fragment columns 2t, 2t+1, 2t+8, 2t+9 hold channels 4t, 4t+1, 4t+2, 4t+3.
+__host__ __device__ constexpr int bf16_k_channel(int kc) {
+  return 4 * ((kc & 7) >> 1) + 2 * (kc >> 3) + (kc & 1);
+}
+
+// The weight's B operand for the bf16 kernel: for each (N tile, channel step
+// of 16, tap) one W_BYTES image, bf16 (n, kc) at (n / 8) * 128 + (kc / 8) *
+// 64 + (n % 8) * 8 + kc % 8 (b_desc_k16's layout), kc holding channel
+// bf16_k_channel(kc) of the step. Channels past Cin and outputs past Cout are
+// zero.
+__global__ void conv_3x3_weight_bf16_kernel(const bf16* __restrict__ w, bf16* __restrict__ out,
+                                            int taps, int Cin, int Cout, int bn,
+                                            long long w_stride_tap, long long w_stride_c) {
+  const int n_cb = (Cin + kCK - 1) / kCK, n_nb = (Cout + bn - 1) / bn;
+  const int image = kCK * bn;  // bf16 of one stage
+  const long long total = (long long)n_nb * n_cb * taps * image;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int q = static_cast<int>(i % image);
+    const long long stage = i / image;  // (nb * n_cb + cb) * taps + tap
+    const int tap = static_cast<int>(stage % taps);
+    const int cb = static_cast<int>((stage / taps) % n_cb);
+    const int nb = static_cast<int>(stage / taps / n_cb);
+    const int n = (q >> 7) * 8 + ((q >> 3) & 7);  // 8-row group, then row in it
+    const int kc = ((q >> 6) & 1) * 8 + (q & 7);  // K half, then column in it
+    const int c = cb * kCK + bf16_k_channel(kc);
+    const int o = nb * bn + n;
+    out[i] = (c < Cin && o < Cout) ? w[tap * w_stride_tap + c * w_stride_c + o]
+                                   : __float2bfloat16_rn(0.f);
+  }
+}
+
+// The bf16 kernel's consumer warpgroups: the 3xTF32 consumer's tiling and
+// stage protocol (see consume), one k16 wgmma per row block and tap.
+template <int KD, int BN>
+__device__ __forceinline__ void consume_bf16(
+    const unsigned char* halo, const unsigned char* wst, uint64_t* halo_full,
+    uint64_t* halo_empty, uint64_t* w_full, uint64_t* w_empty, const bf16* __restrict__ style,
+    const bf16* __restrict__ bias, bf16* __restrict__ y, float* __restrict__ partial,
+    long long plane, int D, int H, int W, int Cin, int Cout, int cb_begin, int cb_end, int b,
+    int d0, int h0, int w0, int n0, int accumulate) {
+  using T = BfTile<KD, BN>;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int row0[2];  // halo position of row g at tap (0, 0, 0)
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+    const int L = 4 * (2 * wg + mb) + warp;
+    row0[mb] = ((L / T::TH) * T::HH + L % T::TH) * T::HW + g;
+  }
+  constexpr bool kPromote = tc_promotes(BN);
+  float acc[2][BN / 2], sum[2][BN / 2];
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[mb][i] = sum[mb][i] = 0.f;
+
+  const bf16* sb = style ? style + (long long)b * Cin : nullptr;
+  int step = 0;
+  for (int c = cb_begin; c < cb_end; ++c) {
+    const int i = c - cb_begin, hs = i & 1;
+    float sv[4] = {1.f, 1.f, 1.f, 1.f};
+    if (sb) {
+      const int ch = c * kCK + 4 * t;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sv[e] = ch + e < Cin ? __bfloat162float(sb[ch + e]) : 0.f;
+    }
+    mbar_wait(&halo_full[hs], (i >> 1) & 1);
+    const unsigned char* hb = halo + hs * T::HALO_BYTES + t * 8;
+#pragma unroll 1
+    for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll 1
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll 1
+        for (int kw = 0; kw < 3; ++kw, ++step) {
+          const int shift = (kd * T::HH + kh) * T::HW + kw;
+          uint32_t a[2][4];  // [mb][fragment register]
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            uint2 v0 = *reinterpret_cast<const uint2*>(hb + (row0[mb] + shift) * T::ROW_BYTES);
+            uint2 v1 = *reinterpret_cast<const uint2*>(hb + (row0[mb] + shift + 8) * T::ROW_BYTES);
+            if (sb) {  // bf16(x * s): the fp32 product of two bf16 is exact
+              v0.x = pack_bf16x2(bf16_lo(v0.x) * sv[0], bf16_hi(v0.x) * sv[1]);
+              v0.y = pack_bf16x2(bf16_lo(v0.y) * sv[2], bf16_hi(v0.y) * sv[3]);
+              v1.x = pack_bf16x2(bf16_lo(v1.x) * sv[0], bf16_hi(v1.x) * sv[1]);
+              v1.y = pack_bf16x2(bf16_lo(v1.y) * sv[2], bf16_hi(v1.y) * sv[3]);
+            }
+            // Fragment: (g, 2t..2t+1), (g + 8, 2t..2t+1), (g, 2t+8..2t+9),
+            // (g + 8, 2t+8..2t+9) = channels 4t..4t+1 and 4t+2..4t+3.
+            a[mb][0] = v0.x;
+            a[mb][1] = v1.x;
+            a[mb][2] = v0.y;
+            a[mb][3] = v1.y;
+          }
+          const int s = step % kStages;
+          mbar_wait(&w_full[s], (step / kStages) & 1);
+          const uint64_t desc = b_desc_k16(smem_u32(wst + s * T::W_BYTES));
+          fence_regs<BN / 2>(acc[0]);
+          fence_regs<BN / 2>(acc[1]);
+          fence_regs<8>(&a[0][0]);
+          wgmma_fence();
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) WgmmaBf16<BN>::mma(acc[mb], a[mb], desc);
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs<BN / 2>(acc[0]);
+          fence_regs<BN / 2>(acc[1]);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&w_empty[s]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&halo_empty[hs]);
+    if constexpr (kPromote) {
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          sum[mb][i] += acc[mb][i];
+          acc[mb][i] = 0.f;
+        }
+    }
+  }
+
+  // Epilogue. Accumulator j of a row block holds (row g, col 8 j + 2 t),
+  // (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t), (g + 8, 8 j + 2 t + 1): each
+  // thread writes column pairs, fp32 into the split-K workspace, else
+  // bf16(acc + bias + y) with one rounding.
+  const bool pairs = (Cout & 1) == 0;
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb) {
+    const int L = 4 * (2 * wg + mb) + warp;
+    const int gd = d0 + L / T::TH, gh = h0 + L % T::TH;
+    if (gd >= D || gh >= H) continue;
+    const long long line = (((long long)b * D + gd) * H + gh) * W;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float* a = kPromote ? &sum[mb][4 * j] : &acc[mb][4 * j];
+      const int n = n0 + 8 * j + 2 * t;
+      if (n >= Cout) continue;
+      const bool second = n + 1 < Cout;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int gw = w0 + g + 8 * r;
+        if (gw >= W) continue;
+        const long long e = (line + gw) * Cout + n;
+        float v0 = a[2 * r], v1 = a[2 * r + 1];
+        if (partial) {
+          float* p = partial + blockIdx.z * plane + e;
+          if (pairs) {
+            *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+          } else {
+            p[0] = v0;
+            if (second) p[1] = v1;
+          }
+          continue;
+        }
+        bf16* p = y + e;
+        if (bias) {
+          v0 += __bfloat162float(bias[n]);
+          if (second) v1 += __bfloat162float(bias[n + 1]);
+        }
+        if (accumulate) {
+          v0 += __bfloat162float(p[0]);
+          if (second) v1 += __bfloat162float(p[1]);
+        }
+        if (pairs) {
+          *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v0, v1);
+        } else {
+          p[0] = __float2bfloat16_rn(v0);
+          if (second) p[1] = __float2bfloat16_rn(v1);
+        }
+      }
+    }
+  }
+}
+
+template <int KD, int BN>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(BN))
+conv_3x3_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ wimg,
+                     const bf16* __restrict__ style, const bf16* __restrict__ bias,
+                     bf16* __restrict__ y, float* __restrict__ partial, long long plane, int D,
+                     int H, int W, int Cin, int Cout, int cb_per_split, int accumulate) {
+  using T = BfTile<KD, BN>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* halo = smem;                     // [2][HALO_BYTES]
+  unsigned char* wst = smem + 2 * T::HALO_BYTES;  // [kStages][W_BYTES]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wst + kStages * T::W_BYTES);
+  uint64_t* halo_full = bars;
+  uint64_t* halo_empty = bars + 2;
+  uint64_t* w_full = bars + 4;
+  uint64_t* w_empty = bars + 4 + kStages;
+
+  const int tiles_w = (W + T::TW - 1) / T::TW;
+  const int tiles_h = (H + T::TH - 1) / T::TH;
+  const int tiles_d = (D + T::TD - 1) / T::TD;
+  int tile = blockIdx.x;
+  const int w0 = (tile % tiles_w) * T::TW;
+  tile /= tiles_w;
+  const int h0 = (tile % tiles_h) * T::TH;
+  tile /= tiles_h;
+  const int d0 = (tile % tiles_d) * T::TD;
+  const int b = tile / tiles_d;
+  const int n0 = blockIdx.y * BN;
+  const int n_cb = (Cin + kCK - 1) / kCK;
+  const int cb_begin = blockIdx.z * cb_per_split;
+  const int cb_end = min(n_cb, cb_begin + cb_per_split);
+
+  init_stage_barriers(halo_full, halo_empty, w_full, w_empty);
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(tc_producer_regs(BN)));
+    if (threadIdx.x != kConsumers) return;
+    const bf16* wblk = wimg + (long long)blockIdx.y * n_cb * T::TAPS * (T::W_BYTES / 2);
+    produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES>(
+        &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full, halo_empty,
+        w_full, w_empty, cb_begin, cb_end, w0, h0, d0, b);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(tc_consumer_regs(BN)));
+    consume_bf16<KD, BN>(halo, wst, halo_full, halo_empty, w_full, w_empty, style, bias, y,
+                         partial, plane, D, H, W, Cin, Cout, cb_begin, cb_end, b, d0, h0, w0, n0,
+                         accumulate);
+  }
+}
+
+// y = bf16((accumulate ? y : 0) + bias + partial[0] + partial[1] + ...), the
+// sum in fp32 in that order and rounded once.
+__global__ void conv_3x3_splitk_reduce_bf16_kernel(const float* __restrict__ partial, int splits,
+                                                   long long plane, const bf16* __restrict__ bias,
+                                                   bf16* __restrict__ y, int Cout,
+                                                   int accumulate) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < plane; i += stride) {
+    float v = accumulate ? __bfloat162float(y[i]) : 0.f;
+    if (bias) v += __bfloat162float(bias[i % Cout]);
+    for (int s = 0; s < splits; ++s) v += partial[s * plane + i];
+    y[i] = __float2bfloat16_rn(v);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
-enum Variant { kFfma = 0, kTf32x3 = 1, kTf32x3SplitK = 2 };
+enum Dtype { kFloat32 = 0, kBfloat16 = 1 };
+enum Variant {
+  kNone = -1,  // a bf16 shape that no instance takes
+  kFfma = 0,
+  kTf32x3 = 1,
+  kTf32x3SplitK = 2,
+  kBf16 = 3,
+  kBf16SplitK = 4
+};
 
 struct Plan {
   int variant = kFfma;
@@ -665,10 +980,16 @@ int sm_count() {
 
 // The variant and tiling of one shape. splits <= 0 chooses the split count
 // from the card's SMs (the split-K rule above); splits > 0 takes that count,
-// at most one split a channel step.
-Plan make_plan(int kd, int B, int D, int H, int W, int Cin, int Cout, const void* x,
+// at most one split a channel step. bf16 has the tensor-core variant only:
+// Cin % 8 == 0 (16-byte tensor-map strides) and a 16-byte aligned x.
+Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout, const void* x,
                int splits) {
   Plan p;
+  const bool bf = dtype == kBfloat16;
+  if (bf && (Cin % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)) {
+    p.variant = kNone;
+    return p;
+  }
   if (Cin % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0) return p;
   p.bn = Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128;
   const int td = kd == 3 ? 4 : 1, th = 16 / td;
@@ -684,8 +1005,14 @@ Plan make_plan(int kd, int B, int D, int H, int W, int Cin, int Cout, const void
   }
   p.cb_per_split = cdiv(p.n_cb, s);
   p.splits = cdiv(p.n_cb, p.cb_per_split);
-  p.variant = p.splits > 1 ? kTf32x3SplitK : kTf32x3;
-  p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * 32 * p.bn;
+  if (bf) {
+    p.variant = p.splits > 1 ? kBf16SplitK : kBf16;
+    // the bf16 weight images take a quarter of the split fp32 ones' bytes
+    p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * 8 * p.bn;
+  } else {
+    p.variant = p.splits > 1 ? kTf32x3SplitK : kTf32x3;
+    p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * 32 * p.bn;
+  }
   p.partial_offset = (p.wsplit_floats * 4 + 255) / 256 * 256;
   p.bytes = p.partial_offset +
             (p.splits > 1 ? 4LL * p.splits * B * D * H * W * Cout : 0);
@@ -712,6 +1039,24 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The TMA map of x (B, D, H, W, Cin) for a halo box of (kCK, HW, HH, HD, 1)
+// elements; out-of-bounds elements (the SAME padding) read as zeros.
+bool encode_halo_map(CUtensorMap* map, bool bf, const void* x, int B, int D, int H, int W,
+                     int Cin, int hw, int hh, int hd) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t e = bf ? 2 : 4;
+  const cuuint64_t dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {e * Cin, e * W * Cin, e * H * W * Cin, e * D * H * W * Cin};
+  const cuuint32_t box[5] = {(cuuint32_t)kCK, (cuuint32_t)hw, (cuuint32_t)hh, (cuuint32_t)hd, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
+                const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int KD, int BN>
 int launch_tc(const Plan& p, const float* x, const float* w, const float* style,
               const float* bias, float* y, int B, int D, int H, int W, int Cin, int Cout,
@@ -719,18 +1064,9 @@ int launch_tc(const Plan& p, const float* x, const float* w, const float* style,
               cudaStream_t stream) {
   using T = TcTile<KD, BN>;
   if (!workspace || p.tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap xmap;
-  const cuuint64_t dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[4] = {4ull * Cin, 4ull * W * Cin, 4ull * H * W * Cin,
-                                 4ull * D * H * W * Cin};
-  const cuuint32_t box[5] = {kCK, T::HW, T::HH, T::HD, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5, const_cast<float*>(x), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!encode_halo_map(&xmap, false, x, B, D, H, W, Cin, T::HW, T::HH, T::HD))
     return static_cast<int>(cudaErrorInvalidValue);
 
   float* wsplit = static_cast<float*>(workspace);
@@ -775,58 +1111,130 @@ int launch_tc_entry(const Plan& p, const float* x, const float* w, const float* 
                             w_stride_c, accumulate, workspace, s);
 }
 
+template <int KD, int BN>
+int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, const bf16* bias,
+                bf16* y, int B, int D, int H, int W, int Cin, int Cout, long long w_stride_tap,
+                long long w_stride_c, int accumulate, void* workspace, cudaStream_t stream) {
+  using T = BfTile<KD, BN>;
+  if (!workspace || p.tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap xmap;
+  if (!encode_halo_map(&xmap, true, x, B, D, H, W, Cin, T::HW, T::HH, T::HD))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  bf16* wimg = static_cast<bf16*>(workspace);
+  float* partial = p.splits > 1
+                       ? reinterpret_cast<float*>(static_cast<char*>(workspace) + p.partial_offset)
+                       : nullptr;
+  const long long plane = (long long)B * D * H * W * Cout;
+
+  const int pack_blocks = cdiv(p.wsplit_floats * 2, 256);  // one thread per bf16
+  conv_3x3_weight_bf16_kernel<<<pack_blocks < 4096 ? pack_blocks : 4096, 256, 0, stream>>>(
+      w, wimg, KD * 9, Cin, Cout, BN, w_stride_tap, w_stride_c);
+
+  auto kernel = conv_3x3_bf16_kernel<KD, BN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(p.tiles), p.n_nb, p.splits);
+  kernel<<<grid, kTcThreads, T::SMEM_BYTES, stream>>>(xmap, wimg, style, bias, y, partial, plane,
+                                                      D, H, W, Cin, Cout, p.cb_per_split,
+                                                      accumulate);
+  if (p.splits > 1) {
+    const int blocks = cdiv(plane, 256) < 8192 ? cdiv(plane, 256) : 8192;
+    conv_3x3_splitk_reduce_bf16_kernel<<<blocks, 256, 0, stream>>>(partial, p.splits, plane, bias,
+                                                                   y, Cout, accumulate);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KD>
+int launch_bf16_entry(const Plan& p, const void* x, const void* w, const void* style,
+                      const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
+                      long long w_stride_tap, long long w_stride_c, int accumulate,
+                      void* workspace, cudaStream_t s) {
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const bf16* sb = static_cast<const bf16*>(style);
+  const bf16* bb = static_cast<const bf16*>(bias);
+  bf16* yb = static_cast<bf16*>(y);
+  if (p.bn == 32)
+    return launch_bf16<KD, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                               w_stride_c, accumulate, workspace, s);
+  if (p.bn == 64)
+    return launch_bf16<KD, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                               w_stride_c, accumulate, workspace, s);
+  return launch_bf16<KD, 128>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                              w_stride_c, accumulate, workspace, s);
+}
+
+// One launch of either dtype's instances for the plan's variant.
+template <int KD>
+int launch_any(const Plan& p, int dtype, const void* x, const void* w, const void* style,
+               const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
+               long long w_stride_tap, long long w_stride_c, int accumulate, void* workspace,
+               cudaStream_t s) {
+  if (p.variant == kNone) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == kBfloat16)
+    return launch_bf16_entry<KD>(p, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
+                                 w_stride_c, accumulate, workspace, s);
+  const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w);
+  const float *sf = static_cast<const float*>(style), *bf = static_cast<const float*>(bias);
+  float* yf = static_cast<float*>(y);
+  if (p.variant == kFfma)
+    return launch_ffma_entry(KD, xf, wf, sf, bf, yf, B, D, H, W, Cin, Cout, w_stride_tap,
+                             w_stride_c, accumulate, s);
+  return launch_tc_entry<KD>(p, xf, wf, sf, bf, yf, B, D, H, W, Cin, Cout, w_stride_tap,
+                             w_stride_c, accumulate, workspace, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Which variant the entries launch for this shape (0: fp32 FMA, 1: 3xTF32
-// tensor cores, 2: the same with split-K), the split count to pass them and
-// the workspace bytes it needs (0 for the FMA variant), on the current
-// device; kd = 3 for tmdiff_conv3d_333, 1 for tmdiff_conv2d_33 (with D = 1).
-// *splits comes in as the split count wanted (0: the split-K rule's) and
-// goes out as the count the entries will take.
-int tmdiff_conv_plan(int kd, int B, int D, int H, int W, int Cin, int Cout, const void* x,
-                     long long* workspace_bytes, int* splits) {
-  const Plan p = make_plan(kd, B, D, H, W, Cin, Cout, x, *splits);
+// Which variant the entries launch for this shape and dtype (0: float32, 1:
+// bfloat16): -1 none (a bf16 shape with Cin % 8 != 0 or an x that is not
+// 16-byte aligned), 0 fp32 FMA, 1 3xTF32 tensor cores, 2 the same with
+// split-K, 3 bf16 tensor cores, 4 the same with split-K; the split count to
+// pass the entries and the workspace bytes it needs (0 for the FMA variant),
+// on the current device; kd = 3 for tmdiff_conv3d_333, 1 for
+// tmdiff_conv2d_33 (with D = 1). *splits comes in as the split count wanted
+// (0: the split-K rule's) and goes out as the count the entries will take.
+int tmdiff_conv_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout,
+                     const void* x, long long* workspace_bytes, int* splits) {
+  const Plan p = make_plan(kd, dtype, B, D, H, W, Cin, Cout, x, *splits);
   *workspace_bytes = p.bytes;
   *splits = p.splits;
   return p.variant;
 }
 
-// Returns a cudaError_t value: 0 when the launches were accepted. The weight
-// element (tap, c, o) lies at w[tap * w_stride_tap + c * w_stride_c + o], so
-// the wrapper can pass slices of a larger weight (a concat part's input
-// channels, one group of a grouped conv) without copying them. `splits` and
-// `workspace` are tmdiff_conv_plan's split count and bytes for this shape,
-// the workspace allocated by the caller.
-int tmdiff_conv3d_333(const float* x, const float* w, const float* style,
-                      const float* bias, float* y, int B, int D, int H, int W, int Cin,
-                      int Cout, long long w_stride_tap, long long w_stride_c,
-                      int accumulate, int splits, void* workspace, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Returns a cudaError_t value: 0 when the launches were accepted. Every
+// tensor has the given dtype. The weight element (tap, c, o) lies at
+// w[tap * w_stride_tap + c * w_stride_c + o], so the wrapper can pass slices
+// of a larger weight (a concat part's input channels, one group of a grouped
+// conv) without copying them. `splits` and `workspace` are tmdiff_conv_plan's
+// split count and bytes for this shape, the workspace allocated by the
+// caller.
+int tmdiff_conv3d_333(int dtype, const void* x, const void* w, const void* style,
+                      const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
+                      long long w_stride_tap, long long w_stride_c, int accumulate, int splits,
+                      void* workspace, void* stream) {
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(3, B, D, H, W, Cin, Cout, x, splits);
-  if (p.variant == kFfma)
-    return launch_ffma_entry(3, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                             w_stride_c, accumulate, s);
-  return launch_tc_entry<3>(p, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                            w_stride_c, accumulate, workspace, s);
+  const Plan p = make_plan(3, dtype, B, D, H, W, Cin, Cout, x, splits);
+  return launch_any<3>(p, dtype, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
+                       w_stride_c, accumulate, workspace, static_cast<cudaStream_t>(stream));
 }
 
 // The same for a 3x3 NHWC conv, (B, H, W, Cin) -> (B, H, W, Cout): one depth
 // tap and a tile one position deep. It writes y and never accumulates into it.
-int tmdiff_conv2d_33(const float* x, const float* w, const float* style,
-                     const float* bias, float* y, int B, int H, int W, int Cin, int Cout,
-                     long long w_stride_tap, long long w_stride_c, int splits,
-                     void* workspace, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+int tmdiff_conv2d_33(int dtype, const void* x, const void* w, const void* style,
+                     const void* bias, void* y, int B, int H, int W, int Cin, int Cout,
+                     long long w_stride_tap, long long w_stride_c, int splits, void* workspace,
+                     void* stream) {
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Plan p = make_plan(1, B, 1, H, W, Cin, Cout, x, splits);
-  if (p.variant == kFfma)
-    return launch_ffma_entry(1, x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
-                             w_stride_c, 0, s);
-  return launch_tc_entry<1>(p, x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
-                            w_stride_c, 0, workspace, s);
+  const Plan p = make_plan(1, dtype, B, 1, H, W, Cin, Cout, x, splits);
+  return launch_any<1>(p, dtype, x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
+                       w_stride_c, 0, workspace, static_cast<cudaStream_t>(stream));
 }
 
 const char* tmdiff_cuda_error_string(int err) {

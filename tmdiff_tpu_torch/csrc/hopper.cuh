@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
 // (conv3d.cu, flash_attention.cu): mbarriers, bulk copies into shared
-// memory, the 3xTF32 operand split, the no-swizzle K-major shared-memory
-// descriptor, and wgmma.m64nNk8.f32.tf32.tf32 with A from registers.
+// memory, the 3xTF32 operand split, bf16 packing, the no-swizzle K-major
+// shared-memory descriptors, wgmma.m64nNk8.f32.tf32.tf32 and
+// wgmma.m64nNk16.f32.bf16.bf16 with A from registers.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +63,18 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(r));
 }
 
+// Two floats rounded to nearest-even bf16 and packed as one 32-bit register:
+// lo in the lower half (the lower k index of an A fragment pair), hi above.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// The two bf16 of a packed register as floats (exact).
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
 // wgmma shared-memory descriptor of an N x 8 tf32 K-major operand in the
 // no-swizzle layout: 8 x 16-byte core matrices, the two K halves 128 bytes
 // apart (leading byte offset), 8-row groups 256 bytes apart (stride byte
@@ -71,6 +84,12 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32);
 }
+
+// The same for an N x 16 bf16 K-major operand: a k16 bf16 core matrix is
+// also 8 rows x 16 bytes (8 bf16 along K), so the geometry is b_desc's; one
+// k16 step is N * 32 bytes and element (n, k) lies at bf16
+// (n / 8) * 128 + (k / 8) * 64 + (n % 8) * 8 + k % 8.
+__device__ __forceinline__ uint64_t b_desc_k16(uint32_t saddr) { return b_desc(saddr); }
 
 // Keeps the compiler from moving reads or writes of registers that an
 // asynchronous wgmma uses across the fence, commit and wait around it.
@@ -177,6 +196,76 @@ struct Wgmma<128> {
         "%48, %49, %50, %51, %52, %53, %54, %55, "
         "%56, %57, %58, %59, %60, %61, %62, %63"
         "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+// D (m64 x N, fp32) += A (m64 x k16 bf16, registers) * B (k16 x N bf16,
+// shared, K-major: the last immediate, trans-b, is 0). A fragment of lane
+// (g = lane / 4, t = lane % 4) in warp w, rows 16 w + g and 16 w + g + 8, as
+// four registers of two bf16 (the lower column in the lower half):
+// {(g, 2t..2t+1), (g + 8, 2t..2t+1), (g, 2t+8..2t+9), (g + 8, 2t+8..2t+9)}.
+// The accumulator fragment is Wgmma's.
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<32> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  __device__ __forceinline__ static void mma(float* d, const uint32_t* a, uint64_t desc_b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),

@@ -28,6 +28,12 @@ the masks (train mode); None leaves dropout out (eval mode). Each part and
 site draws its own mask from the generator in turn, so one generator state
 gives the same masks again (the trainer's recompute relies on that).
 
+Every block takes `dtype`, float32 (the default) or bfloat16, as the JAX
+package's blocks do: parameters stay float32 and are cast at use, convs and
+Linear layers run in `dtype` (a conv module casts its input to it, as the
+JAX Conv3d does; a Linear adds its bias after the product, in `dtype`), and
+the activations between them keep it.
+
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
 CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
 (see WavBEST.use_plain_conv). Its `impl` attribute picks the 3x3x3 lowering,
@@ -67,10 +73,25 @@ def _lecun_normal(shape, fan_in):
     return nn.Parameter(torch.randn(shape) / math.sqrt(fan_in))
 
 
-def linear(cin: int, cout: int, bias_value: float = 0.0) -> nn.Linear:
+class Linear(nn.Linear):
+    """nn.Linear run in `dtype`: in bfloat16 the input and the weight are
+    cast to it and the bias is added after the product, in bfloat16, as a
+    flax Dense of that dtype does; in float32 it is nn.Linear's forward."""
+
+    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+        super().__init__(cin, cout)
+        self.dtype = dtype
+
+    def forward(self, x):
+        if self.dtype == torch.float32:
+            return super().forward(x.to(torch.float32))
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+
+
+def linear(cin: int, cout: int, bias_value: float = 0.0, dtype=torch.float32) -> Linear:
     """Linear with a lecun-normal weight and a constant bias, as the JAX
     package initialises its Dense layers (style projections start at 1)."""
-    lin = nn.Linear(cin, cout)
+    lin = Linear(cin, cout, dtype)
     with torch.no_grad():
         lin.weight.normal_(0.0, 1.0 / math.sqrt(cin))
         lin.bias.fill_(bias_value)
@@ -80,33 +101,37 @@ def linear(cin: int, cout: int, bias_value: float = 0.0) -> nn.Linear:
 class Dense(nn.Module):
     """The reference's Linear wrapper: the Linear sits at `.dense`."""
 
-    def __init__(self, cin: int, cout: int, bias_value: float = 0.0):
+    def __init__(self, cin: int, cout: int, bias_value: float = 0.0, dtype=torch.float32):
         super().__init__()
-        self.dense = linear(cin, cout, bias_value)
+        self.dense = linear(cin, cout, bias_value, dtype)
 
     def forward(self, x):
         return self.dense(x)
 
 
 class Conv3d(nn.Module):
-    """Biased SAME 3-D conv; `x` may be a tuple of channel parts."""
+    """Biased SAME 3-D conv in `dtype`; `x` may be a tuple of channel parts."""
 
-    def __init__(self, cin: int, cout: int, k: int = 3):
+    def __init__(self, cin: int, cout: int, k: int = 3, dtype=torch.float32):
         super().__init__()
         self.weight = _lecun_normal((k, k, k, cin, cout), k ** 3 * cin)
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.dtype = dtype
         self.plain = False
         self.impl = "banded"
 
     def forward(self, x):
         if isinstance(x, tuple):
-            return conv3d_cat(x, self.weight, bias=self.bias, plain=self.plain, impl=self.impl)
-        return conv3d(x, self.weight, bias=self.bias, plain=self.plain, impl=self.impl)
+            return conv3d_cat(tuple(p.to(self.dtype) for p in x), self.weight, bias=self.bias,
+                              plain=self.plain, impl=self.impl)
+        return conv3d(x.to(self.dtype), self.weight, bias=self.bias, plain=self.plain,
+                      impl=self.impl)
 
 
 class ModConv3d(nn.Module):
     """Bias-free conv whose input channels are scaled per sample by a style
-    (B, Cin) computed by a sibling Linear."""
+    (B, Cin) computed by a sibling Linear; it runs in x's dtype, as the JAX
+    package's modulated conv does."""
 
     def __init__(self, cin: int, cout: int, k: int = 3):
         super().__init__()
@@ -121,16 +146,17 @@ class ModConv3d(nn.Module):
 class ResBlockModulate(nn.Module):
     """(+temb) -> swish -> conv -> swish -> modulated conv -> + 1x1-projected skip."""
 
-    def __init__(self, cin: int, features: int, embed_dim: int, use_temb: bool = True):
+    def __init__(self, cin: int, features: int, embed_dim: int, use_temb: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.use_temb = use_temb
-        self.conv20 = Conv3d(cin, features)
+        self.conv20 = Conv3d(cin, features, dtype=dtype)
         self.conv21 = ModConv3d(features, features)
-        self.dense2 = Dense(embed_dim, features, 1.0)
+        self.dense2 = Dense(embed_dim, features, 1.0, dtype)
         if use_temb:
-            self.dense1 = Dense(embed_dim, cin)
+            self.dense1 = Dense(embed_dim, cin, dtype=dtype)
         if cin != features:
-            self.res_conv = Conv3d(cin, features, 1)
+            self.res_conv = Conv3d(cin, features, 1, dtype)
 
     def forward(self, x, temb, zemb, rng=None):
         parts = x if isinstance(x, tuple) else (x,)
@@ -154,11 +180,11 @@ class ResBlockModulate(nn.Module):
 class AdaptionHead(nn.Module):
     """Entry head: 1x1x1 channel expansion -> swish -> modulated 3x3x3 conv."""
 
-    def __init__(self, cin: int, features: int, embed_dim: int):
+    def __init__(self, cin: int, features: int, embed_dim: int, dtype=torch.float32):
         super().__init__()
-        self.conv20 = Conv3d(cin, features, 1)
+        self.conv20 = Conv3d(cin, features, 1, dtype)
         self.conv21 = ModConv3d(features, features)
-        self.dense2 = Dense(embed_dim, features, 1.0)
+        self.dense2 = Dense(embed_dim, features, 1.0, dtype)
 
     def forward(self, x, zemb):
         return self.conv21(swish(self.conv20(x)), self.dense2(zemb))
@@ -168,15 +194,16 @@ class WaveletDown(nn.Module):
     """Conv both branches, Haar-DWT H/W, keep LL/2; returns the conv branch's
     (LH, HL, HH) as the skip."""
 
-    def __init__(self, features: int, embed_dim: int, use_temb: bool = True):
+    def __init__(self, features: int, embed_dim: int, use_temb: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         self.use_temb = use_temb
-        self.Conv_0 = Conv3d(features, features)
-        self.Conv_2 = Conv3d(features, features, 1)
+        self.Conv_0 = Conv3d(features, features, dtype=dtype)
+        self.Conv_2 = Conv3d(features, features, 1, dtype)
         self.Conv_1 = ModConv3d(features, features)
-        self.dense1 = Dense(embed_dim, features, 1.0)
+        self.dense1 = Dense(embed_dim, features, 1.0, dtype)
         if use_temb:
-            self.Dense_0 = linear(embed_dim, features)
+            self.Dense_0 = linear(embed_dim, features, dtype=dtype)
 
     def forward(self, x, temb, zemb, rng=None):
         h = self.Conv_0(swish(x))
@@ -194,18 +221,19 @@ class GroupedSkipConv(nn.Module):
     """3-group 3x3x3 conv over the three HF subbands without concatenating
     them: group g's block of the (3, 3, 3, C, 3F) kernel convolves part g."""
 
-    def __init__(self, cin: int, features: int, groups: int = 3):
+    def __init__(self, cin: int, features: int, groups: int = 3, dtype=torch.float32):
         super().__init__()
         self.features = features
         self.weight = _lecun_normal((3, 3, 3, cin, groups * features), 27 * cin)
         self.bias = nn.Parameter(torch.zeros(groups * features))
+        self.dtype = dtype
         self.plain = False
         self.impl = "banded"
 
     def forward(self, parts):
         f = self.features
         return tuple(
-            conv3d(p, self.weight[..., g * f:(g + 1) * f],
+            conv3d(p.to(self.dtype), self.weight[..., g * f:(g + 1) * f],
                    bias=self.bias[g * f:(g + 1) * f], plain=self.plain, impl=self.impl)
             for g, p in enumerate(parts))
 
@@ -214,14 +242,14 @@ class WaveletUp(nn.Module):
     """Conv both branches, project the encoder's HF skip through a 3-group
     conv, IDWT back to full resolution."""
 
-    def __init__(self, features: int, skip_channels: int, embed_dim: int):
+    def __init__(self, features: int, skip_channels: int, embed_dim: int, dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv3d(features, features)
-        self.Conv_2 = Conv3d(features, features, 1)
-        self.convH_0 = nn.ModuleList([GroupedSkipConv(skip_channels, features)])
+        self.Conv_0 = Conv3d(features, features, dtype=dtype)
+        self.Conv_2 = Conv3d(features, features, 1, dtype)
+        self.convH_0 = nn.ModuleList([GroupedSkipConv(skip_channels, features, dtype=dtype)])
         self.Conv_1 = ModConv3d(features, features)
-        self.dense1 = Dense(embed_dim, features, 1.0)
-        self.Dense_0 = linear(embed_dim, features)
+        self.dense1 = Dense(embed_dim, features, 1.0, dtype)
+        self.Dense_0 = linear(embed_dim, features, dtype=dtype)
 
     def forward(self, x, temb, zemb, skip, rng=None):
         h = self.Conv_0(swish(x))
@@ -237,10 +265,11 @@ class WaveletUp(nn.Module):
 class DownStage(nn.Module):
     """ResBlock (cin -> features) followed by wavelet downsampling."""
 
-    def __init__(self, cin: int, features: int, embed_dim: int, use_temb: bool = True):
+    def __init__(self, cin: int, features: int, embed_dim: int, use_temb: bool = True,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv20 = ResBlockModulate(cin, features, embed_dim, use_temb)
-        self.down = WaveletDown(features, embed_dim, use_temb)
+        self.conv20 = ResBlockModulate(cin, features, embed_dim, use_temb, dtype)
+        self.down = WaveletDown(features, embed_dim, use_temb, dtype)
 
     def forward(self, x, temb, zemb, rng=None):
         return self.down(self.conv20(x, temb, zemb, rng), temb, zemb, rng)
@@ -249,10 +278,11 @@ class DownStage(nn.Module):
 class UpStage(nn.Module):
     """ResBlock on the 3-way skip concat, then wavelet upsampling."""
 
-    def __init__(self, cin: int, features: int, skip_channels: int, embed_dim: int):
+    def __init__(self, cin: int, features: int, skip_channels: int, embed_dim: int,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv20 = ResBlockModulate(cin, features, embed_dim)
-        self.up1 = WaveletUp(features, skip_channels, embed_dim)
+        self.conv20 = ResBlockModulate(cin, features, embed_dim, dtype=dtype)
+        self.up1 = WaveletUp(features, skip_channels, embed_dim, dtype)
 
     def forward(self, x, temb, zemb, skip, rng=None):
         return self.up1(self.conv20(x, temb, zemb, rng), temb, zemb, skip, rng)
@@ -261,14 +291,15 @@ class UpStage(nn.Module):
 class FinalBlock(nn.Module):
     """Four ResBlocks, then a modulated 1x1x1 projection to one feature."""
 
-    def __init__(self, cin: int, features: int, embed_dim: int, out_features: int = 1):
+    def __init__(self, cin: int, features: int, embed_dim: int, out_features: int = 1,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv20 = ResBlockModulate(cin, features, embed_dim)
-        self.conv21 = ResBlockModulate(features, features, embed_dim)
-        self.conv22 = ResBlockModulate(features, features, embed_dim)
-        self.conv23 = ResBlockModulate(features, features, embed_dim)
+        self.conv20 = ResBlockModulate(cin, features, embed_dim, dtype=dtype)
+        self.conv21 = ResBlockModulate(features, features, embed_dim, dtype=dtype)
+        self.conv22 = ResBlockModulate(features, features, embed_dim, dtype=dtype)
+        self.conv23 = ResBlockModulate(features, features, embed_dim, dtype=dtype)
         self.conv24 = ModConv3d(features, out_features, 1)
-        self.dense2 = Dense(embed_dim, features, 1.0)
+        self.dense2 = Dense(embed_dim, features, 1.0, dtype)
 
     def forward(self, x, temb, zemb, rng=None):
         h = self.conv20(x, temb, zemb, rng)

@@ -12,6 +12,12 @@ at every diffusion step: `encode_condition` computes them once per image and
 `denoise` consumes them. `forward` is the two together. `denoise_deep` and
 `denoise_reuse` split `denoise` at the deep trunk for block-cached sampling.
 
+`dtype` (float32, or bfloat16 as the JAX package's `WavBEST(dtype=...)`)
+is the type the blocks compute in; parameters stay float32. The prompt, the
+time embedding, the condition `pan - ms` and x_t are cast to it on the way
+in, and the denoise output is float32 in either type (the deep-trunk
+features of denoise_deep keep `dtype`), so samplers run in float32.
+
 Each takes `train` (False by default, as serving runs): with train=True,
 dropout draws its masks from `rng`, a torch.Generator on the model's device,
 as the JAX model draws from its "dropout" rng collection.
@@ -45,31 +51,35 @@ class WavBEST(nn.Module):
 
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256),
                  embed_dim: int = 128, inter_dim: int = 32, *, device=None,
-                 seed: int = 0):
+                 seed: int = 0, dtype=torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"WavBEST runs in float32 or bfloat16, got {dtype}")
         device = resolve_device(device)
         self.inter_dim = inter_dim
+        self.dtype = dtype
         c0, c1, c2, c3 = channels
-        e = embed_dim
+        e, d = embed_dim, dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.embed2 = nn.Sequential(linear(768, 4 * e), nn.SiLU(),
-                                        linear(4 * e, 4 * e), nn.SiLU(),
-                                        linear(4 * e, e))
-            self.embed = nn.Sequential(linear(inter_dim, e), nn.SiLU(), linear(e, e))
-            self.conv1 = AdaptionHead(1, c0, e)
-            self.conv2 = AdaptionHead(1, c0, e)
-            self.down1_1 = DownStage(c0, c1, e, use_temb=False)
-            self.down2_1 = DownStage(c1, c2, e, use_temb=False)
-            self.down3_1 = DownStage(c2, c3, e, use_temb=False)
-            self.down1 = DownStage(c0, c1, e)
-            self.down2 = DownStage(c1, c2, e)
-            self.down3 = DownStage(c2, c3, e)
-            self.middle1 = ResBlockModulate(c3, c3, e)
-            self.up1 = UpStage(3 * c3, c2, c3, e)
-            self.up2 = UpStage(3 * c2, c1, c2, e)
-            self.up3 = UpStage(3 * c1, c0, c1, e)
-            self.final = FinalBlock(3 * c0, c0, e)
+            self.embed2 = nn.Sequential(linear(768, 4 * e, dtype=d), nn.SiLU(),
+                                        linear(4 * e, 4 * e, dtype=d), nn.SiLU(),
+                                        linear(4 * e, e, dtype=d))
+            self.embed = nn.Sequential(linear(inter_dim, e, dtype=d), nn.SiLU(),
+                                       linear(e, e, dtype=d))
+            self.conv1 = AdaptionHead(1, c0, e, d)
+            self.conv2 = AdaptionHead(1, c0, e, d)
+            self.down1_1 = DownStage(c0, c1, e, use_temb=False, dtype=d)
+            self.down2_1 = DownStage(c1, c2, e, use_temb=False, dtype=d)
+            self.down3_1 = DownStage(c2, c3, e, use_temb=False, dtype=d)
+            self.down1 = DownStage(c0, c1, e, dtype=d)
+            self.down2 = DownStage(c1, c2, e, dtype=d)
+            self.down3 = DownStage(c2, c3, e, dtype=d)
+            self.middle1 = ResBlockModulate(c3, c3, e, dtype=d)
+            self.up1 = UpStage(3 * c3, c2, c3, e, d)
+            self.up2 = UpStage(3 * c2, c1, c2, e, d)
+            self.up3 = UpStage(3 * c1, c0, c1, e, d)
+            self.final = FinalBlock(3 * c0, c0, e, dtype=d)
         self.to(device)
         self.eval()
 
@@ -104,10 +114,10 @@ class WavBEST(nn.Module):
     def prompt_embed(self, prompt_emb, batch: int):
         if prompt_emb.dim() == 1:
             prompt_emb = prompt_emb.expand(batch, prompt_emb.shape[0])
-        return swish(self.embed2(prompt_emb.to(torch.float32)))
+        return swish(self.embed2(prompt_emb.to(self.dtype)))
 
     def time_embed(self, t):
-        return swish(self.embed(gamma_embedding(t.reshape(-1), self.inter_dim)))
+        return swish(self.embed(gamma_embedding(t.reshape(-1), self.inter_dim).to(self.dtype)))
 
     # -- condition branch (time-independent) ----------------------------------
 
@@ -128,7 +138,7 @@ class WavBEST(nn.Module):
                 f"halvings); got {h}x{w}")
         rng = self._dropout_rng(train, rng)
         zemb = self.prompt_embed(prompt_emb, ms.shape[0])
-        cond = (pan - ms).to(torch.float32)[..., None]
+        cond = (pan - ms).to(self.dtype)[..., None]
         c_h0 = self.conv1(cond, zemb)
         c_h1, c_s1 = self.down1_1(c_h0, None, zemb, rng)
         c_h2, c_s2 = self.down2_1(c_h1, None, zemb, rng)
@@ -156,7 +166,7 @@ class WavBEST(nn.Module):
         c_h0, c_h1, c_h2, c_h3 = cond_cache["feats"]
         c_s1, c_s2, c_s3 = cond_cache["skips"]
         temb = self.time_embed(t)
-        xt = x_t.to(torch.float32)[..., None]
+        xt = x_t.to(self.dtype)[..., None]
         x_h0 = self.conv2(xt, zemb)
         x_h1, _ = self.down1(x_h0, temb, zemb, rng)
         if deep is not None and cache_level == 3:
@@ -181,10 +191,11 @@ class WavBEST(nn.Module):
             deep_out = h
         h = self.up3((h, c_h1, x_h1), temb, zemb, c_s1, rng)
         out = self.final((h, c_h0, x_h0), temb, zemb, rng)
-        return out[..., 0], deep_out
+        # float32 for a float32 or bfloat16 model (a wider one keeps its type)
+        return out[..., 0].to(torch.promote_types(self.dtype, torch.float32)), deep_out
 
     def denoise(self, x_t, t, cond_cache, *, train: bool = False, rng=None):
-        """(B, bands, H, W) x0-prediction of the clean residual."""
+        """(B, bands, H, W) float32 x0-prediction of the clean residual."""
         return self._denoise_impl(x_t, t, cond_cache, train=train, rng=rng)[0]
 
     def denoise_deep(self, x_t, t, cond_cache, *, cache_level: int = 1, train: bool = False,

@@ -94,21 +94,25 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build(name))
 
 
-def check_operands(kernel_name: str, /, **tensors) -> None:
+def check_operands(kernel_name: str, /, dtypes=(torch.float32,), **tensors) -> None:
     """The checks every kernel wrapper makes before a launch: each given
-    tensor is float32, on the first one's device, and needs no gradient. A
-    launch records no backward: the 3x3x3 conv's entries take a gradient
+    tensor has the first one's dtype, one of `dtypes` (those the kernel has
+    instances for), lies on the first one's device, and needs no gradient.
+    A launch records no backward: the 3x3x3 conv's entries take a gradient
     through their autograd Function (ops/cuda/conv3d.py), whose forward and
     backward launch under no gradient; K3 and K4 have no backward, as their
     Pallas kernels have no VJP, so their wrappers refuse such inputs."""
     first, ref = next(iter(tensors.items()))
+    if ref.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{first} must be {names}, got {ref.dtype}")
     for name, t in tensors.items():
         if t is None:
             continue
         if t.device != ref.device:
             raise ValueError(f"{name} is on {t.device}, {first} on {ref.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != ref.dtype:
+            raise TypeError(f"{name} is {t.dtype}, {first} {ref.dtype}: one launch takes one dtype")
         if t.requires_grad and torch.is_grad_enabled():
             raise RuntimeError(f"a {kernel_name} kernel launch has no backward; "
                                "call it under torch.no_grad()")

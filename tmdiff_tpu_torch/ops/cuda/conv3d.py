@@ -8,6 +8,12 @@ optional per-sample style s (B, Cin) and an optional bias (Cout),
 
 with fp32 accumulation. Given `out`, the result is added into `out` in place
 (one launch per part of a channel concat, without materialising the concat).
+Every tensor is float32, or every tensor is bfloat16. In bf16 they compute
+what the Pallas kernel computes for bf16 operands: x * s rounded to bf16
+once (the JAX package's `x * style.astype(x.dtype)`), the weight in bf16,
+fp32 accumulation, and the bias and `out` added to the fp32 sum before one
+rounding to bf16 (the JAX package adds them after the conv, in bf16: a
+deliberate divergence of at most a rounding step).
 
 `banded_conv3d` replaces the Pallas TPU kernel
 `tmdiff_tpu/ops/pallas/banded_conv3d.py::banded_conv3d` and
@@ -16,9 +22,11 @@ the kernel of `tmdiff_tpu_torch/csrc/conv3d.cu` with three depth taps (its
 header says what bounds it on an H100 and how it is tiled). The C entry
 picks the kernel's variant by shape: the 3xTF32 tensor-core kernel where
 Cin % 4 == 0 (with split-K where the output tiles underfill the card),
-else the fp32 FMA kernel. `variant_launches` counts the launches of each.
-On a CPU tensor they compute the plain version; on a CUDA tensor they
-launch the kernel or raise.
+else the fp32 FMA kernel; in bf16 the bf16 tensor-core kernel (with the
+same split-K rule) where Cin % 8 == 0, and every other bf16 shape raises.
+`variant_launches` counts the launches of each variant, `dtype_launches`
+those of each dtype. On a CPU tensor they compute the plain version; on a
+CUDA tensor they launch the kernel or raise.
 
 Under a gradient both entries go through `Conv3dFunction`, on every device.
 Its backward takes the input gradient through the same kernel: with y =
@@ -44,13 +52,15 @@ import torch.nn.functional as F
 
 from tmdiff_tpu_torch.ops.cuda import build
 
-# Launches of the CUDA kernel since the last reset_launches(), in all and by
-# variant (tmdiff_conv_plan's numbering); of them, those for input gradients;
-# and the weight gradients computed on the card (library calls, not launches
-# of the kernel).
-VARIANTS = ("ffma", "tf32x3", "tf32x3_splitk")
+# Launches of the CUDA kernel since the last reset_launches(), in all, by
+# variant (tmdiff_conv_plan's numbering from 0) and by dtype; of them, those
+# for input gradients; and the weight gradients computed on the card (library
+# calls, not launches of the kernel).
+VARIANTS = ("ffma", "tf32x3", "tf32x3_splitk", "bf16", "bf16_splitk")
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype codes
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
+dtype_launches = {"float32": 0, "bfloat16": 0}
 input_grad_launches = 0
 weight_grad_calls = 0
 
@@ -59,10 +69,34 @@ def reset_launches() -> None:
     global launches, input_grad_launches, weight_grad_calls
     launches = input_grad_launches = weight_grad_calls = 0
     variant_launches.update(dict.fromkeys(VARIANTS, 0))
+    dtype_launches.update(dict.fromkeys(dtype_launches, 0))
+
+
+def count_launch(variants: dict, dtypes: dict, variant: str, dtype) -> None:
+    """Adds one launch of `variant` in `dtype` to a wrapper's counters."""
+    variants[variant] += 1
+    dtypes[str(dtype).replace("torch.", "")] += 1
+
+
+def bf16_operands(x, kernel, style=None, bias=None, out=None):
+    """The bf16 kernel's operands as exact float32 tensors: bf16(x * s)
+    (one rounding of the product), bf16(W), and the bias and `out` as
+    given."""
+    f = lambda t: None if t is None else t.float()
+    if style is not None:  # (B, Cin) against x (B, ..., Cin)
+        s = style.float().reshape(style.shape[0], *[1] * (x.dim() - 2), style.shape[1])
+        x = (x.float() * s).to(torch.bfloat16)
+    return x.float(), kernel.to(torch.bfloat16).float(), f(bias), f(out)
 
 
 def conv3d_plain(x, kernel, style=None, bias=None, out=None):
-    """The kernel's function as 27 shifted-slice products in fp32."""
+    """The kernel's function as 27 shifted-slice products in fp32; in bf16
+    on the bf16 kernel's operands (bf16_operands), with one rounding of
+    sum + bias + out at the end."""
+    if x.dtype == torch.bfloat16:
+        xs, k, bias32, out32 = bf16_operands(x, kernel, style, bias, out)
+        y = conv3d_plain(xs, k, None, bias32, out32).to(torch.bfloat16)
+        return y if out is None else out.copy_(y)
     b, d, h, w, _ = x.shape
     if style is not None:
         x = x * style[:, None, None, None, :]
@@ -91,15 +125,15 @@ def library():
     if _lib is None:
         lib = build.load("conv3d")
         lib.tmdiff_conv_plan.argtypes = (
-            [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+            [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
                                   ctypes.POINTER(ctypes.c_int)])
         lib.tmdiff_conv_plan.restype = ctypes.c_int
         lib.tmdiff_conv3d_333.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
         lib.tmdiff_conv3d_333.restype = ctypes.c_int
         lib.tmdiff_conv2d_33.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
         lib.tmdiff_conv2d_33.restype = ctypes.c_int
         lib.tmdiff_cuda_error_string.argtypes = [ctypes.c_int]
@@ -108,7 +142,7 @@ def library():
     return _lib
 
 
-# (kd, B, D, H, W, Cin, Cout, x 16-byte aligned, device) -> (variant,
+# (kd, dtype, B, D, H, W, Cin, Cout, x 16-byte aligned, device) -> (variant,
 # workspace bytes, splits): the C side's plan, asked once per shape.
 _plans = {}
 
@@ -116,15 +150,21 @@ _plans = {}
 def plan(kd, x, d, cout):
     """(variant name, split count, workspace) of the kernel for x
     (B, [D,] H, W, Cin) with kd depth taps on the current device: the C
-    side's choice by shape, and a workspace of the bytes it asks for (the
-    split weight and any split-K partial sums), allocated here so that the
-    kernel allocates nothing."""
+    side's choice by shape and dtype, and a workspace of the bytes it asks
+    for (the split or packed weight and any split-K partial sums), allocated
+    here so that the kernel allocates nothing. A bf16 shape that no bf16
+    instance takes raises: it never goes to an fp32 kernel or the plain
+    version."""
     b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
-    key = (kd, b, d, h, w, cin, cout, x.data_ptr() % 16 == 0, x.device.index)
+    key = (kd, x.dtype, b, d, h, w, cin, cout, x.data_ptr() % 16 == 0, x.device.index)
     if key not in _plans:
         nbytes, splits = ctypes.c_longlong(0), ctypes.c_int(0)
-        variant = library().tmdiff_conv_plan(kd, b, d, h, w, cin, cout, x.data_ptr(),
-                                             ctypes.byref(nbytes), ctypes.byref(splits))
+        variant = library().tmdiff_conv_plan(kd, DTYPES[x.dtype], b, d, h, w, cin, cout,
+                                             x.data_ptr(), ctypes.byref(nbytes),
+                                             ctypes.byref(splits))
+        if variant < 0:
+            raise ValueError(f"no {x.dtype} conv kernel instance for Cin = {cin} (needs "
+                             "Cin % 8 == 0) or an x that is not 16-byte aligned")
         _plans[key] = (VARIANTS[variant], nbytes.value, splits.value)
     variant, nbytes, splits = _plans[key]
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
@@ -132,7 +172,8 @@ def plan(kd, x, d, cout):
 
 
 def _check(x, kernel, style, bias, out):
-    build.check_operands("conv3d", x=x, kernel=kernel, style=style, bias=bias, out=out)
+    build.check_operands("conv3d", tuple(DTYPES), x=x, kernel=kernel, style=style, bias=bias,
+                         out=out)
     if x.dim() != 5 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, D, H, W, Cin) tensor, got {tuple(x.shape)}")
     b, d, h, w, cin = x.shape
@@ -149,10 +190,13 @@ def _check(x, kernel, style, bias, out):
         raise ValueError(f"bias must be a unit-stride ({cout},) tensor")
     if out is not None and (tuple(out.shape) != (b, d, h, w, cout) or not out.is_contiguous()):
         raise ValueError(f"out must be a contiguous {(b, d, h, w, cout)} tensor")
-    if cout % 4 == 0:  # the epilogue stores and reads the bias four channels at a time
+    if x.dtype == torch.float32 and cout % 4 == 0:
+        # the fp32 epilogue stores and reads the bias four channels at a time
         for name, t in (("bias", bias), ("out", out)):
             if t is not None and t.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned when Cout % 4 == 0")
+    if x.dtype == torch.bfloat16 and cout % 2 == 0 and out is not None and out.data_ptr() % 4:
+        raise ValueError("a bf16 out must be 4-byte aligned when Cout is even")
     if max(b * d * h * w * max(cin, cout), kernel.numel()) >= 2**31 or cin < 1 or cout < 1:
         raise ValueError(f"unsupported conv size {tuple(x.shape)} -> Cout {cout}")
 
@@ -165,7 +209,7 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False):
     _check(x, kernel, style, bias, out)
     b, d, h, w, cin = x.shape
     cout = kernel.shape[4]
-    y = torch.empty((b, d, h, w, cout), dtype=torch.float32, device=x.device) if out is None else out
+    y = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device) if out is None else out
     if y.numel() == 0:
         return y
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -174,7 +218,8 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False):
         lib = library()
         variant, splits, workspace = plan(3, x, d, cout)
         err = lib.tmdiff_conv3d_333(
-            x.data_ptr(), kernel.data_ptr(), ptr(style), ptr(bias), y.data_ptr(),
+            DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(), ptr(style), ptr(bias),
+            y.data_ptr(),
             b, d, h, w, cin, cout, kernel.stride(2), kernel.stride(3),
             int(out is not None), splits, ptr(workspace), stream)
     if err:
@@ -182,7 +227,7 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False):
     global launches, input_grad_launches
     launches += 1
     input_grad_launches += input_grad
-    variant_launches[variant] += 1
+    count_launch(variant_launches, dtype_launches, variant, x.dtype)
     return y
 
 
@@ -212,6 +257,9 @@ class Conv3dFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, kernel, style, bias):
+        if x.dtype != torch.float32:
+            raise TypeError(f"the conv's gradient is float32 only, got {x.dtype}: run a bf16 "
+                            "model under torch.no_grad() (bf16 training is not ported)")
         ctx.save_for_backward(x, kernel, style)
         return _launch(x, kernel, style, bias, None)
 

@@ -23,6 +23,13 @@ the forward and the input gradient through the kernel, ops/cuda/conv3d.py);
 autograd saved is written; without a gradient it accumulates in place in the
 kernel's epilogue, one launch per concat part.
 
+Every conv runs in x's dtype, float32 or bfloat16: the weight, style and
+bias are cast to it at use (parameters stay float32), as the JAX package
+casts `kernel.astype(self.dtype)` and `style.astype(x.dtype)`; the
+block-banded weight of the band-into-lanes form is built from the given
+weight and then cast (`w2.astype(x.dtype)` there). The 1x1x1 convs are
+products in x's dtype.
+
 The reference's per-sample modulated conv, w_b[o, i] = w[o, i] * s[b, i] with
 no bias and no demodulation, equals conv(x_b * s_b, w) because the style
 scales input channels only (tmdiff_tpu/ops/modconv.py pins this identity
@@ -69,6 +76,10 @@ def banded_weight(kernel, d: int):
     return kg.permute(2, 3, 0, 4, 1, 5).reshape(kh, kw, d * cin, d * cout)
 
 
+def _as(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
 def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = False):
     """SAME 3x3x3 conv with the bands folded into channels: (B, D, H, W, C)
     -> (B, H, W, D*C), one 3x3 conv with the block-banded weight (D/3 times
@@ -78,12 +89,15 @@ def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = 
     instead, as the JAX package routes such convs to the native conv."""
     b, d, h, w, cin = x.shape
     cout = kernel.shape[-1]
+    dt = x.dtype
     if h < kernel.shape[1] or w < kernel.shape[2]:
-        return (conv3d_plain if plain else banded_conv3d)(x, kernel, style, bias, out)
+        return (conv3d_plain if plain else banded_conv3d)(x, _as(kernel, dt), _as(style, dt),
+                                                          _as(bias, dt), out)
     x2 = x.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * cin)
-    s2 = None if style is None else style.repeat(1, d)
-    b2 = None if bias is None else bias.repeat(d)
-    y2 = (conv3x3_nhwc_plain if plain else conv3x3_nhwc)(x2, banded_weight(kernel, d), s2, b2)
+    s2 = None if style is None else style.to(dt).repeat(1, d)
+    b2 = None if bias is None else bias.to(dt).repeat(d)
+    w2 = banded_weight(kernel, d).to(dt)
+    y2 = (conv3x3_nhwc_plain if plain else conv3x3_nhwc)(x2, w2, s2, b2)
     y = y2.view(b, h, w, d, cout).permute(0, 3, 1, 2, 4)
     return y.contiguous() if out is None else out.add_(y)
 
@@ -103,19 +117,20 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
         if out is not None:
             return out + conv3d(x, kernel, style=style, bias=bias, plain=plain)
     size = tuple(kernel.shape[:3])
+    dt = x.dtype
     if size == (3, 3, 3):
         if impl == "auto" and _bandlanes_wins(x.shape[1], 3, kernel.shape[-1], x.shape[2]):
             return _conv3d_bandlanes(x, kernel, style, bias, out, plain)
         fn = conv3d_plain if plain else banded_conv3d
-        return fn(x, kernel, style, bias, out)
+        return fn(x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
     if size != (1, 1, 1):
         raise ValueError(f"only 1x1x1 and 3x3x3 kernels occur in WavBEST, got {size}")
     if style is not None:
-        x = x * style[:, None, None, None, :]
-    y = torch.matmul(x.reshape(-1, x.shape[-1]), kernel[0, 0, 0])
+        x = x * style.to(dt)[:, None, None, None, :]
+    y = torch.matmul(x.reshape(-1, x.shape[-1]), kernel[0, 0, 0].to(dt))
     y = y.reshape(*x.shape[:-1], kernel.shape[-1])
     if bias is not None:
-        y = y + bias
+        y = y + bias.to(dt)
     return y if out is None else out.add_(y)
 
 

@@ -1,0 +1,223 @@
+"""Inference engine: dynamic batching of pansharpening requests onto one
+device (port of tmdiff_tpu/serve/engine.py).
+
+What the engine keeps from the JAX package's:
+  * requests (one image each) are grouped by MS shape; sensors mix freely
+    within a batch (one prompt embedding per row);
+  * a batch is padded up to a fixed bucket size (powers of two up to
+    `max_batch` by default) by repeating the last request, so the batch
+    shapes the device sees are few and known ahead of time (`warmup()` runs
+    each before traffic arrives);
+  * one worker thread owns the device: it drains the queue, waits at most
+    `max_delay_ms` after a group's first request for requests of its shape,
+    runs the sampler, and resolves each request's future. One batch is in
+    flight at a time, as on one chip of the JAX package; scale-out is N
+    processes behind a load balancer.
+Batch k (counted from 0) samples with seed k. A request's future carries
+`placement` = {"seed", "bucket", "row"} once resolved: the batch's seed and
+padded size and the request's row in it, which reproduce its image through
+`Pansharpener.sample` (x_T is drawn for the whole bucket from the seed, and
+no row of a batch reads another).
+
+On the GPU nothing is compiled per shape, but the first batch of a shape
+still pays for building the kernel libraries, the kernels' per-shape plans
+and the caching allocator's first blocks; `warmup()` moves that before the
+first request.
+"""
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Optional, Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class _Request:
+    pan: np.ndarray  # (1, H, W)
+    ms: np.ndarray  # (bands, H, W)
+    sensor: str
+    future: Future
+    enqueued_at: float
+    guidance: Optional[float] = None  # CFG scale; None: the engine's default
+
+
+class EngineOverloaded(RuntimeError):
+    """Raised by submit() when the pending queue holds `max_queue` requests:
+    backpressure that the HTTP layer turns into a 503, rather than letting
+    latency grow without bound."""
+
+
+def _bucket(n: int, buckets: Sequence[int]) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+@dataclasses.dataclass
+class InferenceEngine:
+    """Batches concurrent pansharpening requests onto one sampler.
+
+    `sharp` is a `tmdiff_tpu_torch.pipeline.Pansharpener` (model, schedule
+    and prompt table, on its device). `submit()` is thread-safe and returns
+    a Future of the (bands, H, W) sharpened image in [0, 1].
+    """
+
+    sharp: object
+    method: str = "dpm++"
+    steps: Optional[int] = None
+    guidance: float = 3.0  # default CFG scale (dpm++_cfg only)
+    max_batch: int = 8
+    max_delay_ms: float = 15.0
+    buckets: Optional[Sequence[int]] = None
+    max_queue: Optional[int] = None  # pending-request bound; None: unbounded
+    # further keyword arguments of Pansharpener.sample, passed on as given:
+    # the method-specific settings of a deployment (ddim_cached's
+    # refresh_every, cache_level, forecast, refresh_mask), fixed per engine
+    sampler_kw: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.buckets is None:
+            b, bs = 1, []
+            while b < self.max_batch:
+                bs.append(b)
+                b *= 2
+            self.buckets = tuple(bs) + (self.max_batch,)
+        self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
+        self._seed = 0
+        self._lock = threading.Lock()
+        self.stats = {
+            "requests": 0,
+            "batches": 0,
+            "padded_slots": 0,
+            "batch_size_hist": {},
+            "latency_ms_sum": 0.0,
+            "rejected": 0,  # present from the start, so /v1/stats keeps one schema
+        }
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
+
+    # -- public API ----------------------------------------------------------
+
+    def submit(self, pan, ms, sensor: str = "QB",
+               guidance: Optional[float] = None) -> Future:
+        """`guidance` (dpm++_cfg engines only) overrides the engine's default
+        for this request; requests at different scales share a batch, the
+        scales going to the sampler as one (B,) vector."""
+        pan = np.asarray(pan, np.float32)
+        ms = np.asarray(ms, np.float32)
+        if pan.ndim == 2:
+            pan = pan[None]
+        if pan.ndim != 3 or ms.ndim != 3:
+            raise ValueError(
+                f"submit() takes one image per request: pan (1,H,W), "
+                f"ms (bands,H,W); got {pan.shape} / {ms.shape}")
+        if pan.shape[-2:] != ms.shape[-2:]:
+            # refused here: stacked with its group, it would fail the whole batch
+            raise ValueError(
+                f"pan spatial dims {pan.shape[-2:]} must match ms "
+                f"{ms.shape[-2:]} (ms is the upsampled LMS)")
+        if guidance is not None and self.method != "dpm++_cfg":
+            # only the CFG sampler reads it: ignoring it would let a client
+            # believe it swept scales on a ddim or dpm++ deployment
+            raise ValueError(
+                f"guidance= is only meaningful on a dpm++_cfg engine "
+                f"(this engine runs {self.method!r})")
+        if self.max_queue is not None and self._queue.qsize() >= self.max_queue:
+            self.stats["rejected"] += 1
+            raise EngineOverloaded(f"pending queue at limit ({self.max_queue}); retry later")
+        fut: Future = Future()
+        self._queue.put(_Request(pan, ms, sensor, fut, time.monotonic(), guidance))
+        return fut
+
+    def warmup(self, shapes: Sequence[tuple[int, int, int]], sensor: str = "QB") -> None:
+        """Runs every (shape, bucket) batch once before traffic arrives,
+        through submit() as a request would. `shapes` are (bands, H, W).
+        Each bucket's requests are submitted and awaited on their own:
+        submitted together, the worker would merge them into the largest
+        bucket."""
+        for bands, h, w in shapes:
+            ms = np.zeros((bands, h, w), np.float32)
+            pan = np.zeros((1, h, w), np.float32)
+            for b in self.buckets:
+                futs = [self.submit(pan, ms, sensor) for _ in range(b)]
+                for f in futs:
+                    f.result()
+
+    def shutdown(self) -> None:
+        self._queue.put(None)
+        self._worker.join(timeout=60)
+
+    # -- worker ----------------------------------------------------------------
+
+    def _run(self):
+        while True:
+            req = self._queue.get()
+            if req is None:
+                return
+            group = [req]
+            key = req.ms.shape  # one batch takes one MS shape, any sensors
+            deadline = time.monotonic() + self.max_delay_ms / 1e3
+            leftovers = []
+            while len(group) < self.max_batch:
+                timeout = deadline - time.monotonic()
+                if timeout <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=timeout)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    # shutting down: run the group, fail what waits behind it
+                    self._execute(group, [])
+                    for r in leftovers:
+                        if not r.future.done():
+                            r.future.set_exception(RuntimeError("engine shut down"))
+                    return
+                if nxt.ms.shape == key:
+                    group.append(nxt)
+                else:
+                    leftovers.append(nxt)
+            self._execute(group, leftovers)
+
+    def _execute(self, group: list, leftovers: list):
+        # requests of another shape seen while collecting go back to the
+        # front, in arrival order, under the queue's mutex (producers may be
+        # putting; this thread is the only consumer, so no notify is needed)
+        with self._queue.mutex:
+            for r in reversed(leftovers):
+                self._queue.queue.appendleft(r)
+        try:
+            n = len(group)
+            b = _bucket(n, self.buckets)
+            pan = np.stack([r.pan for r in group] + [group[-1].pan] * (b - n))
+            ms = np.stack([r.ms for r in group] + [group[-1].ms] * (b - n))
+            with self._lock:
+                seed = self._seed
+                self._seed += 1
+            sensors = [r.sensor for r in group] + [group[-1].sensor] * (b - n)
+            kw = dict(self.sampler_kw or {})
+            if self.method == "dpm++_cfg":
+                gvec = [r.guidance if r.guidance is not None else self.guidance for r in group]
+                kw["guidance"] = np.asarray(gvec + [gvec[-1]] * (b - n), np.float32)
+            out = self.sharp.sample({"PAN": pan, "MS": ms}, sensor=sensors,
+                                    method=self.method, steps=self.steps, seed=seed, **kw)
+            now = time.monotonic()
+            self.stats["requests"] += n
+            self.stats["batches"] += 1
+            self.stats["padded_slots"] += b - n
+            hist = self.stats["batch_size_hist"]
+            hist[n] = hist.get(n, 0) + 1
+            for i, r in enumerate(group):
+                self.stats["latency_ms_sum"] += (now - r.enqueued_at) * 1e3
+                r.future.placement = {"seed": seed, "bucket": b, "row": i}
+                r.future.set_result(np.asarray(out[i]))
+        except Exception as err:  # resolve the group's futures; the worker lives on
+            for r in group:
+                if not r.future.done():
+                    r.future.set_exception(err)

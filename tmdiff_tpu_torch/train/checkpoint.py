@@ -99,6 +99,29 @@ def _fresh_from_weights(state: TrainState, step: int) -> TrainState:
     return state
 
 
+def restore_path(path: str, state: TrainState) -> tuple[TrainState, Optional[str]]:
+    """Loads the checkpoint that `path` names into `state`, as the CLI's
+    `path.resume` and the server's `--ckpt` name one: a reference `.pth`
+    (or the `I{step}` prefix of an `I{step}_gen.pth`), one `I{step}`
+    directory, or a checkpoint root (its newest). Returns (state, the
+    `.pth` read, or None). A directory without the port's `state.pt` files,
+    such as the JAX package's orbax checkpoints, raises: the port does not
+    read orbax."""
+    if path.endswith(".pth") or os.path.exists(path + "_gen.pth"):
+        pth = path if path.endswith(".pth") else path + "_gen.pth"
+        return import_reference_checkpoint(pth, state), pth
+    root, name = os.path.split(os.path.normpath(path))
+    if re.fullmatch(r"I\d+", name) and os.path.exists(os.path.join(path, STATE_FILE)):
+        return restore_checkpoint(root, state, step=int(name[1:])), None
+    if _steps(path):
+        return restore_checkpoint(path, state), None
+    if os.path.isdir(path):
+        raise ValueError(f"{path} holds no checkpoint of the port (I<step>/{STATE_FILE}): the "
+                         "port reads its own checkpoints and reference .pth files, not the JAX "
+                         "package's orbax checkpoints")
+    raise FileNotFoundError(f"no checkpoint at {path}")
+
+
 def _reference_state_dict(path: str) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v.numpy() for k, v in sd.items() if "clip_text" not in k}
