@@ -784,7 +784,8 @@ def bf16_conv_shapes(K, K3, modconv, model, gen):
         totals["bound_by"] = "operations" if totals["ops_s"] >= totals["bytes_s"] else "bytes"
         print(f"[bf16] {name}: {totals['shapes']} shapes; one 8-band batch-{BATCH} {impl} bf16 "
               f"request, summed: kernel {totals['ms']:.1f} ms, plain {totals['plain_ms']:.1f} ms, "
-              f"library {totals['library_ms']:.1f} ms, bound {totals['bound_ms']:.1f} ms "
+              f"library {totals['library_ms']:.1f} ms, kernel/library "
+              f"{totals['ms'] / totals['library_ms']:.3f}, bound {totals['bound_ms']:.1f} ms "
               f"({totals['bound_by']}); max abs err {totals['max_abs_err']:.3g}", flush=True)
         out[name] = totals
     return out

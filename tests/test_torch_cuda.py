@@ -219,7 +219,8 @@ ONE_STEP_CHAIN_RTOL = 1e-5
 @contextlib.contextmanager
 def forced_splits(K, splits):
     """Within the block every tensor-core launch of the conv3d module splits
-    its 16-channel steps over `splits` blocks (at most one a step), as the
+    its channel steps (16 channels in fp32, 32 or 64 in bf16) over `splits`
+    blocks (at most one a step), as the
     C plan gives that count with its workspace; each accumulation chain then
     spans fewer steps."""
     import ctypes
@@ -414,14 +415,18 @@ def test_preset_gradients_match_plain(cuda, bands):
 
 @pytest.mark.parametrize("shape,variant", [
     ((2, 4, 32, 32, 256, 256), "tf32x3_splitk"), ((2, 8, 128, 128, 32, 32), "tf32x3"),
-    ((1, 3, 5, 7, 3, 5), "ffma"),
+    ((1, 3, 5, 7, 3, 5), "ffma"), ((2, 4, 32, 32, 256, 256), "bf16_splitk"),
+    ((2, 8, 128, 128, 32, 32), "bf16"), ((2, 8, 64, 64, 128, 64), "bf16"),
 ])
 def test_kernel_is_deterministic(cuda, shape, variant):
     """One input gives one output: two launches agree bit for bit (split-K
-    adds its partial sums in a fixed order, without atomics)."""
+    adds its partial sums in a fixed order, without atomics); the bf16
+    cases are what the served images' replay rests on."""
     from tmdiff_tpu_torch.ops.cuda import conv3d as K
 
     x, k, s, bias, out = _random_conv(cuda, shape)
+    if variant.startswith("bf16"):
+        x, k, s, bias, out = (t.bfloat16() for t in (x, k, s, bias, out))
     with torch.no_grad():
         K.reset_launches()
         first = K.banded_conv3d(x, k, s, bias, out.clone())
@@ -431,17 +436,21 @@ def test_kernel_is_deterministic(cuda, shape, variant):
     assert torch.equal(first, second)
 
 
-def test_conv3x3_nhwc_is_deterministic(cuda):
+@pytest.mark.parametrize("dtype,variant", [(torch.float32, "tf32x3_splitk"),
+                                           (torch.bfloat16, "bf16_splitk")])
+def test_conv3x3_nhwc_is_deterministic(cuda, dtype, variant):
     from tmdiff_tpu_torch.ops.cuda import conv2d as K3
 
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(2, 64, 64, 512, device=cuda, generator=g)
-    k = torch.randn(3, 3, 512, 256, device=cuda, generator=g) / (9 * 512) ** 0.5
+    x = torch.randn(2, 64, 64, 512, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, 512, 256, device=cuda, generator=g) / (9 * 512) ** 0.5).to(dtype)
+    s = (1 + 0.5 * torch.randn(2, 512, device=cuda, generator=g)).to(dtype)
+    bias = torch.randn(256, device=cuda, generator=g).to(dtype)
     with torch.no_grad():
         K3.reset_launches()
-        first, second = K3.conv3x3_nhwc(x, k), K3.conv3x3_nhwc(x, k)
+        first, second = K3.conv3x3_nhwc(x, k, s, bias), K3.conv3x3_nhwc(x, k, s, bias)
         torch.cuda.synchronize()
-    assert K3.variant_launches["tf32x3_splitk"] == 2
+    assert K3.variant_launches[variant] == 2
     assert torch.equal(first, second)
 
 
@@ -1010,19 +1019,52 @@ def test_bf16_instances_match_plain_at_the_path_shapes(cuda, impl):
 
 @pytest.mark.parametrize("shape", [
     (2, 8, 16, 16, 8, 32), (1, 3, 5, 7, 24, 5), (2, 4, 2, 2, 64, 256), (2, 8, 33, 40, 96, 33),
-    (1, 1, 1, 1, 8, 8), (2, 4, 32, 32, 256, 128),
+    (1, 1, 1, 1, 8, 8), (2, 4, 32, 32, 256, 128), (2, 8, 20, 24, 40, 33),
+    (1, 4, 9, 17, 72, 130), (2, 3, 18, 35, 72, 17), (1, 5, 12, 20, 24, 100),
+    (2, 6, 11, 19, 200, 70),
 ])
 @pytest.mark.parametrize("splits", [None, 1, 3])
 def test_bf16_kernel_off_the_tile_and_split(cuda, shape, splits):
     """The bf16 K1 instance with style, bias and accumulation at ragged
-    shapes (Cin % 16 != 0, odd Cout, a window over a 2x2 or 1x1 image),
-    with the plan's split count and forced ones; within one bf16 step."""
+    shapes (Cin not a multiple of the channel step of 32 or 64, odd Cout
+    or Cout off the N tile, a window over a 2x2 or 1x1 image), on every
+    (BN, channel step) instance, with the plan's split count and forced
+    ones; within one bf16 step."""
     from tmdiff_tpu_torch.ops.cuda import conv3d as K
 
     x, k, s, bias, out = (t.bfloat16() for t in _random_conv(cuda, shape))
     with forced_splits(K, splits) if splits else contextlib.nullcontext(), torch.no_grad():
         got = K.banded_conv3d_v2(x, k, s, bias, out.clone())
     assert_bf16_close(got, K.conv3d_plain(x, k, s, bias, out.clone()), f"{shape} splits={splits}")
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 256, 256, 256, 256), (1, 17, 30, 40, 33), (2, 9, 21, 72, 130), (1, 33, 18, 24, 17),
+    (2, 64, 64, 512, 256), (1, 1, 1, 8, 8), (2, 40, 23, 96, 64),
+])
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_bf16_conv3x3_nhwc_off_the_tile_and_split(cuda, shape, splits):
+    """The bf16 K3 instance (one depth tap) with style and bias at the
+    path's widest shape and at ragged ones (H and W off the 16 x 16 tile,
+    Cin not a multiple of the channel step, odd Cout or Cout off the N
+    tile), with the plan's split count and forced ones; within one bf16
+    step of its plain version."""
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    b, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(b, h, w, cin, device=cuda, generator=g).bfloat16()
+    k = (torch.randn(3, 3, cin, cout, device=cuda, generator=g) / (9 * cin) ** 0.5).bfloat16()
+    s = (1 + 0.5 * torch.randn(b, cin, device=cuda, generator=g)).bfloat16()
+    bias = torch.randn(cout, device=cuda, generator=g).bfloat16()
+    for opts in ((s, bias), (None, None)):
+        with forced_splits(K, splits) if splits else contextlib.nullcontext(), torch.no_grad():
+            K3.reset_launches()
+            got = K3.conv3x3_nhwc(x, k, *opts)
+        assert K3.dtype_launches == {"float32": 0, "bfloat16": 1}
+        assert_bf16_close(got, K3.conv3x3_nhwc_plain(x, k, *opts),
+                          f"{shape} splits={splits} styled={opts[0] is not None}")
 
 
 def test_bf16_refusals(cuda):

@@ -80,23 +80,61 @@
 // bf16(x * s) (the style product rounded once, as the JAX package's
 // `x * style.astype(x.dtype)`), B = bf16(W), fp32 accumulation, then bias and
 // the accumulated `y` added in fp32 and one rounding to bf16 (the JAX package
-// adds its bias and concat parts after the conv, in bf16). One kernel,
-// conv_3x3_bf16_kernel, on the 3xTF32 variant's tiling, producer and split-K
-// rule, with one product where 3xTF32 takes three:
-//   * wgmma.mma_async.m64nBNk16.f32.bf16.bf16, A from registers (two bf16 per
-//     register), B from shared memory; one k16 step per 16-channel stage.
-//   * A: the halo is bf16, 32-byte rows (half the 3xTF32 variant's bytes);
-//     the k order of a stage is permuted so that a thread's four fragment
-//     columns 2t, 2t+1, 2t+8, 2t+9 are the neighbouring channels 4t..4t+3,
-//     one 8-byte load per row and tap.
+// adds its bias and concat parts after the conv, in bf16). One kernel
+// template, conv_3x3_bf16_kernel<KD, BN, CK>, on the 3xTF32 variant's tile
+// (256 positions by BN, two consumer warpgroups of two m64 row blocks, a
+// producer warpgroup) and split-K rule:
+//   * Channel step CK = 64 at BN = 64 and 128 when Cin > 32, else 32 (BN =
+//     32 runs two blocks an SM, whose shared memory holds two 32-channel
+//     halos and not two 64-channel ones; Cin <= 32 would stage zeros).
+//     Each row block and tap issues CK / 16 wgmma.mma_async.m64nBNk16.f32.
+//     bf16.bf16 back to back, A from registers, B from shared memory.
+//   * Stages: the halo (TD+KD-1)(TH+2)(18) x CK bf16 (TMA, two buffers:
+//     83 KB each at KD = 3, CK = 64) and one weight image of BN x CK per
+//     (channel step, tap) (bulk copy), in a ring as deep as the shared
+//     memory left beside the halos (BfTile::STAGES: 4 at KD = 3, BN = 128,
+//     CK = 64, up to 16), so the producer runs far ahead of narrow tiles.
+//   * Style: applied once per staged halo, by the producer warpgroup's
+//     warps 1-3: when a halo lands they rewrite it in place as bf16(x * s)
+//     and arrive on halo_ready, which the consumers wait on instead of the
+//     TMA's barrier; the taps read ready A and the consumers never touch
+//     the style.
+//   * Persistent: one wave of blocks walks the work items (spatial tile
+//     fastest, then N tile, then split), the producer loading the next
+//     item's halo and weights during this one's last taps and epilogue.
+//   * Waits: each row block commits its products of a tap as one group; its
+//     A of the next tap loads into the second of two register buffers as
+//     soon as its group of the previous tap is done (wait_group 2), while
+//     the other row block's products run. BN = 64 drains at the end of each
+//     channel step to add its chain into the second accumulator
+//     (tc_promotes).
+//   * A layout: halo rows of CK channels, no TMA swizzle. The k order of a
+//     step is permuted (bf16_k_channel) so that a thread's fragments of two
+//     k16 products are the 8 channels of one 16-byte chunk: one 16-byte
+//     load a row, tap and product pair. At CK = 64 (128-byte rows, all 32
+//     banks a row) lanes of odd g load their two chunks in the other order,
+//     so each quarter warp reads 32 distinct banks; 64-byte rows alternate
+//     bank halves by themselves.
 //   * B: conv_3x3_weight_bf16_kernel writes the bf16 weight in the k16
-//     no-swizzle core-matrix layout with that k order, BN * 32 bytes per
-//     (N tile, channel step, tap).
+//     no-swizzle core-matrix layout with that k order, BN * CK * 2 bytes
+//     per (N tile, channel step, tap).
 //   * Split-K keeps fp32 partial sums; the reduce pass rounds once to bf16.
-// Bound on an H100: operations at the dense bf16 rate, 989 TFLOP/s. It takes
-// Cin % 8 == 0 (the tensor map's 16-byte strides) and a 16-byte aligned x;
-// there is no bf16 FMA variant, so the plan refuses every other bf16 shape
-// (variant -1) and the entries return cudaErrorInvalidValue for it.
+// Bound on an H100: operations at the dense bf16 rate, 989 TFLOP/s. What
+// held the first bf16 instance at 0.25-0.40 of it was the time between
+// products: one k16 product a row block and tap, then a full wait, a stage
+// round trip and the style re-applied at every tap. The design issues 2-4
+// products a row block between waits, keeps a group in flight while the
+// next A loads, runs the weight ring far ahead and moves the style out of
+// the taps. What bounds it now is shared memory's bandwidth: at the full
+// product rate B's reads (every m64 row block reads the tile's B), A's
+// loads, the weight and halo copies and the style pass take about as many
+// cycles a tap as the products (PERF.md); halving A's loads alone cut 9 %
+// of the time. A read by wgmma straight from shared memory (a chunk-major
+// halo) lost overall and B in a swizzled layout changed nothing (PERF.md).
+// It takes Cin % 8 == 0 (the tensor map's 16-byte strides) and a 16-byte
+// aligned x; there is no bf16 FMA variant, so the plan refuses every other
+// bf16 shape (variant -1) and the entries return cudaErrorInvalidValue for
+// it.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -307,10 +345,10 @@ int launch_ffma_entry(int kd, const float* x, const float* w, const float* style
 // 3xTF32 tensor-core variant.
 // ---------------------------------------------------------------------------
 
-constexpr int kCK = 16;                       // input channels per stage: 64-byte halo rows
+constexpr int kCK = 16;                       // fp32 input channels per stage: 64-byte halo rows
 constexpr int kConsumers = 256;               // two consumer warpgroups
 constexpr int kTcThreads = kConsumers + 128;  // and one producer warpgroup
-constexpr int kStages = 4;                    // weight stages in the ring
+constexpr int kStages = 4;                    // fp32 weight stages in the ring
 
 // Resident blocks per SM, and the registers per thread that setmaxnreg gives
 // the consumer and producer warpgroups out of the block's share of the 64 K
@@ -352,9 +390,10 @@ __device__ __forceinline__ void tma_load_halo(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// The stage ring's mbarriers: two halo buffers and kStages weight stages,
+// The stage ring's mbarriers: two halo buffers and STAGES weight stages,
 // each with a "full" barrier (the producer's copy landed) and an "empty" one
 // (every consumer warp is done with it).
+template <int STAGES = kStages>
 __device__ __forceinline__ void init_stage_barriers(uint64_t* halo_full, uint64_t* halo_empty,
                                                     uint64_t* w_full, uint64_t* w_empty) {
   if (threadIdx.x == 0) {
@@ -362,7 +401,7 @@ __device__ __forceinline__ void init_stage_barriers(uint64_t* halo_full, uint64_
       mbar_init(&halo_full[i], 1);
       mbar_init(&halo_empty[i], kConsumers / 32);
     }
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < STAGES; ++i) {
       mbar_init(&w_full[i], 1);
       mbar_init(&w_empty[i], kConsumers / 32);
     }
@@ -371,35 +410,40 @@ __device__ __forceinline__ void init_stage_barriers(uint64_t* halo_full, uint64_
   __syncthreads();
 }
 
-// The producer thread: the halo of each channel step (TMA, two buffers) and
-// the weight image of each (channel step, tap) (bulk copy, kStages buffers),
-// in the consumers' order. `wblk` is this block's N tile of the weight
-// images, W_BYTES per (channel step, tap).
-template <int KD, int TAPS, int HALO_BYTES, int W_BYTES>
+// The producer thread: the halo of each channel step of CK channels (TMA,
+// two buffers) and the weight image of each (channel step, tap) (bulk copy,
+// STAGES buffers), in the consumers' order. `wblk` is this block's N tile of
+// the weight images, W_BYTES per (channel step, tap). `halos` and `steps`
+// number the halos and weight stages this thread has issued before (0 for a
+// block's one tile; a persistent block carries them from tile to tile).
+template <int KD, int TAPS, int HALO_BYTES, int W_BYTES, int CK = kCK, int STAGES = kStages>
 __device__ __forceinline__ void produce(const CUtensorMap* map, const unsigned char* wblk,
                                         unsigned char* halo, unsigned char* wst,
                                         uint64_t* halo_full, uint64_t* halo_empty,
                                         uint64_t* w_full, uint64_t* w_empty, int cb_begin,
-                                        int cb_end, int w0, int h0, int d0, int b) {
+                                        int cb_end, int w0, int h0, int d0, int b, int& halos,
+                                        int& steps) {
   auto load_halo = [&](int c) {
-    const int i = c - cb_begin, s = i & 1;
+    const int i = halos++, s = i & 1;
     mbar_wait(&halo_empty[s], ((i >> 1) & 1) ^ 1);
     mbar_expect_tx(&halo_full[s], HALO_BYTES);
-    tma_load_halo(halo + s * HALO_BYTES, map, &halo_full[s], c * kCK, w0 - 1, h0 - 1,
+    tma_load_halo(halo + s * HALO_BYTES, map, &halo_full[s], c * CK, w0 - 1, h0 - 1,
                   d0 - KD / 2, b);
   };
+  // With STAGES < TAPS the consumers have finished step (c, 0) once stage
+  // (c, STAGES) is free, so the other halo buffer (step c - 1) is free too;
+  // with a deeper ring the producer waits for it after the step's last tap.
+  constexpr int kHaloTap = STAGES < TAPS - 1 ? STAGES : TAPS - 1;
   if (cb_begin < cb_end) load_halo(cb_begin);
-  int step = 0;
   for (int c = cb_begin; c < cb_end; ++c) {
-    for (int tap = 0; tap < TAPS; ++tap, ++step) {
-      const int s = step % kStages;
-      mbar_wait(&w_empty[s], ((step / kStages) & 1) ^ 1);
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const int step = steps++, s = step % STAGES;
+      mbar_wait(&w_empty[s], ((step / STAGES) & 1) ^ 1);
       mbar_expect_tx(&w_full[s], W_BYTES);
       bulk_load(wst + s * W_BYTES, wblk + ((long long)c * TAPS + tap) * W_BYTES, W_BYTES,
                 &w_full[s]);
-      // By now the consumers have finished step (c, 0), so the other halo
-      // buffer (step c - 1) is free: the next halo lands during this step.
-      if (tap == kStages && c + 1 < cb_end) load_halo(c + 1);
+      // The next halo lands during this step.
+      if (tap == kHaloTap && c + 1 < cb_end) load_halo(c + 1);
     }
   }
 }
@@ -641,9 +685,10 @@ conv_3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap, const float* __
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(tc_producer_regs(BN)));
     if (threadIdx.x != kConsumers) return;
     const float* wblk = wsplit + (long long)blockIdx.y * n_cb * T::TAPS * T::W_FLOATS;
+    int halos = 0, steps = 0;
     produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES>(
         &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full, halo_empty,
-        w_full, w_empty, cb_begin, cb_end, w0, h0, d0, b);
+        w_full, w_empty, cb_begin, cb_end, w0, h0, d0, b, halos, steps);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(tc_consumer_regs(BN)));
     consume<KD, BN>(halo, wst, halo_full, halo_empty, w_full, w_empty, style, bias, y, partial,
@@ -687,34 +732,52 @@ __global__ void conv_3x3_splitk_reduce_kernel(const float* __restrict__ partial,
 
 using bf16 = __nv_bfloat16;
 
-template <int KD, int BN>
+// The bf16 tile: the 3xTF32 variant's 256 positions by BN, resident blocks
+// and registers (tc_min_blocks, tc_consumer_regs), with the instance's own
+// channel step CK (32 or 64, make_plan's rule) and a weight ring as deep as
+// the shared memory left beside the two halo buffers allows (4 to 16
+// stages, at the block's share of the SM: all of it at BN = 64 and 128, half
+// at BN = 32, which runs two blocks an SM).
+template <int KD, int BN, int CK>
 struct BfTile {
   static constexpr int TW = 16, TD = KD == 3 ? 4 : 1, TH = 16 / TD;  // 16 lines of 16
   static constexpr int TAPS = KD * 9;
   static constexpr int HD = TD + KD - 1, HH = TH + 2, HW = TW + 2;
-  static constexpr int ROW_BYTES = kCK * 2;  // one halo position: 16 bf16 channels
+  static constexpr int ROW_BYTES = CK * 2;  // one halo position: CK bf16 channels
+  static constexpr int CHUNKS = CK / 8;     // its 16-byte chunks of 8 channels
+  static constexpr int KSTEPS = CK / 16;    // k16 products per row block and tap
   static constexpr int HALO_BYTES = HD * HH * HW * ROW_BYTES;
-  static constexpr int W_BYTES = BN * kCK * 2;  // one k16 step of BN x 16 bf16, K-major
-  static constexpr int SMEM_BYTES = 2 * HALO_BYTES + kStages * W_BYTES + (4 + 2 * kStages) * 8;
+  static constexpr int W_BYTES = BN * CK * 2;  // KSTEPS k16 images of BN x 16 bf16, K-major
+  static constexpr int SMEM_CAP = tc_min_blocks(BN) == 1 ? 232448 : 115712;
+  static constexpr int FREE = (SMEM_CAP - 2 * HALO_BYTES - 512) / W_BYTES;
+  static constexpr int STAGES = FREE > 16 ? 16 : FREE;
+  static constexpr int SMEM_BYTES = 2 * HALO_BYTES + STAGES * W_BYTES + (6 + 2 * STAGES) * 8;
+  static_assert(CK == 32 || CK == 64, "channel step");
+  static_assert(STAGES >= 4, "weight ring");
+  static_assert(SMEM_BYTES <= SMEM_CAP, "shared memory");
   static_assert(HALO_BYTES % 128 == 0 && W_BYTES % 128 == 0, "stage alignment");
 };
 
-// Input channel (within a 16-channel step) of k16 column kc: thread t's
-// fragment columns 2t, 2t+1, 2t+8, 2t+9 hold channels 4t, 4t+1, 4t+2, 4t+3.
-__host__ __device__ constexpr int bf16_k_channel(int kc) {
-  return 4 * ((kc & 7) >> 1) + 2 * (kc >> 3) + (kc & 1);
+// Input channel (within a channel step) of column kc of the step's k16
+// product s. Thread t's 16-byte chunk t + 4 (s / 2) of a halo position
+// holds its fragment columns 2t, 2t+1, 2t+8, 2t+9 of products s = 2m
+// (the chunk's channels 0-3) and s = 2m + 1 (channels 4-7): one 16-byte load
+// a row gives two products' A.
+__host__ __device__ constexpr int bf16_k_channel(int s, int kc) {
+  return 32 * (s >> 1) + 8 * ((kc & 7) >> 1) + 4 * (s & 1) + 2 * (kc >> 3) + (kc & 1);
 }
 
 // The weight's B operand for the bf16 kernel: for each (N tile, channel step
-// of 16, tap) one W_BYTES image, bf16 (n, kc) at (n / 8) * 128 + (kc / 8) *
-// 64 + (n % 8) * 8 + kc % 8 (b_desc_k16's layout), kc holding channel
-// bf16_k_channel(kc) of the step. Channels past Cin and outputs past Cout are
-// zero.
+// of ck, tap) one image of ck / 16 k16 products, each BN x 16 bf16 with
+// (n, kc) at (n / 8) * 128 + (kc / 8) * 64 + (n % 8) * 8 + kc % 8
+// (b_desc_k16's layout), kc of product s holding channel
+// bf16_k_channel(s, kc) of the step. Channels past Cin and outputs past
+// Cout are zero.
 __global__ void conv_3x3_weight_bf16_kernel(const bf16* __restrict__ w, bf16* __restrict__ out,
-                                            int taps, int Cin, int Cout, int bn,
+                                            int taps, int Cin, int Cout, int bn, int ck,
                                             long long w_stride_tap, long long w_stride_c) {
-  const int n_cb = (Cin + kCK - 1) / kCK, n_nb = (Cout + bn - 1) / bn;
-  const int image = kCK * bn;  // bf16 of one stage
+  const int n_cb = (Cin + ck - 1) / ck, n_nb = (Cout + bn - 1) / bn;
+  const int image = ck * bn;  // bf16 of one stage
   const long long total = (long long)n_nb * n_cb * taps * image;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
@@ -723,27 +786,87 @@ __global__ void conv_3x3_weight_bf16_kernel(const bf16* __restrict__ w, bf16* __
     const int tap = static_cast<int>(stage % taps);
     const int cb = static_cast<int>((stage / taps) % n_cb);
     const int nb = static_cast<int>(stage / taps / n_cb);
-    const int n = (q >> 7) * 8 + ((q >> 3) & 7);  // 8-row group, then row in it
-    const int kc = ((q >> 6) & 1) * 8 + (q & 7);  // K half, then column in it
-    const int c = cb * kCK + bf16_k_channel(kc);
+    const int s = q / (16 * bn), r = q % (16 * bn);
+    const int n = (r >> 7) * 8 + ((r >> 3) & 7);  // 8-row group, then row in it
+    const int kc = ((r >> 6) & 1) * 8 + (r & 7);  // K half, then column in it
+    const int c = cb * ck + bf16_k_channel(s, kc);
     const int o = nb * bn + n;
     out[i] = (c < Cin && o < Cout) ? w[tap * w_stride_tap + c * w_stride_c + o]
                                    : __float2bfloat16_rn(0.f);
   }
 }
 
-// The bf16 kernel's consumer warpgroups: the 3xTF32 consumer's tiling and
-// stage protocol (see consume), one k16 wgmma per row block and tap.
-template <int KD, int BN>
+// One work item of a persistent bf16 block: a spatial tile, an N tile and a
+// split of the channel steps.
+struct BfItem {
+  int b, d0, h0, w0, nb, split, cb_begin, cb_end;
+};
+
+// The producer warpgroup's warps 1-3 when the conv is styled: each halo, as
+// it lands, rewritten in place as bf16(x * s) (16 bytes a thread and turn),
+// then announced on halo_ready. `halos` numbers the halos as produce() does.
+template <int HALO_BYTES, int CK>
+__device__ __forceinline__ void style_halos(unsigned char* halo, uint64_t* halo_full,
+                                            uint64_t* halo_ready, const bf16* __restrict__ sb,
+                                            int Cin, int cb_begin, int cb_end, int& halos) {
+  constexpr int kStylers = 96, kChunks = CK / 8;
+  static_assert(kStylers % kChunks == 0, "a styler thread keeps one channel chunk");
+  const int tid = threadIdx.x - kConsumers - 32;
+  for (int c = cb_begin; c < cb_end; ++c) {
+    const int i = halos++, hs = i & 1;
+    const int ch = c * CK + 8 * (tid % kChunks);
+    float sv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sv[e] = ch + e < Cin ? __bfloat162float(sb[ch + e]) : 0.f;
+    mbar_wait(&halo_full[hs], (i >> 1) & 1);
+    unsigned char* hb = halo + hs * HALO_BYTES;
+#pragma unroll 4
+    for (int k = tid; k < HALO_BYTES / 16; k += kStylers) {
+      uint4 v = *reinterpret_cast<const uint4*>(hb + 16 * k);
+      // bf16(x * s): the fp32 product of two bf16 is exact, one rounding
+      v.x = pack_bf16x2(bf16_lo(v.x) * sv[0], bf16_hi(v.x) * sv[1]);
+      v.y = pack_bf16x2(bf16_lo(v.y) * sv[2], bf16_hi(v.y) * sv[3]);
+      v.z = pack_bf16x2(bf16_lo(v.z) * sv[4], bf16_hi(v.z) * sv[5]);
+      v.w = pack_bf16x2(bf16_lo(v.w) * sv[6], bf16_hi(v.w) * sv[7]);
+      *reinterpret_cast<uint4*>(hb + 16 * k) = v;
+    }
+    // a later TMA load into this buffer comes after these writes
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&halo_ready[hs]);
+  }
+}
+
+// The bf16 kernel's consumer warpgroups on one work item: the 3xTF32
+// consumer's tiling and row blocks, with
+//   * the taps reading ready A: a styled halo waits on halo_ready (the
+//     producer warpgroup styled it), an unstyled one on halo_full;
+//   * A of step j + 1 (a tap of a channel step) loaded into the second of
+//     two register buffers while the products of step j run: each row
+//     block issues its products of step j and commits them as one group,
+//     waits until its own group of step j - 1 is done (wait_group 2: the
+//     other row block's group and this one stay in flight) and loads its A
+//     of step j + 1; step j - 1's weight stage is released once both of its
+//     groups are done. BN = 64 drains at the end of each channel step
+//     (wait_group 0) to add its chain into the second accumulator.
+// `halos` and `steps` number the halos and weight stages used before, as in
+// produce().
+template <int KD, int BN, int CK>
 __device__ __forceinline__ void consume_bf16(
-    const unsigned char* halo, const unsigned char* wst, uint64_t* halo_full,
-    uint64_t* halo_empty, uint64_t* w_full, uint64_t* w_empty, const bf16* __restrict__ style,
-    const bf16* __restrict__ bias, bf16* __restrict__ y, float* __restrict__ partial,
-    long long plane, int D, int H, int W, int Cin, int Cout, int cb_begin, int cb_end, int b,
-    int d0, int h0, int w0, int n0, int accumulate) {
-  using T = BfTile<KD, BN>;
+    const unsigned char* halo, const unsigned char* wst, uint64_t* halo_wait,
+    uint64_t* halo_empty, uint64_t* w_full, uint64_t* w_empty, const bf16* __restrict__ bias,
+    bf16* __restrict__ y, float* __restrict__ partial, long long plane, int D, int H, int W,
+    int Cout, const BfItem& m, int accumulate, int& halos, int& steps) {
+  using T = BfTile<KD, BN, CK>;
+  constexpr int NK = T::KSTEPS;
+  constexpr int LOADS = CK / 32;  // 16-byte loads a row and tap
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  // With 128-byte rows (CK = 64) every row spans all 32 banks: lanes of odd
+  // g take their two chunks in the other order, so that each quarter warp
+  // (g = 2q, 2q + 1) reads chunks 0-3 of one row and 4-7 of the next, all
+  // 32 banks once. 64-byte rows (CK = 32) alternate halves by themselves.
+  const int odd = CK == 64 ? (g & 1) : 0;
   int row0[2];  // halo position of row g at tap (0, 0, 0)
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb) {
@@ -757,99 +880,156 @@ __device__ __forceinline__ void consume_bf16(
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[mb][i] = sum[mb][i] = 0.f;
 
-  const bf16* sb = style ? style + (long long)b * Cin : nullptr;
-  int step = 0;
-  for (int c = cb_begin; c < cb_end; ++c) {
-    const int i = c - cb_begin, hs = i & 1;
-    float sv[4] = {1.f, 1.f, 1.f, 1.f};
-    if (sb) {
-      const int ch = c * kCK + 4 * t;
+  const int n_steps = (m.cb_end - m.cb_begin) * T::TAPS;
+  const int h_seq = halos, j_seq = steps;
+
+  auto wait_halo = [&](int i) {
+    const int seq = h_seq + i;
+    mbar_wait(&halo_wait[seq & 1], (seq >> 1) & 1);
+  };
+
+  // A of step j for row block mb: [mb][product][fragment register].
+  auto load_a = [&](int j, uint32_t(&a)[2][NK][4], int mb) {
+    const int i = j / T::TAPS, tap = j - i * T::TAPS;
+    const int shift = ((tap / 9) * T::HH + (tap / 3) % 3) * T::HW + tap % 3;
+    const unsigned char* hb = halo + ((h_seq + i) & 1) * T::HALO_BYTES + 16 * t;
+    {
+      const unsigned char* r = hb + (row0[mb] + shift) * T::ROW_BYTES;
+      uint4 v[LOADS], u[LOADS];  // rows g and g + 8
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sv[e] = ch + e < Cin ? __bfloat162float(sb[ch + e]) : 0.f;
-    }
-    mbar_wait(&halo_full[hs], (i >> 1) & 1);
-    const unsigned char* hb = halo + hs * T::HALO_BYTES + t * 8;
-#pragma unroll 1
-    for (int kd = 0; kd < KD; ++kd) {
-#pragma unroll 1
-      for (int kh = 0; kh < 3; ++kh) {
-#pragma unroll 1
-        for (int kw = 0; kw < 3; ++kw, ++step) {
-          const int shift = (kd * T::HH + kh) * T::HW + kw;
-          uint32_t a[2][4];  // [mb][fragment register]
+      for (int l = 0; l < LOADS; ++l) {
+        const int off = 64 * (l ^ odd);
+        v[l] = *reinterpret_cast<const uint4*>(r + off);
+        u[l] = *reinterpret_cast<const uint4*>(r + 8 * T::ROW_BYTES + off);
+      }
 #pragma unroll
-          for (int mb = 0; mb < 2; ++mb) {
-            uint2 v0 = *reinterpret_cast<const uint2*>(hb + (row0[mb] + shift) * T::ROW_BYTES);
-            uint2 v1 = *reinterpret_cast<const uint2*>(hb + (row0[mb] + shift + 8) * T::ROW_BYTES);
-            if (sb) {  // bf16(x * s): the fp32 product of two bf16 is exact
-              v0.x = pack_bf16x2(bf16_lo(v0.x) * sv[0], bf16_hi(v0.x) * sv[1]);
-              v0.y = pack_bf16x2(bf16_lo(v0.y) * sv[2], bf16_hi(v0.y) * sv[3]);
-              v1.x = pack_bf16x2(bf16_lo(v1.x) * sv[0], bf16_hi(v1.x) * sv[1]);
-              v1.y = pack_bf16x2(bf16_lo(v1.y) * sv[2], bf16_hi(v1.y) * sv[3]);
-            }
-            // Fragment: (g, 2t..2t+1), (g + 8, 2t..2t+1), (g, 2t+8..2t+9),
-            // (g + 8, 2t+8..2t+9) = channels 4t..4t+1 and 4t+2..4t+3.
-            a[mb][0] = v0.x;
-            a[mb][1] = v1.x;
-            a[mb][2] = v0.y;
-            a[mb][3] = v1.y;
-          }
-          const int s = step % kStages;
-          mbar_wait(&w_full[s], (step / kStages) & 1);
-          const uint64_t desc = b_desc_k16(smem_u32(wst + s * T::W_BYTES));
-          fence_regs<BN / 2>(acc[0]);
-          fence_regs<BN / 2>(acc[1]);
-          fence_regs<8>(&a[0][0]);
-          wgmma_fence();
-#pragma unroll
-          for (int mb = 0; mb < 2; ++mb) WgmmaBf16<BN>::mma(acc[mb], a[mb], desc);
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs<BN / 2>(acc[0]);
-          fence_regs<BN / 2>(acc[1]);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(&w_empty[s]);
-        }
+      for (int h = 0; h < LOADS; ++h) {  // chunk t + 4 h: products 2h and 2h + 1
+        const uint4 vh = (h ^ odd) ? v[LOADS - 1] : v[0];
+        const uint4 uh = (h ^ odd) ? u[LOADS - 1] : u[0];
+        a[mb][2 * h][0] = vh.x;
+        a[mb][2 * h][1] = uh.x;
+        a[mb][2 * h][2] = vh.y;
+        a[mb][2 * h][3] = uh.y;
+        a[mb][2 * h + 1][0] = vh.z;
+        a[mb][2 * h + 1][1] = uh.z;
+        a[mb][2 * h + 1][2] = vh.w;
+        a[mb][2 * h + 1][3] = uh.w;
       }
     }
+  };
+
+  auto release = [&](int j) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&halo_empty[hs]);
-    if constexpr (kPromote) {
+    if (lane == 0) mbar_arrive(&w_empty[(j_seq + j) % T::STAGES]);
+  };
+
+  // Step j with A in `cur`; loads A of step j + 1 into `nxt`. Each row block
+  // commits its own group, and its A of step j + 1 loads as soon as its own
+  // group of step j - 1 is done (wait_group 2), while the other row block's
+  // products run. Returns whether step j's weight stage is still held.
+  auto step = [&](int j, uint32_t(&cur)[2][NK][4], uint32_t(&nxt)[2][NK][4], bool held_prev) {
+    const int seq = j_seq + j, s = seq % T::STAGES;
+    mbar_wait(&w_full[s], (seq / T::STAGES) & 1);
+    const uint32_t wb = smem_u32(wst + s * T::W_BYTES);
+    const bool last = (j + 1) % T::TAPS == 0, more = j + 1 < n_steps;
+    bool held = true;
 #pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
+    for (int mb = 0; mb < 2; ++mb) {
+      fence_regs<BN / 2>(acc[mb]);
+      fence_regs<4 * NK>(&cur[mb][0][0]);
+      wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) {
-          sum[mb][i] += acc[mb][i];
-          acc[mb][i] = 0.f;
+      for (int k = 0; k < NK; ++k)
+        WgmmaBf16<BN>::mma(acc[mb], cur[mb][k], b_desc_k16(wb + k * BN * 32));
+      wgmma_commit();
+      wgmma_wait<2>();  // row block mb's group of step j - 1 is done
+      fence_regs<BN / 2>(acc[0]);
+      fence_regs<BN / 2>(acc[1]);
+      fence_regs<4 * NK>(&nxt[mb][0][0]);
+      if (mb == 1) {
+        if (held_prev) release(j - 1);  // both groups of step j - 1 are done
+        if (last) {  // the channel step's A is all in registers
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&halo_empty[(h_seq + j / T::TAPS) & 1]);
+          if constexpr (kPromote) {
+            wgmma_wait<0>();
+            fence_regs<BN / 2>(acc[0]);
+            fence_regs<BN / 2>(acc[1]);
+            release(j);
+            held = false;
+#pragma unroll
+            for (int b2 = 0; b2 < 2; ++b2)
+#pragma unroll
+              for (int i = 0; i < BN / 2; ++i) {
+                sum[b2][i] += acc[b2][i];
+                acc[b2][i] = 0.f;
+              }
+          }
         }
+      }
+      if (more) {
+        if (mb == 0 && last) wait_halo((j + 1) / T::TAPS);
+        load_a(j + 1, nxt, mb);
+      }
     }
+    return held;
+  };
+
+  uint32_t a0[2][NK][4], a1[2][NK][4];
+  wait_halo(0);
+  load_a(0, a0, 0);
+  load_a(0, a0, 1);
+  bool held = false;
+  int j = 0;
+#pragma unroll 1
+  for (; j + 1 < n_steps; j += 2) {
+    held = step(j, a0, a1, held);
+    held = step(j + 1, a1, a0, held);
   }
+  if (j < n_steps) held = step(j, a0, a1, held);
+  wgmma_wait<0>();
+  fence_regs<BN / 2>(acc[0]);
+  fence_regs<BN / 2>(acc[1]);
+  fence_regs<8 * NK>(&a0[0][0][0]);
+  fence_regs<8 * NK>(&a1[0][0][0]);
+  if (held) release(n_steps - 1);
+  halos = h_seq + (m.cb_end - m.cb_begin);
+  steps = j_seq + n_steps;
 
   // Epilogue. Accumulator j of a row block holds (row g, col 8 j + 2 t),
   // (g, 8 j + 2 t + 1), (g + 8, 8 j + 2 t), (g + 8, 8 j + 2 t + 1): each
   // thread writes column pairs, fp32 into the split-K workspace, else
-  // bf16(acc + bias + y) with one rounding.
+  // bf16(acc + bias + y) with one rounding; the bias of its columns is read
+  // before the first store.
   const bool pairs = (Cout & 1) == 0;
+  const int n0 = m.nb * BN;
+  float bv[BN / 8][2];
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn) {
+    const int n = n0 + 8 * jn + 2 * t;
+    bv[jn][0] = bias && !partial && n < Cout ? __bfloat162float(bias[n]) : 0.f;
+    bv[jn][1] = bias && !partial && n + 1 < Cout ? __bfloat162float(bias[n + 1]) : 0.f;
+  }
 #pragma unroll
   for (int mb = 0; mb < 2; ++mb) {
     const int L = 4 * (2 * wg + mb) + warp;
-    const int gd = d0 + L / T::TH, gh = h0 + L % T::TH;
+    const int gd = m.d0 + L / T::TH, gh = m.h0 + L % T::TH;
     if (gd >= D || gh >= H) continue;
-    const long long line = (((long long)b * D + gd) * H + gh) * W;
+    const long long line = (((long long)m.b * D + gd) * H + gh) * W;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const float* a = kPromote ? &sum[mb][4 * j] : &acc[mb][4 * j];
-      const int n = n0 + 8 * j + 2 * t;
+    for (int jn = 0; jn < BN / 8; ++jn) {
+      const float* a = kPromote ? &sum[mb][4 * jn] : &acc[mb][4 * jn];
+      const int n = n0 + 8 * jn + 2 * t;
       if (n >= Cout) continue;
       const bool second = n + 1 < Cout;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int gw = w0 + g + 8 * r;
+        const int gw = m.w0 + g + 8 * r;
         if (gw >= W) continue;
         const long long e = (line + gw) * Cout + n;
         float v0 = a[2 * r], v1 = a[2 * r + 1];
         if (partial) {
-          float* p = partial + blockIdx.z * plane + e;
+          float* p = partial + m.split * plane + e;
           if (pairs) {
             *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
           } else {
@@ -859,10 +1039,8 @@ __device__ __forceinline__ void consume_bf16(
           continue;
         }
         bf16* p = y + e;
-        if (bias) {
-          v0 += __bfloat162float(bias[n]);
-          if (second) v1 += __bfloat162float(bias[n + 1]);
-        }
+        v0 += bv[jn][0];
+        v1 += bv[jn][1];
         if (accumulate) {
           v0 += __bfloat162float(p[0]);
           if (second) v1 += __bfloat162float(p[1]);
@@ -878,51 +1056,85 @@ __device__ __forceinline__ void consume_bf16(
   }
 }
 
-template <int KD, int BN>
+// Persistent: block k takes work items k, k + gridDim.x, ... (spatial tile
+// fastest, then N tile, then split), so the producer loads the next item's
+// halo and weights while the consumers finish this one.
+template <int KD, int BN, int CK>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(BN))
 conv_3x3_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ wimg,
                      const bf16* __restrict__ style, const bf16* __restrict__ bias,
-                     bf16* __restrict__ y, float* __restrict__ partial, long long plane, int D,
-                     int H, int W, int Cin, int Cout, int cb_per_split, int accumulate) {
-  using T = BfTile<KD, BN>;
+                     bf16* __restrict__ y, float* __restrict__ partial, long long plane, int B,
+                     int D, int H, int W, int Cin, int Cout, int n_nb, int cb_per_split,
+                     int splits, int accumulate) {
+  using T = BfTile<KD, BN, CK>;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* halo = smem;                     // [2][HALO_BYTES]
-  unsigned char* wst = smem + 2 * T::HALO_BYTES;  // [kStages][W_BYTES]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(wst + kStages * T::W_BYTES);
+  unsigned char* wst = smem + 2 * T::HALO_BYTES;  // [STAGES][W_BYTES]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(wst + T::STAGES * T::W_BYTES);
   uint64_t* halo_full = bars;
   uint64_t* halo_empty = bars + 2;
   uint64_t* w_full = bars + 4;
-  uint64_t* w_empty = bars + 4 + kStages;
+  uint64_t* w_empty = bars + 4 + T::STAGES;
+  uint64_t* halo_ready = bars + 4 + 2 * T::STAGES;  // a styled halo: the three styler warps
 
   const int tiles_w = (W + T::TW - 1) / T::TW;
   const int tiles_h = (H + T::TH - 1) / T::TH;
   const int tiles_d = (D + T::TD - 1) / T::TD;
-  int tile = blockIdx.x;
-  const int w0 = (tile % tiles_w) * T::TW;
-  tile /= tiles_w;
-  const int h0 = (tile % tiles_h) * T::TH;
-  tile /= tiles_h;
-  const int d0 = (tile % tiles_d) * T::TD;
-  const int b = tile / tiles_d;
-  const int n0 = blockIdx.y * BN;
-  const int n_cb = (Cin + kCK - 1) / kCK;
-  const int cb_begin = blockIdx.z * cb_per_split;
-  const int cb_end = min(n_cb, cb_begin + cb_per_split);
+  const int tiles = B * tiles_d * tiles_h * tiles_w;
+  const int items = tiles * n_nb * splits;
+  const int n_cb = (Cin + CK - 1) / CK;
+  auto item_at = [&](int it) {
+    BfItem m;
+    int r = it % tiles;
+    m.w0 = (r % tiles_w) * T::TW;
+    r /= tiles_w;
+    m.h0 = (r % tiles_h) * T::TH;
+    r /= tiles_h;
+    m.d0 = (r % tiles_d) * T::TD;
+    m.b = r / tiles_d;
+    r = it / tiles;
+    m.nb = r % n_nb;
+    m.split = r / n_nb;
+    m.cb_begin = m.split * cb_per_split;
+    m.cb_end = min(n_cb, m.cb_begin + cb_per_split);
+    return m;
+  };
 
-  init_stage_barriers(halo_full, halo_empty, w_full, w_empty);
+  if (threadIdx.x == 0) {
+    mbar_init(&halo_ready[0], 3);
+    mbar_init(&halo_ready[1], 3);
+  }
+  init_stage_barriers<T::STAGES>(halo_full, halo_empty, w_full, w_empty);
 
+  int halos = 0, steps = 0;
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(tc_producer_regs(BN)));
-    if (threadIdx.x != kConsumers) return;
-    const bf16* wblk = wimg + (long long)blockIdx.y * n_cb * T::TAPS * (T::W_BYTES / 2);
-    produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES>(
-        &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full, halo_empty,
-        w_full, w_empty, cb_begin, cb_end, w0, h0, d0, b);
+    if (threadIdx.x == kConsumers) {  // one thread keeps the halo and weight stages in flight
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const BfItem m = item_at(it);
+        const bf16* wblk = wimg + (long long)m.nb * n_cb * T::TAPS * (T::W_BYTES / 2);
+        produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES, CK, T::STAGES>(
+            &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full,
+            halo_empty, w_full, w_empty, m.cb_begin, m.cb_end, m.w0, m.h0, m.d0, m.b, halos,
+            steps);
+      }
+    } else if (style && threadIdx.x >= kConsumers + 32) {
+      for (int it = blockIdx.x; it < items; it += gridDim.x) {
+        const BfItem m = item_at(it);
+        style_halos<T::HALO_BYTES, CK>(halo, halo_full, halo_ready,
+                                       style + (long long)m.b * Cin, Cin, m.cb_begin, m.cb_end,
+                                       halos);
+      }
+    }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(tc_consumer_regs(BN)));
-    consume_bf16<KD, BN>(halo, wst, halo_full, halo_empty, w_full, w_empty, style, bias, y,
-                         partial, plane, D, H, W, Cin, Cout, cb_begin, cb_end, b, d0, h0, w0, n0,
-                         accumulate);
+    uint64_t* halo_wait = style ? halo_ready : halo_full;
+#pragma unroll 1
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const BfItem m = item_at(it);
+      consume_bf16<KD, BN, CK>(halo, wst, halo_wait, halo_empty, w_full, w_empty, bias, y,
+                               partial, plane, D, H, W, Cout, m, accumulate, halos, steps);
+    }
   }
 }
 
@@ -957,7 +1169,7 @@ enum Variant {
 
 struct Plan {
   int variant = kFfma;
-  int bn = 0, n_nb = 0, n_cb = 0, splits = 1, cb_per_split = 0;
+  int bn = 0, ck = kCK, n_nb = 0, n_cb = 0, splits = 1, cb_per_split = 0;
   long long tiles = 0, wsplit_floats = 0, partial_offset = 0, bytes = 0;
 };
 
@@ -981,7 +1193,9 @@ int sm_count() {
 // The variant and tiling of one shape. splits <= 0 chooses the split count
 // from the card's SMs (the split-K rule above); splits > 0 takes that count,
 // at most one split a channel step. bf16 has the tensor-core variant only:
-// Cin % 8 == 0 (16-byte tensor-map strides) and a 16-byte aligned x.
+// Cin % 8 == 0 (16-byte tensor-map strides) and a 16-byte aligned x; its
+// channel step is 64 at BN = 64 and 128 with Cin > 32, else 32 (see the
+// header).
 Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout, const void* x,
                int splits) {
   Plan p;
@@ -995,7 +1209,8 @@ Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout,
   const int td = kd == 3 ? 4 : 1, th = 16 / td;
   p.tiles = (long long)B * cdiv(D, td) * cdiv(H, th) * cdiv(W, 16);
   p.n_nb = cdiv(Cout, p.bn);
-  p.n_cb = cdiv(Cin, kCK);
+  if (bf) p.ck = p.bn == 32 || Cin <= 32 ? 32 : 64;
+  p.n_cb = cdiv(Cin, p.ck);
   int s = splits < p.n_cb ? splits : p.n_cb;
   if (s <= 0) {
     const long long blocks = p.tiles * p.n_nb;
@@ -1007,8 +1222,8 @@ Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout,
   p.splits = cdiv(p.n_cb, p.cb_per_split);
   if (bf) {
     p.variant = p.splits > 1 ? kBf16SplitK : kBf16;
-    // the bf16 weight images take a quarter of the split fp32 ones' bytes
-    p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * 8 * p.bn;
+    // one bf16 image of BN x ck per (N tile, channel step, tap)
+    p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * p.ck * p.bn / 2;
   } else {
     p.variant = p.splits > 1 ? kTf32x3SplitK : kTf32x3;
     p.wsplit_floats = (long long)p.n_nb * p.n_cb * kd * 9 * 32 * p.bn;
@@ -1039,17 +1254,18 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The TMA map of x (B, D, H, W, Cin) for a halo box of (kCK, HW, HH, HD, 1)
-// elements; out-of-bounds elements (the SAME padding) read as zeros.
+// The TMA map of x (B, D, H, W, Cin) for a halo box of (ck, HW, HH, HD, 1)
+// elements; out-of-bounds elements (the SAME padding, channels past Cin)
+// read as zeros.
 bool encode_halo_map(CUtensorMap* map, bool bf, const void* x, int B, int D, int H, int W,
-                     int Cin, int hw, int hh, int hd) {
+                     int Cin, int ck, int hw, int hh, int hd) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t e = bf ? 2 : 4;
   const cuuint64_t dims[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
                               (cuuint64_t)B};
   const cuuint64_t strides[4] = {e * Cin, e * W * Cin, e * H * W * Cin, e * D * H * W * Cin};
-  const cuuint32_t box[5] = {(cuuint32_t)kCK, (cuuint32_t)hw, (cuuint32_t)hh, (cuuint32_t)hd, 1};
+  const cuuint32_t box[5] = {(cuuint32_t)ck, (cuuint32_t)hw, (cuuint32_t)hh, (cuuint32_t)hd, 1};
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
                 const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -1066,7 +1282,7 @@ int launch_tc(const Plan& p, const float* x, const float* w, const float* style,
   if (!workspace || p.tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap xmap;
-  if (!encode_halo_map(&xmap, false, x, B, D, H, W, Cin, T::HW, T::HH, T::HD))
+  if (!encode_halo_map(&xmap, false, x, B, D, H, W, Cin, kCK, T::HW, T::HH, T::HD))
     return static_cast<int>(cudaErrorInvalidValue);
 
   float* wsplit = static_cast<float*>(workspace);
@@ -1111,15 +1327,16 @@ int launch_tc_entry(const Plan& p, const float* x, const float* w, const float* 
                             w_stride_c, accumulate, workspace, s);
 }
 
-template <int KD, int BN>
+template <int KD, int BN, int CK>
 int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, const bf16* bias,
                 bf16* y, int B, int D, int H, int W, int Cin, int Cout, long long w_stride_tap,
                 long long w_stride_c, int accumulate, void* workspace, cudaStream_t stream) {
-  using T = BfTile<KD, BN>;
-  if (!workspace || p.tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  using T = BfTile<KD, BN, CK>;
+  if (!workspace || p.tiles * p.n_nb * p.splits > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap xmap;
-  if (!encode_halo_map(&xmap, true, x, B, D, H, W, Cin, T::HW, T::HH, T::HD))
+  if (!encode_halo_map(&xmap, true, x, B, D, H, W, Cin, CK, T::HW, T::HH, T::HD))
     return static_cast<int>(cudaErrorInvalidValue);
 
   bf16* wimg = static_cast<bf16*>(workspace);
@@ -1130,16 +1347,18 @@ int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, 
 
   const int pack_blocks = cdiv(p.wsplit_floats * 2, 256);  // one thread per bf16
   conv_3x3_weight_bf16_kernel<<<pack_blocks < 4096 ? pack_blocks : 4096, 256, 0, stream>>>(
-      w, wimg, KD * 9, Cin, Cout, BN, w_stride_tap, w_stride_c);
+      w, wimg, KD * 9, Cin, Cout, BN, CK, w_stride_tap, w_stride_c);
 
-  auto kernel = conv_3x3_bf16_kernel<KD, BN>;
+  auto kernel = conv_3x3_bf16_kernel<KD, BN, CK>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(static_cast<unsigned>(p.tiles), p.n_nb, p.splits);
-  kernel<<<grid, kTcThreads, T::SMEM_BYTES, stream>>>(xmap, wimg, style, bias, y, partial, plane,
-                                                      D, H, W, Cin, Cout, p.cb_per_split,
-                                                      accumulate);
+  // persistent: at most one wave of blocks
+  const long long items = p.tiles * p.n_nb * p.splits;
+  const long long wave = (long long)sm_count() * tc_min_blocks(BN);
+  kernel<<<static_cast<unsigned>(items < wave ? items : wave), kTcThreads, T::SMEM_BYTES,
+           stream>>>(xmap, wimg, style, bias, y, partial, plane, B, D, H, W, Cin, Cout, p.n_nb,
+                     p.cb_per_split, p.splits, accumulate);
   if (p.splits > 1) {
     const int blocks = cdiv(plane, 256) < 8192 ? cdiv(plane, 256) : 8192;
     conv_3x3_splitk_reduce_bf16_kernel<<<blocks, 256, 0, stream>>>(partial, p.splits, plane, bias,
@@ -1158,14 +1377,21 @@ int launch_bf16_entry(const Plan& p, const void* x, const void* w, const void* s
   const bf16* sb = static_cast<const bf16*>(style);
   const bf16* bb = static_cast<const bf16*>(bias);
   bf16* yb = static_cast<bf16*>(y);
+  // (BN, channel step): make_plan's rule
   if (p.bn == 32)
-    return launch_bf16<KD, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                               w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 32, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                                   w_stride_c, accumulate, workspace, s);
+  if (p.bn == 64 && p.ck == 32)
+    return launch_bf16<KD, 64, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                                   w_stride_c, accumulate, workspace, s);
   if (p.bn == 64)
-    return launch_bf16<KD, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                               w_stride_c, accumulate, workspace, s);
-  return launch_bf16<KD, 128>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                              w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 64, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                                   w_stride_c, accumulate, workspace, s);
+  if (p.ck == 32)
+    return launch_bf16<KD, 128, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                                    w_stride_c, accumulate, workspace, s);
+  return launch_bf16<KD, 128, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
+                                  w_stride_c, accumulate, workspace, s);
 }
 
 // One launch of either dtype's instances for the plan's variant.

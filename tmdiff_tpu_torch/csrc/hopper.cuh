@@ -112,6 +112,11 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // D (m64 x N, fp32) += A (m64 x k8 tf32, registers) * B (k8 x N tf32, shared).
 // A fragment of lane (g = lane / 4, t = lane % 4) in warp w: rows 16 w + g

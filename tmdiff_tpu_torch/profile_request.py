@@ -1,15 +1,18 @@
 """Where the device time of one sampling request goes, on a CUDA card.
 
     python3 -m tmdiff_tpu_torch.profile_request [--bands 8|4] [--impl banded|auto]
-        [--method dpm++|ancestral|...] [--batch 2] [--size 256] [--n-timestep 1000]
+        [--method dpm++|ancestral|...] [--batch 2] [--size 256] [--n-timestep 1000] [--bf16]
 
 Builds the full-width WavBEST (channels 32, 64, 128, 256) from a seed with
 the given 3x3x3 conv lowering (ops/modconv.py), warms up with one request
-(`dpm++`, batch 2, 256x256 unless told otherwise), then runs one under
+(`dpm++`, batch 2, 256x256 unless told otherwise), times one without the
+profiler (host clock to a synchronize), then runs one under
 torch.profiler and prints the request's wall seconds, its denoise calls,
 the device's busy share (summed kernel time over wall time) and the kernel
-time by group and by name. fp32, TF32 off. `--n-timestep` sets the
-schedule's T, which is the ancestral sampler's step count.
+time by group and by name. fp32, TF32 off; `--bf16` runs the same request
+on `WavBEST(dtype=torch.bfloat16)`, whose convs take the bf16 instances.
+`--n-timestep` sets the schedule's T, which is the ancestral sampler's step
+count.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ def main() -> None:
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--size", type=int, default=256)
     parser.add_argument("--n-timestep", type=int, default=1000)
+    parser.add_argument("--bf16", action="store_true", help="the model in bfloat16")
     args = parser.parse_args()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -58,10 +62,15 @@ def main() -> None:
     ms = ms.astype(np.float32)
     batch = {"PAN": ms.mean(1, keepdims=True), "MS": ms}
     sensor = "WV3" if args.bands == 8 else "QB"
-    model = WavBEST(seed=SEED).use_conv_impl(args.impl)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model = WavBEST(seed=SEED, dtype=dtype).use_conv_impl(args.impl)
     sharp = Pansharpener(model, n_timestep=args.n_timestep)
     sharp.sample(batch, sensor=sensor, method=args.method, seed=SEED)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharp.sample(batch, sensor=sensor, method=args.method, seed=SEED)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
     calls, denoise = [], model._denoise_impl
 
     def counted(*a, **kw):
@@ -82,9 +91,11 @@ def main() -> None:
     for e in kernels:
         by_group[group_of(e.key)] = by_group.get(group_of(e.key), 0.0) + e.self_device_time_total
     print(f"{smi}; {args.method} request {sensor} {args.bands}-band batch {args.batch} "
-          f"{args.size}x{args.size}, {args.impl} convs, {len(calls)} denoise calls: "
-          f"wall {wall:.3f} s under the profiler, device kernel time {total_us / 1e6:.3f} s, "
-          f"busy share {total_us / 1e6 / wall:.3f}, {len(kernels)} kernel names, "
+          f"{args.size}x{args.size}, {args.impl} convs, {str(dtype)[6:]}, {len(calls)} denoise "
+          f"calls: wall {unprofiled:.3f} s without the profiler, {wall:.3f} s under it; device "
+          f"kernel time {total_us / 1e6:.3f} s, busy share {total_us / 1e6 / wall:.3f} under "
+          f"the profiler, {total_us / 1e6 / unprofiled:.3f} of the unprofiled wall; "
+          f"{len(kernels)} kernel names, "
           f"{sum(e.count for e in kernels)} kernel launches")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"  {group}: {us / 1e6:.3f} s ({us / total_us:.3f} of kernel time)")
