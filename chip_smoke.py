@@ -6,9 +6,12 @@ serves pansharpening requests on a seeded full-width WavBEST (channels
 32, 64, 128, 256; 256x256, batch 2) under both conv lowerings with every
 sampler, in fp32 and in bf16, serves both serving presets through the HTTP
 server (`python -m tmdiff_tpu_torch.serve`), runs the attention library at
-SD-style widths, trains, and drives the CLI's train, val and distill phases.
+SD-style widths, trains, drives the CLI's train, val and distill phases,
+and samples and trains over a ("data", "space") mesh of four ranks.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-only    # build and the mesh phase alone; with
+                                         # four cards visible it adds NCCL
 
 Phases (any failure ends the run with a non-zero exit code):
   1. build     compile every source under csrc/ with nvcc (sm_90a), all at
@@ -137,6 +140,19 @@ Phases (any failure ends the run with a non-zero exit code):
                and weight gradients). Then the distillation loss and every
                gradient through K1 against the plain convs at 8 and 4 bands
                from I7, with the plain path's L1 signs; prints s/step.
+ 11. mesh      the ("data", "space") mesh (tmdiff_tpu_torch/parallel/): four
+               ranks spawned by parallel/dryrun.py on card 0 over gloo through
+               host memory, the full-width seeded model written once; the WV3
+               8-band batch 4 256x256 dpm++ request (10 steps) on (2, 2) and
+               (1, 4) and the QB 4-band batch 1 512x512 request on (1, 4), each
+               rank's image against the single-process image on the card, K1
+               launches per rank 13 + 52 a denoise call, none off the tensor
+               cores, no plain conv; the training step (WV3 8 bands, batch 8,
+               64x64) on (2, 2): the train phase's gradient check and 3 steps
+               against one process; seconds, halo exchanges and bytes per
+               request, collectives per step, each mesh's backend. With four
+               cards visible the same under NCCL, a card a rank, and with two
+               the training steps data-parallel on two cards.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
 {"kernels": [...]} summary.
@@ -165,7 +181,10 @@ of each side's value, two roundings of fp32 sums taken in another order,
 plus the fp32 conv bar for the accumulation); a bf16 request within 1e-2
 of the plain bf16 convs' (bf16 noise over 31 calls: a quantum of bf16 is
 3.9e-3 at 1) and within 5e-2 of the fp32 request; a served image within
-2e-3 of the same batch sampled in this process.
+2e-3 of the same batch sampled in this process. The mesh: every rank's
+image within 2e-3 of one process's (the sampling bar; K1 plans split-K by
+the shard's shape, so sums reassociate), the training losses within 1e-4
+relative, the gradients as in the train phase.
 """
 from __future__ import annotations
 
@@ -1665,10 +1684,10 @@ class CliProbe:
             self.step_ends.append(time.perf_counter())
             return out
 
-        def timed_save(root, state, keep=None):
+        def timed_save(root, state, keep=None, mesh=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            path = save(root, state, keep=keep)
+            path = save(root, state, keep=keep, mesh=mesh)
             self.saves.append((state.step, time.perf_counter() - t0,
                                os.path.getsize(os.path.join(path, checkpoint.STATE_FILE))))
             return path
@@ -2322,6 +2341,314 @@ def distill_phase(K, K3, K4, root):
             "grad_err": grad_err}
 
 
+MESH_RANKS = 4
+MESH_SHAPES = ((2, 2), (1, 4))
+MESH_DP_RANKS = 2  # the data-parallel training world under NCCL, a card a rank
+MESH_STEPS = 10  # dpm++ steps of a meshed request (11 denoise calls)
+MESH_REQUESTS = (("WV3", 8, 4, SIZE, MESH_SHAPES), ("QB", 4, 1, 2 * SIZE, ((1, 4),)))
+MESH_TRAIN_MESH, MESH_TRAIN_STEPS = (2, 2), 3
+MESH_LOSS_RTOL = 1e-4
+MESH_TIMEOUT = 420.0
+
+
+def _plain_counter(modconv):
+    """Wraps modconv's plain conv versions so that each call counts; returns
+    the count dict."""
+    seen = {"plain": 0}
+    for name in ("conv3d_plain", "conv3x3_nhwc_plain"):
+        fn = getattr(modconv, name)
+
+        def counted(*args, _fn=fn, **kw):
+            seen["plain"] += 1
+            return _fn(*args, **kw)
+
+        setattr(modconv, name, counted)
+    return seen
+
+
+def mesh_worker(weights, train_weights, requests, train, train_mesh):
+    """One rank of the mesh phase (parallel/dryrun.py runs it on every rank):
+    each request on each of its meshes (a regression warm-up, then dpm++
+    at MESH_STEPS, counts reset just before and read just after), then on
+    `train_mesh` the gradient check (fixed t and noise, dropout off, the
+    single-process path's L1 signs) and MESH_TRAIN_STEPS training steps.
+    Returns what each rank measured and sampled."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.parallel import mesh as mesh_lib
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plain = _plain_counter(modconv)
+    shapes = list(dict.fromkeys([s for _, _, ss in requests for s in ss] + [train_mesh]))
+    meshes = {shape: mesh_lib.make_mesh(*shape) for shape in shapes}
+    dev = meshes[train_mesh].device
+    model = WavBEST(CHANNELS, device=dev)
+    model.load_state_dict(torch.load(weights, map_location=dev, weights_only=True))
+    out = {"mesh": {s: repr(m) for s, m in meshes.items()}, "requests": []}
+    for sensor, batch, shapes in requests:
+        for shape in shapes:
+            sharp = Pansharpener(model, mesh=meshes[shape])
+            sharp.sample(batch, sensor=sensor, method="regression", seed=SEED)  # warm-up
+            with DenoiseCounter(model) as nfe:
+                torch.cuda.synchronize()
+                K.reset_launches()
+                mesh_lib.reset_stats()
+                plain["plain"] = 0
+                t0 = time.perf_counter()
+                img = sharp.sample(batch, sensor=sensor, method="dpm++", steps=MESH_STEPS,
+                                   seed=SEED)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            out["requests"].append({
+                "sensor": sensor, "mesh": shape, "s": sec, "nfe": nfe.calls, "img": img,
+                "k1": K.launches, "variants": dict(K.variant_launches),
+                "plain": plain["plain"], "stats": dict(mesh_lib.stats)})
+
+    model = WavBEST(CHANNELS, device=dev)
+    model.load_state_dict(torch.load(train_weights, map_location=dev, weights_only=True))
+    mesh = meshes[train_mesh]
+    trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), lr=1e-4, weight_decay=1e-4,
+                      warmup_steps=100, max_iter=300_000, loss_type="l1", ema_decay=0.9999,
+                      remat=True, seed=SEED, mesh=mesh)
+    state = trainer.init_state()
+    params = list(model.parameters())
+    prompt = torch.as_tensor(train["prompt"], device=dev)
+    gbatch = {k: torch.as_tensor(v, device=dev) for k, v in train["check"].items()}
+    placed = mesh.place(tuple(gbatch["MS"].shape))
+    model.use_mesh(placed)
+    batch = {k: placed.shard(v) for k, v in gbatch.items()}
+    t = placed.shard(torch.as_tensor(train["t"], device=dev))
+    noise, sign = (placed.shard(torch.as_tensor(train[k], device=dev)) for k in ("noise", "sign"))
+    K.reset_launches()
+    pred = predict(model, trainer.schedule, batch, prompt, t, noise)
+    held = torch.mean((pred - batch["Res"]) * sign) / mesh.size
+    state.optimizer.zero_grad(set_to_none=True)
+    held.backward()
+    loss = trainer.all_reduce_grads(state, held.detach())
+    grads = [p.grad.cpu() for p in params] if mesh.rank == 0 else None
+    out["grad_check"] = {"loss": loss.item(), "grads": grads,
+                         "pred": placed.gather(pred.detach()).cpu(),
+                         "launches": (K.launches, K.input_grad_launches, K.weight_grad_calls),
+                         "plain": plain["plain"]}
+    state = trainer.init_state()  # the weights are untouched: zero_grad only
+    losses, secs, per_step = [], [], []
+    for batch in train["steps"]:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        mesh_lib.reset_stats()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch, prompt)
+        losses.append(metrics["l_pix"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append({"k1_forward": K.launches - K.input_grad_launches,
+                         "k1_input_grad": K.input_grad_launches,
+                         "weight_grad": K.weight_grad_calls,
+                         "k1_off_tensor_cores": K.variant_launches["ffma"],
+                         "stats": dict(mesh_lib.stats)})
+    out["train"] = {"losses": losses, "s": secs, "per_step": per_step, "plain": plain["plain"],
+                    "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
+                    if mesh.rank in (0, mesh.size - 1) else None}
+    return out
+
+
+def mesh_single(weights, train_weights, requests, train):
+    """The mesh phase's cases in this process on the card: each request's
+    image and seconds, the gradient check's loss, gradients, prediction and
+    signs, and the training steps' losses."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    model = WavBEST(CHANNELS, device=DEV)
+    model.load_state_dict(torch.load(weights, map_location=DEV, weights_only=True))
+    sharp = Pansharpener(model, device=DEV)
+    images = {}
+    for sensor, batch, _ in requests:
+        sharp.sample(batch, sensor=sensor, method="regression", seed=SEED)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        images[sensor] = sharp.sample(batch, sensor=sensor, method="dpm++", steps=MESH_STEPS,
+                                      seed=SEED)
+        images[sensor + "_s"] = time.perf_counter() - t0
+    model = WavBEST(CHANNELS, device=DEV)
+    model.load_state_dict(torch.load(train_weights, map_location=DEV, weights_only=True))
+    trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), lr=1e-4, weight_decay=1e-4,
+                      warmup_steps=100, max_iter=300_000, loss_type="l1", ema_decay=0.9999,
+                      remat=True, seed=SEED)
+    state = trainer.init_state()
+    params = list(model.parameters())
+    prompt = torch.as_tensor(train["prompt"], device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in train["check"].items()}
+    t = torch.as_tensor(train["t"], device=DEV)
+    noise = torch.as_tensor(train["noise"], device=DEV)
+    pred = predict(model, trainer.schedule, batch, prompt, t, noise)
+    sign = torch.sign(pred.detach() - batch["Res"])
+    held = torch.mean((pred - batch["Res"]) * sign)
+    grads = torch.autograd.grad(held, params)
+    check = {"loss": held.item(), "grads": [g.cpu() for g in grads], "pred": pred.detach().cpu(),
+             "sign": sign.cpu().numpy()}
+    losses, secs = [], []
+    for b in train["steps"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, b, prompt)
+        losses.append(metrics["l_pix"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    check["s"] = secs
+    return images, check, losses
+
+
+def mesh_phase(K, root):
+    """The ("data", "space") mesh (tmdiff_tpu_torch/parallel/) on card 0:
+    MESH_RANKS ranks sharing the card over gloo through host memory, spawned
+    by parallel/dryrun.py, each with the full-width model from seeded
+    weights written once. The WV3 8-band batch 4 256x256 request (dpm++,
+    MESH_STEPS steps) on (2, 2) and (1, 4) and the QB 4-band batch 1
+    512x512 request on (1, 4): every rank's image within SAMPLE_ATOL of the
+    single-process image on the card; K1 launches per rank 13 + 52 per
+    denoise call (65 a model call), none off the tensor cores, no plain
+    conv. Then the training step of the train phase (WV3 8 bands, batch 8,
+    64x64, init "torch") on (2, 2): the gradient check of the train phase
+    (the single-process path's L1 signs, every gradient within GRAD_RTOL of
+    its scale, the x0 prediction within TRAIN_FORWARD_ATOL) and
+    MESH_TRAIN_STEPS steps with their losses within MESH_LOSS_RTOL, the EMA
+    equal across ranks. Prints each mesh's backend and transport, seconds,
+    halo exchanges and bytes per request, collectives per step. Under NCCL,
+    a card a rank, the same cases run when MESH_RANKS cards are visible,
+    and the training steps data-parallel on MESH_DP_RANKS cards when that
+    many are."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+
+    weights, train_weights = (os.path.join(root, n) for n in ("weights.pt", "train_weights.pt"))
+    model = WavBEST(CHANNELS, device="cpu", seed=SEED)
+    torch.save(model.state_dict(), weights)
+    new_model, _, prompts, datasets = train_setup()
+    torch.save({k: v.cpu() for k, v in new_model().state_dict().items()}, train_weights)
+    rng = np.random.default_rng(SEED)
+    requests = [(sensor, sized_batch(rng, bands, b, size), shapes)
+                for sensor, bands, b, size, shapes in MESH_REQUESTS]
+    ds = datasets["WV3"]
+    gen = torch.Generator().manual_seed(SEED)
+    check = ds.batch(np.arange(TRAIN_BATCH))
+    train = {"prompt": prompts["WV3"].cpu().numpy(),
+             "check": {k: check[k] for k in ("Res", "PAN", "MS")},
+             "t": torch.randint(1, 1001, (TRAIN_BATCH,), generator=gen).numpy(),
+             "noise": torch.randn(check["Res"].shape, generator=gen).numpy(),
+             "steps": [{k: v for k, v in ds.batch(np.arange(i, i + TRAIN_BATCH)).items()
+                        if k in ("Res", "PAN", "MS")}
+                       for i in range(1, 1 + MESH_TRAIN_STEPS)]}
+    images, single_check, single_losses = mesh_single(weights, train_weights, requests, train)
+    train["sign"] = single_check["sign"]
+    cards = torch.cuda.device_count()
+    # (label, ranks, device, backend, requests, training mesh)
+    worlds = [("gloo", MESH_RANKS, "cuda:0", "gloo", requests, MESH_TRAIN_MESH)]
+    if cards >= MESH_RANKS:
+        worlds.append(("nccl", MESH_RANKS, "cuda", None, requests, MESH_TRAIN_MESH))
+    if cards >= MESH_DP_RANKS:
+        worlds.append((f"nccl data-parallel on {MESH_DP_RANKS} cards", MESH_DP_RANKS, "cuda",
+                       None, [], (MESH_DP_RANKS, 1)))
+    if cards < MESH_RANKS:
+        print(f"[mesh] NCCL: {cards} card(s) visible, {MESH_RANKS} needed for the mesh cases "
+              f"and {MESH_DP_RANKS} for the data-parallel step", flush=True)
+    summary = {}
+    for label, n, device, backend, reqs, train_mesh in worlds:
+        t0 = time.perf_counter()
+        ranks = run_world("chip_smoke:mesh_worker", n,
+                          (weights, train_weights, reqs, train, train_mesh), device=device,
+                          backend=backend, threads=2, timeout=MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+        summary[label] = mesh_check(label, ranks, images, single_check, single_losses, wall,
+                                    train_mesh)
+    return summary
+
+
+def mesh_check(label, ranks, images, single_check, single_losses, wall, train_mesh):
+    """Holds one world's results against the single-process ones; prints
+    them and returns the numbers kept in the summary line."""
+    for shape, rep in ranks[0]["mesh"].items():
+        print(f"[mesh] {label} {shape}: {rep}", flush=True)
+    kept = {"world_s": wall, "requests": []}
+    for i, first in enumerate(ranks[0]["requests"]):
+        sensor, shape = first["sensor"], first["mesh"]
+        ref = images[sensor]
+        gaps = [np.abs(r["requests"][i]["img"] - ref) for r in ranks]
+        gap = max(float(g.max()) for g in gaps)
+        expected = ENCODE_CONVS + DENOISE_CONVS * first["nfe"]
+        per_rank = [(r["requests"][i]["k1"], r["requests"][i]["variants"]["ffma"],
+                     r["requests"][i]["plain"]) for r in ranks]
+        secs = [r["requests"][i]["s"] for r in ranks]
+        st = first["stats"]
+        print(f"[mesh] {label} {sensor} {ref.shape[1]}-band batch {ref.shape[0]} "
+              f"{ref.shape[2]}x{ref.shape[3]} dpm++ {MESH_STEPS} steps on {shape}: "
+              f"{max(secs):.3f} s (single process {images[sensor + '_s']:.3f} s); NFE "
+              f"{first['nfe']}; per rank K1 launches / off the tensor cores / plain convs "
+              f"{per_rank} (expected {expected} / 0 / 0); rank 0: {st['exchanges']} halo "
+              f"exchanges, {st['halo_bytes']} halo bytes sent, {st['collectives']} "
+              f"collectives of {st['collective_bytes']} bytes; max abs gap to the "
+              f"single-process image over the ranks {gap:.6g} (atol {SAMPLE_ATOL}), mean "
+              f"{float(np.mean([g.mean() for g in gaps])):.3g}", flush=True)
+        if not gap <= SAMPLE_ATOL:
+            fail(f"{label} {sensor} on {shape}: image differs from single process by {gap}")
+        if any(n != (expected, 0, 0) for n in per_rank):
+            fail(f"{label} {sensor} on {shape}: launches per rank {per_rank}")
+        kept["requests"].append({"sensor": sensor, "mesh": list(shape), "s": max(secs),
+                                 "single_s": images[sensor + "_s"], "gap": gap,
+                                 "k1_per_rank": first["k1"], "exchanges": st["exchanges"],
+                                 "halo_bytes": st["halo_bytes"],
+                                 "collectives": st["collectives"]})
+    check = ranks[0]["grad_check"]
+    errs = [rel_to_scale(a, b) for a, b in zip(check["grads"], single_check["grads"])]
+    forward = (check["pred"] - single_check["pred"]).abs().max().item()
+    loss_rel = abs(check["loss"] - single_check["loss"]) / abs(single_check["loss"])
+    n_k, n_in, n_w = check["launches"]
+    print(f"[mesh] {label} gradient check on {train_mesh}, WV3 8-band batch "
+          f"{TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}, fixed t and noise, dropout off, the "
+          f"single-process L1 signs: loss rel {loss_rel:.3g} (rtol {GRAD_LOSS_RTOL}); worst "
+          f"gradient {max(errs):.3g} of its scale (bar {GRAD_RTOL}); x0 prediction vs single "
+          f"process {forward:.3g} (atol {TRAIN_FORWARD_ATOL}); rank 0 K1 launches {n_k} "
+          f"({n_k - n_in} forward, {n_in} input gradient), {n_w} weight gradients", flush=True)
+    if not (loss_rel <= GRAD_LOSS_RTOL and max(errs) <= GRAD_RTOL
+            and forward <= TRAIN_FORWARD_ATOL):
+        fail(f"{label} meshed gradients: loss {loss_rel}, worst {max(errs)}, forward {forward}")
+    if (n_k - n_in, n_in, n_w) != (TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS) or check["plain"]:
+        fail(f"{label} meshed gradient pass launches {check['launches']}, plain {check['plain']}")
+    losses = ranks[0]["train"]["losses"]
+    steps = [r["train"]["per_step"] for r in ranks]
+    secs = [max(r["train"]["s"][k] for r in ranks) for k in range(MESH_TRAIN_STEPS)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, single_losses))
+    ema_same = torch.equal(ranks[0]["train"]["ema"], ranks[-1]["train"]["ema"])
+    last = steps[0][-1]
+    print(f"[mesh] {label} {MESH_TRAIN_STEPS} training steps on {train_mesh}: losses "
+          f"{losses} vs single process {single_losses} (worst rel {rel:.3g}, rtol "
+          f"{MESH_LOSS_RTOL}); s/step {[round(s, 4) for s in secs]} (single process "
+          f"{[round(s, 4) for s in single_check['s']]}); rank 0 per step "
+          f"{ {k: v for k, v in last.items() if k != 'stats'} }, {last['stats']['exchanges']} "
+          f"halo exchanges, {last['stats']['collectives']} collectives of "
+          f"{last['stats']['collective_bytes']} bytes; EMA equal on ranks 0 and "
+          f"{len(ranks) - 1}: {ema_same}", flush=True)
+    if not rel <= MESH_LOSS_RTOL or not ema_same:
+        fail(f"{label} meshed training: loss rel {rel}, EMA equal {ema_same}")
+    want = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
+            "weight_grad": TRAIN_CONVS, "k1_off_tensor_cores": 0}
+    if any({k: v for k, v in s.items() if k != "stats"} != want for r in steps for s in r) or \
+            any(r["train"]["plain"] for r in ranks):
+        fail(f"{label} meshed training launches {steps}")
+    kept.update(train_losses_rel=rel, train_s_per_step=float(np.median(secs)),
+                train_single_s_per_step=float(np.median(single_check["s"])),
+                grad_err=max(errs), collectives_per_step=last["stats"]["collectives"],
+                halo_exchanges_per_step=last["stats"]["exchanges"])
+    return kept
+
+
 def kernel_name(line: str) -> str:
     """`conv_3x3_kernel<1,64,1,8,32>` from ptxas' line on a mangled
     template instance; the line itself where it is not one."""
@@ -2381,6 +2708,15 @@ def main() -> int:
         return out
 
     timed("build", build_phase, build)
+    if "--mesh-only" in sys.argv[1:]:
+        # the mesh phase alone (for a call on several cards); no summary line
+        mesh_root = tempfile.mkdtemp(prefix="tmdiff_mesh_")
+        try:
+            print(json.dumps({"mesh": timed("mesh", mesh_phase, K, mesh_root), "took": took}))
+        finally:
+            shutil.rmtree(mesh_root, ignore_errors=True)
+        print(smi)
+        return 0
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     model = WavBEST(CHANNELS, device=DEV, seed=SEED)
     k1_totals, k1_err = timed("kernel", kernel_phase, model, K, modconv, gen)
@@ -2408,6 +2744,11 @@ def main() -> int:
         distill = timed("distill", distill_phase, K, K3, K4, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    mesh_root = tempfile.mkdtemp(prefix="tmdiff_mesh_")
+    try:
+        meshed = timed("mesh", mesh_phase, K, mesh_root)
+    finally:
+        shutil.rmtree(mesh_root, ignore_errors=True)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; seconds by phase "
           f"{took}", flush=True)
 
@@ -2459,7 +2800,11 @@ def main() -> int:
                                  f"of {DISTILL_STEPS} steps of batch {TRAIN_BATCH} "
                                  f"{TRAIN_SIZE}x{TRAIN_SIZE} and a ddim validation a phase",
          "distill_s_per_step": distill["s_per_step"],
-         "distill_grad_max_err_of_scale": distill["grad_err"]},
+         "distill_grad_max_err_of_scale": distill["grad_err"],
+         "mesh": meshed,
+         "mesh_is": f"{MESH_RANKS} ranks on one card per world (gloo through host memory; "
+                    f"nccl: one card a rank where {MESH_RANKS} are visible); k1_per_rank is "
+                    f"rank 0's K1 launches per request"},
         {"name": "conv3x3_nhwc", "route": "cuda", "source": "tmdiff_tpu_torch/csrc/conv3d.cu",
          "replaces": "tmdiff_tpu/ops/pallas/conv2d.py:43",
          "launches": auto_counts["K3"], "variant_launches": auto_counts["K3_variants"],

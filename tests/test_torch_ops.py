@@ -151,10 +151,12 @@ def test_wrapper_checks_and_no_fallback(rng):
 
 
 def test_port_imports_no_jax():
-    """The port and chip_smoke.py import neither jax/flax/orbax, cv2 nor
+    """The port, chip_smoke.py and the mesh tests' rank workers
+    (tests/torch_mesh_workers.py) import neither jax/flax/orbax, cv2 nor
     tmdiff_tpu; h5py only inside the functions that read or write an h5
     file (the card's machine has no h5py)."""
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests",
+                                                               "torch_mesh_workers.py")]
     for root, _, names in os.walk(os.path.join(REPO, "tmdiff_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     bad = re.compile(r"^\s*(import|from)\s+(jax|flax|orbax|cv2|tmdiff_tpu(?!_torch))\b")
@@ -170,7 +172,9 @@ def test_port_imports_no_jax():
             "tmdiff_tpu_torch/eval/metrics.py", "tmdiff_tpu_torch/eval/metrics_torch.py",
             "tmdiff_tpu_torch/train/checkpoint.py", "tmdiff_tpu_torch/utils/export.py",
             "tmdiff_tpu_torch/serve/engine.py", "tmdiff_tpu_torch/serve/server.py",
-            "tmdiff_tpu_torch/serve/__main__.py"} <= names
+            "tmdiff_tpu_torch/serve/__main__.py", "tmdiff_tpu_torch/parallel/mesh.py",
+            "tmdiff_tpu_torch/parallel/halo.py", "tmdiff_tpu_torch/parallel/dryrun.py",
+            "tests/torch_mesh_workers.py"} <= names
     assert len(files) > 10 and not offenders, offenders
     readers = {"tmdiff_tpu_torch/data/h5.py", "tmdiff_tpu_torch/data/synthetic.py"}
     assert h5_imports and all(f in readers and indent for f, indent in h5_imports), h5_imports

@@ -498,7 +498,8 @@ def test_device_defaults_to_cuda(tmp_path, monkeypatch):
 
 
 def test_mesh_space_and_orbax_are_refused(tmp_path):
-    """--mesh-space other than 1 stops at start-up (the port has no mesh);
+    """--mesh-space other than 1 stops at start-up (serving over a mesh is
+    not ported);
     a JAX orbax checkpoint directory raises when it is loaded."""
     cfg = _config(tmp_path)
     with pytest.raises(SystemExit):

@@ -330,8 +330,8 @@ def test_resblock_parts_draw_independent_masks():
     seen = []
     real = blocks.dropout
 
-    def spy(x, rate, rng):
-        out = real(x, rate, rng)
+    def spy(x, rate, rng, mesh=None):
+        out = real(x, rate, rng, mesh)
         seen.append(out != 0)
         return out
 

@@ -23,6 +23,20 @@ validation.
 
 Runs on CUDA unless `--device` says otherwise, and raises without a card.
 `-gpu` is accepted for the reference's command line and ignored.
+
+Over several processes, one per rank, under torchrun:
+
+    python -m torch.distributed.run --nproc-per-node N -m tmdiff_tpu_torch.cli \
+        -c config.json -p train|val|distill [--device cpu]
+
+the run takes the ("data", "space") mesh of the config's `parallel: {data,
+space}` block (parallel/mesh.py), or every rank on "data" without one, as
+the JAX CLI does. The mesh shards training, distillation and validation
+sampling; the backend follows parallel/mesh.py's rule (gloo with `--device
+cpu`, NCCL with a card per rank). Rank 0 alone writes the logs, the .mat
+results, provenance.json and the checkpoints, and scores the validation
+images; every rank samples its shard and restores the checkpoints. A stop
+signal on any rank stops every rank after the same step.
 """
 from __future__ import annotations
 
@@ -46,7 +60,10 @@ PHASES = ("train", "val", "distill")
 SAMPLERS = ("dpm++", "dpm++_noise", "ancestral", "regression", "ddim")
 
 
-def setup_logger(name, root, filename, screen=False):
+def setup_logger(name, root, filename, screen=False, write=True):
+    """The run's logger `name`, writing `{filename}.log` under `root` (and to
+    the screen with `screen`); with write=False (a rank other than 0) it
+    writes nowhere."""
     logger = logging.getLogger(name)
     logger.setLevel(logging.INFO)
     # drop the handlers of an earlier run in this process, which would
@@ -54,6 +71,9 @@ def setup_logger(name, root, filename, screen=False):
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
+    if not write:
+        logger.addHandler(logging.NullHandler())
+        return logger
     fmt = logging.Formatter("%(asctime)s.%(msecs)03d - %(levelname)s: %(message)s",
                             "%y-%m-%d %H:%M:%S")
     fh = logging.FileHandler(os.path.join(root, f"{filename}.log"), mode="w")
@@ -179,13 +199,50 @@ def stop_on_signals(active: bool = True):
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
+    from tmdiff_tpu_torch.parallel.mesh import init_distributed
+
     args = parse_args(argv)
-    opt = parse_config(args.config, phase=args.phase, debug=args.debug)
-    opt["log_eval"] = args.log_eval
-    # the handlers go in before the model is built, so that a SIGTERM at any
-    # point after start-up asks for a clean checkpoint-and-exit
-    with stop_on_signals(args.phase in ("train", "distill")) as stop:
-        _run(args, opt, stop)
+    # a world of ranks under torchrun (nothing for one process)
+    joined = init_distributed(args.device)
+    try:
+        if dist.is_initialized():
+            # rank 0 names the experiments directory; every rank uses its name
+            root = [None]
+            if dist.get_rank() == 0:
+                root[0] = parse_config(args.config, phase=args.phase,
+                                       debug=args.debug)["path"]["experiments_root"]
+            dist.broadcast_object_list(root, src=0)
+            opt = parse_config(args.config, phase=args.phase, debug=args.debug,
+                               experiments_root=root[0], make_dirs=dist.get_rank() == 0)
+        else:
+            opt = parse_config(args.config, phase=args.phase, debug=args.debug)
+        opt["log_eval"] = args.log_eval
+        # the handlers go in before the model is built, so that a SIGTERM at
+        # any point after start-up asks for a clean checkpoint-and-exit
+        with stop_on_signals(args.phase in ("train", "distill")) as stop:
+            _run(args, opt, stop)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def build_mesh(opt, device):
+    """The run's mesh: the config's `parallel: {data, space}` block, or every
+    rank of a torchrun world on "data"; None for one process without a
+    block."""
+    import torch.distributed as dist
+
+    from tmdiff_tpu_torch.parallel.mesh import make_mesh
+
+    par = opt["parallel"] or {}
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1 and not (par.get("data") or par.get("space")):
+        return None
+    space = int(par.get("space") or 1)
+    data = int(par.get("data") or world // space)
+    return make_mesh(data, space, device=device)
 
 
 def _run(args, opt, stop, datasets=None):
@@ -201,13 +258,18 @@ def _run(args, opt, stop, datasets=None):
     from tmdiff_tpu_torch.train.trainer import Trainer
     from tmdiff_tpu_torch.utils.device import resolve_device
 
-    logger = setup_logger("base", opt["path"]["log"], "train", screen=True)
-    val_logger = setup_logger("val", opt["path"]["log"], "val")
+    mesh = build_mesh(opt, args.device)
+    rank0 = mesh is None or mesh.rank == 0
+    logger = setup_logger("base", opt["path"]["log"], "train", screen=True, write=rank0)
+    val_logger = setup_logger("val", opt["path"]["log"], "val", write=rank0)
     logger.info(opt.get("info", opt["name"]))
     logger.info(dict2str(opt))
-    snapshot_provenance(opt, args.config)
+    if rank0:
+        snapshot_provenance(opt, args.config)
+    if mesh is not None:
+        logger.info(f"mesh: {mesh}")
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     train_phase = args.phase in ("train", "distill")
     mixer, val_sets = (datasets if datasets is not None
                        else build_datasets(opt, "train" if train_phase else args.phase))
@@ -235,12 +297,18 @@ def _run(args, opt, stop, datasets=None):
         lr=(train_opt.get("optimizer") or {}).get("lr", 1e-4),
         max_iter=train_opt.get("max_iter", 300_000),
         loss_type=(opt["model"]["diffusion"] or {}).get("loss_type", "l1"),
-        p_uncond=train_opt.get("p_uncond", 0.0), seed=seed)
+        p_uncond=train_opt.get("p_uncond", 0.0), seed=seed, mesh=mesh)
     state = trainer.init_state()
     # one sampler for the run: its prompt table serves the train loop too;
     # `params` picks the online or the EMA weights per validation
     sharp = Pansharpener(model, schedule_name=sched_opt["schedule"],
-                         n_timestep=sched_opt["n_timestep"], device=device)
+                         n_timestep=sched_opt["n_timestep"], device=device, mesh=mesh)
+
+    def stopping():
+        # every rank stops after the same step
+        if mesh is not None and mesh.any(stop["flag"]):
+            stop["flag"] = True
+        return stop["flag"]
 
     resume = opt["path"]["resume"]
     ckpt_dir = opt["path"]["checkpoint"]
@@ -263,16 +331,19 @@ def _run(args, opt, stop, datasets=None):
         params = (dict(zip((n for n, _ in model.named_parameters()), state.ema_params))
                   if use_ema else None)
         for sensor, ds in val_sets.items():
+            # every rank samples its shard; rank 0 scores and writes
             scores = validate(
-                sharp, ds, sensor, result_dir=os.path.join(opt["path"]["results"], sensor),
+                sharp, ds, sensor,
+                result_dir=os.path.join(opt["path"]["results"], sensor) if rank0 else None,
                 method=method or args.sampler, steps=steps,
                 batch_size=int(opt.get("val_batch_size") or 4),
                 max_images=int(opt.get("val_max_images") or -1), params=params,
                 log_file=(os.path.join(opt["path"]["results"], "eval_metrics.jsonl")
-                          if opt["log_eval"] else None))
-            logger.info(f"step {state.step} {sensor} {scores}")
-            val_logger.info(f"step {state.step} {sensor} {scores}")
-            print(state.step, sensor, scores)
+                          if opt["log_eval"] and rank0 else None), score=rank0)
+            if rank0:
+                logger.info(f"step {state.step} {sensor} {scores}")
+                val_logger.info(f"step {state.step} {sensor} {scores}")
+                print(state.step, sensor, scores)
 
     if args.phase == "train":
         max_iter = train_opt.get("max_iter", 300_000)
@@ -283,7 +354,7 @@ def _run(args, opt, stop, datasets=None):
         last_saved = current_step  # the resume point (or step 0) is on disk already
         feeder = make_feeder(mixer, sharp, train_opt)
         try:
-            while current_step < max_iter and not stop["flag"]:
+            while current_step < max_iter and not stopping():
                 batch, emb, bsz = next(feeder)
                 state, metrics = trainer.train_step(state, batch, emb)
                 current_step += 1
@@ -296,21 +367,21 @@ def _run(args, opt, stop, datasets=None):
                                 + f" img/s: {dsteps * bsz / dt if dt > 0 else 0.0:.1f}")
                 if current_step % val_freq == 0:
                     run_validation(state)
-                    ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep)
+                    ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep, mesh=mesh)
                     last_saved = current_step
         finally:
             feeder.close()
         if current_step != last_saved:
             # the end of the run (or a stop) between validations: the state
             # still goes to disk
-            path = ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep)
+            path = ckpt_lib.save_checkpoint(ckpt_dir, state, keep=keep, mesh=mesh)
             if stop["flag"]:
                 logger.info(f"Preemption signal: checkpointed step {current_step} to {path}; "
                             "resume with path.resume='auto'")
             else:
                 logger.info(f"Final checkpoint: step {current_step} to {path}")
     elif args.phase == "distill":
-        state = _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger,
+        state = _distill(opt, train_opt, model, trainer, state, sharp, mixer, stopping, logger,
                          run_validation)
     else:
         logger.info("Begin Model Evaluation.")
@@ -318,9 +389,11 @@ def _run(args, opt, stop, datasets=None):
     return trainer, state
 
 
-def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger, run_validation):
+def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stopping, logger,
+             run_validation):
     """The distill phase's chain of students (see the module docstring);
-    returns the last phase's state."""
+    returns the last phase's state. `stopping()` says whether a stop signal
+    came (on any rank)."""
     from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
     from tmdiff_tpu_torch.train.distill import DistillTrainer
 
@@ -345,15 +418,16 @@ def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger, 
     feeder = make_feeder(mixer, sharp, train_opt)
     try:
         for n in phases:
-            if stop["flag"]:
+            if stopping():
                 break
             done_steps = 0
             d_trainer = DistillTrainer(model, trainer.schedule, n_student_steps=n,
                                        lr=float(d_opt.get("lr") or 1e-4), warmup_steps=20,
-                                       max_iter=steps_per_phase, loss_type=trainer.loss_type)
+                                       max_iter=steps_per_phase, loss_type=trainer.loss_type,
+                                       mesh=trainer.mesh)
             p_state = d_trainer.state_from_params(teacher)
             for k in range(steps_per_phase):
-                if stop["flag"]:
+                if stopping():
                     break
                 batch, emb, _ = next(feeder)
                 p_state, m = d_trainer.train_step(p_state, batch, emb, teacher)
@@ -367,18 +441,20 @@ def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stop, logger, 
             with torch.no_grad():
                 for e, p in zip(p_state.ema_params, model.parameters()):
                     e.copy_(p)
-            if stop["flag"] and done_steps < steps_per_phase:
+            if stopping() and done_steps < steps_per_phase:
                 # no validation inside the preemption window; the partial
                 # student is a record, not a resume point
                 path = ckpt_lib.save_checkpoint(
-                    os.path.join(opt["path"]["checkpoint"], f"distill_N{n}_partial"), p_state)
+                    os.path.join(opt["path"]["checkpoint"], f"distill_N{n}_partial"), p_state,
+                    mesh=trainer.mesh)
                 logger.info(f"Preemption signal: phase N={n} stopped at step "
                             f"{done_steps}/{steps_per_phase}; PARTIAL student "
                             f"checkpointed to {path}, validation skipped")
                 break
             teacher = {k: v.detach().clone() for k, v in zip(names, model.parameters())}
             path = ckpt_lib.save_checkpoint(
-                os.path.join(opt["path"]["checkpoint"], f"distill_N{n}"), p_state)
+                os.path.join(opt["path"]["checkpoint"], f"distill_N{n}"), p_state,
+                mesh=trainer.mesh)
             logger.info(f"distill N={n} done -> {path}")
             run_validation(p_state, method="ddim", steps=n, use_ema=False)
     finally:

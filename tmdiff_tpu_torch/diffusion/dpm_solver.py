@@ -28,16 +28,26 @@ step size are float32 scalars, computed as the JAX package's traced
 schedule computes them, so that both take the same accept/reject decisions;
 its loop runs on the host and reads one scalar (the error norm) back per
 iteration.
+
+On a sharded placement (`DPMSolver.mesh`, parallel/mesh.py) each rank holds
+its shard of x, and the two reductions over a sample are made over the
+ranks that hold it: the thresholding quantile on the sample's values
+gathered over its space group, the adaptive error norm as a sum of squares
+over the space group, divided by the global count, then the max over the
+data group, so every rank takes the same accept/reject decision.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import warnings
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 
 
 class NoiseScheduleVP:
@@ -164,10 +174,14 @@ class _Schedule32:
 _QUANTILE_MAX = 2 ** 24
 
 
-def dynamic_thresholding(x0, ratio: float = 0.995, max_val: float = 1.0):
-    """Per-sample quantile clamp (`dpm_solver_pytorch.py:430-439`)."""
+def dynamic_thresholding(x0, ratio: float = 0.995, max_val: float = 1.0, mesh=None):
+    """Per-sample quantile clamp (`dpm_solver_pytorch.py:430-439`). On a
+    space-sharded placement `mesh` the sample's values are gathered over
+    its space group first, so the quantile is the unsharded one."""
     b = x0.shape[0]
     a = x0.abs().reshape(b, -1)
+    if mesh is not None and mesh.halo:
+        a = torch.cat(mesh_lib.all_gather(a, mesh, mesh.space_group), dim=1)
     if a.numel() <= _QUANTILE_MAX:
         s = torch.quantile(a, ratio, dim=1)
     else:
@@ -289,12 +303,15 @@ class DPMSolver:
     thresholding_ratio: float = 0.995
     thresholding_max_val: float = 1.0
     solver_type: str = "dpmsolver"
+    # the placement of x on a mesh (parallel/mesh.py), None unsharded
+    mesh: Optional[Any] = None
 
     def _correct_x0(self, x0):
         if self.correcting_x0_fn is None:
             return x0
         if self.correcting_x0_fn == "dynamic_thresholding":
-            return dynamic_thresholding(x0, self.thresholding_ratio, self.thresholding_max_val)
+            return dynamic_thresholding(x0, self.thresholding_ratio, self.thresholding_max_val,
+                                        self.mesh)
         raise NotImplementedError(self.correcting_x0_fn)
 
     def _eval_with(self, x, t_input, alpha_t, sigma_t):
@@ -745,9 +762,7 @@ class DPMSolver:
                 x_higher = self._third_update(sch, x, s, t, model_s, model_s1, r1, r2,
                                               "dpmsolver")
             delta = torch.clamp(rtol * torch.maximum(x_lower.abs(), x_prev.abs()), min=atol)
-            b = x.shape[0]
-            err = torch.sqrt(torch.mean(torch.square((x_higher - x_lower) / delta)
-                                        .reshape(b, -1), dim=1)).max()
+            err = self._error_norm(torch.square((x_higher - x_lower) / delta))
             e = _f32(err.item())  # the one scalar read back per iteration
             if bool(e <= 1.0):
                 x, x_prev, s = x_higher, x_lower, t
@@ -761,6 +776,23 @@ class DPMSolver:
         if return_stats:
             return x, {"steps_attempted": n, "steps_accepted": n_acc}
         return x
+
+    def _error_norm(self, sq):
+        """max over the batch of the rms over each sample of `sq`'s
+        values, over the mesh's shards where x is sharded."""
+        b = sq.shape[0]
+        mesh = self.mesh
+        if mesh is None or not (mesh.halo or mesh.split_batch):
+            return torch.sqrt(torch.mean(sq.reshape(b, -1), dim=1)).max()
+        ms = sq.reshape(b, -1).sum(dim=1)
+        n = sq[0].numel()
+        if mesh.halo:
+            mesh_lib.all_reduce_(ms, mesh, group=mesh.space_group)
+            n *= mesh.space
+        err = torch.sqrt(ms / n).max()
+        if mesh.split_batch:
+            mesh_lib.all_reduce_(err, mesh, op=dist.ReduceOp.MAX, group=mesh.data_group)
+        return err
 
     def sample_adaptive_chunked(self, x, order: int = 3, t_start: Optional[float] = None,
                                 t_end: Optional[float] = None, h_init: float = 0.05,

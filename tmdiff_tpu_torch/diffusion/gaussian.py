@@ -18,6 +18,11 @@ same steps as a Python loop: the arithmetic and its order are the same, and
 a "static" refresh schedule of the block-cached sampler is decomposed into
 its chunks up front, where a runtime one (a bool tensor) is read step by
 step.
+
+On a sharded placement `mesh` (parallel/mesh.py) the samplers run on this
+rank's shard: the ancestral sampler draws each step's noise at the global
+shape and keeps its shard, and the dynamic x0 clip takes its maximum over
+every rank. `shape` is then the shard's.
 """
 from __future__ import annotations
 
@@ -26,8 +31,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 
 # denoise_fn(x_t, t, pan, ms) -> x0 prediction; conditioning closed over.
 DenoiseFn = Callable[..., torch.Tensor]
@@ -65,23 +72,33 @@ def diffusion_loss(denoise_fn: DenoiseFn, ns: NoiseSchedule, generator: Optional
     return pixel_loss(x_recon, res, loss_type)
 
 
-def clip_x0(x_recon, mode: str = "static"):
+def clip_x0(x_recon, mode: str = "static", mesh=None):
     if mode == "static":
         return torch.clamp(x_recon, -1.0, 1.0)
     if mode == "dynamic":
-        return x_recon / torch.clamp(x_recon.abs().max(), min=1.0)
+        peak = x_recon.abs().max()
+        if mesh is not None and (mesh.halo or mesh.split_batch):
+            peak = mesh_lib.all_reduce_(peak, mesh, op=dist.ReduceOp.MAX)
+        return x_recon / torch.clamp(peak, min=1.0)
     if mode == "none":
         return x_recon
     raise NotImplementedError(mode)
 
 
 def cfg_dropout_condition(generator: Optional[torch.Generator], cond, p_uncond: float,
-                          per_sample: bool = False):
+                          per_sample: bool = False, mesh=None):
     """Training-side classifier-free guidance: zero the conditioning with
     probability p_uncond, one coin per batch (the reference's helper) or,
-    with per_sample=True, one coin per example (what the trainer uses)."""
+    with per_sample=True, one coin per example (what the trainer uses). On a
+    sharded placement `mesh` the coins are drawn for the global batch and
+    this rank's are kept."""
     if per_sample:
-        keep = torch.rand(cond.shape[0], generator=generator, device=cond.device) >= p_uncond
+        if mesh is None:
+            keep = torch.rand(cond.shape[0], generator=generator, device=cond.device)
+        else:
+            keep = mesh.shard(torch.rand(mesh.global_shape(cond.shape)[0], generator=generator,
+                                         device=cond.device))
+        keep = keep >= p_uncond
         return cond * keep.reshape((-1,) + (1,) * (cond.dim() - 1)).to(cond.dtype)
     drop = torch.rand((), generator=generator, device=cond.device) < p_uncond
     return torch.where(drop, torch.zeros_like(cond), cond)
@@ -106,7 +123,8 @@ def _normal(shape, generator, device):
 
 def ancestral_sample(denoise_fn: DenoiseFn, ns: NoiseSchedule, generator, pan, ms, shape, *,
                      clip_mode: str = "static", legacy_noise_inversion: bool = False,
-                     num_frames: Optional[int] = None, x_init=None, step_noise=None):
+                     num_frames: Optional[int] = None, x_init=None, step_noise=None,
+                     mesh=None):
     """The full T-step ancestral reverse loop (`p_sample_loop`). `ns` must
     be on the device of pan/ms (or of x_init).
 
@@ -117,19 +135,23 @@ def ancestral_sample(denoise_fn: DenoiseFn, ns: NoiseSchedule, generator, pan, m
     `generator` (x_T first, then one draw per step t > 0, from t = T - 1
     down). With `legacy_noise_inversion` the network's output is inverted
     as a noise prediction, as the reference's default `p_mean_variance`
-    does."""
+    does. On a sharded placement `mesh`, x_T and each step's noise are
+    drawn at the global shape and sharded; `x_init` and `step_noise` are
+    this rank's shards."""
     T = ns.num_timesteps
     device = (x_init if x_init is not None else ms).device
-    x = x_init if x_init is not None else _normal(shape, generator, device)
+    draw = lambda: (_normal(shape, generator, device) if mesh is None else
+                    mesh.shard(_normal(mesh.global_shape(shape), generator, device)))
+    x = x_init if x_init is not None else draw()
     interval = max(1, T // (num_frames or 10))
     frames = (torch.zeros(((T + interval - 1) // interval, *shape), device=device)
               if num_frames else None)
     for t in range(T - 1, -1, -1):
         out = denoise_fn(x, _timesteps(shape[0], t + 1, device), pan, ms)
         x_recon = predict_start_from_noise(ns, x, t, out) if legacy_noise_inversion else out
-        mean, logvar = posterior_mean_logvar(ns, clip_x0(x_recon, clip_mode), x, t)
+        mean, logvar = posterior_mean_logvar(ns, clip_x0(x_recon, clip_mode, mesh), x, t)
         if t > 0:
-            noise = step_noise[t] if step_noise is not None else _normal(shape, generator, device)
+            noise = step_noise[t] if step_noise is not None else draw()
         else:
             noise = torch.zeros(shape, device=device)
         x = mean + noise * torch.exp(0.5 * logvar)
@@ -169,7 +191,7 @@ def _ddim_grid(T: int, steps: int) -> list:
 
 
 def ddim_sample(denoise_fn: DenoiseFn, ns: NoiseSchedule, generator, pan, ms, shape, *,
-                steps: int = 50, clip_mode: str = "static", x_init=None):
+                steps: int = 50, clip_mode: str = "static", x_init=None, mesh=None):
     """Deterministic DDIM: `steps` x0-parameterised jumps down the uniform
     integer grid T = t_0 > ... > t_steps = 0, the sampler a progressively
     distilled N-step student is trained for (train/distill.py)."""
@@ -178,7 +200,7 @@ def ddim_sample(denoise_fn: DenoiseFn, ns: NoiseSchedule, generator, pan, ms, sh
     x = x_init if x_init is not None else _normal(shape, generator, device)
     for t, s in pairs:
         x0 = denoise_fn(x, _timesteps(shape[0], t, device), pan, ms)
-        x = ddim_jump(ns, x, clip_x0(x0, clip_mode), t, s)
+        x = ddim_jump(ns, x, clip_x0(x0, clip_mode, mesh), t, s)
     return x
 
 
@@ -206,7 +228,8 @@ def refresh_chunks(refresh_mask: Sequence[bool], steps: int) -> list:
 
 def ddim_sample_blockcached(full_fn, reuse_fn, ns: NoiseSchedule, generator, pan, ms, shape, *,
                             steps: int = 20, refresh_every: int = 2, clip_mode: str = "static",
-                            x_init=None, forecast: bool = False, refresh_mask=None):
+                            x_init=None, forecast: bool = False, refresh_mask=None,
+                            mesh=None):
     """DDIM with cross-step deep-feature caching: a refresh step calls
     `full_fn(x, t) -> (x0_hat, deep)` (the whole network, returning its
     deep-trunk features), the steps up to the next refresh call
@@ -230,7 +253,7 @@ def ddim_sample_blockcached(full_fn, reuse_fn, ns: NoiseSchedule, generator, pan
     b = shape[0]
 
     def jump(x, x0, t, s):
-        return ddim_jump(ns, x, clip_x0(x0, clip_mode), t, s)
+        return ddim_jump(ns, x, clip_x0(x0, clip_mode, mesh), t, s)
 
     def refresh(x, t, s):
         x0, deep = full_fn(x, _timesteps(b, t, device))

@@ -30,7 +30,8 @@ def validate(sharpener, dataset, sensor: str, result_dir: Optional[str] = None,
              method: str = "dpm++", steps: Optional[int] = None, batch_size: int = 4,
              max_images: int = -1, save_mat: bool = True, full_suite: bool = False,
              seed: int = 0, params=None, log_file: Optional[str] = None,
-             reference_parity: bool = False, device_metrics: bool = True) -> dict:
+             reference_parity: bool = False, device_metrics: bool = True,
+             score: bool = True) -> dict:
     """Scores of `dataset` through `sharpener.sample` (with `params` when
     given: e.g. the EMA weights), keyed `{metric}_{sensor}`, plus
     `sec_per_image_{sensor}`.
@@ -45,7 +46,10 @@ def validate(sharpener, dataset, sensor: str, result_dir: Optional[str] = None,
     (`metrics.ssim_gaussian` on the host), where the numpy suite's takes a
     uniform one, so the two may differ by more than the JAX package's
     harness states (1e-3). `full_suite`, full-resolution sets and
-    `device_metrics=False` take the numpy suite."""
+    `device_metrics=False` take the numpy suite.
+
+    `score=False` only samples, and returns {}: a rank other than 0 of a
+    meshed sampler takes part in every sampling call, and rank 0 scores."""
     if reference_parity:
         from tmdiff_tpu_torch.models.clip_text import require_real_clip
 
@@ -62,6 +66,8 @@ def validate(sharpener, dataset, sensor: str, result_dir: Optional[str] = None,
             batch = dataset.batch(np.arange(start, min(start + batch_size, n)))
             preds = sharpener.sample(batch, sensor=sensor, method=method, steps=steps,
                                      seed=seed + start, params=params)
+            if not score:
+                continue
             if fast:
                 with torch.no_grad():
                     pred_t = torch.as_tensor(preds, device=sharpener.device)
@@ -89,6 +95,8 @@ def validate(sharpener, dataset, sensor: str, result_dir: Optional[str] = None,
                 for k, v in vals.items():
                     sums[k] = sums.get(k, 0.0) + v
                 idx_out += 1
+    if not score:
+        return {}
     out = {f"{k}_{sensor}": v / idx_out for k, v in sums.items()}
     out[f"sec_per_image_{sensor}"] = (time.time() - t0) / max(idx_out, 1)
     return out

@@ -37,7 +37,10 @@ the activations between them keep it.
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
 CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
 (see WavBEST.use_plain_conv). Its `impl` attribute picks the 3x3x3 lowering,
-"banded" or "auto" (ops/modconv.py; see WavBEST.use_conv_impl).
+"banded" or "auto" (ops/modconv.py; see WavBEST.use_conv_impl). Its `mesh`
+attribute, the placement of a sharded call (parallel/mesh.py; see
+WavBEST.use_mesh) or None, makes its 3x3x3 convs exchange halo rows; the
+blocks' dropout reads it from their convs.
 """
 from __future__ import annotations
 
@@ -59,13 +62,19 @@ def swish(x):
 DROPOUT = 0.2
 
 
-def dropout(x, rate: float, rng):
+def dropout(x, rate: float, rng, mesh=None):
     """Inverted dropout: each element kept with probability 1 - rate and
     scaled by 1 / (1 - rate), the mask drawn from `rng`; identity when rng
-    is None."""
+    is None. On a sharded placement `mesh` (parallel/mesh.py) the mask is
+    drawn at the global shape and this rank's shard of it is kept, so a
+    meshed step draws the masks the unsharded step draws."""
     if rng is None or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=rng, device=x.device) >= rate
+    else:
+        keep = mesh.shard(torch.rand(mesh.global_shape(x.shape), generator=rng,
+                                     device=x.device)) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -119,13 +128,14 @@ class Conv3d(nn.Module):
         self.dtype = dtype
         self.plain = False
         self.impl = "banded"
+        self.mesh = None
 
     def forward(self, x):
         if isinstance(x, tuple):
             return conv3d_cat(tuple(p.to(self.dtype) for p in x), self.weight, bias=self.bias,
-                              plain=self.plain, impl=self.impl)
+                              plain=self.plain, impl=self.impl, mesh=self.mesh)
         return conv3d(x.to(self.dtype), self.weight, bias=self.bias, plain=self.plain,
-                      impl=self.impl)
+                      impl=self.impl, mesh=self.mesh)
 
 
 class ModConv3d(nn.Module):
@@ -138,9 +148,11 @@ class ModConv3d(nn.Module):
         self.weight = _lecun_normal((k, k, k, cin, cout), k ** 3 * cin)
         self.plain = False
         self.impl = "banded"
+        self.mesh = None
 
     def forward(self, x, style):
-        return modulated_conv3d(x, self.weight, style, plain=self.plain, impl=self.impl)
+        return modulated_conv3d(x, self.weight, style, plain=self.plain, impl=self.impl,
+                                mesh=self.mesh)
 
 
 class ResBlockModulate(nn.Module):
@@ -167,9 +179,10 @@ class ResBlockModulate(nn.Module):
             for p in parts:
                 hs.append(p + d[..., off:off + p.shape[-1]])
                 off += p.shape[-1]
-        hs = tuple(dropout(swish(p), DROPOUT, rng) for p in hs)
+        mesh = self.conv20.mesh
+        hs = tuple(dropout(swish(p), DROPOUT, rng, mesh) for p in hs)
         h = self.conv20(hs if isinstance(x, tuple) else hs[0])
-        h = self.conv21(dropout(swish(h), DROPOUT, rng), self.dense2(zemb))
+        h = self.conv21(dropout(swish(h), DROPOUT, rng, mesh), self.dense2(zemb))
         if hasattr(self, "res_conv"):
             x = self.res_conv(x)
         elif isinstance(x, tuple):
@@ -213,7 +226,7 @@ class WaveletDown(nn.Module):
         x = wavelet.dwt2d_ll(x) * 0.5
         if self.use_temb:
             h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(dropout(swish(h), DROPOUT, rng), self.dense1(zemb))
+        h = self.Conv_1(dropout(swish(h), DROPOUT, rng, self.Conv_1.mesh), self.dense1(zemb))
         return x + h, (h_lh, h_hl, h_hh)
 
 
@@ -229,12 +242,14 @@ class GroupedSkipConv(nn.Module):
         self.dtype = dtype
         self.plain = False
         self.impl = "banded"
+        self.mesh = None
 
     def forward(self, parts):
         f = self.features
         return tuple(
             conv3d(p.to(self.dtype), self.weight[..., g * f:(g + 1) * f],
-                   bias=self.bias[g * f:(g + 1) * f], plain=self.plain, impl=self.impl)
+                   bias=self.bias[g * f:(g + 1) * f], plain=self.plain, impl=self.impl,
+                   mesh=self.mesh)
             for g, p in enumerate(parts))
 
 
@@ -258,7 +273,7 @@ class WaveletUp(nn.Module):
         h = wavelet.idwt2d(2.0 * h, lh, hl, hh)
         x = wavelet.idwt2d(2.0 * x, lh, hl, hh)
         h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(dropout(swish(h), DROPOUT, rng), self.dense1(zemb))
+        h = self.Conv_1(dropout(swish(h), DROPOUT, rng, self.Conv_1.mesh), self.dense1(zemb))
         return x + h
 
 

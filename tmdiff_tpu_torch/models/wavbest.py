@@ -109,6 +109,18 @@ class WavBEST(nn.Module):
                 m.impl = impl
         return self
 
+    def use_mesh(self, mesh=None) -> "WavBEST":
+        """Run on this rank's shard of a sharded call: `mesh` is the mesh
+        placed for the call's images (parallel/mesh.py, `Mesh.place`), or
+        None for an unsharded call. Every 3x3x3 conv then exchanges halo
+        rows where the placement splits the height, and dropout keeps this
+        rank's shard of the global masks. The entry points (Pansharpener,
+        Trainer) set it on every call."""
+        for m in self.modules():
+            if hasattr(m, "mesh"):
+                m.mesh = mesh
+        return self
+
     # -- embeddings -----------------------------------------------------------
 
     def prompt_embed(self, prompt_emb, batch: int):
@@ -130,7 +142,9 @@ class WavBEST(nn.Module):
         return rng
 
     def encode_condition(self, pan, ms, prompt_emb, *, train: bool = False, rng=None):
-        """-> dict of condition features and HF skips, constant across steps."""
+        """-> dict of condition features and HF skips, constant across steps.
+        On a space-sharded call, pan and ms are this rank's rows, and the
+        divisibility check holds on them."""
         h, w = ms.shape[-2], ms.shape[-1]
         if h % 8 or w % 8:
             raise ValueError(

@@ -30,6 +30,16 @@ block-banded weight of the band-into-lanes form is built from the given
 weight and then cast (`w2.astype(x.dtype)` there). The 1x1x1 convs are
 products in x's dtype.
 
+Every entry takes `mesh`, the placement of a call sharded over a
+("data", "space") mesh (parallel/mesh.py), or None. Where it splits the
+height, each 3x3x3 conv (and each part of a concat) first gets one halo row
+from each neighbouring space rank (parallel/halo.py), runs its kernel on
+the H + 2 rows, and keeps the middle H; the parts of `conv3d_cat`
+accumulate into one (H + 2)-row buffer, cropped once. Either lowering is
+exact that way (the JAX package refuses "banded" on a mesh, where its
+Pallas call cannot be partitioned), and "auto" picks its lowering by the
+global height, as the unsharded call does. The 1x1x1 convs are row-local.
+
 The reference's per-sample modulated conv, w_b[o, i] = w[o, i] * s[b, i] with
 no bias and no demodulation, equals conv(x_b * s_b, w) because the style
 scales input channels only (tmdiff_tpu/ops/modconv.py pins this identity
@@ -41,6 +51,7 @@ import torch
 
 from tmdiff_tpu_torch.ops.cuda.conv2d import conv3x3_nhwc, conv3x3_nhwc_plain
 from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad
+from tmdiff_tpu_torch.parallel.halo import exchange_rows
 
 IMPLS = ("banded", "auto")
 
@@ -80,49 +91,83 @@ def _as(t, dtype):
     return None if t is None else t.to(dtype)
 
 
-def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = False):
+def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = False,
+                      mesh=None):
     """SAME 3x3x3 conv with the bands folded into channels: (B, D, H, W, C)
     -> (B, H, W, D*C), one 3x3 conv with the block-banded weight (D/3 times
     the useful multiply-adds), and back. Style and bias go to the 2-D
     kernel, tiled over the bands; `out` accumulates after the unfold. Where
     the window overhangs the image (H or W < 3) the 3x3x3 kernel runs
-    instead, as the JAX package routes such convs to the native conv."""
-    b, d, h, w, cin = x.shape
-    cout = kernel.shape[-1]
+    instead, as the JAX package routes such convs to the native conv. On a
+    space-sharded placement `mesh` the halo rows are exchanged first and
+    the middle rows of the output kept."""
+    return _sharded(x, kernel, style, bias, out, plain, mesh, fold=True)
+
+
+def _conv333(x, kernel, style, bias, out, plain, fold, h):
+    """The SAME 3x3x3 conv of x as it stands (halo rows included): through
+    the band-into-lanes form where `fold` asks for it and the window fits
+    the global height h and the width, else through the 3x3x3 kernel."""
     dt = x.dtype
-    if h < kernel.shape[1] or w < kernel.shape[2]:
-        return (conv3d_plain if plain else banded_conv3d)(x, _as(kernel, dt), _as(style, dt),
-                                                          _as(bias, dt), out)
-    x2 = x.permute(0, 2, 3, 1, 4).reshape(b, h, w, d * cin)
+    b, d, hx, w, cin = x.shape
+    cout = kernel.shape[-1]
+    if not fold or h < kernel.shape[1] or w < kernel.shape[2]:
+        fn = conv3d_plain if plain else banded_conv3d
+        return fn(x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
+    x2 = x.permute(0, 2, 3, 1, 4).reshape(b, hx, w, d * cin)
     s2 = None if style is None else style.to(dt).repeat(1, d)
     b2 = None if bias is None else bias.to(dt).repeat(d)
     w2 = banded_weight(kernel, d).to(dt)
     y2 = (conv3x3_nhwc_plain if plain else conv3x3_nhwc)(x2, w2, s2, b2)
-    y = y2.view(b, h, w, d, cout).permute(0, 3, 1, 2, 4)
+    y = y2.view(b, hx, w, d, cout).permute(0, 3, 1, 2, 4)
     return y.contiguous() if out is None else out.add_(y)
 
 
+def _halo(mesh) -> bool:
+    return mesh is not None and mesh.halo
+
+
+def _sharded(x, kernel, style, bias, out, plain, mesh, fold):
+    """`_conv333` of an unsharded x, or of a space shard with its halo rows,
+    keeping the middle rows. `out` (without a gradient) takes the sum."""
+    if not _halo(mesh):
+        return _conv333(x, kernel, style, bias, out, plain, fold, x.shape[2])
+    y = _conv333(exchange_rows(x, mesh), kernel, style, bias, None, plain, fold,
+                 x.shape[2] * mesh.space)[:, :, 1:-1]
+    return y.contiguous() if out is None else out.add_(y)
+
+
+def _refuse_auto_grad(impl: str) -> None:
+    if impl == "auto":
+        raise ValueError('the "auto" conv lowering has no backward (its 3x3 kernel has '
+                         'none); train with impl="banded" (WavBEST.use_conv_impl)')
+
+
+def _fold(impl: str, x, kernel, mesh) -> bool:
+    """Whether "auto" sends this 3x3x3 conv to the band-into-lanes form; the
+    rule reads the global height, so a shard takes the unsharded choice."""
+    h = x.shape[2] * (mesh.space if _halo(mesh) else 1)
+    return impl == "auto" and _bandlanes_wins(x.shape[1], 3, kernel.shape[-1], h)
+
+
 def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
-           impl: str = "banded"):
+           impl: str = "banded", mesh=None):
     """SAME stride-1 conv of x (B, D, H, W, Cin) with kernel (k, k, k, Cin,
     Cout), k in {1, 3}, of the style-scaled input, plus bias; added into `out`
     when given (in place without a gradient). `impl` picks the 3x3x3 lowering
-    (module doc)."""
+    (module doc). On a space-sharded placement `mesh` (parallel/mesh.py)
+    a 3x3x3 conv exchanges one halo row with each neighbouring rank
+    (parallel/halo.py), runs on the H + 2 rows and keeps the middle H."""
     if impl not in IMPLS:
         raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
     if needs_grad(x, kernel, style, bias, out):
-        if impl == "auto":
-            raise ValueError('the "auto" conv lowering has no backward (its 3x3 kernel has '
-                             'none); train with impl="banded" (WavBEST.use_conv_impl)')
+        _refuse_auto_grad(impl)
         if out is not None:
-            return out + conv3d(x, kernel, style=style, bias=bias, plain=plain)
+            return out + conv3d(x, kernel, style=style, bias=bias, plain=plain, mesh=mesh)
     size = tuple(kernel.shape[:3])
     dt = x.dtype
     if size == (3, 3, 3):
-        if impl == "auto" and _bandlanes_wins(x.shape[1], 3, kernel.shape[-1], x.shape[2]):
-            return _conv3d_bandlanes(x, kernel, style, bias, out, plain)
-        fn = conv3d_plain if plain else banded_conv3d
-        return fn(x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
+        return _sharded(x, kernel, style, bias, out, plain, mesh, _fold(impl, x, kernel, mesh))
     if size != (1, 1, 1):
         raise ValueError(f"only 1x1x1 and 3x3x3 kernels occur in WavBEST, got {size}")
     if style is not None:
@@ -134,22 +179,38 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
     return y if out is None else out.add_(y)
 
 
-def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "banded"):
+def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "banded",
+               mesh=None):
     """conv3d(cat(parts, -1), kernel) + bias without materialising the concat:
     each part convolves with its slice of the kernel's input channels (a
     view, through which its gradient reaches the kernel), and the parts
-    accumulate into one output."""
+    accumulate into one output. On a space-sharded placement the 3x3x3
+    parts each get their halo rows and accumulate into one (H + 2)-row
+    buffer, cropped once."""
+    halo = _halo(mesh) and tuple(kernel.shape[:3]) == (3, 3, 3)
     off, out = 0, None
     for p in parts:
         kpart = kernel[..., off:off + p.shape[-1], :]
         off += p.shape[-1]
-        out = conv3d(p, kpart, bias=bias if out is None else None, out=out, plain=plain,
-                     impl=impl)
+        b = bias if out is None else None
+        if not halo:
+            out = conv3d(p, kpart, bias=b, out=out, plain=plain, impl=impl, mesh=mesh)
+            continue
+        if needs_grad(p, kpart, b, out):
+            _refuse_auto_grad(impl)
+        xp = exchange_rows(p, mesh)
+        h = p.shape[2] * mesh.space
+        fold = _fold(impl, p, kpart, mesh)
+        if out is not None and needs_grad(xp, kpart, out):
+            out = out + _conv333(xp, kpart, None, b, None, plain, fold, h)
+        else:
+            out = _conv333(xp, kpart, None, b, out, plain, fold, h)
     if off != kernel.shape[-2]:
         raise ValueError(f"parts have {off} channels, kernel takes {kernel.shape[-2]}")
-    return out
+    return out[:, :, 1:-1].contiguous() if halo else out
 
 
-def modulated_conv3d(x, kernel, style, *, plain: bool = False, impl: str = "banded"):
+def modulated_conv3d(x, kernel, style, *, plain: bool = False, impl: str = "banded",
+                     mesh=None):
     """y_b = conv3d(x_b * s_b, kernel) for style (B, Cin), no bias."""
-    return conv3d(x, kernel, style=style, plain=plain, impl=impl)
+    return conv3d(x, kernel, style=style, plain=plain, impl=impl, mesh=mesh)

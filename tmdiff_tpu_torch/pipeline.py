@@ -28,6 +28,14 @@ weights than the model's own (the EMA weights of a training run, as the JAX
 facade takes `params`): the model's parameters are swapped for the given
 tensors for the call (torch.func.functional_call) and come back untouched.
 `sample_tiled` runs scenes larger than a tile through `sample` crop by crop.
+
+`mesh` (parallel/mesh.py, one process per rank, every rank calling `sample`
+with the same arguments) shards each call as the JAX facade's mesh does: the
+batch over "data", the image height over "space", the weights replicated,
+with the fallback to replication along an axis that does not divide. x_T
+and the ancestral noise are drawn at the global shape from `seed` and
+sharded; PAN, MS, `x_init`, `step_noise` and a per-sample guidance are
+sharded; the output is gathered, so every rank returns the whole batch.
 """
 from __future__ import annotations
 
@@ -53,8 +61,10 @@ class Pansharpener:
     device given and no GPU, construction raises."""
 
     def __init__(self, model, schedule_name: str = "cosine", n_timestep: int = 1000,
-                 model_type: str = "x_start", device=None):
-        self.device = resolve_device(device)
+                 model_type: str = "x_start", device=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None or device is not None
+                                     else mesh.device)
         self.model = model.to(self.device).eval()
         self._closure = _Closure(self.model)
         self.model_type = model_type
@@ -111,30 +121,43 @@ class Pansharpener:
     def _sample(self, batch, sensor, method, seed, *, steps, guidance, legacy, num_frames,
                 x_init, step_noise, refresh_every, cache_level, forecast, refresh_mask):
         model, dev = self.model, self.device
-        pan = torch.as_tensor(batch["PAN"], dtype=torch.float32, device=dev)
-        ms = torch.as_tensor(batch["MS"], dtype=torch.float32, device=dev)
+        mesh = None if self.mesh is None else self.mesh.place(np.shape(batch["MS"]))
+        model.use_mesh(mesh)
+        shard = (lambda a, lead=0: a) if mesh is None else mesh.shard
+        pan = shard(torch.as_tensor(batch["PAN"], dtype=torch.float32, device=dev))
+        ms_global = torch.as_tensor(batch["MS"], dtype=torch.float32, device=dev)
+        ms = shard(ms_global)
         prompt_emb = self.prompt_embedding(sensor)
+        if prompt_emb.dim() == 2:
+            prompt_emb = shard(prompt_emb)
         cache = model.encode_condition(pan, ms, prompt_emb)
         gen = torch.Generator(device=dev).manual_seed(seed)
         x_T = self._tensor(x_init)
         if x_T is None:
-            x_T = torch.randn(ms.shape, generator=gen, device=dev)
+            x_T = torch.randn(ms_global.shape, generator=gen, device=dev)
+        x_T = shard(x_T)
+        if step_noise is not None:
+            step_noise = shard(self._tensor(step_noise), 1)
+        if np.ndim(guidance) > 0:
+            guidance = shard(np.asarray(guidance, np.float32))
         denoise = lambda x, t, *_: model.denoise(x, t, cache)
         shape = tuple(ms.shape)
+        gather = (lambda a, lead=0: a) if mesh is None else mesh.gather
 
         if method == "ancestral":
             res = gaussian.ancestral_sample(
                 denoise, self.ns, gen, pan, ms, shape, legacy_noise_inversion=legacy,
-                num_frames=num_frames, x_init=x_T, step_noise=self._tensor(step_noise))
+                num_frames=num_frames, x_init=x_T, step_noise=step_noise, mesh=mesh)
             if num_frames:
                 final, frames = res
-                return (torch.clamp(res2img(final, ms), 0.0, 1.0).cpu().numpy(),
-                        torch.clamp(res2img(frames, ms[None]), 0.0, 1.0).cpu().numpy())
+                return (gather(torch.clamp(res2img(final, ms), 0.0, 1.0)).cpu().numpy(),
+                        gather(torch.clamp(res2img(frames, ms[None]), 0.0, 1.0), 1)
+                        .cpu().numpy())
         elif method == "regression":
             res = gaussian.regression_sample(denoise, gen, pan, ms, shape, x_init=x_T)
         elif method == "ddim":
             res = gaussian.ddim_sample(denoise, self.ns, gen, pan, ms, shape, steps=steps or 50,
-                                       x_init=x_T)
+                                       x_init=x_T, mesh=mesh)
         elif method == "ddim_cached":
             full = lambda x, t: model.denoise_deep(x, t, cache, cache_level=cache_level)
             reuse = lambda x, t, deep: model.denoise_reuse(x, t, cache, deep,
@@ -142,7 +165,7 @@ class Pansharpener:
             res = gaussian.ddim_sample_blockcached(
                 full, reuse, self.ns, gen, pan, ms, shape, steps=steps or 20,
                 refresh_every=refresh_every, x_init=x_T, forecast=forecast,
-                refresh_mask=refresh_mask)
+                refresh_mask=refresh_mask, mesh=mesh)
         elif method == "dpm++_cfg":
             # both branches' condition features are time-independent: each
             # is encoded once, and the guidance wrapper concatenates them
@@ -155,17 +178,17 @@ class Pansharpener:
                 guidance_type="classifier-free", guidance_scale=scale, condition=cache,
                 unconditional_condition=model.encode_condition(pan, torch.zeros_like(ms),
                                                                prompt_emb))
-            res = DPMSolver(wrapped, self.nsvp).sample(
+            res = DPMSolver(wrapped, self.nsvp, mesh=mesh).sample(
                 x_T, steps=steps or 50, order=2, skip_type="logSNR", method="multistep")
         else:
-            solver = DPMSolver(WrappedModel(denoise, self.model_type), self.nsvp)
+            solver = DPMSolver(WrappedModel(denoise, self.model_type), self.nsvp, mesh=mesh)
             if method == "dpm++":
                 res = solver.sample(x_T, steps=steps or 30, order=3, skip_type="logSNR",
                                     method="singlestep", denoise_to_zero=True)
             else:  # dpm++_noise
                 res = solver.sample(x_T, steps=steps or 50, order=3, skip_type="logSNR",
                                     method="multistep", denoise_to_zero=True)
-        return torch.clamp(res2img(res, ms), 0.0, 1.0).cpu().numpy()
+        return gather(torch.clamp(res2img(res, ms), 0.0, 1.0)).cpu().numpy()
 
     def sample_tiled(self, batch: dict, sensor="QB", tile: int = 256, overlap: int = 32,
                      tile_batch: int = 8, **kw):

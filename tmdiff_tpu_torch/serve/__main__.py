@@ -12,10 +12,11 @@ checkpoints are refused), runs the warm-up batches, then binds the port and
 blocks. A config's "serve" block (config/presets/serve_*.json) sets the
 flags' defaults; a flag given on the command line wins. `--device` is CUDA
 unless given, and with no GPU the server refuses to start rather than run
-on the CPU. `--mesh-space` other than 1 is refused: the port has no device
-mesh yet. On exit (SIGINT) the server prints one JSON line, the kernel
-wrappers' launch counts over its life ({"kernel_launches": ...}), which
-shows what the served requests ran on.
+on the CPU. `--mesh-space` other than 1 is refused: serving over the device
+mesh (tmdiff_tpu_torch/parallel/) is not ported yet. On exit (SIGINT) the
+server prints one JSON line, the kernel wrappers' launch counts over its
+life ({"kernel_launches": ...}), which shows what the served requests ran
+on.
 """
 from __future__ import annotations
 
@@ -138,7 +139,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bands,H,W to run every batch bucket at before binding the port")
     p.add_argument("--mesh-space", type=int, default=1,
                    help="shard image height over this many devices; the port serves on one "
-                        "device, so only 1 is taken")
+                        "device (serving over a mesh is not ported), so only 1 is taken")
     p.add_argument("--device", default=None, help="torch device; CUDA when not given")
     return p
 
@@ -156,8 +157,10 @@ def prepare(argv=None):
     apply_serve_defaults(args, opt, parser, argv)
     sampler_kw = build_sampler_kw(args, parser, argv)
     if args.mesh_space != 1:
-        parser.error(f"--mesh-space {args.mesh_space}: the port serves on one device; the "
-                     "device mesh is not ported yet (ROADMAP.md queue 1, item 12)")
+        parser.error(f"--mesh-space {args.mesh_space}: the port serves on one device; "
+                     "serving over a mesh (a rank-0 engine feeding follower ranks) is the "
+                     "item still open (ROADMAP.md queue 1); the mesh itself is "
+                     "tmdiff_tpu_torch/parallel/")
     return args, opt, sampler_kw
 
 

@@ -13,6 +13,9 @@ and, on resume, restores the weights and the step only; `weights_only=True`
 does the same here. `import_reference_checkpoint` and
 `export_reference_checkpoint` read and write the reference's `_gen.pth`
 layout (keys under `denoise_fn.`, conv weights (O, I, kd, kh, kw)).
+
+On a mesh (parallel/mesh.py) the state is replicated: rank 0 writes, then
+every rank waits at a barrier, so that each may restore the file after it.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import shutil
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from tmdiff_tpu_torch.train.trainer import TrainState
 from tmdiff_tpu_torch.utils.weights import from_reference_state_dict
@@ -42,9 +46,22 @@ def _steps(root: str) -> list[int]:
                   and os.path.exists(os.path.join(root, name, STATE_FILE)))
 
 
-def save_checkpoint(root: str, state: TrainState, keep: Optional[int] = None) -> str:
+def save_checkpoint(root: str, state: TrainState, keep: Optional[int] = None,
+                    mesh=None) -> str:
     """Writes `I{step}` atomically; `keep` prunes to the newest `keep`
-    checkpoints (None keeps all, as the reference). Returns the path."""
+    checkpoints (None keeps all, as the reference). Returns the path. On a
+    `mesh` of more than one rank, rank 0 writes and every rank returns after
+    a barrier."""
+    path = checkpoint_path(root, state.step)
+    if mesh is not None and mesh.size > 1:
+        if mesh.rank == 0:
+            _write(root, state, keep)
+        dist.barrier(group=mesh.world_group)
+        return path
+    return _write(root, state, keep)
+
+
+def _write(root: str, state: TrainState, keep: Optional[int]) -> str:
     os.makedirs(root, exist_ok=True)
     path = checkpoint_path(root, state.step)
     tmp = f"{path}.tmp-{os.getpid()}"

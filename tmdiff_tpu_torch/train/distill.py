@@ -23,6 +23,10 @@ its dropout generator, as the training step's; `loss` also takes i and the
 noise, so that a test can hand it the JAX package's draws. Every 3x3x3 conv
 of the three model calls runs K1 on the card: the teacher's forwards, the
 student's forward and its input gradient.
+
+On the trainer's mesh (train/trainer.py) i and the noise are drawn at the
+global batch and sharded, the teacher's targets are computed on this rank's
+shard, and the loss is this rank's share, as in the training step.
 """
 from __future__ import annotations
 
@@ -91,9 +95,10 @@ class DistillTrainer(Trainer):
         return x_t, t, target, w
 
     def loss(self, step: int, batch: dict, prompt_emb, teacher_params, *, i=None, noise=None):
-        """The distillation loss of `batch` at step `step` (see
-        `teacher_target` for `teacher_params`); i (B,) in [1, N] and the
-        noise are drawn unless given."""
+        """The distillation loss of `batch` (the global batch) at step
+        `step` (see `teacher_target` for `teacher_params`); i (B,) in [1, N]
+        and the noise (at the global batch) are drawn unless given. On a
+        mesh, this rank's share of the loss."""
         seed_tn, seed_drop, _ = step_seeds(self.seed, step)
         model, device = self.model, self.device
         res = batch["Res"]
@@ -103,7 +108,9 @@ class DistillTrainer(Trainer):
                               device=device)
         if noise is None:
             noise = torch.randn(res.shape, generator=gen, device=device, dtype=res.dtype)
-        x_t, t, target, w = self.teacher_target(batch, prompt_emb, teacher_params, i, noise)
+        mesh, shard, batch, prompt_emb = self.place(batch, prompt_emb)
+        x_t, t, target, w = self.teacher_target(batch, prompt_emb, teacher_params, shard(i),
+                                                shard(noise))
 
         def student(x, u, pan, ms, emb):
             rng = torch.Generator(device=device).manual_seed(seed_drop)
@@ -115,4 +122,5 @@ class DistillTrainer(Trainer):
         else:
             x0_hat = student(*args)
         err = (x0_hat - target).abs() if self.loss_type == "l1" else (x0_hat - target) ** 2
-        return torch.mean(w * err)
+        loss = torch.mean(w * err)
+        return loss if mesh is None else loss / mesh.size

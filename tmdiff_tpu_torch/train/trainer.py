@@ -1,5 +1,6 @@
 """Training step: the x0-prediction loss, AdamW with the HF "linear"
-schedule, EMA (port of tmdiff_tpu/train/trainer.py, one device).
+schedule, EMA (port of tmdiff_tpu/train/trainer.py), on one device or over
+a ("data", "space") mesh of ranks.
 
 Reference contract (`GeneralModel/model.py:14-47`): AdamW(lr,
 weight_decay=1e-4) over every parameter, 100 warmup steps then a linear
@@ -20,6 +21,20 @@ the recompute draws the same masks.
 Every 3x3x3 conv must take the "banded" lowering: its forward and input
 gradient run K1 (ops/cuda/conv3d.py). "auto" is refused, since its 3x3
 kernel has no backward.
+
+With a `mesh` (parallel/mesh.py) the step has the JAX trainer's semantics:
+the batch is sharded (over "data", the height over "space", with the
+fallback to replication), the parameters replicated. t, the noise and the
+CFG coin are drawn at the global batch and sharded, as are the dropout
+masks (models/blocks.py). Each rank's loss is its shard's mean divided by
+the mesh size, i.e. its sum over the global element count times the
+replication factor, so the losses summed over the world are the global
+loss. The gradients (and the loss, for the metrics) are summed over the
+world in one flat all-reduce before clipping; not DDP, since the space axis
+needs the same sum and one collective a step serves both axes. AdamW, the
+schedule and the EMA then run alike on every rank. In a world of more than
+one rank the mesh defaults to every rank on "data", as the JAX trainer's to
+every device.
 """
 from __future__ import annotations
 
@@ -29,10 +44,12 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tmdiff_tpu_torch.diffusion import gaussian
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 from tmdiff_tpu_torch.train.ema import ema_update
 
 
@@ -112,11 +129,15 @@ class Trainer:
     seed: int = 3407
     # recompute the model call in the backward pass, as the JAX default
     remat: bool = True
+    # the ("data", "space") mesh (parallel/mesh.py); None: one process
+    mesh: Optional[Any] = None
 
     def __post_init__(self):
         if any(getattr(m, "impl", "banded") != "banded" for m in self.model.modules()):
             raise ValueError('the trainer needs the "banded" conv lowering: "auto" has no '
                              'backward (WavBEST.use_conv_impl("banded"))')
+        if self.mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+            self.mesh = mesh_lib.make_mesh()
         self.lr_fn = hf_linear_schedule(self.lr, self.warmup_steps, self.max_iter)
         self.device = self.model.device
         self.schedule = self.schedule.to(self.device)
@@ -127,6 +148,13 @@ class Trainer:
         """State at step 0 from the model's current parameters, with a fresh
         optimiser and an EMA copy."""
         params = list(self.model.parameters())
+        if self.mesh is not None and self.mesh.size > 1:
+            with torch.no_grad():  # replicated: every rank starts from rank 0's weights
+                flat = mesh_lib.broadcast_(torch.cat([p.reshape(-1) for p in params]), self.mesh)
+                off = 0
+                for p in params:
+                    p.copy_(flat[off:off + p.numel()].view_as(p))
+                    off += p.numel()
         opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=self.weight_decay)
         factor = hf_linear_schedule(1.0, self.warmup_steps, self.max_iter)
@@ -142,12 +170,27 @@ class Trainer:
 
     # -- the step ------------------------------------------------------------
 
+    def place(self, batch: dict, prompt_emb):
+        """(the mesh placed for `batch`, or None; a function that shards a
+        global tensor; the batch and prompt sharded). The model is set to
+        the placement (WavBEST.use_mesh)."""
+        mesh = None if self.mesh is None else self.mesh.place(tuple(batch["MS"].shape))
+        self.model.use_mesh(mesh)
+        shard = (lambda x: x) if mesh is None else mesh.shard
+        batch = {k: shard(v) for k, v in batch.items()}
+        if prompt_emb.dim() == 2:
+            prompt_emb = shard(prompt_emb)
+        return mesh, shard, batch, prompt_emb
+
     def loss(self, step: int, batch: dict, prompt_emb, *, t=None, noise=None):
-        """The training loss of `batch` (tensors on the model's device) with
-        step `step`'s randomness, dropout on; t and noise as in
-        gaussian.diffusion_loss."""
+        """The training loss of `batch` (the global batch, tensors on the
+        model's device) with step `step`'s randomness, dropout on; t and
+        noise as in gaussian.diffusion_loss, at the global batch. On a mesh,
+        this rank's share of the loss (module doc)."""
         seed_tn, seed_drop, seed_cfg = step_seeds(self.seed, step)
         model, device = self.model, self.device
+        res_shape = tuple(batch["Res"].shape)
+        mesh, shard, batch, prompt_emb = self.place(batch, prompt_emb)
 
         def apply(x, t, pan, ms, emb):
             rng = torch.Generator(device=device).manual_seed(seed_drop)
@@ -162,10 +205,17 @@ class Trainer:
         ms = batch["MS"]
         if self.p_uncond > 0.0:
             gen = torch.Generator(device=device).manual_seed(seed_cfg)
-            ms = gaussian.cfg_dropout_condition(gen, ms, self.p_uncond, per_sample=True)
+            ms = gaussian.cfg_dropout_condition(gen, ms, self.p_uncond, per_sample=True,
+                                                mesh=mesh)
         gen = torch.Generator(device=device).manual_seed(seed_tn)
-        return gaussian.diffusion_loss(denoise, self.schedule, gen, batch["Res"], batch["PAN"],
-                                       ms, self.loss_type, t=t, noise=noise)
+        if t is None:
+            t = torch.randint(1, self.schedule.num_timesteps + 1, (res_shape[0],), generator=gen,
+                              device=device)
+        if noise is None:
+            noise = torch.randn(res_shape, generator=gen, device=device)
+        loss = gaussian.diffusion_loss(denoise, self.schedule, None, batch["Res"], batch["PAN"],
+                                       ms, self.loss_type, t=shard(t), noise=shard(noise))
+        return loss if mesh is None else loss / mesh.size
 
     def train_step(self, state: TrainState, batch: dict, prompt_emb, *extra, **draws):
         """One optimisation step on `batch` ({"Res", "PAN", "MS"}: numpy
@@ -185,8 +235,27 @@ class Trainer:
         loss.backward()
         lr = self.lr_fn(state.step)
         with torch.profiler.record_function("train.optimizer"):
+            loss = self.all_reduce_grads(state, loss.detach())
             grad_norm = self.apply_gradients(state)
-        return state, {"l_pix": loss.detach(), "lr": lr, "grad_norm": grad_norm}
+        return state, {"l_pix": loss, "lr": lr, "grad_norm": grad_norm}
+
+    def all_reduce_grads(self, state: TrainState, loss):
+        """On a mesh of more than one rank, every parameter's `.grad` and
+        `loss` summed over the world in one flat all-reduce (a parameter
+        without a gradient takes zeros); returns the summed loss. The loss
+        itself without a mesh."""
+        if self.mesh is None or self.mesh.size == 1:
+            return loss
+        params = list(state.model.parameters())
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+                          for p in params] + [loss.reshape(1)])
+        mesh_lib.all_reduce_(flat, self.mesh)
+        off = 0
+        for p in params:
+            n = p.numel()
+            p.grad = flat[off:off + n].view_as(p)
+            off += n
+        return flat[off]
 
     def apply_gradients(self, state: TrainState):
         """The parameters' `.grad` into the state: the global norm (clipped
