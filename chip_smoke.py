@@ -7,7 +7,8 @@ serves pansharpening requests on a seeded full-width WavBEST (channels
 sampler, in fp32 and in bf16, serves both serving presets through the HTTP
 server (`python -m tmdiff_tpu_torch.serve`), runs the attention library at
 SD-style widths, trains, drives the CLI's train, val and distill phases,
-and samples and trains over a ("data", "space") mesh of four ranks.
+runs the legacy UNet and its ControlNet adapter, and samples, trains and
+serves over a ("data", "space") mesh of four ranks.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only    # build and the mesh phase alone; with
@@ -140,7 +141,20 @@ Phases (any failure ends the run with a non-zero exit code):
                and weight gradients). Then the distillation loss and every
                gradient through K1 against the plain convs at 8 and 4 bands
                from I7, with the plain path's L1 signs; prints s/step.
- 11. mesh      the ("data", "space") mesh (tmdiff_tpu_torch/parallel/): four
+ 11. controlnet the legacy UNet and the ControlNet adapter
+               (models/legacy_unet.py, models/controlnet.py) at their
+               defaults (channels 32, 64, 128, 256), 8 bands, batch 2,
+               256x256, a live adapter (zero convs drawn off zero): a
+               LegacyUNet and a ControlledLegacyUNet forward through K1
+               against the plain convs (34 and 43 K1 launches, 9 and 19
+               library convs: strided, transposed and the hint encoder's
+               (1, 3, 3)); a 20-step ddim request with the controlled
+               model against the plain convs; one fine-tune step
+               (sd_locked) with every trainable gradient against the plain
+               path's (its L1 signs), no gradient on the base encoder, the
+               frozen weights unchanged by the Adam step; the controlled
+               forward's K1 and library convs timed call by call.
+ 12. mesh      the ("data", "space") mesh (tmdiff_tpu_torch/parallel/): four
                ranks spawned by parallel/dryrun.py on card 0 over gloo through
                host memory, the full-width seeded model written once; the WV3
                8-band batch 4 256x256 dpm++ request (10 steps) on (2, 2) and
@@ -152,7 +166,17 @@ Phases (any failure ends the run with a non-zero exit code):
                against one process; seconds, halo exchanges and bytes per
                request, collectives per step, each mesh's backend. With four
                cards visible the same under NCCL, a card a rank, and with two
-               the training steps data-parallel on two cards.
+               the training steps data-parallel on two cards. Then the meshed
+               server: `python -m tmdiff_tpu_torch.serve`'s main() on the
+               four gloo ranks (serve/mesh.py: rank 0 serves HTTP, the
+               others follow), serve_lowlatency and serve_quality on (4, 1)
+               and serve_quality on (2, 2), 16 concurrent requests each
+               after the preset's warm-up, then SIGINT: every rank's
+               launches bf16 on the tensor cores and as many batches as rank
+               0, each image within 1e-2 of its one-process replay at its
+               (seed, bucket, row), img/s and p50/p99 beside the http
+               phase's; with four cards the same through torchrun under
+               NCCL.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
 {"kernels": [...]} summary.
@@ -182,9 +206,14 @@ plus the fp32 conv bar for the accumulation); a bf16 request within 1e-2
 of the plain bf16 convs' (bf16 noise over 31 calls: a quantum of bf16 is
 3.9e-3 at 1) and within 5e-2 of the fp32 request; a served image within
 2e-3 of the same batch sampled in this process. The mesh: every rank's
-image within 2e-3 of one process's (the sampling bar; K1 plans split-K by
-the shard's shape, so sums reassociate), the training losses within 1e-4
-relative, the gradients as in the train phase.
+image within 2e-3 of one process's (the sampling bar; K1 and K3 take the
+unsharded call's split count, so a shard sums as one process does: 0 on
+the card but for the 1x1x1 convs' and Linears' library products), the
+training losses within 1e-4 relative, the gradients as in
+the train phase; a meshed served bf16 image within 1e-2 of its one-process
+replay (the bf16 request bar). The legacy
+models: a forward through K1 within 5e-4 of the plain convs', the ddim
+request within 2e-3, the fine-tune gradients as in the train phase.
 """
 from __future__ import annotations
 
@@ -422,7 +451,7 @@ def forced_splits(K, splits):
 
     planned = K.plan
 
-    def plan(kd, x, d, cout):
+    def plan(kd, x, d, cout, unsharded=None):
         b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
         nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
         variant = K.library().tmdiff_conv_plan(kd, K.DTYPES[x.dtype], b, d, h, w, cin, cout,
@@ -992,40 +1021,54 @@ def http_phase(seed, root):
     return results
 
 
-def http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc, direct, rng, ready_s):
-    """One healthy server's requests, its launch report and the replays."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    base = f"http://127.0.0.1:{args.port}"
+def preset_requests(rng, bands, sensors):
+    """HTTP_REQUESTS requests of a preset's geometry, sensors in turn."""
     reqs = []
     for i in range(HTTP_REQUESTS):
         ms = rng.uniform(0.05, 0.95, (bands, SIZE, SIZE)).astype(np.float32)
         pan = (ms.mean(0, keepdims=True)
                + 0.05 * rng.standard_normal((1, SIZE, SIZE))).astype(np.float32)
         reqs.append({"pan": pan, "ms": ms, "sensor": sensors[i % len(sensors)]})
-    try:
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(HTTP_REQUESTS) as pool:
-            replies = list(pool.map(lambda r: http_post(base, **r), reqs))
-        wall = time.perf_counter() - t0
-        stats = http_get(base, "/v1/stats")
-    finally:
-        stop_server(proc)
-    server_log = open(log_path).read()
-    bad = [(code, body) for code, body, _ in replies if code != 200]
-    if bad:
-        fail(f"{preset}: {len(bad)} replies were not 200: {bad[:2]}")
-    report = [json.loads(line)["kernel_launches"] for line in server_log.splitlines()
-              if line.startswith('{"kernel_launches"')]
-    if not report:
-        fail(f"{preset}: the server printed no launch report:\n{server_log[-4000:]}")
-    launches = report[-1]
+    return reqs
+
+
+def post_all(base, reqs):
+    """(replies, wall seconds, /v1/stats) of `reqs` posted at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(reqs)) as pool:
+        replies = list(pool.map(lambda r: http_post(base, **r), reqs))
+    return replies, time.perf_counter() - t0, http_get(base, "/v1/stats")
+
+
+def launch_reports(label, log):
+    """Every {"kernel_launches": ...} line a server printed (one a rank)."""
+    # ranks under torchrun share one stdout, so two reports may share a line
+    key, decoder = '{"kernel_launches"', json.JSONDecoder()
+    reports = [decoder.raw_decode(log, m.start())[0] for m in re.finditer(re.escape(key), log)]
+    if not reports:
+        fail(f"{label}: the server printed no launch report:\n{log[-4000:]}")
+    return reports
+
+
+def check_bf16_launches(label, launches):
+    """Every conv launch of a served bf16 model a bf16 one, on a bf16
+    tensor-core variant; no K3."""
     conv = launches["conv3d"]
     if conv["dtypes"]["float32"] or launches["conv3x3_nhwc"]["launches"] or not (
             conv["dtypes"]["bfloat16"] and set(k for k, n in conv["variants"].items() if n)
             <= BF16_VARIANTS):
-        fail(f"{preset}: the server's conv launches {launches}")
-    # rebuild each served batch from the replies that rode it
+        fail(f"{label}: the server's conv launches {launches}")
+
+
+def replay_error(label, reqs, replies, direct, args, sampler_kw):
+    """Each served image against a direct Pansharpener.sample in this
+    process at its seed and bucket, every batch rebuilt from the replies
+    that rode it: (largest abs difference, the batches (seed, bucket))."""
+    bad = [(code, body) for code, body, _ in replies if code != 200]
+    if bad:
+        fail(f"{label}: {len(bad)} replies were not 200: {bad[:2]}")
     groups = {}
     for req, (_, reply, _) in zip(reqs, replies):
         key = (int(reply["seed"]), int(reply["bucket"]))
@@ -1040,25 +1083,47 @@ def http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc, direct
                             steps=args.steps, seed=bseed, **(sampler_kw or {}))
         for i, (_, sr) in rows.items():
             if not check_image(sr, {"MS": ref[i]}):
-                fail(f"{preset}: reply image not finite in [0, 1] of shape {ref.shape[1:]}")
+                fail(f"{label}: reply image not finite in [0, 1] of shape {ref.shape[1:]}")
             max_err = max(max_err, float(np.abs(sr - ref[i]).max()))
-    if max_err > SAMPLE_ATOL:
-        fail(f"{preset}: served images differ from the direct requests by {max_err}")
+    return max_err, sorted(groups)
+
+
+def latency_summary(replies, wall):
     lat = np.array([t for _, _, t in replies]) * 1e3
+    return {"img_per_s": len(replies) / wall, "wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "latency_ms": np.round(np.sort(lat), 1).tolist()}
+
+
+def http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc, direct, rng, ready_s,
+                atol=SAMPLE_ATOL, label="[http]"):
+    """One healthy server's requests, its launch reports (one a rank) and
+    the replays."""
+    base = f"http://127.0.0.1:{args.port}"
+    reqs = preset_requests(rng, bands, sensors)
+    try:
+        replies, wall, stats = post_all(base, reqs)
+    finally:
+        stop_server(proc)
+    reports = launch_reports(preset, open(log_path).read())
+    for report in reports:
+        check_bf16_launches(preset, report["kernel_launches"])
+    max_err, batches = replay_error(preset, reqs, replies, direct, args, sampler_kw)
+    if max_err > atol:
+        fail(f"{preset}: served images differ from the direct requests by {max_err}")
     result = {"sampler": args.sampler, "steps": args.steps, "bands": bands,
-              "img_per_s": HTTP_REQUESTS / wall, "wall_s": wall,
-              "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
-              "ready_s": ready_s, "stats": stats, "server_launches": launches,
-              "batches": sorted(groups), "max_abs_err": max_err}
-    print(f"[http] {preset}: sampler {args.sampler} steps {args.steps} {sampler_kw or {}} "
-          f"bf16, {bands} bands {SIZE}x{SIZE}; healthy {ready_s:.1f} s after the servers were "
-          f"started together (warm-up {args.warmup}); {HTTP_REQUESTS} concurrent requests in "
-          f"{wall:.3f} s = {HTTP_REQUESTS / wall:.2f} img/s; latency ms p50 "
-          f"{result['p50_ms']:.1f} p99 {result['p99_ms']:.1f} (all: "
-          f"{np.round(np.sort(lat), 1).tolist()}); batches (seed, bucket) {sorted(groups)}; "
-          f"/v1/stats {json.dumps(stats)}; server launches {json.dumps(launches)}; images vs "
-          f"direct requests max abs err {max_err:.3g} (atol {SAMPLE_ATOL})", flush=True)
-    return result
+              **latency_summary(replies, wall), "ready_s": ready_s, "stats": stats,
+              "server_launches": reports[0]["kernel_launches"], "ranks": len(reports),
+              "batches": batches, "max_abs_err": max_err}
+    print(f"{label} {preset}: sampler {args.sampler} steps {args.steps} {sampler_kw or {}} "
+          f"bf16, {bands} bands {SIZE}x{SIZE}, {len(reports)} rank(s); healthy {ready_s:.1f} s "
+          f"after start (warm-up {args.warmup}); {HTTP_REQUESTS} concurrent requests in "
+          f"{wall:.3f} s = {result['img_per_s']:.2f} img/s; latency ms p50 "
+          f"{result['p50_ms']:.1f} p99 {result['p99_ms']:.1f} (all: {result['latency_ms']}); "
+          f"batches (seed, bucket) {batches}; /v1/stats {json.dumps(stats)}; server launches "
+          f"(rank 0) {json.dumps(reports[0]['kernel_launches'])}; images vs direct requests "
+          f"max abs err {max_err:.3g} (atol {atol})", flush=True)
+    return {k: v for k, v in result.items() if k != "latency_ms"}
 
 
 def attention_bound(b, h, sq, skv, d, peak):
@@ -1561,11 +1626,11 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
     shapes = {}
     launch = K._launch
 
-    def recorder(x, kernel, style, bias, out, input_grad=False):
+    def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None):
         if input_grad:
             key = tuple(x.shape) + (kernel.shape[-1],)
             shapes[key] = shapes.get(key, 0) + 1
-        return launch(x, kernel, style, bias, out, input_grad)
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
 
     K._launch = recorder
     try:
@@ -2341,6 +2406,260 @@ def distill_phase(K, K3, K4, root):
             "grad_err": grad_err}
 
 
+CONTROL_TASK = "control_canny"
+CONTROL_STEPS = 20  # ddim steps of the controlled request
+CONTROL_LR = 1e-4
+# K1 launches of one call of the full-width legacy models (a concat part a
+# launch): LegacyUNet = 2 heads + 6 strided stages x 2 + middle 2 + 3 up
+# stages x (3 parts + 1) + final (3 parts + 1 + 2) = 34; the control branch
+# adds its head, 3 strided stages and middle = 9
+LEGACY_CONVS, CONTROL_CONVS = 34, 9
+LEGACY_LIBRARY = {"strided": 6, "transposed": 3, "hint": 0}
+CONTROL_LIBRARY = {"strided": 3, "transposed": 0, "hint": 7}
+
+
+def controlnet_inputs(gen, bands=8):
+    """The legacy models' inputs at BATCH x SIZE x SIZE: x_t, t, pan, ms,
+    the WV3 prompt, a 3-channel hint and the task feature."""
+    from tmdiff_tpu_torch.models.clip_text import load_prompt_table
+    from tmdiff_tpu_torch.models.controlnet import task_feature
+
+    table, index, _ = load_prompt_table()
+    shape = (BATCH, bands, SIZE, SIZE)
+    ms = torch.rand(shape, device=DEV, generator=gen)
+    batch = {"x_t": torch.randn(shape, device=DEV, generator=gen),
+             "t": torch.tensor([250.0, 750.0][:BATCH], device=DEV),
+             "pan": ms.mean(1, keepdim=True)
+             + 0.05 * torch.randn((BATCH, 1, SIZE, SIZE), device=DEV, generator=gen),
+             "ms": ms, "prompt_emb": torch.as_tensor(table[index["WV3"]], device=DEV)}
+    hint = torch.rand((BATCH, SIZE, SIZE, 3), device=DEV, generator=gen)
+    return batch, hint, task_feature(CONTROL_TASK)
+
+
+def live_controlnet(base, gen):
+    """A ControlledLegacyUNet on `base`'s weights after the init recipe, its
+    zero convs (taps and hint path) drawn off zero from `gen`: the state of
+    a trained adapter."""
+    from tmdiff_tpu_torch.models.controlnet import (ControlledLegacyUNet,
+                                                    init_control_from_base,
+                                                    inject_base_params)
+
+    model = init_control_from_base(inject_base_params(
+        ControlledLegacyUNet(CHANNELS, device=DEV, seed=SEED + 1), base))
+    zero_conv = re.compile(r"control\.(zero\d|hint\.zeroconv\d)\.weight$")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if zero_conv.match(name):
+                p.copy_(0.05 * torch.randn(p.shape, device=DEV, generator=gen))
+    return model
+
+
+def recorded_convs(K, lib, fn):
+    """fn()'s result and the K1 launches (x, kernel, style, bias, out) and
+    library convs (kind, x, weight, bias) it made, as tensors kept for
+    timing."""
+    k1, convs = [], []
+    launch, conv = K._launch, lib._Conv
+
+    def record_launch(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+        k1.append((x, kernel, style, bias, None if out is None else out.clone()))
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+
+    class Recorded(conv):
+        @staticmethod
+        def forward(ctx, x, weight, bias, kind):
+            convs.append((kind, x, weight, bias))
+            return conv.forward(ctx, x, weight, bias, kind)
+
+    K._launch, lib._Conv = record_launch, Recorded
+    try:
+        return fn(), k1, convs
+    finally:
+        K._launch, lib._Conv = launch, conv
+
+
+def controlnet_times(K, lib, k1, convs):
+    """The summed device ms of the recorded K1 launches (kernel and plain
+    version) and library convs, each call timed alone with events."""
+    with torch.no_grad():
+        ms = sum(cuda_ms(lambda a=a: K._launch(*a), 3) for a in k1)
+        plain_ms = sum(cuda_ms(lambda a=a: K.conv3d_plain(*a[:4], None), 1) for a in k1)
+        by_kind = {}
+        for kind, x, w, b in convs:
+            by_kind[kind] = by_kind.get(kind, 0.0) + cuda_ms(
+                lambda: lib._Conv.apply(x, w, b, kind), 3)
+    return ms, plain_ms, by_kind
+
+
+def controlnet_phase(K, gen):
+    """The legacy UNet and the ControlNet adapter (models/legacy_unet.py,
+    models/controlnet.py) at their defaults (channels 32, 64, 128, 256,
+    embed 128, inter 32), 8 bands, batch BATCH, SIZE x SIZE: a LegacyUNet
+    forward and a live ControlledLegacyUNet forward through K1 against the
+    plain convs (FORWARD_ATOL), launches and library convs counted (counts
+    reset just before and read just after), every launch on the tensor
+    cores; the controlled model as a CONTROL_STEPS-step ddim request
+    against the plain convs (SAMPLE_ATOL); one fine-tune step (sd_locked:
+    the control branch trains) with every trainable gradient through K1
+    within GRAD_RTOL of the plain path's (its L1 signs), no gradient on the
+    base encoder and the frozen weights unchanged by the Adam step; the K1
+    and library convs of the controlled forward timed call by call."""
+    from tmdiff_tpu_torch.diffusion import gaussian
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.controlnet import (TASKS_TO_ID, trainable_labels,
+                                                    trainable_parameters)
+    from tmdiff_tpu_torch.models.legacy_unet import LegacyUNet
+    from tmdiff_tpu_torch.ops import library_conv as lib
+
+    task_id = TASKS_TO_ID[CONTROL_TASK]
+    base = LegacyUNet(CHANNELS, device=DEV, seed=SEED)
+    model = live_controlnet(base, gen)
+    batch, hint, feat = controlnet_inputs(gen)
+    control = dict(hint=hint, task_id=task_id, task_feat=feat)
+    result = {}
+    for label, net, kw, convs, library in (
+            ("LegacyUNet", base, {}, LEGACY_CONVS, LEGACY_LIBRARY),
+            ("ControlledLegacyUNet", model, control, LEGACY_CONVS + CONTROL_CONVS,
+             {k: LEGACY_LIBRARY[k] + CONTROL_LIBRARY[k] for k in LEGACY_LIBRARY})):
+        outs = {}
+        for plain in (True, False):
+            net.use_plain_conv(plain)
+            with torch.no_grad():
+                net(**batch, **kw)  # warm-up
+                torch.cuda.synchronize()
+                K.reset_launches()
+                lib.reset_calls()
+                t0 = time.perf_counter()
+                outs[plain] = net(**batch, **kw)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+            counted = (K.launches, K.variant_launches["ffma"], dict(lib.calls))
+            outs[(plain, "s")], outs[(plain, "n")] = sec, counted
+        net.use_plain_conv(False)
+        err = (outs[False] - outs[True]).abs().max().item()
+        print(f"[controlnet] {label} forward, 8-band batch {BATCH} {SIZE}x{SIZE}: K1 "
+              f"{outs[(False, 's')] * 1e3:.2f} ms, plain convs {outs[(True, 's')] * 1e3:.2f} "
+              f"ms; max abs err {err:.3g} (atol {FORWARD_ATOL}); K1 launches / off the tensor "
+              f"cores / library convs {outs[(False, 'n')]} (expected {convs} / 0 / {library}); "
+              f"plain path {outs[(True, 'n')]}", flush=True)
+        if not err <= FORWARD_ATOL:
+            fail(f"{label} forward through K1 differs from the plain convs by {err}")
+        if outs[(False, "n")] != (convs, 0, library) or outs[(True, "n")][0]:
+            fail(f"{label} forward launches {outs[(False, 'n')]}, plain {outs[(True, 'n')]}")
+        result[label] = {"s": outs[(False, "s")], "plain_s": outs[(True, "s")],
+                         "max_abs_err": err, "k1": convs}
+
+    # the controlled model as a ddim request's denoiser
+    ns = NoiseSchedule.create("cosine", 1000).to(DEV)
+    shape = tuple(batch["x_t"].shape)
+    x_T = torch.randn(shape, device=DEV, generator=gen)
+    imgs = {}
+    for plain in (True, False):
+        model.use_plain_conv(plain)
+        denoise = lambda x, t, pan, ms: model(x, t, pan, ms, batch["prompt_emb"], **control)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            K.reset_launches()
+            lib.reset_calls()
+            t0 = time.perf_counter()
+            imgs[plain] = gaussian.ddim_sample(denoise, ns, None, batch["pan"], batch["ms"],
+                                               shape, steps=CONTROL_STEPS, x_init=x_T)
+            torch.cuda.synchronize()
+            imgs[(plain, "s")] = time.perf_counter() - t0
+            imgs[(plain, "n")] = (K.launches, K.variant_launches["ffma"], sum(lib.calls.values()))
+    model.use_plain_conv(False)
+    gap = (imgs[False] - imgs[True]).abs().max().item()
+    want = (CONTROL_STEPS * (LEGACY_CONVS + CONTROL_CONVS), 0,
+            CONTROL_STEPS * (sum(LEGACY_LIBRARY.values()) + sum(CONTROL_LIBRARY.values())))
+    print(f"[controlnet] ddim {CONTROL_STEPS} steps with the controlled model ({CONTROL_TASK} "
+          f"hint), 8-band batch {BATCH} {SIZE}x{SIZE}: {imgs[(False, 's')]:.3f} s "
+          f"({CONTROL_STEPS / imgs[(False, 's')]:.1f} NFE/s), plain convs "
+          f"{imgs[(True, 's')]:.3f} s; max abs gap {gap:.3g} (atol {SAMPLE_ATOL}); K1 "
+          f"launches / off the tensor cores / library convs {imgs[(False, 'n')]} (expected "
+          f"{want})", flush=True)
+    if not (gap <= SAMPLE_ATOL and torch.isfinite(imgs[False]).all()):
+        fail(f"controlled ddim request differs from the plain convs by {gap}")
+    if imgs[(False, "n")] != want:
+        fail(f"controlled ddim request launches {imgs[(False, 'n')]}")
+    result["ddim"] = {"s": imgs[(False, "s")], "plain_s": imgs[(True, "s")], "gap": gap,
+                      "k1": want[0]}
+
+    # one fine-tune step, sd_locked: gradients through K1 against the plain convs
+    labels = trainable_labels(model, sd_locked=True)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    target = torch.randn(shape, device=DEV, generator=gen)
+    grads = {}
+    for plain in (True, False):
+        model.use_plain_conv(plain)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        pred = model(**batch, **control)
+        if plain:
+            sign = torch.sign(pred.detach() - target)
+            pred_plain = pred.detach()
+        held = torch.mean((pred - target) * sign)
+        grads[plain] = dict(zip(names, torch.autograd.grad(held, params, allow_unused=True)))
+        torch.cuda.synchronize()
+        grads[(plain, "s")] = time.perf_counter() - t0
+        grads[(plain, "n")] = (K.launches - K.input_grad_launches, K.input_grad_launches,
+                               K.weight_grad_calls)
+        if not plain:
+            forward = (pred.detach() - pred_plain).abs().max().item()
+    model.use_plain_conv(False)
+    trained = [n for n in names if labels[n] == "train" and grads[True][n] is not None]
+    errs = {n: rel_to_scale(grads[False][n], grads[True][n]) for n in trained}
+    worst = max(errs, key=errs.get)
+    encoder = [n for n in names if n.split(".")[0] in ("embed", "embed2", "conv1", "conv2",
+                                                       "down1", "down2", "down3", "down1_1",
+                                                       "down2_1", "down3_1", "middle1")]
+    leaked = [n for n in encoder if grads[False][n] is not None
+              and grads[False][n].abs().max().item() != 0.0]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = torch.optim.Adam(trainable_parameters(model, labels), lr=CONTROL_LR)
+    for n, p in model.named_parameters():
+        p.grad = grads[False][n]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    opt.step()
+    torch.cuda.synchronize()
+    step_s = grads[(False, "s")] + time.perf_counter() - t0
+    moved = [n for n, p in model.named_parameters()
+             if labels[n] == "freeze" and not torch.equal(p, before[n])]
+    changed = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    print(f"[controlnet] fine-tune step (sd_locked, Adam lr {CONTROL_LR}), 8-band batch "
+          f"{BATCH} {SIZE}x{SIZE}, L1 with the plain path's signs: {step_s:.3f} s (forward "
+          f"and backward through K1 {grads[(False, 's')]:.3f} s, plain "
+          f"{grads[(True, 's')]:.3f} s); {len(trained)} trainable gradients, worst {worst} at "
+          f"{errs[worst]:.3g} of its scale (bar {GRAD_RTOL}); x0 prediction K1 vs plain "
+          f"{forward:.3g}; base-encoder gradients nonzero: {leaked}; K1 launches (forward, "
+          f"input gradient, weight gradients) {grads[(False, 'n')]}, plain path "
+          f"{grads[(True, 'n')]}; {changed} parameters moved by the step, frozen ones moved: "
+          f"{moved}", flush=True)
+    if errs[worst] > GRAD_RTOL or leaked or moved or not changed:
+        fail(f"controlnet fine-tune step: worst gradient {errs[worst]}, leaked {leaked}, "
+             f"frozen moved {moved}")
+    if grads[(True, "n")][0] or not all(grads[(False, "n")]):
+        fail(f"controlnet fine-tune launches {grads[(False, 'n')]}, plain {grads[(True, 'n')]}")
+    result["step"] = {"s": step_s, "grad_s": grads[(False, "s")],
+                      "plain_grad_s": grads[(True, "s")], "grad_err": errs[worst],
+                      "launches": grads[(False, "n")]}
+
+    # the controlled forward's convs timed call by call
+    with torch.no_grad():
+        _, k1, convs = recorded_convs(K, lib, lambda: model(**batch, **control))
+    k1_ms, k1_plain_ms, lib_ms = controlnet_times(K, lib, k1, convs)
+    print(f"[controlnet] the controlled forward's convs, each call timed alone (events): K1 "
+          f"{len(k1)} launches {k1_ms:.3f} ms (plain version {k1_plain_ms:.3f} ms); library "
+          f"convs {len(convs)} calls {sum(lib_ms.values()):.3f} ms, by kind "
+          f"{ {k: round(v, 3) for k, v in lib_ms.items()} }", flush=True)
+    result["forward_convs"] = {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
+                               "library_ms": lib_ms, "k1_launches": len(k1),
+                               "library_calls": len(convs)}
+    return result
+
+
 MESH_RANKS = 4
 MESH_SHAPES = ((2, 2), (1, 4))
 MESH_DP_RANKS = 2  # the data-parallel training world under NCCL, a card a rank
@@ -2506,7 +2825,7 @@ def mesh_single(weights, train_weights, requests, train):
     return images, check, losses
 
 
-def mesh_phase(K, root):
+def mesh_phase(K, root, served=None):
     """The ("data", "space") mesh (tmdiff_tpu_torch/parallel/) on card 0:
     MESH_RANKS ranks sharing the card over gloo through host memory, spawned
     by parallel/dryrun.py, each with the full-width model from seeded
@@ -2524,13 +2843,19 @@ def mesh_phase(K, root):
     halo exchanges and bytes per request, collectives per step. Under NCCL,
     a card a rank, the same cases run when MESH_RANKS cards are visible,
     and the training steps data-parallel on MESH_DP_RANKS cards when that
-    many are."""
+    many are. Then the meshed server (mesh_serve_phase), beside `served`,
+    the http phase's one-card results."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.parallel.dryrun import run_world
+    from tmdiff_tpu_torch.train.checkpoint import save_checkpoint
+    from tmdiff_tpu_torch.train.trainer import Trainer
 
     weights, train_weights = (os.path.join(root, n) for n in ("weights.pt", "train_weights.pt"))
     model = WavBEST(CHANNELS, device="cpu", seed=SEED)
     torch.save(model.state_dict(), weights)
+    ckpt = save_checkpoint(os.path.join(root, "checkpoint"),
+                           Trainer(model, NoiseSchedule.create("cosine", 1000)).init_state())
     new_model, _, prompts, datasets = train_setup()
     torch.save({k: v.cpu() for k, v in new_model().state_dict().items()}, train_weights)
     rng = np.random.default_rng(SEED)
@@ -2568,6 +2893,7 @@ def mesh_phase(K, root):
         wall = time.perf_counter() - t0
         summary[label] = mesh_check(label, ranks, images, single_check, single_losses, wall,
                                     train_mesh)
+    summary["serve"] = mesh_serve_phase(ckpt, root, served, np.random.default_rng(SEED + 1))
     return summary
 
 
@@ -2647,6 +2973,171 @@ def mesh_check(label, ranks, images, single_check, single_losses, wall, train_me
                 grad_err=max(errs), collectives_per_step=last["stats"]["collectives"],
                 halo_exchanges_per_step=last["stats"]["exchanges"])
     return kept
+
+
+# (preset, bands, sensors, --mesh-space) of the meshed serve cases: JAX's
+# default of every rank on "data" for both presets, then the quality preset
+# with the height over two ranks
+MESH_SERVE_CASES = (("serve_lowlatency.json", 4, ("QB", "GF2"), 1),
+                    ("serve_quality.json", 8, ("WV2", "WV3"), 1),
+                    ("serve_quality.json", 8, ("WV2", "WV3"), 2))
+
+
+def mesh_serve_client(port, reqs, got):
+    """Rank 0's client thread: waits for /healthz, posts `reqs` at once,
+    reads /v1/stats, then sends SIGINT to its own process (the server's
+    stop, as an operator's); what it saw goes into `got`."""
+    import urllib.error
+
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    try:
+        while True:
+            try:
+                if http_get(base, "/healthz") == {"ok": True}:
+                    break
+            except (urllib.error.URLError, ConnectionError, OSError):
+                pass
+            if time.perf_counter() - t0 > HTTP_START_TIMEOUT:
+                got["error"] = f"not healthy within {HTTP_START_TIMEOUT} s"
+                return
+            time.sleep(0.5)
+        got["ready_s"] = time.perf_counter() - t0
+        got["replies"], got["wall_s"], got["stats"] = post_all(base, reqs)
+    except Exception as err:  # reported by the parent, which fails the run
+        got["error"] = repr(err)
+    finally:
+        os.kill(os.getpid(), signal.SIGINT)
+
+
+def mesh_serve_worker(cases):
+    """One rank of the mesh phase's serve cases: `python -m
+    tmdiff_tpu_torch.serve`'s main() on every rank of this world, a case
+    after another ((argv, port, requests)), each with the launch counts
+    reset before it; rank 0 also runs `mesh_serve_client`. Returns per case
+    this rank's serve/mesh.py stats and launch counts (and rank 0's
+    client's results)."""
+    import threading
+
+    import torch.distributed as dist
+
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+    from tmdiff_tpu_torch.serve import __main__ as serve_main
+
+    out = []
+    for argv, port, reqs in cases:
+        for mod in (K, K3, K4):
+            mod.reset_launches()
+        got = {}
+        client = None
+        if dist.get_rank() == 0:
+            client = threading.Thread(target=mesh_serve_client, args=(port, reqs, got),
+                                      daemon=True)
+            client.start()
+        stats = serve_main.main(argv)
+        if client is not None:
+            client.join(timeout=60)
+        out.append({"mesh": stats, "launches": serve_main.launch_counts(), **got})
+    return out
+
+
+def mesh_serve_phase(ckpt, root, served, rng):
+    """The meshed server (serve/mesh.py) on MESH_RANKS gloo ranks sharing
+    card 0 (parallel/dryrun.py), each running `python -m
+    tmdiff_tpu_torch.serve`'s main(): every MESH_SERVE_CASES case, 16
+    concurrent requests through HTTP after the preset's warm-up, then
+    SIGINT; every rank's launches bf16 on the tensor cores and as many
+    batches as rank 0; each image against the one-process replay at its
+    placement to BF16_SAMPLE_ATOL; img/s and p50/p99 beside the http
+    phase's one-card figures (`served`). With MESH_RANKS cards visible the
+    same cases under NCCL through torchrun, a card a rank."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.serve import __main__ as serve_main
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    presets = os.path.join(repo, "tmdiff_tpu_torch", "config", "presets")
+    direct = Pansharpener(WavBEST(CHANNELS, device=DEV, seed=SEED, dtype=torch.bfloat16),
+                          device=DEV)
+    cases = []
+    for preset, bands, sensors, space in MESH_SERVE_CASES:
+        port = free_port()
+        # (parsed in this process without --mesh-space, which needs a world)
+        argv = ["-c", os.path.join(presets, preset), "--ckpt", ckpt, "--host", "127.0.0.1",
+                "--port", str(port)]
+        cases.append((preset, bands, sensors, space, argv + ["--mesh-space", str(space)], port,
+                      preset_requests(rng, bands, sensors), serve_main.prepare(argv)))
+    out = {}
+    t0 = time.perf_counter()
+    ranks = run_world("chip_smoke:mesh_serve_worker", MESH_RANKS,
+                      ([(argv, port, reqs) for *_, argv, port, reqs, _ in cases],),
+                      device="cuda:0", backend="gloo", threads=2, timeout=MESH_TIMEOUT)
+    print(f"[mesh] serve: {len(cases)} servers on one {MESH_RANKS}-rank gloo world in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for i, (preset, bands, sensors, space, argv, port, reqs, parsed) in enumerate(cases):
+        label = f"gloo {preset} on ({MESH_RANKS // space}, {space})"
+        lead = ranks[0][i]
+        if "error" in lead:
+            fail(f"{label}: {lead['error']}")
+        args, _, sampler_kw = parsed
+        for r in ranks:
+            check_bf16_launches(label, r[i]["launches"])
+        per_rank = [(r[i]["mesh"]["batches"], r[i]["launches"]["conv3d"]["launches"])
+                    for r in ranks]
+        if len({b for b, _ in per_rank}) != 1 or any(r[i]["mesh"]["failed_batches"]
+                                                      for r in ranks):
+            fail(f"{label}: batches per rank {[r[i]['mesh'] for r in ranks]}")
+        max_err, batches = replay_error(label, reqs, lead["replies"], direct, args, sampler_kw)
+        result = {"mesh": [MESH_RANKS // space, space], "sampler": args.sampler,
+                  **latency_summary(lead["replies"], lead["wall_s"]),
+                  "ready_s": lead["ready_s"], "batches": batches, "max_abs_err": max_err,
+                  "k1_per_rank": [n for _, n in per_rank], "stats": lead["stats"]}
+        one = (served or {}).get(preset)
+        beside = ("not run in this call" if one is None else
+                  f"{one['img_per_s']:.2f} img/s, p50 {one['p50_ms']:.1f} p99 "
+                  f"{one['p99_ms']:.1f} ms")
+        print(f"[mesh] serve {label}: sampler {args.sampler} steps {args.steps} bf16, "
+              f"{bands} bands {SIZE}x{SIZE}; healthy {lead['ready_s']:.1f} s after start "
+              f"(warm-up {args.warmup}); {HTTP_REQUESTS} concurrent requests in "
+              f"{lead['wall_s']:.3f} s = {result['img_per_s']:.2f} img/s; latency ms p50 "
+              f"{result['p50_ms']:.1f} p99 {result['p99_ms']:.1f} (all: "
+              f"{result['latency_ms']}); one card (http phase): {beside}; batches (seed, "
+              f"bucket) {batches}, per rank (batches, K1 launches) {per_rank}, every launch "
+              f"bf16 on the tensor cores; /v1/stats {json.dumps(lead['stats'])}; images vs the "
+              f"one-process replay max abs err {max_err:.3g} (atol {BF16_SAMPLE_ATOL})",
+              flush=True)
+        if max_err > BF16_SAMPLE_ATOL:
+            fail(f"{label}: served images differ from their replays by {max_err}")
+        out[label] = {k: v for k, v in result.items() if k != "latency_ms"}
+    if torch.cuda.device_count() >= MESH_RANKS:
+        for preset, bands, sensors, space, argv, port, _, (args, _, sampler_kw) in cases:
+            label = f"[mesh] serve nccl ({MESH_RANKS // space}, {space})"
+            argv = list(argv)
+            argv[argv.index("--port") + 1] = str(port := free_port())
+            log_path = os.path.join(root, f"torchrun_{os.path.basename(preset)}_{space}.log")
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc-per-node", str(MESH_RANKS), "-m", "tmdiff_tpu_torch.serve",
+                     *argv], stdout=log, stderr=subprocess.STDOUT, cwd=repo)
+            try:
+                ready = wait_healthy(f"http://127.0.0.1:{port}", proc, log_path,
+                                     HTTP_START_TIMEOUT)
+                args.port = port
+                result = http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc,
+                                     direct, rng, ready, atol=BF16_SAMPLE_ATOL, label=label)
+            finally:
+                stop_server(proc)
+            if result["ranks"] != MESH_RANKS:
+                fail(f"{label} {preset}: {result['ranks']} launch reports")
+            out[f"nccl {preset} on ({MESH_RANKS // space}, {space})"] = result
+    else:
+        print(f"[mesh] serve under NCCL: {torch.cuda.device_count()} card(s) visible, "
+              f"{MESH_RANKS} needed", flush=True)
+    return out
 
 
 def kernel_name(line: str) -> str:
@@ -2744,9 +3235,10 @@ def main() -> int:
         distill = timed("distill", distill_phase, K, K3, K4, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    controlnet = timed("controlnet", controlnet_phase, K, gen)
     mesh_root = tempfile.mkdtemp(prefix="tmdiff_mesh_")
     try:
-        meshed = timed("mesh", mesh_phase, K, mesh_root)
+        meshed = timed("mesh", mesh_phase, K, mesh_root, served)
     finally:
         shutil.rmtree(mesh_root, ignore_errors=True)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s; seconds by phase "
@@ -2801,6 +3293,10 @@ def main() -> int:
                                  f"{TRAIN_SIZE}x{TRAIN_SIZE} and a ddim validation a phase",
          "distill_s_per_step": distill["s_per_step"],
          "distill_grad_max_err_of_scale": distill["grad_err"],
+         "controlnet": controlnet,
+         "controlnet_is": f"the legacy models at full width, 8-band batch {BATCH} "
+                          f"{SIZE}x{SIZE}: forwards, a {CONTROL_STEPS}-step ddim request and "
+                          "a fine-tune step; k1 is the K1 launches of each",
          "mesh": meshed,
          "mesh_is": f"{MESH_RANKS} ranks on one card per world (gloo through host memory; "
                     f"nccl: one card a rank where {MESH_RANKS} are visible); k1_per_rank is "

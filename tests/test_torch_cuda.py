@@ -227,7 +227,7 @@ def forced_splits(K, splits):
 
     planned = K.plan
 
-    def plan(kd, x, d, cout):
+    def plan(kd, x, d, cout, unsharded=None):
         b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
         nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
         variant = K.library().tmdiff_conv_plan(kd, K.DTYPES[x.dtype], b, d, h, w, cin, cout,
@@ -434,6 +434,33 @@ def test_kernel_is_deterministic(cuda, shape, variant):
         torch.cuda.synchronize()
     assert K.variant_launches[variant] == 2
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shards_planned_unsharded_sum_as_the_batch(cuda, dtype):
+    """A batch shard and a height shard (with its halo rows) of a deep conv
+    whose own split-K rule differs from the whole call's: planned with
+    `unsharded`, each takes the whole call's split count and gives its bits
+    exactly, K1 and K3 alike."""
+    from tmdiff_tpu_torch.ops.cuda import conv2d as K3
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(8, 8, 32, 32, 256, device=cuda, generator=g).to(dtype)
+    k = (torch.randn(3, 3, 3, 256, 256, device=cuda, generator=g) / 83.0).to(dtype)
+    with torch.no_grad():
+        whole = K.banded_conv3d(x, k)
+        own = K.plan(3, x[:2].contiguous(), 8, 256)[1]
+        assert own != K.plan(3, x, 8, 256)[1]  # the case the hint is for
+        part = K.banded_conv3d(x[:2].contiguous(), k, unsharded=(8, 32))
+        assert torch.equal(part, whole[:2])
+        rows = K.banded_conv3d(x[:, :, 7:25].contiguous(), k, unsharded=(8, 32))
+        assert torch.equal(rows[:, :, 1:-1], whole[:, :, 8:24])
+        x2 = x[:, 0].contiguous()
+        w2 = k[1].contiguous()
+        whole2 = K3.conv3x3_nhwc(x2, w2)
+        assert torch.equal(K3.conv3x3_nhwc(x2[:2].contiguous(), w2, unsharded=(8, 32)),
+                           whole2[:2])
 
 
 @pytest.mark.parametrize("dtype,variant", [(torch.float32, "tf32x3_splitk"),

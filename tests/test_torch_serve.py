@@ -497,13 +497,16 @@ def test_device_defaults_to_cuda(tmp_path, monkeypatch):
         serve_main.build_engine(args, opt, kw)
 
 
-def test_mesh_space_and_orbax_are_refused(tmp_path):
-    """--mesh-space other than 1 stops at start-up (serving over a mesh is
-    not ported);
-    a JAX orbax checkpoint directory raises when it is loaded."""
+def test_mesh_space_and_orbax_are_refused(tmp_path, monkeypatch, capsys):
+    """--mesh-space above 1 in one process stops at start-up, naming
+    torchrun (a mesh spans the ranks of a torchrun world; the meshed server
+    is tests/test_torch_serve_mesh.py's); a JAX orbax checkpoint directory
+    raises when it is loaded."""
     cfg = _config(tmp_path)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit):
         serve_main.prepare(["-c", cfg, "--ckpt", "x", "--mesh-space", "2"])
+    assert "start the server under torchrun" in capsys.readouterr().err
     orbax = tmp_path / "checkpoint" / "I5"
     (orbax / "default").mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")

@@ -1,5 +1,6 @@
 """Worker functions of the port's mesh tests (tests/test_torch_mesh.py,
-tests/test_torch_mesh_train.py), run on every rank of a world spawned by
+tests/test_torch_mesh_train.py, tests/test_torch_serve_mesh.py,
+tests/test_torch_controlnet.py), run on every rank of a world spawned by
 tmdiff_tpu_torch/parallel/dryrun.py. They import torch, numpy and the port
 only, so the ranks never load JAX; the tests compare what they return with
 the single-process port and the JAX package."""
@@ -20,8 +21,8 @@ def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 
 
-def _model(state_dict):
-    model = WavBEST(CHANNELS, device="cpu")
+def _model(state_dict, channels=CHANNELS, dtype=torch.float32):
+    model = WavBEST(channels, device="cpu", dtype=dtype)
     model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
     return model
 
@@ -207,3 +208,78 @@ def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, di
     ema = np.concatenate([e.numpy().ravel() for e in state.ema_params])
     return {"losses": losses, "grads": grads, "params": params, "ema": ema,
             "stats": dict(mesh_lib.stats)}
+
+
+def serve(mesh_shape, state_dict, channels, dtype, waves, engine_kw, n_timestep: int = 10):
+    """The serving engine on a MeshLeader (rank 0) and `follow` (every other
+    rank) over a `mesh_shape` mesh of a model in `dtype`: rank 0 submits
+    each wave of (pan, ms, sensor) requests at once and waits for it before
+    the next. Rank 0 returns every image and placement, the leader's and
+    the engine's stats; every rank returns its own stats."""
+    from tmdiff_tpu_torch.pipeline import Pansharpener
+    from tmdiff_tpu_torch.serve.engine import InferenceEngine
+    from tmdiff_tpu_torch.serve.mesh import MeshLeader, follow
+
+    mesh = make_mesh(*mesh_shape)
+    sharp = Pansharpener(_model(state_dict, channels, getattr(torch, dtype)),
+                         n_timestep=n_timestep, device="cpu", mesh=mesh)
+    if mesh.rank != 0:
+        return {"stats": follow(sharp)}
+    leader = MeshLeader(sharp)
+    engine = InferenceEngine(leader, **engine_kw)
+    images, placements, errors = [], [], []
+    try:
+        for wave in waves:
+            futs = [engine.submit(pan, ms, sensor) for pan, ms, sensor in wave]
+            for f in futs:
+                try:
+                    images.append(f.result(timeout=240))
+                    errors.append(None)
+                except ValueError as err:
+                    images.append(None)
+                    errors.append(str(err))
+                placements.append(getattr(f, "placement", None))
+    finally:
+        engine.shutdown()
+        leader.stop()
+    return {"stats": leader.stats, "images": images, "placements": placements,
+            "errors": errors, "engine": dict(engine.stats), "mesh": repr(mesh)}
+
+
+def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, task_feat,
+                        steps: int = 2):
+    """Adam steps (lr 1e-2) of a ControlledLegacyUNet (embed 16, inter 8) on
+    its "train" parameters (sd_locked) with the loss mean((y - target)^2),
+    data-parallel on a `mesh_shape` (data, 1) mesh (each rank its rows of
+    the global batch, the gradients and the loss summed over the world) or
+    in one process with mesh_shape None: the losses and the trained
+    parameters."""
+    from tmdiff_tpu_torch.models.controlnet import (ControlledLegacyUNet, trainable_labels,
+                                                    trainable_parameters)
+
+    mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
+    placed = None if mesh is None else mesh.place(np.shape(batch["x_t"]))
+    shard = (lambda a: a) if mesh is None else placed.shard
+    model = ControlledLegacyUNet(channels, embed_dim=16, inter_dim=8, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
+    labels = trainable_labels(model, sd_locked=True)
+    params = trainable_parameters(model, labels)
+    opt = torch.optim.Adam(params, lr=1e-2)
+    inputs = {k: _t(v) if k == "prompt_emb" else shard(_t(v)) for k, v in batch.items()}
+    hint, target = shard(_t(hint)), shard(_t(target))
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        y = model(**inputs, hint=hint, task_id=1, task_feat=task_feat)
+        loss = torch.mean((y - target) ** 2) / (1 if mesh is None else mesh.data)
+        loss.backward()
+        if mesh is not None:
+            for p in params:
+                if p.grad is not None:
+                    mesh_lib.all_reduce_(p.grad, mesh)
+            loss = mesh_lib.all_reduce_(loss.detach(), mesh)
+        opt.step()
+        losses.append(loss.item())
+    return {"losses": losses,
+            "params": {n: p.detach().numpy() for n, p in model.named_parameters()
+                       if labels[n] == "train"}}

@@ -78,6 +78,16 @@ def dropout(x, rate: float, rng, mesh=None):
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+def dropout_rng(train: bool, rng):
+    """A model call's dropout generator: `rng` in train mode (where it must
+    be given), None in eval mode."""
+    if not train:
+        return None
+    if rng is None:
+        raise ValueError("train=True draws dropout masks from rng: pass a torch.Generator")
+    return rng
+
+
 def _lecun_normal(shape, fan_in):
     return nn.Parameter(torch.randn(shape) / math.sqrt(fan_in))
 

@@ -1,0 +1,135 @@
+"""LegacyUNet: the pre-wavelet WavBEST ablation assembled end to end (port of
+tmdiff_tpu/models/legacy_unet.py). Same dual-encoder wiring and conditioning
+as WavBEST, with strided-conv downsampling and transposed-conv upsampling
+(models/legacy_blocks.py) instead of the DWT / IDWT.
+
+The legacy blocks' spatial math (VALID stride-2 down: H -> (H - 1) // 2; the
+transposed conv up: h -> 2 h + 2, cropped to the skip's grid) needs H and W
+at least 16 and divisible by 8 (256 maps to 127, 63, 31 and back).
+
+`embeds`, `encode`, `middle` and `decode` are the forward's pieces, shared
+with models/controlnet.py::ControlledLegacyUNet as in the JAX package, so
+the plain and the controlled model run one wiring on identically named
+modules. Inputs as WavBEST's: x_t (B, bands, H, W), t (B,), pan (B, 1, H, W)
+(or a tensor that broadcasts against ms), ms (B, bands, H, W), a prompt
+embedding (768,) or (B, 768). With train=True dropout draws from `rng`, a
+torch.Generator on the model's device. float32 only.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from tmdiff_tpu_torch.models.blocks import (AdaptionHead, ResBlockModulate, dropout_rng,
+                                            linear, swish)
+from tmdiff_tpu_torch.models.legacy_blocks import (
+    LegacyFinalBlock,
+    StridedDownStage,
+    TransposedUpStage,
+)
+from tmdiff_tpu_torch.models.wavbest import PromptMLP, TimeMLP
+from tmdiff_tpu_torch.ops.embedding import gamma_embedding
+from tmdiff_tpu_torch.utils.device import resolve_device
+
+
+def embeds(mod, x_t, t, prompt_emb):
+    """(gemb, temb, zemb): the gamma time embedding and the two
+    conditioning MLPs of `mod`."""
+    if prompt_emb.dim() == 1:
+        prompt_emb = prompt_emb.expand(x_t.shape[0], prompt_emb.shape[0])
+    gemb = gamma_embedding(t.reshape(-1), mod.inter_dim)
+    zemb = swish(mod.embed2(prompt_emb))
+    temb = swish(mod.embed(gemb))
+    return gemb, temb, zemb
+
+
+def encode(mod, cond, xt, temb, zemb, rng=None):
+    """Dual encoder: (cond taps), (x taps) at scales c0..c3."""
+    c_h0 = mod.conv1(cond, zemb)
+    c_h1 = mod.down1_1(c_h0, temb, zemb, rng)
+    c_h2 = mod.down2_1(c_h1, temb, zemb, rng)
+    c_h3 = mod.down3_1(c_h2, temb, zemb, rng)
+    x_h0 = mod.conv2(xt, zemb)
+    x_h1 = mod.down1(x_h0, temb, zemb, rng)
+    x_h2 = mod.down2(x_h1, temb, zemb, rng)
+    x_h3 = mod.down3(x_h2, temb, zemb, rng)
+    return (c_h0, c_h1, c_h2, c_h3), (x_h0, x_h1, x_h2, x_h3)
+
+
+def middle(mod, x_h3, temb, zemb, rng=None):
+    return mod.middle1(x_h3, temb, zemb, rng)
+
+
+def crop_to(h, ref):
+    """The legacy size math (down: H -> (H - 1) // 2, up: h -> 2 h + 2)
+    overshoots by 1-2 pixels a stage: crop to the skip's grid."""
+    return h[:, :, :ref.shape[2], :ref.shape[3], :]
+
+
+def decode(mod, h, c_taps, x_taps, xt, temb, zemb, rng=None):
+    """The decoder from the middle's output: (B, bands, H, W) float32."""
+    c_h0, c_h1, c_h2, c_h3 = c_taps
+    x_h0, x_h1, x_h2, x_h3 = x_taps
+    h = crop_to(mod.up1(h, temb, zemb, c_h3, x_h3, rng), c_h2)
+    h = crop_to(mod.up2(h, temb, zemb, c_h2, x_h2, rng), c_h1)
+    h = crop_to(mod.up3(h, temb, zemb, c_h1, x_h1, rng), xt)
+    h = mod.final((h, c_h0, x_h0), temb, zemb, rng)
+    return mod.out_proj(h)[..., 0]
+
+
+class LegacyUNet(nn.Module):
+    """The legacy denoiser. Parameters are drawn from `seed` on the CPU and
+    moved to `device`: CUDA unless the caller passes another; with no
+    device given and no GPU, construction raises."""
+
+    def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), embed_dim: int = 128,
+                 inter_dim: int = 32, *, device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.channels, self.inter_dim = tuple(channels), inter_dim
+        c0, c1, c2, c3 = channels
+        e = embed_dim
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.embed2 = PromptMLP(e)
+            self.embed = TimeMLP(inter_dim, e)
+            self.conv1 = AdaptionHead(1, c0, e)
+            self.down1_1 = StridedDownStage(c0, c1, e)
+            self.down2_1 = StridedDownStage(c1, c2, e)
+            self.down3_1 = StridedDownStage(c2, c3, e)
+            self.conv2 = AdaptionHead(1, c0, e)
+            self.down1 = StridedDownStage(c0, c1, e)
+            self.down2 = StridedDownStage(c1, c2, e)
+            self.down3 = StridedDownStage(c2, c3, e)
+            self.middle1 = ResBlockModulate(c3, c3, e)
+            self.up1 = TransposedUpStage(3 * c3, c2, e)
+            self.up2 = TransposedUpStage(3 * c2, c1, e)
+            self.up3 = TransposedUpStage(3 * c1, c0, e)
+            self.final = LegacyFinalBlock(3 * c0, c0, e)
+            self.out_proj = linear(c0, 1)
+        self.to(device)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.out_proj.weight.device
+
+    def use_plain_conv(self, flag: bool = True) -> "LegacyUNet":
+        """Route every SAME 3x3x3 conv to the plain PyTorch version (True) or
+        to the CUDA kernel on a CUDA device (False, the default). The
+        library convs are the same either way."""
+        for m in self.modules():
+            if hasattr(m, "plain"):
+                m.plain = flag
+        return self
+
+    def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
+        rng = dropout_rng(train, rng)
+        _, temb, zemb = embeds(self, x_t, t, prompt_emb)
+        cond = (pan - ms)[..., None]
+        xt = x_t[..., None]
+        c_taps, x_taps = encode(self, cond, xt, temb, zemb, rng)
+        h = middle(self, x_taps[3], temb, zemb, rng)
+        return decode(self, h, c_taps, x_taps, xt, temb, zemb, rng)

@@ -35,12 +35,34 @@ from tmdiff_tpu_torch.models.blocks import (
     FinalBlock,
     ResBlockModulate,
     UpStage,
+    dropout_rng,
     linear,
     swish,
 )
 from tmdiff_tpu_torch.ops.embedding import gamma_embedding
 from tmdiff_tpu_torch.ops.modconv import IMPLS
 from tmdiff_tpu_torch.utils.device import resolve_device
+
+
+class TimeMLP(nn.Sequential):
+    """The time-embedding MLP: inter_dim -> embed_dim -> embed_dim, SiLU
+    between (the JAX package's TimeMLP; its lin0/lin1 are layers 0/2)."""
+
+    def __init__(self, inter_dim: int, embed_dim: int, dtype=torch.float32):
+        super().__init__(linear(inter_dim, embed_dim, dtype=dtype), nn.SiLU(),
+                         linear(embed_dim, embed_dim, dtype=dtype))
+
+
+class PromptMLP(nn.Sequential):
+    """The prompt MLP: 768 -> 4 embed_dim -> 4 embed_dim -> embed_dim, SiLU
+    between (the JAX package's PromptMLP; its lin0/lin1/lin2 are layers
+    0/2/4)."""
+
+    def __init__(self, embed_dim: int, dtype=torch.float32):
+        e = embed_dim
+        super().__init__(linear(768, 4 * e, dtype=dtype), nn.SiLU(),
+                         linear(4 * e, 4 * e, dtype=dtype), nn.SiLU(),
+                         linear(4 * e, e, dtype=dtype))
 
 
 class WavBEST(nn.Module):
@@ -62,11 +84,8 @@ class WavBEST(nn.Module):
         e, d = embed_dim, dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.embed2 = nn.Sequential(linear(768, 4 * e, dtype=d), nn.SiLU(),
-                                        linear(4 * e, 4 * e, dtype=d), nn.SiLU(),
-                                        linear(4 * e, e, dtype=d))
-            self.embed = nn.Sequential(linear(inter_dim, e, dtype=d), nn.SiLU(),
-                                       linear(e, e, dtype=d))
+            self.embed2 = PromptMLP(e, d)
+            self.embed = TimeMLP(inter_dim, e, d)
             self.conv1 = AdaptionHead(1, c0, e, d)
             self.conv2 = AdaptionHead(1, c0, e, d)
             self.down1_1 = DownStage(c0, c1, e, use_temb=False, dtype=d)
@@ -133,14 +152,6 @@ class WavBEST(nn.Module):
 
     # -- condition branch (time-independent) ----------------------------------
 
-    @staticmethod
-    def _dropout_rng(train: bool, rng):
-        if not train:
-            return None
-        if rng is None:
-            raise ValueError("train=True draws dropout masks from rng: pass a torch.Generator")
-        return rng
-
     def encode_condition(self, pan, ms, prompt_emb, *, train: bool = False, rng=None):
         """-> dict of condition features and HF skips, constant across steps.
         On a space-sharded call, pan and ms are this rank's rows, and the
@@ -150,7 +161,7 @@ class WavBEST(nn.Module):
             raise ValueError(
                 f"WavBEST needs H and W divisible by 8 (three Haar wavelet "
                 f"halvings); got {h}x{w}")
-        rng = self._dropout_rng(train, rng)
+        rng = dropout_rng(train, rng)
         zemb = self.prompt_embed(prompt_emb, ms.shape[0])
         cond = (pan - ms).to(self.dtype)[..., None]
         c_h0 = self.conv1(cond, zemb)
@@ -175,7 +186,7 @@ class WavBEST(nn.Module):
         Returns (out, deep_out), deep_out at the same level."""
         if cache_level not in (1, 2, 3):
             raise ValueError(f"cache_level must be 1, 2 or 3, got {cache_level}")
-        rng = self._dropout_rng(train, rng)
+        rng = dropout_rng(train, rng)
         zemb = cond_cache["zemb"]
         c_h0, c_h1, c_h2, c_h3 = cond_cache["feats"]
         c_s1, c_s2, c_s3 = cond_cache["skips"]

@@ -84,8 +84,10 @@ def _check(x, w, style, bias):
         raise ValueError(f"unsupported conv size {tuple(x.shape)} -> Cout {cout}")
 
 
-def conv3x3_nhwc(x, w, style=None, bias=None):
-    """SAME 3x3 conv (see module doc); the port of K3, `conv3x3_nhwc`."""
+def conv3x3_nhwc(x, w, style=None, bias=None, unsharded=None):
+    """SAME 3x3 conv (see module doc); the port of K3, `conv3x3_nhwc`.
+    `unsharded`: the (B, H) of the unsharded call x is a mesh shard of; the
+    split count is planned for it (ops/cuda/conv3d.py::plan)."""
     if x.device.type == "cpu":
         return conv3x3_nhwc_plain(x, w, style, bias)
     if x.device.type != "cuda":
@@ -99,7 +101,7 @@ def conv3x3_nhwc(x, w, style=None, bias=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _conv3d.library()
-        variant, splits, workspace = _conv3d.plan(1, x, 1, w.shape[3])
+        variant, splits, workspace = _conv3d.plan(1, x, 1, w.shape[3], unsharded=unsharded)
         err = lib.tmdiff_conv2d_33(
             _conv3d.DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), ptr(style), ptr(bias),
             y.data_ptr(),

@@ -28,6 +28,13 @@ same split-K rule) where Cin % 8 == 0, and every other bf16 shape raises.
 those of each dtype. On a CPU tensor they compute the plain version; on a
 CUDA tensor they launch the kernel or raise.
 
+The split count is the one decision of the plan that depends on the number
+of output tiles, and it sets the order in which each output element is
+summed. A call on a mesh shard (parallel/mesh.py) passes `unsharded`, the
+(batch, height) of the unsharded call, and takes that call's split count:
+each element of a shard is then summed as in the unsharded call, so a
+meshed call computes the one-process bits.
+
 Under a gradient both entries go through `Conv3dFunction`, on every device.
 Its backward takes the input gradient through the same kernel: with y =
 conv(x * s, W) + b,
@@ -142,30 +149,41 @@ def library():
     return _lib
 
 
-# (kd, dtype, B, D, H, W, Cin, Cout, x 16-byte aligned, device) -> (variant,
-# workspace bytes, splits): the C side's plan, asked once per shape.
+# (kd, dtype, B, D, H, W, Cin, Cout, x 16-byte aligned, device, unsharded)
+# -> (variant, workspace bytes, splits): the C side's plan, asked once per
+# shape.
 _plans = {}
 
 
-def plan(kd, x, d, cout):
+def _ask(kd, x, b, d, h, w, cin, cout, splits: int = 0):
+    """tmdiff_conv_plan for that shape, asking for `splits` (0: the split-K
+    rule): (variant number, workspace bytes, split count)."""
+    nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
+    variant = library().tmdiff_conv_plan(kd, DTYPES[x.dtype], b, d, h, w, cin, cout,
+                                         x.data_ptr(), ctypes.byref(nbytes), ctypes.byref(count))
+    return variant, nbytes.value, count.value
+
+
+def plan(kd, x, d, cout, unsharded=None):
     """(variant name, split count, workspace) of the kernel for x
     (B, [D,] H, W, Cin) with kd depth taps on the current device: the C
     side's choice by shape and dtype, and a workspace of the bytes it asks
     for (the split or packed weight and any split-K partial sums), allocated
-    here so that the kernel allocates nothing. A bf16 shape that no bf16
-    instance takes raises: it never goes to an fp32 kernel or the plain
-    version."""
+    here so that the kernel allocates nothing. With `unsharded`, the (B, H)
+    of the unsharded call x is a mesh shard of, the split count is that
+    call's (module doc). A bf16 shape that no bf16 instance takes raises: it
+    never goes to an fp32 kernel or the plain version."""
     b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
-    key = (kd, x.dtype, b, d, h, w, cin, cout, x.data_ptr() % 16 == 0, x.device.index)
+    key = (kd, x.dtype, b, d, h, w, cin, cout, x.data_ptr() % 16 == 0, x.device.index,
+           unsharded)
     if key not in _plans:
-        nbytes, splits = ctypes.c_longlong(0), ctypes.c_int(0)
-        variant = library().tmdiff_conv_plan(kd, DTYPES[x.dtype], b, d, h, w, cin, cout,
-                                             x.data_ptr(), ctypes.byref(nbytes),
-                                             ctypes.byref(splits))
+        want = 0 if unsharded is None else _ask(kd, x, unsharded[0], d, unsharded[1], w, cin,
+                                                cout)[2]
+        variant, nbytes, splits = _ask(kd, x, b, d, h, w, cin, cout, want)
         if variant < 0:
             raise ValueError(f"no {x.dtype} conv kernel instance for Cin = {cin} (needs "
                              "Cin % 8 == 0) or an x that is not 16-byte aligned")
-        _plans[key] = (VARIANTS[variant], nbytes.value, splits.value)
+        _plans[key] = (VARIANTS[variant], nbytes, splits)
     variant, nbytes, splits = _plans[key]
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     return variant, splits, workspace
@@ -201,7 +219,7 @@ def _check(x, kernel, style, bias, out):
         raise ValueError(f"unsupported conv size {tuple(x.shape)} -> Cout {cout}")
 
 
-def _launch(x, kernel, style, bias, out, input_grad: bool = False):
+def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=None):
     if x.device.type == "cpu":
         return conv3d_plain(x, kernel, style, bias, out)
     if x.device.type != "cuda":
@@ -216,7 +234,7 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = library()
-        variant, splits, workspace = plan(3, x, d, cout)
+        variant, splits, workspace = plan(3, x, d, cout, unsharded=unsharded)
         err = lib.tmdiff_conv3d_333(
             DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(), ptr(style), ptr(bias),
             y.data_ptr(),
@@ -253,25 +271,28 @@ def conv3d_weight_grad(xs, dy):
 class Conv3dFunction(torch.autograd.Function):
     """y = conv3d_same(x * s, kernel) + bias with the backward of the module
     doc; style and bias may be None. The forward and the input gradient run
-    the kernel on a CUDA tensor and the plain version on a CPU tensor."""
+    the kernel on a CUDA tensor and the plain version on a CPU tensor, both
+    planned for `unsharded` (see plan)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, style, bias):
+    def forward(ctx, x, kernel, style, bias, unsharded=None):
         if x.dtype != torch.float32:
             raise TypeError(f"the conv's gradient is float32 only, got {x.dtype}: run a bf16 "
                             "model under torch.no_grad() (bf16 training is not ported)")
         ctx.save_for_backward(x, kernel, style)
-        return _launch(x, kernel, style, bias, None)
+        ctx.unsharded = unsharded
+        return _launch(x, kernel, style, bias, None, unsharded=unsharded)
 
     @staticmethod
     def backward(ctx, dy):
         x, kernel, style = ctx.saved_tensors
-        need_x, need_k, need_s, need_b = ctx.needs_input_grad
+        need_x, need_k, need_s, need_b = ctx.needs_input_grad[:4]
         dy = dy.contiguous()
         dx = dk = ds = db = None
         if need_x or need_s:
             flipped = kernel.flip((0, 1, 2)).transpose(3, 4).contiguous()
-            dxs = _launch(dy, flipped, None, None, None, input_grad=True)
+            dxs = _launch(dy, flipped, None, None, None, input_grad=True,
+                          unsharded=ctx.unsharded)
             if need_x:
                 dx = dxs if style is None else dxs * style[:, None, None, None, :]
             if need_s:
@@ -282,7 +303,7 @@ class Conv3dFunction(torch.autograd.Function):
                 dk = conv3d_weight_grad(xs, dy)
         if need_b:
             db = dy.sum((0, 1, 2, 3))
-        return dx, dk, ds, db
+        return dx, dk, ds, db, None
 
 
 def needs_grad(*tensors) -> bool:
@@ -290,20 +311,21 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _apply(x, kernel, style, bias, out):
+def _apply(x, kernel, style, bias, out, unsharded):
     if not needs_grad(x, kernel, style, bias):
-        return _launch(x, kernel, style, bias, out)
-    y = Conv3dFunction.apply(x, kernel, style, bias)
+        return _launch(x, kernel, style, bias, out, unsharded=unsharded)
+    y = Conv3dFunction.apply(x, kernel, style, bias, unsharded)
     return y if out is None else out.add_(y)
 
 
-def banded_conv3d(x, kernel, style=None, bias=None, out=None):
-    """SAME 3x3x3 conv (see module doc); the port of K1, `banded_conv3d`."""
-    return _apply(x, kernel, style, bias, out)
+def banded_conv3d(x, kernel, style=None, bias=None, out=None, unsharded=None):
+    """SAME 3x3x3 conv (see module doc); the port of K1, `banded_conv3d`.
+    `unsharded`: the (B, H) of the unsharded call x is a mesh shard of."""
+    return _apply(x, kernel, style, bias, out, unsharded)
 
 
-def banded_conv3d_v2(x, kernel, style=None, bias=None, out=None):
+def banded_conv3d_v2(x, kernel, style=None, bias=None, out=None, unsharded=None):
     """The port of K2, `banded_conv3d_v2`: the same function as K1 on TPU,
     tiled differently there. On Hopper one tiling serves both, so this entry
     launches the same kernel, with the same backward."""
-    return _apply(x, kernel, style, bias, out)
+    return _apply(x, kernel, style, bias, out, unsharded)

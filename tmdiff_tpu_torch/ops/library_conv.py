@@ -1,0 +1,88 @@
+"""The convs of the legacy UNet and the ControlNet hint encoder that are no
+TPU kernel's function. The JAX package runs each through XLA's conv, with no
+Pallas kernel, so the port runs them through PyTorch's own conv (cuDNN on
+the card) rather than widening the 3x3x3 kernel's entry (ops/modconv.py
+takes 1x1x1 and SAME stride-1 3x3x3 kernels only):
+
+  * "strided": 3x3x3, stride (1, 2, 2), padding (1, 0, 0): SAME over the
+    bands, VALID in space (tmdiff_tpu/models/legacy_blocks.py:36-42,
+    StridedDownStage's `down`);
+  * "transposed": the transposed 3x3x3 conv of stride (1, 2, 2), padding
+    (1, 0, 0) and output padding (0, 1, 1), torch's ConvTranspose3d; the
+    JAX package's `lax.conv_transpose(h, kernel.swapaxes(-1, -2),
+    padding=((1, 1), (2, 3), (2, 3)), transpose_kernel=True)`
+    (legacy_blocks.py:54-76, TransposedUpStage's `up_kernel`);
+  * "hint": (1, 3, 3), SAME, stride 1, on a depth-1 input (the hint
+    encoder's stems and `share0-3`, tmdiff_tpu/models/controlnet.py:215-241,
+    which the JAX package folds to a 2-D XLA conv).
+
+Activations are (B, D, H, W, C) and kernels (kd, kh, kw, Cin, Cout) as
+everywhere in the port; the weight and bias are cast to x's dtype. The
+forward and the backward run in fp32 with TF32 off and cuDNN's
+deterministic algorithms (an autograd Function sets the flags for both), as
+the weight gradient of ops/cuda/conv3d.py does. `calls` counts the forward
+calls by kind on every device, for the smoke run's report beside K1's
+launches.
+"""
+from __future__ import annotations
+
+import torch
+
+KINDS = {
+    # kind: (kernel size, stride, padding, transposed, output padding)
+    "strided": ((3, 3, 3), (1, 2, 2), (1, 0, 0), False, (0, 0, 0)),
+    "transposed": ((3, 3, 3), (1, 2, 2), (1, 0, 0), True, (0, 1, 1)),
+    "hint": ((1, 3, 3), (1, 1, 1), (0, 1, 1), False, (0, 0, 0)),
+}
+calls = dict.fromkeys(KINDS, 0)
+
+
+def reset_calls() -> None:
+    calls.update(dict.fromkeys(calls, 0))
+
+
+def _flags():
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                      allow_tf32=False)
+
+
+class _Conv(torch.autograd.Function):
+    """aten.convolution of an NCDHW x and a torch-layout weight, and its
+    backward, both under `_flags`."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kind):
+        _, stride, padding, transposed, out_pad = KINDS[kind]
+        ctx.save_for_backward(x, weight)
+        ctx.kind, ctx.bias_shape = kind, None if bias is None else list(bias.shape)
+        with _flags():
+            return torch.ops.aten.convolution(x, weight, bias, stride, padding, [1, 1, 1],
+                                              transposed, out_pad, 1)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        _, stride, padding, transposed, out_pad = KINDS[ctx.kind]
+        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        with _flags():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, weight, ctx.bias_shape, stride, padding, [1, 1, 1], transposed, out_pad,
+                1, [need_x, need_w, need_b and ctx.bias_shape is not None])
+        return dx, dw, db, None
+
+
+def library_conv3d(x, kernel, bias=None, *, kind: str):
+    """The conv `kind` (module doc) of x (B, D, H, W, Cin) with kernel
+    (kd, kh, kw, Cin, Cout), plus bias: (B, D', H', W', Cout)."""
+    size = KINDS[kind][0]
+    if tuple(kernel.shape[:3]) != size or kernel.shape[3] != x.shape[-1]:
+        raise ValueError(f'a "{kind}" conv takes a {size + (x.shape[-1],)} + (Cout,) kernel, '
+                         f"got {tuple(kernel.shape)}")
+    # torch's weight layouts: (Cout, Cin, k...) for a conv, (Cin, Cout, k...)
+    # for a transposed one
+    order = (3, 4, 0, 1, 2) if KINDS[kind][3] else (4, 3, 0, 1, 2)
+    dt = x.dtype
+    y = _Conv.apply(x.permute(0, 4, 1, 2, 3), kernel.to(dt).permute(order),
+                    None if bias is None else bias.to(dt), kind)
+    calls[kind] += 1
+    return y.permute(0, 2, 3, 4, 1).contiguous()

@@ -38,7 +38,10 @@ the H + 2 rows, and keeps the middle H; the parts of `conv3d_cat`
 accumulate into one (H + 2)-row buffer, cropped once. Either lowering is
 exact that way (the JAX package refuses "banded" on a mesh, where its
 Pallas call cannot be partitioned), and "auto" picks its lowering by the
-global height, as the unsharded call does. The 1x1x1 convs are row-local.
+global height, as the unsharded call does. On any placement the kernels
+take the unsharded call's split count (`unsharded`, ops/cuda/conv3d.py::
+plan), so each element of a shard is summed as in the unsharded call. The
+1x1x1 convs are row-local.
 
 The reference's per-sample modulated conv, w_b[o, i] = w[o, i] * s[b, i] with
 no bias and no demodulation, equals conv(x_b * s_b, w) because the style
@@ -104,21 +107,26 @@ def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = 
     return _sharded(x, kernel, style, bias, out, plain, mesh, fold=True)
 
 
-def _conv333(x, kernel, style, bias, out, plain, fold, h):
+def _conv333(x, kernel, style, bias, out, plain, fold, unsharded=None):
     """The SAME 3x3x3 conv of x as it stands (halo rows included): through
     the band-into-lanes form where `fold` asks for it and the window fits
-    the global height h and the width, else through the 3x3x3 kernel."""
+    the global height and the width, else through the 3x3x3 kernel. On a
+    mesh, `unsharded` is the (B, H) of the unsharded call: its H is the
+    global height, and the kernels are planned for it."""
     dt = x.dtype
     b, d, hx, w, cin = x.shape
+    h = hx if unsharded is None else unsharded[1]
     cout = kernel.shape[-1]
+    on_mesh = {} if unsharded is None else {"unsharded": unsharded}
     if not fold or h < kernel.shape[1] or w < kernel.shape[2]:
-        fn = conv3d_plain if plain else banded_conv3d
-        return fn(x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
+        args = (x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
+        return conv3d_plain(*args) if plain else banded_conv3d(*args, **on_mesh)
     x2 = x.permute(0, 2, 3, 1, 4).reshape(b, hx, w, d * cin)
     s2 = None if style is None else style.to(dt).repeat(1, d)
     b2 = None if bias is None else bias.to(dt).repeat(d)
     w2 = banded_weight(kernel, d).to(dt)
-    y2 = (conv3x3_nhwc_plain if plain else conv3x3_nhwc)(x2, w2, s2, b2)
+    y2 = (conv3x3_nhwc_plain(x2, w2, s2, b2) if plain
+          else conv3x3_nhwc(x2, w2, s2, b2, **on_mesh))
     y = y2.view(b, hx, w, d, cout).permute(0, 3, 1, 2, 4)
     return y.contiguous() if out is None else out.add_(y)
 
@@ -127,13 +135,23 @@ def _halo(mesh) -> bool:
     return mesh is not None and mesh.halo
 
 
+def _unsharded(mesh, x):
+    """The (B, H) of the unsharded call of which x (B, D, H, W, C), without
+    halo rows, is this rank's shard; None without a mesh."""
+    if mesh is None:
+        return None
+    shape = mesh.global_shape(x.shape)
+    return shape[0], shape[2]
+
+
 def _sharded(x, kernel, style, bias, out, plain, mesh, fold):
     """`_conv333` of an unsharded x, or of a space shard with its halo rows,
     keeping the middle rows. `out` (without a gradient) takes the sum."""
+    unsharded = _unsharded(mesh, x)
     if not _halo(mesh):
-        return _conv333(x, kernel, style, bias, out, plain, fold, x.shape[2])
+        return _conv333(x, kernel, style, bias, out, plain, fold, unsharded)
     y = _conv333(exchange_rows(x, mesh), kernel, style, bias, None, plain, fold,
-                 x.shape[2] * mesh.space)[:, :, 1:-1]
+                 unsharded)[:, :, 1:-1]
     return y.contiguous() if out is None else out.add_(y)
 
 
@@ -199,12 +217,12 @@ def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "ba
         if needs_grad(p, kpart, b, out):
             _refuse_auto_grad(impl)
         xp = exchange_rows(p, mesh)
-        h = p.shape[2] * mesh.space
+        unsharded = _unsharded(mesh, p)
         fold = _fold(impl, p, kpart, mesh)
         if out is not None and needs_grad(xp, kpart, out):
-            out = out + _conv333(xp, kpart, None, b, None, plain, fold, h)
+            out = out + _conv333(xp, kpart, None, b, None, plain, fold, unsharded)
         else:
-            out = _conv333(xp, kpart, None, b, out, plain, fold, h)
+            out = _conv333(xp, kpart, None, b, out, plain, fold, unsharded)
     if off != kernel.shape[-2]:
         raise ValueError(f"parts have {off} channels, kernel takes {kernel.shape[-2]}")
     return out[:, :, 1:-1].contiguous() if halo else out

@@ -5,6 +5,9 @@
       [--port 8000] [--sampler dpm++] [--steps 30] [--max-batch 8] \
       [--warmup 8,256,256] [--bf16] [--use-ema] [--device cuda]
 
+  python -m torch.distributed.run --nproc-per-node N -m tmdiff_tpu_torch.serve \
+      -c config.json --ckpt <ckpt> [--mesh-space S] ...
+
 Builds the model from the config (`model.unet.channel_multiplier`,
 `model.beta_schedule.val`), loads the weights through train/checkpoint.py
 (the port's own checkpoints or a reference `.pth`; the JAX package's orbax
@@ -12,17 +15,30 @@ checkpoints are refused), runs the warm-up batches, then binds the port and
 blocks. A config's "serve" block (config/presets/serve_*.json) sets the
 flags' defaults; a flag given on the command line wins. `--device` is CUDA
 unless given, and with no GPU the server refuses to start rather than run
-on the CPU. `--mesh-space` other than 1 is refused: serving over the device
-mesh (tmdiff_tpu_torch/parallel/) is not ported yet. On exit (SIGINT) the
-server prints one JSON line, the kernel wrappers' launch counts over its
-life ({"kernel_launches": ...}), which shows what the served requests ran
-on.
+on the CPU.
+
+Under torchrun (a world of N ranks, one per card) the server spans every
+rank, as the JAX server spans every device: the ranks form a ("data",
+"space") mesh with S = `--mesh-space` ranks on "space" (the image height)
+and N / S on "data" (the batch; every rank by default). Rank 0 builds the
+engine on a `serve/mesh.py::MeshLeader`, runs the warm-up and binds HTTP;
+every other rank builds the same model and weights and runs
+`serve/mesh.py::follow`. A `--mesh-space` that does not divide the world,
+or above 1 in one process, is refused.
+
+On exit (SIGINT) the server prints one JSON line, the kernel wrappers'
+launch counts over its life ({"kernel_launches": ...}), which shows what
+the served requests ran on; on a mesh every rank prints its own, with its
+"rank". A second SIGINT during the stop is ignored.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import sys
+import threading
 
 # The deployed default CFG scale (the JAX package's SERVE_GUIDANCE_DEFAULT).
 SERVE_GUIDANCE_DEFAULT = 3.0
@@ -138,8 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", default=None,
                    help="bands,H,W to run every batch bucket at before binding the port")
     p.add_argument("--mesh-space", type=int, default=1,
-                   help="shard image height over this many devices; the port serves on one "
-                        "device (serving over a mesh is not ported), so only 1 is taken")
+                   help="shard image height over this many ranks of a torchrun world; the "
+                        "rest go to the 'data' axis (default: every rank on data)")
     p.add_argument("--device", default=None, help="torch device; CUDA when not given")
     return p
 
@@ -156,27 +172,30 @@ def prepare(argv=None):
     opt = parse_config(args.config, phase="val", make_dirs=False)
     apply_serve_defaults(args, opt, parser, argv)
     sampler_kw = build_sampler_kw(args, parser, argv)
-    if args.mesh_space != 1:
-        parser.error(f"--mesh-space {args.mesh_space}: the port serves on one device; "
-                     "serving over a mesh (a rank-0 engine feeding follower ranks) is the "
-                     "item still open (ROADMAP.md queue 1); the mesh itself is "
-                     "tmdiff_tpu_torch/parallel/")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if args.mesh_space > 1 and world == 1:
+        parser.error(f"--mesh-space {args.mesh_space} shards the height over that many ranks, "
+                     "and this is one process: start the server under torchrun (python -m "
+                     "torch.distributed.run --nproc-per-node N -m tmdiff_tpu_torch.serve ...)")
+    if args.mesh_space < 1 or world % args.mesh_space:
+        parser.error(f"--mesh-space {args.mesh_space} does not divide the world of {world} "
+                     "ranks")
     return args, opt, sampler_kw
 
 
-def build_engine(args, opt, sampler_kw):
-    """The model, its weights and the engine (not started serving)."""
+def build_sharp(args, opt, mesh=None):
+    """The model and its weights in a Pansharpener, on `mesh`'s device and
+    sharded over it where a mesh is given."""
     import torch
 
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.pipeline import Pansharpener
-    from tmdiff_tpu_torch.serve.engine import InferenceEngine
     from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
     from tmdiff_tpu_torch.train.trainer import Trainer
     from tmdiff_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if mesh is None else mesh.device
     # The served model's bf16 matrix products (its Linear layers and 1x1x1
     # convs) accumulate in fp32 without reduced-precision partial sums, as
     # XLA's bf16 dots do in the JAX package.
@@ -192,11 +211,24 @@ def build_engine(args, opt, sampler_kw):
         with torch.no_grad():
             for p, e in zip(model.parameters(), state.ema_params):
                 p.copy_(e)
-    sharp = Pansharpener(model, schedule_name=sched_opt["schedule"],
-                         n_timestep=sched_opt["n_timestep"], device=device)
+    return Pansharpener(model, schedule_name=sched_opt["schedule"],
+                        n_timestep=sched_opt["n_timestep"], device=device, mesh=mesh)
+
+
+def make_engine(sharp, args, sampler_kw):
+    """The engine (not started serving) on `sharp`, a Pansharpener or a
+    MeshLeader."""
+    from tmdiff_tpu_torch.serve.engine import InferenceEngine
+
     return InferenceEngine(sharp, method=args.sampler, steps=args.steps, guidance=args.guidance,
                            max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
                            max_queue=args.max_queue, sampler_kw=sampler_kw)
+
+
+def build_engine(args, opt, sampler_kw):
+    """The model, its weights and the engine of one process (not started
+    serving)."""
+    return make_engine(build_sharp(args, opt), args, sampler_kw)
 
 
 def launch_counts() -> dict:
@@ -211,26 +243,76 @@ def launch_counts() -> dict:
     return counts
 
 
-def main(argv=None):
+def _interrupt_once(signum, frame):
+    """SIGINT: stop serving, and ignore any further SIGINT (torchrun forwards
+    a terminal's to every rank again) while the stop runs."""
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    raise KeyboardInterrupt
+
+
+def serve(engine, args, leader=None) -> None:
+    """Warm-up, bind, serve until SIGINT; then close the server, shut the
+    engine down and stop the mesh's followers."""
     from tmdiff_tpu_torch.serve.server import make_server
 
-    args, opt, sampler_kw = prepare(argv)
-    engine = build_engine(args, opt, sampler_kw)
-    if args.warmup:
-        shape = tuple(int(x) for x in args.warmup.split(","))
-        print(f"warming up {shape} x buckets {engine.buckets} ...", flush=True)
-        engine.warmup([shape])
-    server = make_server(engine, args.host, args.port)
-    print(f"serving on {args.host}:{args.port} (sampler={args.sampler}, max_batch="
-          f"{args.max_batch}, bf16={args.bf16}, device={engine.sharp.device})", flush=True)
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        if args.warmup:
+            shape = tuple(int(x) for x in args.warmup.split(","))
+            print(f"warming up {shape} x buckets {engine.buckets} ...", flush=True)
+            engine.warmup([shape])
+        server = make_server(engine, args.host, args.port)
+        print(f"serving on {args.host}:{args.port} (sampler={args.sampler}, max_batch="
+              f"{args.max_batch}, bf16={args.bf16}, device={engine.sharp.device})", flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
     finally:
-        server.server_close()
         engine.shutdown()
-        print(json.dumps({"kernel_launches": launch_counts()}), flush=True)
+        if leader is not None:
+            leader.stop()
+
+
+def main(argv=None):
+    """Serves until SIGINT; on a mesh returns this rank's serve/mesh.py
+    stats."""
+    import torch.distributed as dist
+
+    from tmdiff_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from tmdiff_tpu_torch.serve.mesh import MeshLeader, follow
+
+    args, opt, sampler_kw = prepare(argv)
+    # a world of ranks under torchrun (nothing for one process)
+    joined = init_distributed(args.device)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        previous = signal.signal(signal.SIGINT, _interrupt_once if rank == 0 else signal.SIG_IGN)
+    try:
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            serve(build_engine(args, opt, sampler_kw), args)
+            print(json.dumps({"kernel_launches": launch_counts()}), flush=True)
+            return
+        mesh = make_mesh(space=args.mesh_space)
+        sharp = build_sharp(args, opt, mesh)
+        if rank == 0:
+            print(f"serving over SPMD mesh {{'data': {mesh.data}, 'space': {mesh.space}}} "
+                  f"({mesh.transport})", flush=True)
+            leader = MeshLeader(sharp)
+            serve(make_engine(leader, args, sampler_kw), args, leader)
+            stats = leader.stats
+        else:
+            stats = follow(sharp)
+        print(json.dumps({"kernel_launches": launch_counts(), "rank": rank, "mesh": stats}),
+              flush=True)
+        return stats
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGINT, previous)
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Inference engine: dynamic batching of pansharpening requests onto one
-device (port of tmdiff_tpu/serve/engine.py).
+sampler (port of tmdiff_tpu/serve/engine.py).
 
 What the engine keeps from the JAX package's:
   * requests (one image each) are grouped by MS shape; sensors mix freely
@@ -11,13 +11,17 @@ What the engine keeps from the JAX package's:
   * one worker thread owns the device: it drains the queue, waits at most
     `max_delay_ms` after a group's first request for requests of its shape,
     runs the sampler, and resolves each request's future. One batch is in
-    flight at a time, as on one chip of the JAX package; scale-out is N
-    processes behind a load balancer.
+    flight at a time, as in the JAX package.
+`sharp` may also be a `serve/mesh.py::MeshLeader`: the same engine then
+serves over every rank of a torchrun world, each batch sharded over the
+("data", "space") mesh (the JAX package's engine likewise runs unchanged on
+a meshed sampler).
 Batch k (counted from 0) samples with seed k. A request's future carries
 `placement` = {"seed", "bucket", "row"} once resolved: the batch's seed and
 padded size and the request's row in it, which reproduce its image through
-`Pansharpener.sample` (x_T is drawn for the whole bucket from the seed, and
-no row of a batch reads another).
+a one-process `Pansharpener.sample` (x_T is drawn for the whole bucket from
+the seed, on a mesh at the global shape too, and no row of a batch reads
+another).
 
 On the GPU nothing is compiled per shape, but the first batch of a shape
 still pays for building the kernel libraries, the kernels' per-shape plans
@@ -64,8 +68,9 @@ class InferenceEngine:
     """Batches concurrent pansharpening requests onto one sampler.
 
     `sharp` is a `tmdiff_tpu_torch.pipeline.Pansharpener` (model, schedule
-    and prompt table, on its device). `submit()` is thread-safe and returns
-    a Future of the (bands, H, W) sharpened image in [0, 1].
+    and prompt table, on its device) or a MeshLeader in front of a meshed
+    one. `submit()` is thread-safe and returns a Future of the (bands, H, W)
+    sharpened image in [0, 1].
     """
 
     sharp: object

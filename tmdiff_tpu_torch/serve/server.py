@@ -16,7 +16,9 @@ Endpoints:
 A malformed request gets 400, a full queue 503 with `Retry-After: 1`.
 `ThreadingHTTPServer` gives each in-flight request a thread that blocks on
 its engine future, so concurrent clients are coalesced into batches by the
-engine's worker; the HTTP layer adds no queueing of its own.
+engine's worker; the HTTP layer adds no queueing of its own. Over a mesh
+(serve/mesh.py) only rank 0 runs this server, /healthz included; the
+/v1/stats keys are the JAX server's on a mesh too.
 """
 from __future__ import annotations
 

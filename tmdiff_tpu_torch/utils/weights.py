@@ -1,17 +1,25 @@
-"""Weights into the port's WavBEST, from the two formats the repository
+"""Weights into the port's models, from the two formats the repository
 holds.
 
   * `from_reference_state_dict`: the reference torch state_dict layout (the
     `sd.*` keys of tests/golden/*.npz, `I{step}_gen.pth`): conv weights
-    (O, I, kd, kh, kw), Linear weights (O, I). The reference's dead
-    parameters are dropped: the modulated convs' biases, the wavelet blocks'
-    unused `dense2`, and the condition branch's time projections.
+    (O, I, kd, kh, kw), the legacy blocks' transposed conv `up1` (I, O, kd,
+    kh, kw), Linear weights (O, I). The reference's dead parameters are
+    dropped: the modulated convs' biases, the wavelet blocks' unused
+    `dense2`, and the condition branch's time projections.
   * `from_flax`: a JAX package param tree as nested dicts of numpy arrays
     (flax conv kernels (kd, kh, kw, I, O), Dense kernels (I, O)), mapped onto
     the reference keys by `torch_key`. It also fills the attention library
     (ops/attention.py), whose modules carry the flax names: Dense (I, O) and
     1x1 2-D Conv (1, 1, I, O) kernels become Linear weights, and the
-    LayerNorm/GroupNorm `scale` becomes `weight`.
+    LayerNorm/GroupNorm `scale` becomes `weight`; and the legacy UNet and
+    ControlNet (models/legacy_unet.py, models/controlnet.py): a legacy up
+    stage's `up_kernel`/`up_bias` become its `up1` (the kernel stays in the
+    (kd, kh, kw, I, O) layout that the JAX package swaps the last two axes
+    of for `lax.conv_transpose`; ops/library_conv.py reads it so), the hint
+    encoder's stacked stems (13, 1, 3, 3, I, O) keep their names and
+    layout, and the Dense layers named `style` (a zero conv's), `fc1`/`fc2`
+    (the task hypernetwork's) and `out_proj` become Linear weights.
 
 The port keeps conv weights in the (kd, kh, kw, I, O) layout and Linear
 weights in torch's (O, I). Both loaders are strict: a key the model does not
@@ -32,6 +40,10 @@ _MLP_INDEX = {"lin0": "0", "lin1": "2", "lin2": "4"}
 # (I, O) and 1x1 2-D Conv (1, 1, I, O) kernels
 _ATTN_LINEAR = {"to_q", "to_k", "to_v", "to_out", "proj", "lin_in", "lin_out",
                 "proj_in", "proj_out", "q", "k", "v", "NIN_0", "NIN_1", "NIN_2", "NIN_3"}
+# the ControlNet's and the legacy UNet's Dense layers (a zero conv's style
+# outside the modulated convs of _MODCONV_STYLE, the task hypernetwork's, the
+# output projection)
+_DENSE = {"style", "fc1", "fc2", "out_proj"}
 
 
 def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
@@ -44,11 +56,18 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
     if mods and mods[-1] in _ATTN_LINEAR:
         base = ".".join(mods)
         return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
-    if mods and mods[0] in ("embed", "embed2") and mods[-1] in _MLP_INDEX:
+    if leaf in ("up_kernel", "up_bias"):  # a legacy up stage's transposed conv
+        return ".".join(mods + ["up1", "weight" if leaf == "up_kernel" else "bias"]), "none"
+    if leaf.startswith("stem"):  # the hint encoder's stacked stems
+        return ".".join(mods + [leaf]), "none"
+    if len(mods) >= 2 and mods[-2] in ("embed", "embed2") and mods[-1] in _MLP_INDEX:
         base = ".".join(mods[:-1] + [_MLP_INDEX[mods[-1]]])
         return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
     if len(mods) >= 2 and mods[-1] == "style" and mods[-2] in _MODCONV_STYLE:
         base = ".".join(mods[:-2] + [_MODCONV_STYLE[mods[-2]], "dense"])
+        return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
+    if mods and mods[-1] in _DENSE:
+        base = ".".join(mods)
         return (base + ".weight", "linear") if leaf == "kernel" else (base + ".bias", "none")
     if mods and mods[-1] in _MODCONV_STYLE and leaf == "kernel":
         return ".".join(mods) + ".weight", "conv"
@@ -96,11 +115,18 @@ def _load_strict(model: torch.nn.Module, arrays: Mapping[str, np.ndarray], lefto
     return model
 
 
+def _is_transposed_conv(key: str) -> bool:
+    """The legacy up stages' ConvTranspose3d weights, (I, O, kd, kh, kw) in
+    the reference (WavBEST's `up1` modules hold no weight of their own)."""
+    return key == "up1.weight" or key.endswith(".up1.weight")
+
+
 def from_reference_state_dict(model: torch.nn.Module, sd: Mapping[str, np.ndarray],
                               prefix: str = "") -> torch.nn.Module:
     """Fill `model` from a reference state_dict (keys after `prefix`)."""
     sd = {k[len(prefix):]: np.asarray(v) for k, v in sd.items() if k.startswith(prefix)}
-    arrays = {k: np.transpose(v, (2, 3, 4, 1, 0)) if v.ndim == 5 else v for k, v in sd.items()}
+    arrays = {k: np.transpose(v, (2, 3, 4, 0, 1) if _is_transposed_conv(k) else (2, 3, 4, 1, 0))
+              if v.ndim == 5 else v for k, v in sd.items()}
     return _load_strict(model, arrays, leftover_ok=lambda k: is_dead_reference_param(k, sd))
 
 
@@ -113,8 +139,9 @@ def _flatten(tree, path=()):
 
 
 def from_flax(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Fill `model` from a JAX param tree of numpy arrays: a WavBEST, or a
-    module of the attention library."""
+    """Fill `model` from a JAX param tree of numpy arrays: a WavBEST, a
+    module of the attention library, a LegacyUNet or a
+    ControlledLegacyUNet."""
     arrays = {}
     for path, leaf in _flatten(params):
         key, kind = torch_key(path)
