@@ -6,7 +6,9 @@ serves pansharpening requests on a seeded full-width WavBEST (channels
 32, 64, 128, 256; 256x256, batch 2) under both conv lowerings with every
 sampler, in fp32 and in bf16, serves both serving presets through the HTTP
 server (`python -m tmdiff_tpu_torch.serve`), runs the attention library at
-SD-style widths, trains, drives the CLI's train, val and distill phases,
+SD-style widths in fp32 and bf16, runs the library modules that reach no
+TPU kernel on the card against the CPU, trains, drives the CLI's train, val
+and distill phases,
 runs the legacy UNet and its ControlNet adapter, and samples, trains and
 serves over a ("data", "space") mesh of four ranks.
 
@@ -100,7 +102,24 @@ Phases (any failure ends the run with a non-zero exit code):
                shape holds the FMA variant against the plain version; then
                a SpatialTransformer forward (8 x 64 heads, 64x64x256 image,
                that context) through K4 and through the plain attention,
-               counts reset just before.
+               counts reset just before. Then all of it again in bf16: K4's
+               bf16 instance at the three shapes (variant "bf16") against
+               flash_attention_plain within one bf16 step, bit-identical on
+               a second launch, timed beside its bound at the bf16 rate
+               (989 TFLOP/s or 3.35 TB/s; the rate of its TF32 arithmetic,
+               330 TFLOP/s, printed beside) and bf16 SDPA; the D = 42 shape
+               on "bf16_fma"; a bf16 SpatialTransformer, 2 bf16 launches,
+               within 2e-2 of its scale of the plain attention.
+     library   the library modules that reach no TPU kernel, each once on
+               the card and once on the CPU on the same weights and inputs
+               (batch 2, 8 bands): DynamicConv3d (K = 4, 64x64x64, 64 -> 64),
+               PGCU (pan 256x256, ms 64x64), the Gaussian and free-PSF
+               degradations (256x256), ChannelWiseAttention and
+               AdaptiveGroupNorm (64x64x64), CompositeLoss and five loss-zoo
+               losses (256x256), db2 dwt2d/idwt2d (256x256) and Haar
+               dwt3d/idwt3d round trips; each output within 1e-4 of its
+               scale, the round trips reconstructing their input, ms a call
+               on the card.
   8. train     the training step (Trainer.train_step) of the full-width model
                with init_type "torch", on synthetic PanCollection-format
                scenes of 64x64 (WV3 8 bands, QB and GF2 4 bands), batch 8,
@@ -179,7 +198,7 @@ Phases (any failure ends the run with a non-zero exit code):
                NCCL.
 The last two lines of standard output are the card's name and power limit
 and {"ok": true, "device": {...}}; the line before them is the
-{"kernels": [...]} summary.
+{"kernels": [...]} summary (K1, K3, K4, K1 bf16, K3 bf16, K4 bf16).
 
 Tolerances (fp32 everywhere, TF32 off): a conv agrees with its plain version
 to 1e-4 of the output's largest magnitude (fp32 sums of up to 27 * 256 or
@@ -199,7 +218,7 @@ card against the host's: SAM to 1e-5 relative (the numpy suite's), SSIM to
 suite's uniform-window SSIM is printed beside it). Distillation: the loss
 to 1e-4 relative and every gradient to 1e-3 of its scale as in training;
 (prediction - target) to 1e-4 absolute, since the target passes two
-teacher calls and a division by down to 0.155. bf16: a conv within one
+teacher calls and a division by down to 0.155. bf16: a conv or an attention within one
 bf16 step of its plain bf16 version (each element within half a bf16 step
 of each side's value, two roundings of fp32 sums taken in another order,
 plus the fp32 conv bar for the accumulation); a bf16 request within 1e-2
@@ -1126,77 +1145,113 @@ def http_preset(preset, bands, sensors, args, sampler_kw, log_path, proc, direct
     return {k: v for k, v in result.items() if k != "latency_ms"}
 
 
-def attention_bound(b, h, sq, skv, d, peak):
+def attention_bound(b, h, sq, skv, d, peak, elem_bytes=4):
     flops = 4.0 * b * h * sq * skv * d  # q.kT and p.v
-    nbytes = 4.0 * b * h * d * (2 * sq + 2 * skv)
+    nbytes = elem_bytes * b * h * d * (2 * sq + 2 * skv)
     return bound(flops, nbytes, peak)
 
 
-def attention_inputs(gen, b, h, sq, d, skv):
-    return (torch.randn(b, h, sq, d, device=DEV, generator=gen),
-            torch.randn(b, h, skv, d, device=DEV, generator=gen),
-            torch.randn(b, h, skv, d, device=DEV, generator=gen))
+def attention_inputs(gen, b, h, sq, d, skv, dtype=torch.float32):
+    return tuple(torch.randn(b, h, s, d, device=DEV, generator=gen).to(dtype)
+                 for s in (sq, skv, skv))
 
 
-def attention_phase(K4, gen):
+# K4's bf16 instance does S = Q.K^T in one TF32 product a multiply-add and
+# P.V in two (csrc/flash_attention.cu): the rate of its arithmetic
+PEAK_TF32_BF16_ATTENTION = 495e12 / 1.5
+
+
+def attention_shapes(K4, gen, dtype):
+    """K4 at every ATTENTION_SHAPES entry in `dtype` against its plain
+    version (fp32: attention_reference to ATTENTION_ATOL; bf16:
+    flash_attention_plain within one bf16 step), the variant (the tensor
+    cores), a bit-identical second launch, and times beside the bound and
+    SDPA in the same dtype; then the D = 42 shape on the FMA variant.
+    Returns the per-shape numbers and the largest error."""
     from tmdiff_tpu_torch.bench_attention import kernel_ms
-    from tmdiff_tpu_torch.ops.attention import SpatialTransformer
 
+    bf16 = dtype == torch.bfloat16
+    tag, plain = ("bf16 ", K4.flash_attention_plain) if bf16 else ("", K4.attention_reference)
     per_shape, max_err = [], 0.0
     for label, (b, h, sq, d), skv in ATTENTION_SHAPES:
-        q, k, v = attention_inputs(gen, b, h, sq, d, skv)
+        q, k, v = attention_inputs(gen, b, h, sq, d, skv, dtype)
         with torch.no_grad():
             got, variant = launched_variant(K4, lambda: K4.flash_attention(q, k, v))
-            ref = K4.attention_reference(q, k, v)
+            ref = plain(q, k, v)
             again = K4.flash_attention(q, k, v)
             torch.cuda.synchronize()
-            err = (got - ref).abs().max().item()
-            if not err <= ATTENTION_ATOL:
-                fail(f"attention {label}: max abs err {err} > {ATTENTION_ATOL}")
-            if variant != "tc":
-                fail(f"attention {label} took the {variant} variant, not the tensor cores")
+            if bf16:
+                err = bf16_check(got, ref, f"attention {tag}{label}")
+            else:
+                err = (got - ref).abs().max().item()
+                if not err <= ATTENTION_ATOL:
+                    fail(f"attention {label}: max abs err {err} > {ATTENTION_ATOL}")
+            if variant != ("bf16" if bf16 else "tc"):
+                fail(f"attention {tag}{label} took the {variant} variant, not the tensor cores")
             if not torch.equal(got, again):
-                fail(f"attention {label}: two launches on one input differ")
+                fail(f"attention {tag}{label}: two launches on one input differ")
             max_err = max(max_err, err)
             ms_k = cuda_ms(lambda: K4.flash_attention(q, k, v), 10)
-            ms_p = cuda_ms(lambda: K4.attention_reference(q, k, v), 3)
+            ms_p = cuda_ms(lambda: plain(q, k, v), 3)
             ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
             per_kernel = kernel_ms(lambda: K4.flash_attention(q, k, v), 10)
             dev_l = sum(kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10).values())
         dev_k = sum(per_kernel.values())
         plan = K4.device_plan(q, skv)
         parts = ", ".join(f"{name} {t:.4f}" for name, t in per_kernel.items())
-        bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_TF32X3_FLOPS)
-        ffma_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_FP32_FLOPS)
+        if bf16:
+            bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_BF16_FLOPS, 2)
+            route_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_TF32_BF16_ATTENTION, 2)
+            other = f"tf32_route_bound_ms={route_bnd:.4f}"
+            bar = "one bf16 step"
+        else:
+            bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_TF32X3_FLOPS)
+            ffma_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_FP32_FLOPS)
+            other = f"fp32_ffma_bound_ms={ffma_bnd:.4f}"
+            bar = f"atol {ATTENTION_ATOL}"
         per_shape.append({"ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, "bound_ms": bnd,
                           "bound_by": bound_by})
-        print(f"[attention] {label}: q {(b, h, sq, d)} Skv {skv} variant={variant} "
+        print(f"[attention] {tag}{label}: q {(b, h, sq, d)} Skv {skv} variant={variant} "
               f"splits={plan.splits} key_tile={plan.key_tile} rows/block={plan.rows} "
               f"ms={ms_k:.4f} plain_ms={ms_p:.4f} library_ms={ms_l:.4f} "
               f"device_ms={dev_k:.4f} ({parts}) library_device_ms={dev_l:.4f} "
-              f"bound_ms={bnd:.4f} ({bound_by}) fp32_ffma_bound_ms={ffma_bnd:.4f} "
-              f"share_of_bound={bnd / ms_k:.3f} max abs err {err:.3g} (atol {ATTENTION_ATOL}), "
+              f"bound_ms={bnd:.4f} ({bound_by}) {other} "
+              f"share_of_bound={bnd / ms_k:.3f} max abs err {err:.3g} ({bar}), "
               f"second launch bit-identical", flush=True)
 
     (b, h, sq, d), skv = FMA_ATTENTION_SHAPE
-    q, k, v = attention_inputs(gen, b, h, sq, d, skv)
+    q, k, v = attention_inputs(gen, b, h, sq, d, skv, dtype)
     with torch.no_grad():
         got, variant = launched_variant(K4, lambda: K4.flash_attention(q, k, v))
-        ref = K4.attention_reference(q, k, v)
+        ref = plain(q, k, v)
         torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
-    print(f"[attention] FMA variant: q {(b, h, sq, d)} Skv {skv} variant={variant} "
-          f"max abs err {err:.3g} (atol {ATTENTION_ATOL})", flush=True)
-    if variant != "fma" or not err <= ATTENTION_ATOL:
-        fail(f"attention at D = {d}: variant {variant}, max abs err {err}")
-    max_err = max(max_err, err)
+    if bf16:
+        err = bf16_check(got, ref, f"attention bf16 at D = {d}")
+        ok = variant == "bf16_fma"
+    else:
+        err = (got - ref).abs().max().item()
+        ok = variant == "fma" and err <= ATTENTION_ATOL
+    print(f"[attention] {tag}FMA variant: q {(b, h, sq, d)} Skv {skv} variant={variant} "
+          f"max abs err {err:.3g}", flush=True)
+    if not ok:
+        fail(f"attention {tag}at D = {d}: variant {variant}, max abs err {err}")
+    return per_shape, max(max_err, err)
 
-    # The module's entry point: a SpatialTransformer over a 64x64x256 image
-    # attending to the 768-wide prompt embedding as a one-token context. Its
-    # proj_out starts at zero (the identity), so it is drawn at random here.
+
+def spatial_transformer_check(K4, gen, dtype):
+    """The module's entry point: a SpatialTransformer (in `dtype`) over a
+    64x64x256 image attending to the 768-wide prompt embedding as a
+    one-token context, through K4 with the counts reset just before and
+    read just after, and through the plain attention. Its proj_out starts
+    at zero (the identity), so it is drawn at random here. fp32 within
+    FORWARD_ATOL; bf16 within BF16_MODULE_RTOL of the output's scale.
+    Returns (launches, launches by variant, the error)."""
+    from tmdiff_tpu_torch.ops.attention import SpatialTransformer
+
+    bf16 = dtype == torch.bfloat16
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(SEED)
-        st = SpatialTransformer(256, heads=8, dim_head=64, context_dim=PROMPT_DIM)
+        st = SpatialTransformer(256, heads=8, dim_head=64, context_dim=PROMPT_DIM, dtype=dtype)
         torch.nn.init.normal_(st.proj_out.weight, std=0.05)
     st = st.to(DEV).eval()
     x = torch.randn(BATCH, 64, 64, 256, device=DEV, generator=gen)
@@ -1218,22 +1273,170 @@ def attention_phase(K4, gen):
         torch.cuda.synchronize()
         sec_plain = time.perf_counter() - t0
     err = (y - ref).abs().max().item()
-    print(f"[attention] SpatialTransformer(8 x 64 heads) on {tuple(x.shape)} with a "
+    scale = ref.abs().max().item()
+    bar = BF16_MODULE_RTOL * scale if bf16 else FORWARD_ATOL
+    tag = "bf16 " if bf16 else ""
+    print(f"[attention] {tag}SpatialTransformer(8 x 64 heads) on {tuple(x.shape)} with a "
           f"{tuple(ctx.shape)} context: {sec * 1e3:.2f} ms through K4 ({launches} launches, "
-          f"by variant {variants}), "
-          f"{sec_plain * 1e3:.2f} ms through the plain attention; max abs err {err:.3g} "
-          f"(atol {FORWARD_ATOL}), output max |y| {ref.abs().max().item():.3g}", flush=True)
+          f"by variant {variants}), {sec_plain * 1e3:.2f} ms through the plain attention; "
+          f"max abs err {err:.3g} (bar {bar:.3g}), output max |y| {scale:.3g}", flush=True)
     if tuple(y.shape) != tuple(x.shape) or not torch.isfinite(y).all():
-        fail("SpatialTransformer output has the wrong shape or is not finite")
-    if launches != 2 or variants["tc"] != 2:
-        fail(f"SpatialTransformer launched the attention kernel {launches} times ({variants})")
-    if not err <= FORWARD_ATOL:
-        fail(f"SpatialTransformer differs from the plain attention by {err}")
-    # its two attentions are the first two shapes
-    totals = {key: sum(p[key] for p in per_shape[:2])
-              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    totals["bound_by"] = per_shape[0]["bound_by"]
-    return totals, max_err, launches, variants
+        fail(f"{tag}SpatialTransformer output has the wrong shape or is not finite")
+    if launches != 2 or variants["bf16" if bf16 else "tc"] != 2:
+        fail(f"{tag}SpatialTransformer launched the attention kernel {launches} times ({variants})")
+    if not err <= bar:
+        fail(f"{tag}SpatialTransformer differs from the plain attention by {err}")
+    return launches, variants, err
+
+
+# The bf16 SpatialTransformer through K4 against the same module on the
+# plain attention: each attention output within one bf16 step of the
+# plain's, carried through bf16 projections, LayerNorms and the
+# feed-forward (tests/test_torch_bf16.py's model bar).
+BF16_MODULE_RTOL = 2e-2
+
+
+def attention_phase(K4, gen):
+    """fp32, then bf16: every shape, the FMA shape and the SpatialTransformer.
+    Returns per dtype the totals over the SpatialTransformer's two
+    attentions (the first two shapes), the largest error and the module's
+    launches."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        per_shape, max_err = attention_shapes(K4, gen, dtype)
+        launches, variants, _ = spatial_transformer_check(K4, gen, dtype)
+        totals = {key: sum(p[key] for p in per_shape[:2])
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        totals["bound_by"] = per_shape[0]["bound_by"]
+        out[str(dtype).split(".")[-1]] = (totals, max_err, launches, variants)
+    return out
+
+
+# The library modules that reach no TPU kernel (ops/dynamic_conv.py,
+# kernel_adaption.py, pgcu.py, the orphan blocks of models/blocks.py, the
+# losses and the loss zoo, the generic wavelets): the card against the CPU
+# on the same weights and inputs, each output within 1e-4 of its scale (fp32
+# sums in another order, TF32 off on both).
+LIBRARY_RTOL = CONV_RTOL
+LIBRARY_REPS = 5
+LIB_IMAGE, LIB_FEATURE = SIZE, 64  # image side; feature map side and channels
+
+
+def _tensors(out):
+    """The tensors of a module's or loss's output, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in _tensors(out[k])]
+    return [t for o in out for t in _tensors(o)]
+
+
+def library_cases():
+    """(label, callable on the CPU, the same callable's card copy, CPU
+    inputs, keyword inputs, border) at the reference's sizes: batch 2, 8
+    bands. `border` is None but for a wavelet round trip, whose last output
+    must give back its input away from a border of that width."""
+    import copy
+
+    from tmdiff_tpu_torch.models.blocks import AdaptiveGroupNorm, ChannelWiseAttention
+    from tmdiff_tpu_torch.ops import dynamic_conv, kernel_adaption, pgcu, wavelet
+    from tmdiff_tpu_torch.train import loss_zoo, losses
+
+    rng = np.random.default_rng(SEED)
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+
+    def uniform(*shape):
+        return torch.as_tensor(rng.uniform(0.05, 0.95, shape).astype(np.float32))
+
+    f, img, img4 = LIB_FEATURE, LIB_IMAGE, LIB_IMAGE // 4
+    feat = f"8-band {f}x{f}x{f}"
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        dyn = dynamic_conv.DynamicConv3d(f, f, (3, 3, 3), num_kernels=4)
+        torch.nn.init.normal_(dyn.bias, std=0.1)
+        modules = {
+            f"DynamicConv3d K=4, {feat} -> {f}": (dyn, [normal(BATCH, 8, f, f, f)],
+                                                 {"temperature": 4.0}),
+            f"PGCU, pan {img}x{img}, ms {img4}x{img4}, 8 bands": (
+                pgcu.PGCU(8, 128, 3), [uniform(BATCH, img, img, 1), uniform(BATCH, img4, img4, 8)],
+                {}),
+            f"GaussianDegradation k5 x4, 8-band {img}x{img}": (
+                kernel_adaption.GaussianDegradation(5, 4), [uniform(BATCH, img, img, 8)], {}),
+            f"FreePSFDegradation x4, 8-band {img}x{img}": (
+                kernel_adaption.FreePSFDegradation(4), [uniform(BATCH, img, img, 8)], {}),
+            f"ChannelWiseAttention, {feat}": (ChannelWiseAttention(f, 16),
+                                              [normal(BATCH, 8, f, f, f)], {}),
+            f"AdaptiveGroupNorm, {feat}, style 256": (
+                AdaptiveGroupNorm(f, 256, 8), [normal(BATCH, 8, f, f, f), normal(BATCH, 256)], {}),
+        }
+    for label, (m, args, kw) in modules.items():
+        yield label, m.eval(), copy.deepcopy(m).to(DEV).eval(), args, kw, None
+
+    pred, target = uniform(BATCH, img, img, 8), uniform(BATCH, img, img, 8)
+    pan, lr_ms = uniform(BATCH, img, img, 1), uniform(BATCH, img4, img4, 8)
+    ms = uniform(BATCH, img, img, 8)  # the upsampled MS of the zoo's spectral terms
+    composite = losses.CompositeLoss([
+        ("l1", 1.0, losses.l1), ("l2", 0.5, losses.l2),
+        ("spectral", 0.3, lambda pred, lr_ms, **_: losses.spectral_consistency(pred, lr_ms)),
+        ("gradient", 0.2, lambda pred, pan, **_: losses.gradient_matching(pred, pan)),
+        ("highpass", 0.2, lambda pred, pan, **_: losses.highpass_matching(pred, pan)),
+        ("ssim", 0.1, lambda pred, target, **_: losses.ssim_loss(pred, target))])
+    yield (f"CompositeLoss (l1, l2, spectral, Sobel, high pass, SSIM), 8-band {img}x{img}",
+           composite, composite, [], {"pred": pred, "target": target, "pan": pan, "lr_ms": lr_ms},
+           None)
+    for name, args in (("loss_func1", [target, pan, ms, pred]),
+                       ("loss_func2", [target, pan, ms, pred]), ("loss_func8", [pan, ms, pred]),
+                       ("loss_func22", [target, pred]), ("sam_loss", [target, pred])):
+        fn = getattr(loss_zoo, name)
+        yield f"loss zoo {name}, 8-band {img}x{img}", fn, fn, args, {}, None
+
+    def db2_round_trip(x):
+        bands = wavelet.dwt2d(x, "db2")
+        return (*bands, wavelet.idwt2d(*bands, "db2"))
+
+    def haar3d_round_trip(x):
+        bands = wavelet.dwt3d(x)
+        return bands, wavelet.idwt3d(bands)
+
+    # the reference's truncated db2 matrices lose a (4 / 2)-wide border
+    yield f"db2 dwt2d + idwt2d, 8-band {img}x{img}", db2_round_trip, db2_round_trip, [pred], {}, 2
+    yield (f"haar dwt3d + idwt3d, {feat}", haar3d_round_trip, haar3d_round_trip,
+           [normal(BATCH, 8, f, f, f)], {}, 0)
+
+
+def library_phase():
+    """Each library case once on the card and once on the CPU: every output
+    within LIBRARY_RTOL of its scale, finite, of the CPU's shape; the
+    wavelet round trips reconstruct their input away from the db2 border;
+    ms a call on the card by CUDA events."""
+    results = {}
+    for label, cpu_fn, dev_fn, args, kw, border in library_cases():
+        dev_args = [a.to(DEV) for a in args]
+        dev_kw = {k: v.to(DEV) if torch.is_tensor(v) else v for k, v in kw.items()}
+        with torch.no_grad():
+            ref = _tensors(cpu_fn(*args, **kw))
+            got = _tensors(dev_fn(*dev_args, **dev_kw))
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: dev_fn(*dev_args, **dev_kw), LIBRARY_REPS)
+        err = 0.0
+        for g, r in zip(got, ref, strict=True):
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                fail(f"library {label}: output {tuple(g.shape)} (CPU {tuple(r.shape)}) or not finite")
+            scale = max(r.abs().max().item(), 1e-30)
+            err = max(err, (g.cpu() - r).abs().max().item() / scale)
+        if border is not None:
+            x, rec, m = args[0], ref[-1], border
+            inner = (slice(None), slice(m, -m or None), slice(m, -m or None))
+            if not torch.allclose(rec[inner], x[inner], atol=1e-4):
+                fail(f"library {label}: the round trip does not reconstruct its input")
+        print(f"[library] {label}: {len(got)} outputs, max err of scale {err:.3g} "
+              f"(rtol {LIBRARY_RTOL}), {ms:.4f} ms on the card", flush=True)
+        if not err <= LIBRARY_RTOL:
+            fail(f"library {label}: card and CPU differ by {err:.3g} of scale")
+        results[label] = {"ms": ms, "max_err_of_scale": err}
+    return results
 
 
 # The training step at the general_multi preset (tmdiff_tpu/config/presets):
@@ -3226,7 +3429,10 @@ def main() -> int:
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
     samplers, sampler_hold = timed("samplers", samplers_phase, model, K, K3, K4, modconv, SEED)
-    k4_totals, k4_err, k4_launches, k4_variants = timed("attention", attention_phase, K4, gen)
+    k4 = timed("attention", attention_phase, K4, gen)
+    k4_totals, k4_err, k4_launches, k4_variants = k4["float32"]
+    k4b_totals, k4b_err, k4b_launches, k4b_variants = k4["bfloat16"]
+    timed("library", library_phase)
     train = timed("train", train_phase, K, K3, K4, gen)
     root = tempfile.mkdtemp(prefix="tmdiff_cli_")
     try:
@@ -3321,6 +3527,15 @@ def main() -> int:
          "library_ms": k4_totals["library_ms"],
          "times_are": f"summed over the two attentions of one SpatialTransformer forward, "
                       f"batch {BATCH}, 64x64x256, 8 heads x 64"},
+        {"name": "flash_attention_bf16", "route": "cuda",
+         "source": "tmdiff_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "tmdiff_tpu/ops/pallas/flash_attention.py:80",
+         "launches": k4b_launches, "variant_launches": k4b_variants, "max_abs_err": k4b_err,
+         "ms": k4b_totals["ms"], "plain_ms": k4b_totals["plain_ms"],
+         "bound_ms": k4b_totals["bound_ms"], "bound_by": k4b_totals["bound_by"],
+         "library_ms": k4b_totals["library_ms"], "peak_flops": PEAK_BF16_FLOPS,
+         "times_are": f"summed over the two attentions of one bf16 SpatialTransformer "
+                      f"forward, batch {BATCH}, 64x64x256, 8 heads x 64 (library: bf16 SDPA)"},
         {"name": "conv3d_333_bf16", "replaces": "tmdiff_tpu/ops/pallas/banded_conv3d.py:101",
          "replaces_also": "tmdiff_tpu/ops/pallas/banded_conv3d.py:182",
          **bf16_entry("banded", bf16_totals["conv3d"], bf16_requests["banded"]["K1"])},

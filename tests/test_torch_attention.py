@@ -251,3 +251,111 @@ def test_channel_attention_golden():
         y = m(x)
     np.testing.assert_allclose(y.numpy(), np.moveaxis(g["y"].reshape(b, c_ * n, h, w), 1, -1),
                                atol=3e-5)
+
+
+# --- bf16: K4's plain version and the library in bf16 ------------------------
+
+BF16_SCALE_RTOL = 1e-4  # fp32 sums taken in another order
+MODEL_CAP = 2e-2  # tests/test_torch_bf16.py's model bar
+
+
+def _half_step(a):
+    """Half the spacing of bf16 values at |a|: one rounding's largest error."""
+    a = np.abs(np.asarray(a, np.float64))
+    e = np.floor(np.log2(np.where(a > 0, a, 1.0)))
+    return np.where(a > 0, 2.0 ** (e - 8), 0.0)
+
+
+def _bf16_values(rng, shape):
+    """Unit-normal values rounded to bf16, as float32 numpy (exact in both
+    packages' bf16)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    return np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [
+    ((2, 4, 64, 32), 64), ((1, 2, 100, 40), 100), ((1, 2, 48, 32), 130), ((1, 1, 70, 42), 33),
+])
+def test_bf16_plain_matches_pallas(rng, q_shape, kv_len):
+    """flash_attention_plain in bf16 (what the wrapper computes on a CPU
+    tensor) against the JAX Pallas kernel on bf16 inputs in interpret mode:
+    within one bf16 step, each element within half a step of each side's
+    value plus 1e-4 of the output's scale. Both cast the tiles to fp32 and
+    round the output once."""
+    b, h, sq, d = q_shape
+    q = _bf16_values(rng, q_shape)
+    k, v = (_bf16_values(rng, (b, h, kv_len, d)) for _ in range(2))
+    ref = np.asarray(jax_flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                         block_q=64, block_k=64).astype(jnp.float32))
+    got = K4.flash_attention(*(_t(a).bfloat16() for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    bar = _half_step(got) + _half_step(ref) + BF16_SCALE_RTOL * np.abs(ref).max()
+    assert np.all(np.abs(got - ref) <= bar), np.abs(got - ref).max()
+    # in float32 the plain version is the reference's function
+    f32 = K4.flash_attention_plain(*(_t(a) for a in (q, k, v)))
+    assert torch.equal(f32, K4.attention_reference(*(_t(a) for a in (q, k, v))))
+
+
+def test_bf16_wrapper_checks(rng):
+    q = _t(rng.standard_normal((1, 2, 8, 16))).bfloat16()
+    k = _t(rng.standard_normal((1, 2, 5, 16))).bfloat16()
+    K4._check(q, k, k)
+    with pytest.raises(TypeError, match="one launch takes one dtype"):
+        K4._check(q, k.float(), k)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K4._check(q.half(), k.half(), k.half())
+
+
+BF16_MODULES = {
+    "cross_attention_flash": (
+        lambda dt: jax_attention.CrossAttention(heads=4, dim_head=8, dtype=dt),
+        lambda dt: attention.CrossAttention(32, 40, heads=4, dim_head=8, dtype=dt), (TOKENS, CTX)),
+    "self_attention_plain": (
+        lambda dt: jax_attention.CrossAttention(heads=4, dim_head=8, use_flash=False, dtype=dt),
+        lambda dt: attention.CrossAttention(32, heads=4, dim_head=8, use_flash=False, dtype=dt),
+        (TOKENS,)),
+    "geglu": (lambda dt: jax_attention.GEGLU(24, dtype=dt),
+              lambda dt: attention.GEGLU(32, 24, dtype=dt), (TOKENS,)),
+    "feed_forward_gelu": (lambda dt: jax_attention.FeedForward(mult=2, glu=False, dtype=dt),
+                          lambda dt: attention.FeedForward(32, mult=2, glu=False, dtype=dt),
+                          (TOKENS,)),
+    "transformer_block": (
+        lambda dt: jax_attention.BasicTransformerBlock(4, 8, dtype=dt),
+        lambda dt: attention.BasicTransformerBlock(32, 4, 8, context_dim=40, dtype=dt),
+        (TOKENS, CTX)),
+    "spatial_transformer": (
+        lambda dt: jax_attention.SpatialTransformer(4, 16, depth=2, use_checkpoint=False, dtype=dt),
+        lambda dt: attention.SpatialTransformer(32, 4, 16, depth=2, context_dim=40, dtype=dt),
+        (IMAGE, CTX)),
+    "spatial_self_attention": (
+        lambda dt: jax_attention.SpatialSelfAttention(dtype=dt),
+        lambda dt: attention.SpatialSelfAttention(32, dtype=dt), (IMAGE,)),
+    "channel_self_attention": (
+        lambda dt: jax_attention.ChannelSelfAttention(dtype=dt),
+        lambda dt: attention.ChannelSelfAttention(32, dtype=dt), (IMAGE,)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_MODULES))
+def test_bf16_module_matches_jax(name):
+    """Each module with dtype=bfloat16 against the JAX module of
+    dtype=jnp.bfloat16 on the same float32 weights and inputs: the port's
+    output within twice JAX-bf16's own gap to JAX-fp32 of JAX-bf16 and
+    under 2e-2 of the output's scale (tests/test_torch_bf16.py's model bar),
+    in the output dtype flax gives (bf16, or float32 past a float32
+    residual)."""
+    jax_of, port_of, inputs = BF16_MODULES[name]
+    args = [jnp.asarray(a) for a in inputs]
+    params = _random_params(jax_of(jnp.float32), *args)
+    ref32 = np.asarray(jax_of(jnp.float32).apply({"params": params}, *args), np.float32)
+    ref16 = jax_of(jnp.bfloat16).apply({"params": params}, *args)
+    port = from_flax(port_of(torch.bfloat16), {"params": params}).eval()
+    with torch.no_grad():
+        got = port(*(_t(a) for a in inputs))
+    assert str(got.dtype).split(".")[-1] == str(ref16.dtype)
+    got, ref16 = got.float().numpy(), np.asarray(ref16, np.float32)
+    scale = np.abs(ref32).max()
+    own = np.abs(ref16 - ref32).max() / scale
+    gap = np.abs(got - ref16).max() / scale
+    assert gap <= 2 * own and gap < MODEL_CAP, (gap, own)

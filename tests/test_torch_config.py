@@ -1,9 +1,10 @@
 """The port's config system (tmdiff_tpu_torch/config) against the JAX
 package's: every preset, parsed with debug on and off, gives the same tree
 and the same printed form; the port's preset copies equal the JAX package's
-files byte for byte."""
-import filecmp
+files in every key and value but their `info` strings (and comments), which
+name the port's entry points and no TPU figure."""
 import os
+import re
 
 import pytest
 import torch
@@ -20,8 +21,15 @@ def test_presets_are_the_jax_packages():
     jax_dir = os.path.join(os.path.dirname(jax_config.__file__), "presets")
     assert PRESETS == sorted(n for n in os.listdir(jax_dir) if n.endswith(".json"))
     for name in PRESETS:
-        assert filecmp.cmp(os.path.join(config.PRESETS, name), os.path.join(jax_dir, name),
-                           shallow=False), name
+        ours = config.load_commented_json(os.path.join(config.PRESETS, name))
+        ref = jax_config.load_commented_json(os.path.join(jax_dir, name))
+        assert set(ours) == set(ref), name
+        assert {k: v for k, v in ours.items() if k != "info"} == \
+            {k: v for k, v in ref.items() if k != "info"}, name
+        with open(os.path.join(config.PRESETS, name)) as f:
+            text = f.read()
+        # the port's entry points only, and no figure taken on a TPU
+        assert not re.search(r"tmdiff_tpu\.|BASELINE|orbax|/chip|TPU", text), name
 
 
 @pytest.mark.parametrize("debug", [False, True])

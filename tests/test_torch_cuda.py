@@ -3,8 +3,9 @@ entries, forward and, through its autograd Function, the input gradient;
 the training step around it), the 3x3 NHWC conv (K3) and flash attention
 (K4) against their plain versions at edge shapes, the conv kernel's variants (3xTF32 tensor cores,
 with split-K, and the fp32 FMA kernel for Cin % 4 != 0) and its
-determinism, K4's variants (3xTF32 with split-KV, fp32 FMA for D % 4 != 0),
-plan, determinism and error at its deepest sums, the wrappers' refusals,
+determinism, K4's variants (3xTF32 with split-KV, fp32 FMA for D % 4 != 0,
+and their bf16 instances against flash_attention_plain within one bf16
+step), plan, determinism and error at its deepest sums, the wrappers' refusals,
 and the model's kernel paths ("banded" and "auto") and a SpatialTransformer
 against their plain paths. Marked `cuda`; each test
 skips where no GPU is present. This file imports neither jax nor the JAX
@@ -634,7 +635,7 @@ def test_flash_attention_plan_at_the_chip_shapes(cuda, q_shape, kv_len, key_tile
     with torch.no_grad():
         K4.reset_launches()
         K4.flash_attention(q, k, v)
-    assert K4.variant_launches == {"fma": 0, "tc": 1}
+    assert K4.variant_launches == {"fma": 0, "tc": 1, "bf16_fma": 0, "bf16": 0}
 
 
 def test_flash_attention_split_kv_is_deterministic(cuda):
@@ -695,6 +696,79 @@ def test_flash_attention_wrapper_refuses(cuda):
         K4.flash_attention(*(torch.randn(1, 1, 4, 300, device=cuda),) * 3)
     with pytest.raises(RuntimeError, match="no backward"):
         K4.flash_attention(q.clone().requires_grad_(), q, q)
+
+
+def _bf16_half_step(t):
+    a = t.float().abs()
+    e = torch.floor(torch.log2(torch.where(a > 0, a, torch.ones_like(a))))
+    return torch.where(a > 0, torch.exp2(e - 8), torch.zeros_like(a))
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [
+    ((2, 8, 4096, 64), 4096), ((2, 8, 4096, 64), 1), ((2, 1, 1024, 256), 1024),
+    ((1, 2, 48, 32), 130), ((1, 2, 100, 40), 100), ((3, 1, 1, 8), 77), ((1, 1, 70, 200), 33),
+    ((1, 3, 129, 128), 65), ((1, 2, 50, 64), 7), ((1, 2, 50, 64), 4097),
+    ((2, 4, 1024, 256), 1024), ((2, 2, 77, 42), 50), ((1, 2, 33, 12), 20),
+])
+def test_flash_attention_bf16_matches_plain(cuda, q_shape, kv_len):
+    """K4's bf16 instance against flash_attention_plain on the same bf16
+    inputs: the output bf16, each element within one bf16 step (half a step
+    of each side's value plus 1e-4 of the output's scale: two roundings of
+    fp32 results that differ in their last bits); the tensor cores at D % 8
+    == 0 (split and unsplit, masked tails, one key), the FMA kernel over
+    bf16 loads at D = 42 and 12; a second launch bit-identical."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q, k, v = (t.bfloat16() for t in _random_attention(cuda, q_shape, kv_len, seed=7))
+    with torch.no_grad():
+        K4.reset_launches()
+        got = K4.flash_attention(q, k, v)
+        again = K4.flash_attention(q, k, v)
+        assert K4.variant_launches["bf16_fma" if q_shape[3] % 8 else "bf16"] == 2
+        ref = K4.flash_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    diff = (got.float() - ref.float()).abs()
+    bar = _bf16_half_step(got) + _bf16_half_step(ref) + 1e-4 * ref.float().abs().max()
+    assert bool((diff <= bar).all()), diff.max().item()
+
+
+def test_flash_attention_bf16_refuses(cuda):
+    """A bf16 tensor-core shape must start on a 16-byte boundary, and one
+    launch takes one dtype."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q = torch.randn(1 + 2 * 8 * 16, device=cuda).bfloat16()[1:].view(1, 2, 8, 16)
+    k = torch.randn(1, 2, 8, 16, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="16-byte aligned when D % 8 == 0"):
+        K4.flash_attention(q, k, k)
+    with pytest.raises(TypeError, match="one dtype"):
+        K4.flash_attention(k, k.float(), k)
+
+
+def test_spatial_transformer_bf16_kernel_matches_plain(cuda):
+    """A bf16 SpatialTransformer through K4's bf16 instance (two launches)
+    against the same module on the plain attention; within 2e-2 of the
+    output's scale (bf16 activations through two attentions and a
+    feed-forward: the model bar of tests/test_torch_bf16.py)."""
+    from tmdiff_tpu_torch.ops import attention
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    torch.manual_seed(0)
+    m = attention.SpatialTransformer(64, 4, 32, depth=1, context_dim=96,
+                                     dtype=torch.bfloat16).to(cuda).eval()
+    torch.nn.init.normal_(m.proj_out.weight, std=0.05)
+    x = torch.randn(2, 16, 16, 64, device=cuda)
+    ctx = torch.randn(2, 3, 96, device=cuda)
+    with torch.no_grad():
+        K4.reset_launches()
+        y = m(x, ctx)
+        assert K4.variant_launches["bf16"] == 2 and K4.launches == 2
+        for mod in m.modules():
+            if hasattr(mod, "use_flash"):
+                mod.use_flash = False
+        ref = m(x, ctx)
+    assert (y - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
 
 
 def test_model_auto_path_matches_banded(cuda):

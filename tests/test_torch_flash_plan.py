@@ -59,6 +59,25 @@ def test_plan_variant_is_a_function_of_the_head_dim(d, variant):
             assert p == K4.Plan("fma", 64, 64, 1, 0)
 
 
+@pytest.mark.parametrize("d,variant", [(42, "bf16_fma"), (12, "bf16_fma"), (4, "bf16_fma"),
+                                       (8, "bf16"), (40, "bf16"), (256, "bf16")])
+def test_bf16_plan_takes_the_tensor_cores_at_16_byte_rows(d, variant):
+    """In bf16 a 16-byte row is 8 elements: D % 8 == 0 takes the bf16
+    tensor-core instance with the fp32 plan's tiling and an image of one
+    part a K / V element (8 bytes an element pair, half of fp32's 16); other
+    D take the FMA kernel over bf16 loads."""
+    for skv in (1, 100, 4096):
+        p = K4.plan(1, 2, 300, skv, d, H100_SMS, torch.bfloat16)
+        assert p.variant == variant
+        if variant == "bf16_fma":
+            assert p == K4.Plan("bf16_fma", 64, 64, 1, 0)
+        else:
+            fp32 = K4.plan(1, 2, 300, skv, d, H100_SMS)
+            assert p[1:4] == fp32[1:4]
+            images = 2 * math.ceil(skv / p.key_tile) * K4.head_tile(d) * p.key_tile
+            assert p.workspace_bytes - 8 * images == fp32.workspace_bytes - 16 * images
+
+
 @pytest.mark.parametrize("skv,tile", [(1, 8), (7, 8), (8, 8), (9, 16), (65, 64)])
 def test_plan_key_tile_covers_short_contexts(skv, tile):
     assert K4.plan(2, 8, 4096, skv, 64, H100_SMS).key_tile == tile

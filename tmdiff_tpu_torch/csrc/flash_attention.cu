@@ -1,4 +1,5 @@
-// Non-causal attention over (B, H, S, D) fp32 tensors with an online softmax:
+// Non-causal attention over (B, H, S, D) fp32 or bf16 tensors with an online
+// softmax:
 //
 //   o[bh, i, :] = sum_j softmax_j(scale * q[bh, i, :] . k[bh, j, :]) v[bh, j, :]
 //
@@ -69,7 +70,24 @@
 // 16, thread (ty, tx) owns query rows 4ty..4ty+3; 64-query by 64-key tiles in
 // dynamic shared memory (217 KB at D = 256), rows padded to an odd multiple
 // of 4 floats; P goes through shared memory to the P.V product.
+//
+// bf16 (the entry's dtype 1): the Pallas kernel's function for bf16 q, k, v,
+// which casts each tile to fp32, keeps m, l and acc in fp32 and writes
+// q.dtype once. Every kernel above has a bf16 instance (T = __nv_bfloat16):
+// q, k, v are read as bf16 from device memory and widened exactly, o is
+// rounded to bf16 (nearest even) once, in the epilogue or the merge; the
+// softmax state, the split partials and the merge stay fp32. A bf16 value
+// is exact in TF32, so the tensor-core instance (D % 8 == 0: 16-byte bf16
+// rows) drops the lo parts of Q, K and V: S = Q.K^T is one TF32 product a
+// multiply-add and O += P.V two (P, fp32, still split into hi and lo), and
+// the K / V^T image holds one part of each (half the fp32 image's bytes, so
+// half the bulk-copy bytes a stage). P is not rounded to bf16 before P.V:
+// the Pallas kernel keeps p in fp32. Bound: operations at the TF32 rate,
+// 1 + 2 products on the two matrix products, 330 TFLOP/s for the work of
+// both (chip_smoke.py states the bound at the bf16 rate, 989 TFLOP/s). Other
+// D take the FMA kernel over bf16 loads.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -83,6 +101,49 @@ using namespace hopper;
 
 int cdiv(long long a, long long b) { return static_cast<int>((a + b - 1) / b); }
 
+using bf16 = __nv_bfloat16;
+
+// Device-memory access by element type: fp32 as is; bf16 widened to fp32
+// (exact) on load and rounded to nearest even on store. NP: the TF32 parts
+// (hi, lo) an operand element needs in the tensor-core kernel: one for a
+// bf16 value, which TF32 holds exactly.
+template <typename T>
+struct Io;
+
+template <>
+struct Io<float> {
+  static constexpr int NP = 2;
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+  __device__ static float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+  __device__ static void store(float* p, float a) { *p = a; }
+  __device__ static void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static void store4(float* p, float4 a) { *reinterpret_cast<float4*>(p) = a; }
+};
+
+template <>
+struct Io<bf16> {
+  static constexpr int NP = 1;
+  __device__ static float load(const bf16* p) { return __bfloat162float(*p); }
+  __device__ static float2 load2(const bf16* p) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    return make_float2(bf16_lo(v), bf16_hi(v));
+  }
+  __device__ static float4 load4(const bf16* p) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    return make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+  }
+  __device__ static void store(bf16* p, float a) { *p = __float2bfloat16_rn(a); }
+  __device__ static void store2(bf16* p, float a, float b) {
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+  }
+  __device__ static void store4(bf16* p, float4 a) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(a.x, a.y), pack_bf16x2(a.z, a.w));
+  }
+};
+
 // ---------------------------------------------------------------------------
 // fp32 FMA variant: D % 4 != 0.
 // ---------------------------------------------------------------------------
@@ -93,10 +154,10 @@ constexpr int kBK = 64;        // keys per K/V tile
 constexpr int kLDP = kBK + 4;  // row stride of P
 constexpr float kNegInf = -1e30f;
 
-template <int NQ>  // value-column chunks of 64: D <= 64 * NQ
+template <int NQ, typename T>  // value-column chunks of 64: D <= 64 * NQ
 __global__ void __launch_bounds__(kThreads)
-flash_attention_ffma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, float* __restrict__ o, int Sq, int Skv,
+flash_attention_ffma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                             int D, int DP, int LD, float scale) {
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][LD]
@@ -108,13 +169,13 @@ flash_attention_ffma_kernel(const float* __restrict__ q, const float* __restrict
   const int tx = tid % 16, ty = tid / 16;
   const long long bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const float* qb = q + (bh * Sq + q0) * D;
-  const float* kb = k + bh * Skv * D;
-  const float* vb = v + bh * Skv * D;
+  const T* qb = q + (bh * Sq + q0) * D;
+  const T* kb = k + bh * Skv * D;
+  const T* vb = v + bh * Skv * D;
 
   for (int e = tid; e < kBQ * DP; e += kThreads) {
     const int r = e / DP, c = e % DP;
-    qs[r * LD + c] = (q0 + r < Sq && c < D) ? qb[(long long)r * D + c] : 0.f;
+    qs[r * LD + c] = (q0 + r < Sq && c < D) ? Io<T>::load(qb + (long long)r * D + c) : 0.f;
   }
 
   float m[4], l[4], acc[4][4 * NQ];
@@ -132,8 +193,8 @@ flash_attention_ffma_kernel(const float* __restrict__ q, const float* __restrict
       const int r = e / DP, c = e % DP;
       const bool in = k0 + r < Skv && c < D;
       const long long g = (long long)(k0 + r) * D + c;
-      ks[r * LD + c] = in ? kb[g] : 0.f;
-      vs[r * LD + c] = in ? vb[g] : 0.f;
+      ks[r * LD + c] = in ? Io<T>::load(kb + g) : 0.f;
+      vs[r * LD + c] = in ? Io<T>::load(vb + g) : 0.f;
     }
     __syncthreads();
 
@@ -221,24 +282,24 @@ flash_attention_ffma_kernel(const float* __restrict__ q, const float* __restrict
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= Sq) continue;
-    float* orow = o + (bh * Sq + r) * D;
+    T* orow = o + (bh * Sq + r) * D;
 #pragma unroll
     for (int cq = 0; cq < NQ; ++cq)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 64 * cq + 4 * tx + e;
-        if (c < D) orow[c] = acc[i][4 * cq + e] / l[i];
+        if (c < D) Io<T>::store(orow + c, acc[i][4 * cq + e] / l[i]);
       }
   }
 }
 
-template <int NQ>
-int launch_ffma(const float* q, const float* k, const float* v, float* o, int BH, int Sq,
-                int Skv, int D, float scale, cudaStream_t stream) {
+template <int NQ, typename T>
+int launch_ffma(const T* q, const T* k, const T* v, T* o, int BH, int Sq, int Skv, int D,
+                float scale, cudaStream_t stream) {
   const int DP = (D + 3) / 4 * 4;
   const int LD = DP % 8 == 0 ? DP + 4 : DP;  // an odd multiple of 4
   const int smem = ((kBQ + 2 * kBK) * LD + kBQ * kLDP) * 4;
-  auto kernel = flash_attention_ffma_kernel<NQ>;
+  auto kernel = flash_attention_ffma_kernel<NQ, T>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + kBQ - 1) / kBQ, BH);
@@ -246,12 +307,13 @@ int launch_ffma(const float* q, const float* k, const float* v, float* o, int BH
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_ffma_entry(const float* q, const float* k, const float* v, float* o, int BH, int Sq,
-                      int Skv, int D, float scale, cudaStream_t s) {
-  if (D <= 64) return launch_ffma<1>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  if (D <= 128) return launch_ffma<2>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  if (D <= 192) return launch_ffma<3>(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  return launch_ffma<4>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+template <typename T>
+int launch_ffma_entry(const T* q, const T* k, const T* v, T* o, int BH, int Sq, int Skv, int D,
+                      float scale, cudaStream_t s) {
+  if (D <= 64) return launch_ffma<1, T>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  if (D <= 128) return launch_ffma<2, T>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  if (D <= 192) return launch_ffma<3, T>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  return launch_ffma<4, T>(q, k, v, o, BH, Sq, Skv, D, scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -269,7 +331,7 @@ constexpr int kSmemBudget = 227 * 1024;
 __host__ __device__ constexpr int head_tile(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 __host__ __device__ constexpr int max_key_tile(int dt) { return dt == 64 ? 64 : dt == 128 ? 32 : 16; }
 
-template <int DT, int BK>
+template <int DT, int BK, int NP>  // NP: TF32 parts of a staged K / V element
 struct TcCfg {
   static constexpr int DSPLIT = DT == 256 ? 2 : 1;  // consumers sharing one 64-row block
   static constexpr int DN = DT / DSPLIT;            // output columns per consumer
@@ -281,7 +343,7 @@ struct TcCfg {
   static constexpr int LDQ = DT + 8;                // Q row stride in shared memory (floats)
   static constexpr int Q_BYTES = QREG ? 0 : ROWS * LDQ * 4;
   static constexpr int PART = DT * BK;              // floats of one hi or lo operand
-  static constexpr int HALF_BYTES = 2 * PART * 4;   // K hi + lo, or V^T hi + lo
+  static constexpr int HALF_BYTES = NP * PART * 4;  // K hi (+ lo), or V^T hi (+ lo)
   static constexpr int STAGE_BYTES = 2 * HALF_BYTES;
   // DSPLIT = 2: each consumer's half of S, two tiles deep, [tile % 2][dh][BK / 2][128]
   static constexpr int X_BYTES = DSPLIT == 2 ? 2 * 2 * (BK / 2) * 128 * 4 : 0;
@@ -294,14 +356,17 @@ struct TcCfg {
 };
 
 // K and V^T of every (batch*head, key tile) as the main kernel stages them:
-// per tile [K hi | K lo | V^T hi | V^T lo], each dt * bk floats. K is the
-// B operand of S = Q.K^T (N = keys, K = d), V^T that of O = P.V (N = d,
-// K = keys); within a k8 step position c holds element 0 2 4 6 1 3 5 7 [c].
-// One block per tile: K and V come in through shared memory with float4
-// loads (D % 4 == 0), and the image goes out in order.
+// per tile [K hi | K lo | V^T hi | V^T lo] (fp32) or [K | V^T] (bf16, exact
+// in TF32), each part dt * bk floats. K is the B operand of S = Q.K^T (N =
+// keys, K = d), V^T that of O = P.V (N = d, K = keys); within a k8 step
+// position c holds element 0 2 4 6 1 3 5 7 [c]. One block per tile: K and V
+// come in through shared memory four elements a load (D % 4 == 0, D % 8 ==
+// 0 in bf16), and the image goes out in order.
+template <typename T>
 __global__ void __launch_bounds__(256)
-attention_kv_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
+attention_kv_split_kernel(const T* __restrict__ k, const T* __restrict__ v,
                           float* __restrict__ img, int Skv, int D, int n_tiles, int dt, int bk) {
+  constexpr int NP = Io<T>::NP;
   extern __shared__ float4 kv4[];
   float* kv = reinterpret_cast<float*>(kv4);  // [2][bk][ld]: K, then V
   const int ld = dt + 4;
@@ -312,13 +377,12 @@ attention_kv_split_kernel(const float* __restrict__ k, const float* __restrict__
   for (int e = threadIdx.x; e < 2 * bk * q4; e += blockDim.x) {
     const int c = (e % q4) * 4, r = (e / q4) % bk, is_v = e / (q4 * bk);
     float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + r < Skv && c < D)
-      val = *reinterpret_cast<const float4*>((is_v ? v : k) + (row0 + r) * D + c);
+    if (k0 + r < Skv && c < D) val = Io<T>::load4((is_v ? v : k) + (row0 + r) * D + c);
     *reinterpret_cast<float4*>(kv + (is_v * bk + r) * ld + c) = val;
   }
   __syncthreads();
   const int part = dt * bk;
-  float* dst = img + tile * 4 * part;
+  float* dst = img + tile * 2 * NP * part;
   for (int e = threadIdx.x; e < 2 * part; e += blockDim.x) {
     const int is_v = e / part, idx = e % part;
     const int nrows = is_v ? dt : bk;
@@ -327,22 +391,29 @@ attention_kv_split_kernel(const float* __restrict__ k, const float* __restrict__
     const int c = ((f >> 5) & 1) * 4 + (f & 3);   // K half, then column in it
     const int pc = c < 4 ? 2 * c : 2 * c - 7;
     const float val = is_v ? kv[(bk + 8 * s + pc) * ld + n] : kv[n * ld + 8 * s + pc];
-    uint32_t hi, lo;
-    split_tf32(val, hi, lo);
-    dst[is_v * 2 * part + idx] = __uint_as_float(hi);
-    dst[is_v * 2 * part + part + idx] = __uint_as_float(lo);
+    if constexpr (NP == 2) {
+      uint32_t hi, lo;
+      split_tf32(val, hi, lo);
+      dst[is_v * 2 * part + idx] = __uint_as_float(hi);
+      dst[is_v * 2 * part + part + idx] = __uint_as_float(lo);
+    } else {
+      dst[is_v * part + idx] = val;
+    }
   }
 }
 
 // The consumer warpgroups: S, the online softmax, P.V and the epilogue.
-template <int DT, int BK>
+// NP == 1 (bf16): Q and the staged K, V^T are exact in TF32, so Q enters
+// whole (no lo part) and each product takes one (S) or two (P.V) wgmmas.
+template <int DT, int BK, typename T>
 __device__ __forceinline__ void consume(const unsigned char* stages, const float* qs,
                                         float* xch, uint64_t* full, uint64_t* empty,
-                                        const float* __restrict__ q, float* __restrict__ o,
+                                        const T* __restrict__ q, T* __restrict__ o,
                                         float* __restrict__ part_o, float* __restrict__ part_ml,
                                         int bh, int q0, int Sq, int Skv, int D, int t_begin,
                                         int t_end, float scale_log2) {
-  using C = TcCfg<DT, BK>;
+  constexpr int NP = Io<T>::NP;
+  using C = TcCfg<DT, BK, NP>;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int dh = wg % C::DSPLIT;                        // which output columns
@@ -351,21 +422,28 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
 
   // Q fragment of k8 step s: {(g, 8s + 2t), (g + 8, 8s + 2t), (g, 8s + 2t + 1),
   // (g + 8, 8s + 2t + 1)}, the k order of the staged K.
-  uint32_t qhi[C::QREG ? C::KS : 1][4], qlo[C::QREG ? C::KS : 1][4];
+  uint32_t qhi[C::QREG ? C::KS : 1][4], qlo[C::QREG && NP == 2 ? C::KS : 1][4];
   if constexpr (C::QREG) {
-    const float* qb = q + (long long)bh * Sq * D;
+    const T* qb = q + (long long)bh * Sq * D;
 #pragma unroll
     for (int s = 0; s < C::KS; ++s) {
       const int d = 8 * s + 2 * t;
       float2 a = make_float2(0.f, 0.f), b = make_float2(0.f, 0.f);
       if (d < D) {
-        if (row0 < Sq) a = *reinterpret_cast<const float2*>(qb + (long long)row0 * D + d);
-        if (row1 < Sq) b = *reinterpret_cast<const float2*>(qb + (long long)row1 * D + d);
+        if (row0 < Sq) a = Io<T>::load2(qb + (long long)row0 * D + d);
+        if (row1 < Sq) b = Io<T>::load2(qb + (long long)row1 * D + d);
       }
-      split_tf32(a.x, qhi[s][0], qlo[s][0]);
-      split_tf32(b.x, qhi[s][1], qlo[s][1]);
-      split_tf32(a.y, qhi[s][2], qlo[s][2]);
-      split_tf32(b.y, qhi[s][3], qlo[s][3]);
+      if constexpr (NP == 2) {
+        split_tf32(a.x, qhi[s][0], qlo[s][0]);
+        split_tf32(b.x, qhi[s][1], qlo[s][1]);
+        split_tf32(a.y, qhi[s][2], qlo[s][2]);
+        split_tf32(b.y, qhi[s][3], qlo[s][3]);
+      } else {
+        qhi[s][0] = __float_as_uint(a.x);
+        qhi[s][1] = __float_as_uint(b.x);
+        qhi[s][2] = __float_as_uint(a.y);
+        qhi[s][3] = __float_as_uint(b.y);
+      }
     }
   }
 
@@ -394,13 +472,16 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
       else asm volatile("bar.sync 3, %0;" ::"n"(kConsumers) : "memory");
       fence_regs<BK / 2>(s);
       fence_regs<4 * C::KS>(&qhi[0][0]);
-      fence_regs<4 * C::KS>(&qlo[0][0]);
+      if constexpr (NP == 2) fence_regs<4 * C::KS>(&qlo[0][0]);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < C::KS; ++ks) {
-        const uint64_t dhi = b_desc(kb + ks * BK * 32), dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
-        Wgmma<BK>::mma(s, qhi[ks], dlo);
-        Wgmma<BK>::mma(s, qlo[ks], dhi);
+        const uint64_t dhi = b_desc(kb + ks * BK * 32);
+        if constexpr (NP == 2) {
+          const uint64_t dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
+          Wgmma<BK>::mma(s, qhi[ks], dlo);
+          Wgmma<BK>::mma(s, qlo[ks], dhi);
+        }
         Wgmma<BK>::mma(s, qhi[ks], dhi);
       }
       wgmma_commit();
@@ -411,27 +492,37 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
     } else {
 #pragma unroll 1
       for (int c0 = dh * C::KS; c0 < (dh + 1) * C::KS; c0 += C::QC) {
-        uint32_t ahi[C::QC][4], alo[C::QC][4];
+        uint32_t ahi[C::QC][4], alo[NP == 2 ? C::QC : 1][4];
 #pragma unroll
         for (int j = 0; j < C::QC; ++j) {
           const float* qr = qs + lrow * C::LDQ + 8 * (c0 + j) + 2 * t;
           const float2 a = *reinterpret_cast<const float2*>(qr);
           const float2 b = *reinterpret_cast<const float2*>(qr + 8 * C::LDQ);
-          split_tf32(a.x, ahi[j][0], alo[j][0]);
-          split_tf32(b.x, ahi[j][1], alo[j][1]);
-          split_tf32(a.y, ahi[j][2], alo[j][2]);
-          split_tf32(b.y, ahi[j][3], alo[j][3]);
+          if constexpr (NP == 2) {
+            split_tf32(a.x, ahi[j][0], alo[j][0]);
+            split_tf32(b.x, ahi[j][1], alo[j][1]);
+            split_tf32(a.y, ahi[j][2], alo[j][2]);
+            split_tf32(b.y, ahi[j][3], alo[j][3]);
+          } else {
+            ahi[j][0] = __float_as_uint(a.x);
+            ahi[j][1] = __float_as_uint(b.x);
+            ahi[j][2] = __float_as_uint(a.y);
+            ahi[j][3] = __float_as_uint(b.y);
+          }
         }
         fence_regs<BK / 2>(s);
         fence_regs<4 * C::QC>(&ahi[0][0]);
-        fence_regs<4 * C::QC>(&alo[0][0]);
+        if constexpr (NP == 2) fence_regs<4 * C::QC>(&alo[0][0]);
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < C::QC; ++j) {
           const int ks = c0 + j;
-          const uint64_t dhi = b_desc(kb + ks * BK * 32), dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
-          Wgmma<BK>::mma(s, ahi[j], dlo);
-          Wgmma<BK>::mma(s, alo[j], dhi);
+          const uint64_t dhi = b_desc(kb + ks * BK * 32);
+          if constexpr (NP == 2) {
+            const uint64_t dlo = b_desc(kb + C::PART * 4 + ks * BK * 32);
+            Wgmma<BK>::mma(s, ahi[j], dlo);
+            Wgmma<BK>::mma(s, alo[j], dhi);
+          }
           Wgmma<BK>::mma(s, ahi[j], dhi);
         }
         wgmma_commit();
@@ -508,8 +599,8 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
 #pragma unroll
       for (int jj = 0; jj < C::PJ; ++jj) {
         const uint32_t vs = vb + (j0 + jj) * DT * 32 + dh * (C::DN / 8) * 256;
-        const uint64_t dhi = b_desc(vs), dlo = b_desc(vs + C::PART * 4);
-        Wgmma<C::DN>::mma(tile, &phi[4 * jj], dlo);
+        const uint64_t dhi = b_desc(vs);
+        if constexpr (NP == 2) Wgmma<C::DN>::mma(tile, &phi[4 * jj], b_desc(vs + C::PART * 4));
         Wgmma<C::DN>::mma(tile, &plo[4 * jj], dhi);
         Wgmma<C::DN>::mma(tile, &phi[4 * jj], dhi);
       }
@@ -528,21 +619,23 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 
-  // Epilogue: o = acc / l, or the split's unnormalised acc and (m, l).
+  // Epilogue: o = acc / l in o's type, or the split's unnormalised fp32 acc
+  // and (m, l).
   const long long rows = (long long)gridDim.y * Sq;
-  float* out = part_o ? part_o + blockIdx.z * rows * D : o;
+  float* part = part_o ? part_o + blockIdx.z * rows * D : nullptr;
   const long long r0 = (long long)bh * Sq + row0, r1 = r0 + 8;
 #pragma unroll
   for (int j = 0; j < C::DN / 8; ++j) {
     const int d = dh * C::DN + 8 * j + 2 * t;
     if (d >= D) continue;
     const float* a = &acc[4 * j];
-    if (row0 < Sq)
-      *reinterpret_cast<float2*>(out + r0 * D + d) =
-          part_o ? make_float2(a[0], a[1]) : make_float2(a[0] / l0, a[1] / l0);
-    if (row1 < Sq)
-      *reinterpret_cast<float2*>(out + r1 * D + d) =
-          part_o ? make_float2(a[2], a[3]) : make_float2(a[2] / l1, a[3] / l1);
+    if (part) {
+      if (row0 < Sq) Io<float>::store2(part + r0 * D + d, a[0], a[1]);
+      if (row1 < Sq) Io<float>::store2(part + r1 * D + d, a[2], a[3]);
+    } else {
+      if (row0 < Sq) Io<T>::store2(o + r0 * D + d, a[0] / l0, a[1] / l0);
+      if (row1 < Sq) Io<T>::store2(o + r1 * D + d, a[2] / l1, a[3] / l1);
+    }
   }
   if (part_o && dh == 0 && t == 0) {
     float2* ml = reinterpret_cast<float2*>(part_ml) + blockIdx.z * rows;
@@ -551,13 +644,13 @@ __device__ __forceinline__ void consume(const unsigned char* stages, const float
   }
 }
 
-template <int DT, int BK>
+template <int DT, int BK, typename T>
 __global__ void __launch_bounds__(kTcThreads, 1)
-flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ img,
-                              float* __restrict__ o, float* __restrict__ part_o,
+flash_attention_tf32x3_kernel(const T* __restrict__ q, const float* __restrict__ img,
+                              T* __restrict__ o, float* __restrict__ part_o,
                               float* __restrict__ part_ml, int Sq, int Skv, int D, int n_tiles,
                               int tiles_per_split, float scale_log2) {
-  using C = TcCfg<DT, BK>;
+  using C = TcCfg<DT, BK, Io<T>::NP>;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* stages = smem;  // [NSTAGE][STAGE_BYTES]
   float* qs = reinterpret_cast<float*>(smem + C::NSTAGE * C::STAGE_BYTES);  // [ROWS][LDQ]
@@ -579,12 +672,12 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   if constexpr (!C::QREG) {
-    // Q's rows once, zero past Sq and D (D % 4 == 0: whole float4s).
-    const float* qb = q + (long long)bh * Sq * D;
+    // Q's rows once as fp32, zero past Sq and D (D % 4 == 0: whole groups of 4).
+    const T* qb = q + (long long)bh * Sq * D;
     for (int e = threadIdx.x; e < C::ROWS * (DT / 4); e += kTcThreads) {
       const int r = e / (DT / 4), c = (e % (DT / 4)) * 4;
       float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (q0 + r < Sq && c < D) val = *reinterpret_cast<const float4*>(qb + (long long)(q0 + r) * D + c);
+      if (q0 + r < Sq && c < D) val = Io<T>::load4(qb + (long long)(q0 + r) * D + c);
       *reinterpret_cast<float4*>(qs + r * C::LDQ + c) = val;
     }
   }
@@ -606,15 +699,16 @@ flash_attention_tf32x3_kernel(const float* __restrict__ q, const float* __restri
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-    consume<DT, BK>(stages, qs, xch, full, empty, q, o, part_o, part_ml, bh, q0, Sq, Skv, D, t_begin,
-                    t_end, scale_log2);
+    consume<DT, BK, T>(stages, qs, xch, full, empty, q, o, part_o, part_ml, bh, q0, Sq, Skv, D,
+                       t_begin, t_end, scale_log2);
   }
 }
 
 // o = sum_s 2^(m_s - M) O_s / sum_s 2^(m_s - M) l_s with M = max_s m_s, the
-// splits in order: the result is the same from run to run.
+// splits in order: the result is the same from run to run. o in its type.
+template <typename T>
 __global__ void attention_merge_kernel(const float* __restrict__ part_o,
-                                       const float* __restrict__ part_ml, float* __restrict__ o,
+                                       const float* __restrict__ part_ml, T* __restrict__ o,
                                        long long rows, int D, int splits) {
   const float2* ml = reinterpret_cast<const float2*>(part_ml);
   const int dq = D / 4;
@@ -636,8 +730,7 @@ __global__ void attention_merge_kernel(const float* __restrict__ part_o,
       acc.z = fmaf(w, po.z, acc.z);
       acc.w = fmaf(w, po.w, acc.w);
     }
-    *reinterpret_cast<float4*>(o + r * D + c) =
-        make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l);
+    Io<T>::store4(o + r * D + c, make_float4(acc.x / l, acc.y / l, acc.z / l, acc.w / l));
   }
 }
 
@@ -647,23 +740,23 @@ struct TcLayout {
   long long image_bytes = 0, partial_offset = 0, bytes = 0;
 };
 
-TcLayout tc_layout(int BH, int Sq, int Skv, int D, int bk, int splits) {
+TcLayout tc_layout(int BH, int Sq, int Skv, int D, int bk, int splits, int np) {
   TcLayout L;
   const int dt = head_tile(D);
   L.n_tiles = cdiv(Skv, bk);
   L.tiles_per_split = cdiv(L.n_tiles, splits);
-  L.image_bytes = (long long)BH * L.n_tiles * 16 * dt * bk;
+  L.image_bytes = (long long)BH * L.n_tiles * 8 * np * dt * bk;
   L.partial_offset = (L.image_bytes + 255) / 256 * 256;
   L.bytes = splits > 1 ? L.partial_offset + 4LL * splits * BH * Sq * (D + 2) : L.image_bytes;
   return L;
 }
 
-template <int DT, int BK>
-int launch_tc(const float* q, const float* k, const float* v, float* o, int BH, int Sq, int Skv,
-              int D, float scale, int splits, void* workspace, long long workspace_bytes,
+template <int DT, int BK, typename T>
+int launch_tc(const T* q, const T* k, const T* v, T* o, int BH, int Sq, int Skv, int D,
+              float scale, int splits, void* workspace, long long workspace_bytes,
               cudaStream_t stream) {
-  using C = TcCfg<DT, BK>;
-  const TcLayout L = tc_layout(BH, Sq, Skv, D, BK, splits);
+  using C = TcCfg<DT, BK, Io<T>::NP>;
+  const TcLayout L = tc_layout(BH, Sq, Skv, D, BK, splits, Io<T>::NP);
   // Every split must own at least one key tile: the plan's split count.
   if (cdiv(L.n_tiles, L.tiles_per_split) != splits || !workspace || workspace_bytes < L.bytes)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -676,10 +769,10 @@ int launch_tc(const float* q, const float* k, const float* v, float* o, int BH, 
     part_ml = part_o + splits * rows * D;
   }
 
-  attention_kv_split_kernel<<<BH * L.n_tiles, 256, 2 * BK * (DT + 4) * 4, stream>>>(
+  attention_kv_split_kernel<T><<<BH * L.n_tiles, 256, 2 * BK * (DT + 4) * 4, stream>>>(
       k, v, img, Skv, D, L.n_tiles, DT, BK);
 
-  auto kernel = flash_attention_tf32x3_kernel<DT, BK>;
+  auto kernel = flash_attention_tf32x3_kernel<DT, BK, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -690,56 +783,79 @@ int launch_tc(const float* q, const float* k, const float* v, float* o, int BH, 
   if (splits > 1) {
     const long long n = rows * (D / 4);
     const int blocks = cdiv(n, 256) < 8192 ? cdiv(n, 256) : 8192;
-    attention_merge_kernel<<<blocks, 256, 0, stream>>>(part_o, part_ml, o, rows, D, splits);
+    attention_merge_kernel<T><<<blocks, 256, 0, stream>>>(part_o, part_ml, o, rows, D, splits);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_tc_entry(int key_tile, const float* q, const float* k, const float* v, float* o,
-                    int BH, int Sq, int Skv, int D, float scale, int splits, void* ws,
-                    long long ws_bytes, cudaStream_t s) {
+template <typename T>
+int launch_tc_entry(int key_tile, const T* q, const T* k, const T* v, T* o, int BH, int Sq,
+                    int Skv, int D, float scale, int splits, void* ws, long long ws_bytes,
+                    cudaStream_t s) {
   switch (head_tile(D) * 1000 + key_tile) {
-    case 64008: return launch_tc<64, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 64016: return launch_tc<64, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 64032: return launch_tc<64, 32>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 64064: return launch_tc<64, 64>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 128008: return launch_tc<128, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 128016: return launch_tc<128, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 128032: return launch_tc<128, 32>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 256008: return launch_tc<256, 8>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
-    case 256016: return launch_tc<256, 16>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64008: return launch_tc<64, 8, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64016: return launch_tc<64, 16, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64032: return launch_tc<64, 32, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 64064: return launch_tc<64, 64, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128008: return launch_tc<128, 8, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128016: return launch_tc<128, 16, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 128032: return launch_tc<128, 32, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 256008: return launch_tc<256, 8, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
+    case 256016: return launch_tc<256, 16, T>(q, k, v, o, BH, Sq, Skv, D, scale, splits, ws, ws_bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The entry for one element type: the FMA kernel (variant 0) or the
+// tensor-core kernel (variant 1: 16-byte rows, D % 4 == 0 in fp32, D % 8 == 0
+// in bf16, and 16-byte aligned tensors).
+template <typename T>
+int run(const void* q_, const void* k_, const void* v_, void* o_, int BH, int Sq, int Skv, int D,
+        float scale, int variant, int rows, int key_tile, int splits, void* workspace,
+        long long workspace_bytes, cudaStream_t s) {
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const T* v = static_cast<const T*>(v_);
+  T* o = static_cast<T*>(o_);
+  if (variant == 0) {
+    if (rows != kBQ || key_tile != kBK || splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_ffma_entry<T>(q, k, v, o, BH, Sq, Skv, D, scale, s);
+  }
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  constexpr int kRowElems = 16 / sizeof(T);
+  if (variant != 1 || D % kRowElems != 0 || align % 16 != 0 ||
+      rows != (head_tile(D) == 256 ? 64 : 128) || key_tile > max_key_tile(head_tile(D)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tc_entry<T>(key_tile, q, k, v, o, BH, Sq, Skv, D, scale, splits, workspace,
+                            workspace_bytes, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), all contiguous fp32.
-// The plan (ops/cuda/flash_attention.py `plan`) names the variant (0: fp32
-// FMA, 1: 3xTF32 tensor cores, which needs D % 4 == 0 and 16-byte aligned
-// tensors), the query rows per block, the key tile, the split count and the
-// workspace bytes; the entry refuses a plan that does not match the shape.
+// q (BH, Sq, D), k and v (BH, Skv, D), o (BH, Sq, D), all contiguous, of one
+// dtype (0: fp32, 1: bf16). The plan (ops/cuda/flash_attention.py `plan`)
+// names the variant (0: FMA, 1: tensor cores, which needs 16-byte rows, D %
+// 4 == 0 in fp32 and D % 8 == 0 in bf16, and 16-byte aligned tensors), the
+// query rows per block, the key tile, the split count and the workspace
+// bytes; the entry refuses a plan that does not match the shape.
 // Returns a cudaError_t value: 0 when the launches were accepted.
-int tmdiff_flash_attention(const float* q, const float* k, const float* v, float* o, int BH,
-                           int Sq, int Skv, int D, float scale, int variant, int rows,
+int tmdiff_flash_attention(int dtype, const void* q, const void* k, const void* v, void* o,
+                           int BH, int Sq, int Skv, int D, float scale, int variant, int rows,
                            int key_tile, int splits, void* workspace, long long workspace_bytes,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (BH < 1 || BH > 65535 || Sq < 1 || Skv < 1 || D < 1 || D > 256 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (variant == 0) {
-    if (rows != kBQ || key_tile != kBK || splits != 1) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_ffma_entry(q, k, v, o, BH, Sq, Skv, D, scale, s);
-  }
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (variant != 1 || D % 4 != 0 || align % 16 != 0 || rows != (head_tile(D) == 256 ? 64 : 128) ||
-      key_tile > max_key_tile(head_tile(D)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return launch_tc_entry(key_tile, q, k, v, o, BH, Sq, Skv, D, scale, splits, workspace,
-                         workspace_bytes, s);
+  if (dtype == 0)
+    return run<float>(q, k, v, o, BH, Sq, Skv, D, scale, variant, rows, key_tile, splits,
+                      workspace, workspace_bytes, s);
+  if (dtype == 1)
+    return run<bf16>(q, k, v, o, BH, Sq, Skv, D, scale, variant, rows, key_tile, splits,
+                     workspace, workspace_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* tmdiff_flash_error_string(int err) {

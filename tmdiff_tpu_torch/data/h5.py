@@ -7,10 +7,12 @@ sensors), inferred from the file name or given. A sample is
 (the diffusion target is the residual). `h5py` is imported only where a file
 is read, so the rest runs where it is not installed.
 
-The batch gathers are numpy with the semantics of the JAX package's native
-host kernels (`runtime/native.py`): rows gathered in index order, uint16
-counts times the float32 reciprocal of the scale, other counts divided by
-the float32 scale, the residual as one float32 subtraction.
+The batch gathers are numpy with the semantics of the native host kernels
+(runtime/native.py, which computes the same bits in C++): rows gathered in
+index order, uint16 counts times the float32 reciprocal of the scale, other
+counts divided by the float32 scale, the residual as one float32
+subtraction. `merge_patches_4x4`, `split_patches_4x4` and `repack_h5_merged`
+make the 16-to-1 merged training variant.
 """
 from __future__ import annotations
 
@@ -132,3 +134,36 @@ class LazyPanDataset:
 
     def close(self):
         self._file.close()
+
+
+def merge_patches_4x4(imgs: np.ndarray) -> np.ndarray:
+    """(16, C, h, w) -> (C, 4h, 4w), the patches tiled row-major."""
+    b, c, h, w = imgs.shape
+    if b != 16:
+        raise ValueError(f"merge_patches_4x4 takes 16 patches, got {b}")
+    return imgs.reshape(4, 4, c, h, w).transpose(2, 0, 3, 1, 4).reshape(c, 4 * h, 4 * w)
+
+
+def split_patches_4x4(patch: np.ndarray) -> np.ndarray:
+    """(C, 4h, 4w) -> (16, C, h, w), the inverse of merge_patches_4x4."""
+    c, ph, pw = patch.shape
+    h, w = ph // 4, pw // 4
+    return patch.reshape(c, 4, h, 4, w).transpose(1, 3, 0, 2, 4).reshape(16, c, h, w)
+
+
+def repack_h5_merged(src: str, dst: str):
+    """Offline 16-to-1 patch merger writing the 256x256 training variant of
+    a PanCollection file (the reference's `read_h5`): every run of 16
+    consecutive samples becomes one, a trailing partial run is dropped."""
+    import h5py
+
+    with h5py.File(src, "r") as f:
+        arrays = {k: np.asarray(f[k], np.float32) for k in KEYS if k in f}
+    merged = {k: [] for k in arrays}
+    n = next(iter(arrays.values())).shape[0]
+    for i in range(0, n - 15, 16):
+        for k, v in arrays.items():
+            merged[k].append(merge_patches_4x4(v[i:i + 16]))
+    with h5py.File(dst, "w") as f:
+        for k, v in merged.items():
+            f.create_dataset(k, data=np.stack(v))

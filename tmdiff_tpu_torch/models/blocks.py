@@ -14,6 +14,9 @@ reference torch classes, so a module's state_dict keys are the reference's
   ResblockUpOneModulateBEST     UpStage
   FinalBlockModulateBEST        FinalBlock
 
+The reference's two defined-but-unused blocks, ChannelWiseAttention and
+AdaptiveGroupNorm, are here too, with the flax names (fc1/fc2, style).
+
 A modulated conv's style Linear is a sibling of its conv in the reference
 (`dense2` of a ResBlock's `conv21`, `dense1` of a wavelet block's `Conv_1`),
 so it is one here too. The reference's dead parameters (the modulated convs'
@@ -94,17 +97,19 @@ def _lecun_normal(shape, fan_in):
 
 class Linear(nn.Linear):
     """nn.Linear run in `dtype`: in bfloat16 the input and the weight are
-    cast to it and the bias is added after the product, in bfloat16, as a
-    flax Dense of that dtype does; in float32 it is nn.Linear's forward."""
+    cast to it and the bias (if any) is added after the product, in
+    bfloat16, as a flax Dense of that dtype does; in float32 it is
+    nn.Linear's forward on a float32 input."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
-        super().__init__(cin, cout)
+    def __init__(self, cin: int, cout: int, dtype=torch.float32, bias: bool = True):
+        super().__init__(cin, cout, bias=bias)
         self.dtype = dtype
 
     def forward(self, x):
         if self.dtype == torch.float32:
             return super().forward(x.to(torch.float32))
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype)) + self.bias.to(self.dtype)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
 
 
 def linear(cin: int, cout: int, bias_value: float = 0.0, dtype=torch.float32) -> Linear:
@@ -332,3 +337,44 @@ class FinalBlock(nn.Module):
         h = self.conv22(h, temb, zemb, rng)
         h = self.conv23(h, temb, zemb, rng)
         return self.conv24(swish(h), self.dense2(zemb))
+
+
+class ChannelWiseAttention(nn.Module):
+    """Squeeze-excitation channel gating (the reference's defined-but-unused
+    `Hyper_unet_general.py:130-155`): global max and mean over (D, H, W),
+    a two-layer MLP with swish, a sigmoid gate per channel. Layout
+    (B, D, H, W, C); fc1 and fc2 run in `dtype`."""
+
+    def __init__(self, channels: int, reduction_ratio: int = 16, dtype=torch.float32):
+        super().__init__()
+        hidden = 2 * channels // reduction_ratio
+        self.fc1 = Linear(2 * channels, hidden, dtype)
+        self.fc2 = Linear(hidden, channels, dtype)
+
+    def forward(self, x):
+        pooled = torch.cat([x.amax(dim=(1, 2, 3)), x.mean(dim=(1, 2, 3))], dim=-1)
+        gate = torch.sigmoid(self.fc2(swish(self.fc1(pooled))))
+        return x * gate[:, None, None, None, :]
+
+
+class AdaptiveGroupNorm(nn.Module):
+    """Style-conditioned group norm (the reference's defined-but-unused
+    `Hyper_unet_general.py:311-331`): a GroupNorm without affine (statistics
+    in float32, output in x's dtype, as flax's), then gamma * x_hat + beta
+    with (gamma, beta) projected from the style vector by a Linear in
+    `dtype` whose bias starts gamma at 1 and beta at 0 (the JAX package's
+    `_agn_bias_init`). Layout (B, D, H, W, C)."""
+
+    def __init__(self, channels: int, style_dim: int, num_groups: int, dtype=torch.float32):
+        super().__init__()
+        self.num_groups = num_groups
+        self.style = Linear(style_dim, 2 * channels, dtype)
+        with torch.no_grad():
+            self.style.weight.normal_(0.0, 1.0 / math.sqrt(style_dim))
+            self.style.bias.copy_(torch.cat([torch.ones(channels), torch.zeros(channels)]))
+
+    def forward(self, x, style):
+        out = F.group_norm(x.movedim(-1, 1).float(), self.num_groups, eps=1e-6)
+        out = out.movedim(1, -1).to(x.dtype)
+        gamma, beta = self.style(style).chunk(2, dim=-1)
+        return gamma[:, None, None, None, :] * out + beta[:, None, None, None, :]

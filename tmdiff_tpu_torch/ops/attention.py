@@ -14,6 +14,15 @@ modules, so `utils/weights.py::from_flax` fills them from a flax param tree:
 flax Dense kernels (I, O) and 1x1 Conv kernels (1, 1, I, O) both become
 nn.Linear weights (O, I); LayerNorm/GroupNorm `scale` becomes `weight`.
 Dropout is active only in train mode, as flax's `train=True`.
+
+Every module takes `dtype`, float32 (the default) or bfloat16, as the JAX
+modules do, and follows flax's rule layer by layer: parameters stay float32
+and are cast at use; the Dense and 1x1 Conv layers (`models/blocks.py::
+Linear`) and BasicTransformerBlock's LayerNorms run in `dtype` (a LayerNorm
+computes in float32 and rounds its output once, as flax's does); the
+GroupNorms are given no dtype in JAX, so they compute in float32 and return
+float32 whatever their input. In bfloat16 the flash attention takes bf16
+q, k, v (K4's bf16 instance on the card) and returns bf16.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from tmdiff_tpu_torch.models.blocks import Linear
 from tmdiff_tpu_torch.ops.cuda.flash_attention import attention_reference, flash_attention
 
 # flax's LayerNorm and GroupNorm default epsilon
@@ -29,8 +39,22 @@ _EPS = 1e-6
 
 
 def _group_norm(norm: nn.GroupNorm, x):
-    """A GroupNorm over channels-last (B, H, W, C)."""
-    return norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    """A GroupNorm over channels-last (B, H, W, C), in float32 (flax's
+    GroupNorm with no dtype promotes its input to its float32 params)."""
+    return norm(x.permute(0, 3, 1, 2).float()).permute(0, 2, 3, 1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's LayerNorm of `dtype`: statistics and affine in float32, the
+    output rounded once to `dtype`."""
+
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__(dim, eps=_EPS)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.dtype)
 
 
 class CrossAttention(nn.Module):
@@ -38,15 +62,16 @@ class CrossAttention(nn.Module):
     Softmax in fp32."""
 
     def __init__(self, query_dim: int, context_dim: int | None = None, heads: int = 8,
-                 dim_head: int = 64, dropout: float = 0.0, use_flash: bool = True):
+                 dim_head: int = 64, dropout: float = 0.0, use_flash: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         inner = heads * dim_head
         context_dim = query_dim if context_dim is None else context_dim
         self.heads, self.dim_head, self.use_flash = heads, dim_head, use_flash
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim, inner, bias=False)
-        self.to_out = nn.Linear(inner, query_dim)
+        self.to_q = Linear(query_dim, inner, dtype, bias=False)
+        self.to_k = Linear(context_dim, inner, dtype, bias=False)
+        self.to_v = Linear(context_dim, inner, dtype, bias=False)
+        self.to_out = Linear(inner, query_dim, dtype)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, context=None):
@@ -64,9 +89,9 @@ class CrossAttention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, features: int):
+    def __init__(self, dim: int, features: int, dtype=torch.float32):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * features)
+        self.proj = Linear(dim, 2 * features, dtype)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -74,16 +99,17 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, mult: int = 4, glu: bool = True, dropout: float = 0.0):
+    def __init__(self, dim: int, mult: int = 4, glu: bool = True, dropout: float = 0.0,
+                 dtype=torch.float32):
         super().__init__()
         inner = dim * mult
         self.glu = glu
         if glu:
-            self.geglu = GEGLU(dim, inner)
+            self.geglu = GEGLU(dim, inner, dtype)
         else:
-            self.lin_in = nn.Linear(dim, inner)
+            self.lin_in = Linear(dim, inner, dtype)
         self.dropout = nn.Dropout(dropout)
-        self.lin_out = nn.Linear(inner, dim)
+        self.lin_out = Linear(inner, dim, dtype)
 
     def forward(self, x):
         h = self.geglu(x) if self.glu else F.gelu(self.lin_in(x), approximate="tanh")
@@ -94,16 +120,17 @@ class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> GEGLU FF, pre-LayerNorm residuals."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, dropout: float = 0.0,
-                 context_dim: int | None = None, disable_self_attn: bool = False):
+                 context_dim: int | None = None, disable_self_attn: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.disable_self_attn = disable_self_attn
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None,
-                                    heads, dim_head, dropout)
-        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dropout)
-        self.ff = FeedForward(dim, dropout=dropout)
-        self.norm1 = nn.LayerNorm(dim, eps=_EPS)
-        self.norm2 = nn.LayerNorm(dim, eps=_EPS)
-        self.norm3 = nn.LayerNorm(dim, eps=_EPS)
+                                    heads, dim_head, dropout, dtype=dtype)
+        self.attn2 = CrossAttention(dim, context_dim, heads, dim_head, dropout, dtype=dtype)
+        self.ff = FeedForward(dim, dropout=dropout, dtype=dtype)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.norm3 = LayerNorm(dim, dtype)
 
     def forward(self, x, context=None):
         ctx1 = context if self.disable_self_attn else None
@@ -120,16 +147,16 @@ class SpatialTransformer(nn.Module):
 
     def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int = 1,
                  dropout: float = 0.0, context_dim: int | None = None,
-                 use_checkpoint: bool = True):
+                 use_checkpoint: bool = True, dtype=torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.depth, self.use_checkpoint = depth, use_checkpoint
         self.norm = nn.GroupNorm(32, in_channels, eps=_EPS)
-        self.proj_in = nn.Linear(in_channels, inner)
+        self.proj_in = Linear(in_channels, inner, dtype)
         for i in range(depth):
             self.add_module(f"block{i}", BasicTransformerBlock(inner, heads, dim_head, dropout,
-                                                               context_dim))
-        self.proj_out = nn.Linear(inner, in_channels)
+                                                               context_dim, dtype=dtype))
+        self.proj_out = Linear(inner, in_channels, dtype)
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
@@ -150,12 +177,12 @@ class SpatialSelfAttention(nn.Module):
     """Single-head 1x1-projected spatial self-attention over the h*w
     positions, head dim = C. Channels-last (B, H, W, C)."""
 
-    def __init__(self, in_channels: int, use_flash: bool = True):
+    def __init__(self, in_channels: int, use_flash: bool = True, dtype=torch.float32):
         super().__init__()
         c = in_channels
         self.use_flash = use_flash
         self.norm = nn.GroupNorm(32, c, eps=_EPS)
-        self.q, self.k, self.v, self.proj_out = (nn.Linear(c, c) for _ in range(4))
+        self.q, self.k, self.v, self.proj_out = (Linear(c, c, dtype) for _ in range(4))
 
     def forward(self, x):
         b, h, w, c = x.shape
@@ -172,12 +199,12 @@ class ChannelSelfAttention(nn.Module):
     module computes it as an einsum softmax, not through the flash-attention
     kernel, and so does this port."""
 
-    def __init__(self, channels: int, skip_rescale: bool = True):
+    def __init__(self, channels: int, skip_rescale: bool = True, dtype=torch.float32):
         super().__init__()
         c = channels
         self.skip_rescale = skip_rescale
         self.GroupNorm_0 = nn.GroupNorm(min(c // 4, 32) or 1, c, eps=_EPS)
-        self.NIN_0, self.NIN_1, self.NIN_2, self.NIN_3 = (nn.Linear(c, c) for _ in range(4))
+        self.NIN_0, self.NIN_1, self.NIN_2, self.NIN_3 = (Linear(c, c, dtype) for _ in range(4))
         # flax's variance_scaling(1e-10, "fan_avg", "uniform"): near zero
         nn.init.uniform_(self.NIN_3.weight, -(3e-10 / c) ** 0.5, (3e-10 / c) ** 0.5)
         nn.init.zeros_(self.NIN_3.bias)
@@ -189,6 +216,6 @@ class ChannelSelfAttention(nn.Module):
         s = torch.einsum("bhwc,bijc->bhwij", q, k) * (c ** -0.5)
         s = torch.softmax(s.reshape(b, h, w, h * w), dim=-1).reshape(b, h, w, h, w)
         out = self.NIN_3(torch.einsum("bhwij,bijc->bhwc", s, v))
-        if self.skip_rescale:
-            return (x + out) / 2.0 ** 0.5
+        if self.skip_rescale:  # JAX divides by sqrt(2) cast to x's dtype
+            return (x + out) / torch.tensor(2.0 ** 0.5).to(x.dtype)
         return x + out

@@ -1,21 +1,30 @@
 """Non-causal attention over (B, H, S, D) tensors: the CUDA kernel's wrapper,
 its plan, and its plain PyTorch versions.
 
-Both compute softmax(q kᵀ · scale) v with an fp32 softmax, scale defaulting
+All compute softmax(q kᵀ · scale) v with an fp32 softmax, scale defaulting
 to D ** -0.5, for q (B, H, Sq, D) and k, v (B, H, Skv, D); Sq and Skv may
-differ (cross-attention).
+differ (cross-attention). q, k and v are all float32 or all bfloat16.
 
 `flash_attention` replaces the Pallas TPU kernel
 `tmdiff_tpu/ops/pallas/flash_attention.py::flash_attention` and launches the
 kernel of `tmdiff_tpu_torch/csrc/flash_attention.cu` (its header says what
 bounds it on an H100 and how it is tiled). It takes D up to 256 and masks
 the ragged edges itself, so nothing is padded. `plan` picks the kernel's
-variant by D alone: the 3xTF32 tensor-core kernel for D % 4 == 0 (with
-split-KV where the query tiles underfill the card), else the fp32 FMA
-kernel; `variant_launches` counts the launches of each. On a CPU tensor it
-computes `attention_reference`; on a CUDA tensor it launches the kernel or
-raises. The kernel has no backward: the wrapper refuses inputs that need a
-gradient.
+variant by D and the dtype: in float32 the 3xTF32 tensor-core kernel for
+D % 4 == 0 (with split-KV where the query tiles underfill the card), else
+the fp32 FMA kernel; `variant_launches` counts the launches of each. In bf16 it
+computes what the Pallas kernel computes for bf16 operands (each tile cast
+to fp32, both products and the softmax in fp32, the output rounded to bf16
+once): the bf16 instance of the tensor-core kernel ("bf16") for D % 8 == 0
+(16-byte bf16 rows), else the FMA kernel over bf16 loads ("bf16_fma"); the
+kernels read and write bf16 in device memory. On a CPU tensor it computes
+`flash_attention_plain`, that function in plain PyTorch; on a CUDA tensor it
+launches the kernel or raises. The kernel has no backward: the wrapper
+refuses inputs that need a gradient.
+
+`attention_reference` is the port of the JAX package's `attention_reference`
+(p rounded to v's dtype before p·v, as there); the attention library's
+`use_flash=False` takes it. In float32 it equals `flash_attention_plain`.
 
 `attention_partials` and `merge_partials` are the plain versions of the
 kernel's split-KV: each split's unnormalised output and softmax statistics,
@@ -37,8 +46,8 @@ MAX_BATCH_HEADS = 65535  # the kernel's second grid dimension
 KEY_TILES = (8, 16, 32, 64)
 
 # Launches of the CUDA kernel since the last reset_launches(), in all and by
-# variant.
-VARIANTS = ("fma", "tc")
+# variant: fp32 FMA, 3xTF32 tensor cores, and their bf16 instances.
+VARIANTS = ("fma", "tc", "bf16_fma", "bf16")
 launches = 0
 variant_launches = dict.fromkeys(VARIANTS, 0)
 
@@ -56,6 +65,16 @@ def attention_reference(q, k, v, scale=None):
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def flash_attention_plain(q, k, v, scale=None):
+    """The kernel's function in plain PyTorch: q, k, v upcast to fp32,
+    softmax(q kᵀ · scale) v in fp32, rounded once to q's dtype."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -103,11 +122,11 @@ def merge_partials(o, m, l):
 
 
 class Plan(NamedTuple):
-    variant: str          # "tc" (3xTF32 tensor cores) or "fma" (fp32 FMA)
+    variant: str          # one of VARIANTS
     rows: int             # query rows per block
     key_tile: int         # keys per staged K/V tile
     splits: int           # blocks that share one query tile's keys
-    workspace_bytes: int  # K/V images and split partials ("tc" only)
+    workspace_bytes: int  # K/V images and split partials (tensor cores only)
 
 
 def head_tile(d: int) -> int:
@@ -120,10 +139,13 @@ def max_key_tile(dt: int) -> int:
     return {64: 64, 128: 32, 256: 16}[dt]
 
 
-def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int) -> Plan:
-    """The kernel's variant and tiling for q (b, h, sq, d) and Skv keys on a
-    card of `sm_count` SMs (one block per SM):
-      * variant "tc" where D % 4 == 0 (16-byte rows), else the fp32 FMA kernel;
+def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int,
+         dtype: torch.dtype = torch.float32) -> Plan:
+    """The kernel's variant and tiling for q (b, h, sq, d) of `dtype` and Skv
+    keys on a card of `sm_count` SMs (one block per SM):
+      * the tensor cores where a row is whole 16-byte chunks: "tc" at D % 4
+        == 0 in float32, "bf16" at D % 8 == 0 in bfloat16; else the FMA
+        kernel, "fma" or "bf16_fma" (64 rows, 64 keys, no split);
       * 128 query rows per block (two consumer warpgroups of 64), 64 at
         D > 128, where both consumers share the rows and split the columns;
       * key tile: the smallest of 8, 16, 32, 64 that covers Skv, else 64,
@@ -132,12 +154,15 @@ def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int) -> Plan:
         shared out over floor(SMs / blocks) blocks (at most one per tile),
         whole tiles each, so the grid comes as close to one wave as it can
         without passing it;
-      * workspace: the split K/V^T images (16 * head tile * key tile bytes
-        per (batch*head, key tile)), then, split, the 256-byte aligned
-        partial O and (m, l) of every split and query row.
+      * workspace: the split K/V^T images (per (batch*head, key tile),
+        head tile * key tile fp32 values of K and of V^T, each as TF32 hi
+        and lo in float32 and once in bfloat16: 16 or 8 bytes an element
+        pair), then, split, the 256-byte aligned fp32 partial O and (m, l)
+        of every split and query row.
     """
-    if d % 4:
-        return Plan("fma", 64, 64, 1, 0)
+    bf16 = dtype == torch.bfloat16
+    if d % (8 if bf16 else 4):
+        return Plan("bf16_fma" if bf16 else "fma", 64, 64, 1, 0)
     dt = head_tile(d)
     rows = 64 if dt == 256 else 128
     key_tile = min(next((t for t in KEY_TILES if t >= skv), KEY_TILES[-1]), max_key_tile(dt))
@@ -145,10 +170,10 @@ def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int) -> Plan:
     blocks = b * h * _cdiv(sq, rows)
     splits = max(1, min(n_tiles, sm_count // blocks))
     splits = _cdiv(n_tiles, _cdiv(n_tiles, splits))  # every split owns a tile
-    nbytes = b * h * n_tiles * 16 * dt * key_tile
+    nbytes = b * h * n_tiles * (8 if bf16 else 16) * dt * key_tile
     if splits > 1:
         nbytes = _cdiv(nbytes, 256) * 256 + 4 * splits * b * h * sq * (d + 2)
-    return Plan("tc", rows, key_tile, splits, nbytes)
+    return Plan("bf16" if bf16 else "tc", rows, key_tile, splits, nbytes)
 
 
 _lib = None
@@ -160,7 +185,8 @@ def library():
     if _lib is None:
         lib = build.load("flash_attention")
         lib.tmdiff_flash_attention.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 4
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+            + [ctypes.c_int] * 4
             + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
         lib.tmdiff_flash_attention.restype = ctypes.c_int
         lib.tmdiff_flash_error_string.argtypes = [ctypes.c_int]
@@ -169,7 +195,7 @@ def library():
     return _lib
 
 
-# (B, H, Sq, Skv, D, device index) -> Plan; device index -> SM count.
+# (B, H, Sq, D, Skv, dtype, device index) -> Plan; device index -> SM count.
 _plans: dict[tuple, Plan] = {}
 _sm_counts: dict[int, int] = {}
 
@@ -178,17 +204,17 @@ def device_plan(q, skv: int) -> Plan:
     """`plan` for q on its card, asked of the card once per device and
     kept per shape."""
     dev = q.device.index
-    key = (*q.shape, skv, dev)
+    key = (*q.shape, skv, q.dtype, dev)
     if key not in _plans:
         if dev not in _sm_counts:
             _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
         b, h, sq, d = q.shape
-        _plans[key] = plan(b, h, sq, skv, d, _sm_counts[dev])
+        _plans[key] = plan(b, h, sq, skv, d, _sm_counts[dev], q.dtype)
     return _plans[key]
 
 
 def _check(q, k, v):
-    build.check_operands("flash_attention", q=q, k=k, v=v)
+    build.check_operands("flash_attention", dtypes=(torch.float32, torch.bfloat16), q=q, k=k, v=v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (B, H, S, D) tensor, got {tuple(t.shape)}")
@@ -202,16 +228,17 @@ def _check(q, k, v):
         raise ValueError(f"unsupported attention size q {tuple(q.shape)}, Skv {skv}")
     if max(q.numel(), k.numel()) >= 2**31:
         raise ValueError(f"tensors of {max(q.numel(), k.numel())} elements exceed 32-bit indexing")
-    if d % 4 == 0:  # the tensor-core variant reads and writes 16-byte rows
+    row = 16 // q.element_size()  # elements of a 16-byte chunk
+    if d % row == 0:  # the tensor-core variants read and write 16-byte rows
         for name, t in (("q", q), ("k", k), ("v", v)):
             if t.data_ptr() % 16:
-                raise ValueError(f"{name} must be 16-byte aligned when D % 4 == 0")
+                raise ValueError(f"{name} must be 16-byte aligned when D % {row} == 0")
 
 
 def flash_attention(q, k, v, scale=None):
     """softmax(q kᵀ · scale) v (see module doc); the port of K4."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
+        return flash_attention_plain(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for device {q.device}")
     if q.device.index != torch.cuda.current_device():
@@ -228,9 +255,9 @@ def flash_attention(q, k, v, scale=None):
           if p.workspace_bytes else None)
     lib = library()
     err = lib.tmdiff_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, sq, skv, d,
-        float(scale), VARIANTS.index(p.variant), p.rows, p.key_tile, p.splits,
-        None if ws is None else ws.data_ptr(), p.workspace_bytes,
+        int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        b * h, sq, skv, d, float(scale), int(p.variant in ("tc", "bf16")), p.rows, p.key_tile,
+        p.splits, None if ws is None else ws.data_ptr(), p.workspace_bytes,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {lib.tmdiff_flash_error_string(err).decode()}")

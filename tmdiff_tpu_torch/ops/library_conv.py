@@ -23,10 +23,19 @@ deterministic algorithms (an autograd Function sets the flags for both), as
 the weight gradient of ops/cuda/conv3d.py does. `calls` counts the forward
 calls by kind on every device, for the smoke run's report beside K1's
 launches.
+
+`conv_nd` is XLA's conv_general_dilated for the library modules that reach
+no TPU kernel (ops/dynamic_conv.py, ops/pgcu.py, utils/image_ops.py):
+channels-last, a flax-layout kernel, XLA's "SAME"/"VALID" or explicit
+padding, a stride and feature groups, under the same flags (forward only:
+autograd differentiates it as PyTorch's conv).
 """
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
+import torch.nn.functional as F
 
 KINDS = {
     # kind: (kernel size, stride, padding, transposed, output padding)
@@ -41,21 +50,23 @@ def reset_calls() -> None:
     calls.update(dict.fromkeys(calls, 0))
 
 
-def _flags():
+def cudnn_fp32():
+    """cuDNN in fp32 with TF32 off and its deterministic algorithms: the
+    flags every library conv of the port runs under."""
     return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                       allow_tf32=False)
 
 
 class _Conv(torch.autograd.Function):
     """aten.convolution of an NCDHW x and a torch-layout weight, and its
-    backward, both under `_flags`."""
+    backward, both under `cudnn_fp32`."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, kind):
         _, stride, padding, transposed, out_pad = KINDS[kind]
         ctx.save_for_backward(x, weight)
         ctx.kind, ctx.bias_shape = kind, None if bias is None else list(bias.shape)
-        with _flags():
+        with cudnn_fp32():
             return torch.ops.aten.convolution(x, weight, bias, stride, padding, [1, 1, 1],
                                               transposed, out_pad, 1)
 
@@ -64,7 +75,7 @@ class _Conv(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         _, stride, padding, transposed, out_pad = KINDS[ctx.kind]
         need_x, need_w, need_b, _ = ctx.needs_input_grad
-        with _flags():
+        with cudnn_fp32():
             dx, dw, db = torch.ops.aten.convolution_backward(
                 dy, x, weight, ctx.bias_shape, stride, padding, [1, 1, 1], transposed, out_pad,
                 1, [need_x, need_w, need_b and ctx.bias_shape is not None])
@@ -86,3 +97,36 @@ def library_conv3d(x, kernel, bias=None, *, kind: str):
                     None if bias is None else bias.to(dt), kind)
     calls[kind] += 1
     return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def xla_padding(padding, spatial: Sequence[int], kernel: Sequence[int], stride: int):
+    """XLA's "SAME" / "VALID" (or explicit (lo, hi) pairs) as (lo, hi) per
+    spatial axis. SAME at stride s gives ceil(n / s) outputs and puts the
+    odd pixel of the padding after."""
+    if padding == "VALID":
+        return [(0, 0)] * len(spatial)
+    if padding == "SAME":
+        pads = []
+        for n, k in zip(spatial, kernel):
+            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return pads
+    return [tuple(p) for p in padding]
+
+
+def conv_nd(x, kernel, stride: int = 1, padding="SAME", groups: int = 1):
+    """XLA's conv_general_dilated on channels-last x (B, *spatial, Cin) with
+    a flax-layout kernel (*kernel_size, Cin / groups, Cout)."""
+    rank = kernel.dim() - 2
+    pads = xla_padding(padding, x.shape[1:-1], kernel.shape[:rank], stride)
+    h = x.movedim(-1, 1)
+    flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last axis first
+    if any(flat):
+        h = F.pad(h, flat)
+    w = kernel.to(x.dtype).permute(rank + 1, rank, *range(rank))
+    with cudnn_fp32():
+        y = _CONV[rank](h, w, stride=stride, groups=groups)
+    return y.movedim(1, -1)

@@ -19,7 +19,12 @@ holds.
     of for `lax.conv_transpose`; ops/library_conv.py reads it so), the hint
     encoder's stacked stems (13, 1, 3, 3, I, O) keep their names and
     layout, and the Dense layers named `style` (a zero conv's), `fc1`/`fc2`
-    (the task hypernetwork's) and `out_proj` become Linear weights.
+    (the task hypernetwork's) and `out_proj` become Linear weights. The
+    library ops (ops/dynamic_conv.py, kernel_adaption.py, pgcu.py) and the
+    orphan blocks of models/blocks.py carry the flax names too: their conv
+    kernels keep the flax layout, `fc1`/`fc2`/`style` become Linear weights,
+    and any other named parameter (`kernels`, `KernelParam`,
+    `KernelAdaption`, `norm_scale`, `norm_bias`) keeps its name and layout.
 
 The port keeps conv weights in the (kd, kh, kw, I, O) layout and Linear
 weights in torch's (O, I). Both loaders are strict: a key the model does not
@@ -80,8 +85,11 @@ def torch_key(path: tuple[str, ...]) -> tuple[str, str]:
     if mods and mods[-1] == "convH_0":
         base = ".".join(mods) + ".0"
         return (base + ".weight", "conv") if leaf == "kernel" else (base + ".bias", "none")
-    base = ".".join(mods)
-    return (base + ".weight", "conv") if leaf == "kernel" else (base + ".bias", "none")
+    if leaf == "kernel":
+        return ".".join(mods + ["weight"]), "conv"
+    # a bias, or a parameter of its own name (the library ops' `kernels`,
+    # `KernelParam`, `norm_scale`, ...), kept in the flax layout
+    return ".".join(mods + [leaf]), "none"
 
 
 def is_dead_reference_param(key: str, sd: Mapping) -> bool:
@@ -140,8 +148,8 @@ def _flatten(tree, path=()):
 
 def from_flax(model: torch.nn.Module, params) -> torch.nn.Module:
     """Fill `model` from a JAX param tree of numpy arrays: a WavBEST, a
-    module of the attention library, a LegacyUNet or a
-    ControlledLegacyUNet."""
+    module of the attention library, a library op or orphan block, a
+    LegacyUNet or a ControlledLegacyUNet."""
     arrays = {}
     for path, leaf in _flatten(params):
         key, kind = torch_key(path)
