@@ -103,13 +103,15 @@ Phases (any failure ends the run with a non-zero exit code):
                a SpatialTransformer forward (8 x 64 heads, 64x64x256 image,
                that context) through K4 and through the plain attention,
                counts reset just before. Then all of it again in bf16: K4's
-               bf16 instance at the three shapes (variant "bf16") against
+               bf16 kernel at the three shapes (variant "bf16") against
                flash_attention_plain within one bf16 step, bit-identical on
-               a second launch, timed beside its bound at the bf16 rate
-               (989 TFLOP/s or 3.35 TB/s; the rate of its TF32 arithmetic,
-               330 TFLOP/s, printed beside) and bf16 SDPA; the D = 42 shape
-               on "bf16_fma"; a bf16 SpatialTransformer, 2 bf16 launches,
-               within 2e-2 of its scale of the plain attention.
+               a second launch, one CUDA kernel a call where unsplit and no
+               K/V pass (torch.profiler), timed beside its bound at the
+               bf16 rate (989 TFLOP/s or 3.35 TB/s; the rate of its route,
+               one bf16 product for S and two for P.V, 659 TFLOP/s,
+               printed beside) and bf16 SDPA; the D = 42 shape on
+               "bf16_fma"; a bf16 SpatialTransformer, 2 bf16 launches and
+               no K/V pass, within 2e-2 of its scale of the plain attention.
      library   the library modules that reach no TPU kernel, each once on
                the card and once on the CPU on the same weights and inputs
                (batch 2, 8 bands): DynamicConv3d (K = 4, 64x64x64, 64 -> 64),
@@ -1156,9 +1158,10 @@ def attention_inputs(gen, b, h, sq, d, skv, dtype=torch.float32):
                  for s in (sq, skv, skv))
 
 
-# K4's bf16 instance does S = Q.K^T in one TF32 product a multiply-add and
-# P.V in two (csrc/flash_attention.cu): the rate of its arithmetic
-PEAK_TF32_BF16_ATTENTION = 495e12 / 1.5
+# K4's bf16 kernel does S = Q.K^T in one bf16 product a multiply-add and
+# P.V in two, on p's two bf16 parts (csrc/flash_attention.cu): the rate of
+# its arithmetic
+PEAK_BF16_ATTENTION_ROUTE = PEAK_BF16_FLOPS / 1.5
 
 
 def attention_shapes(K4, gen, dtype):
@@ -1166,9 +1169,10 @@ def attention_shapes(K4, gen, dtype):
     version (fp32: attention_reference to ATTENTION_ATOL; bf16:
     flash_attention_plain within one bf16 step), the variant (the tensor
     cores), a bit-identical second launch, and times beside the bound and
-    SDPA in the same dtype; then the D = 42 shape on the FMA variant.
+    SDPA in the same dtype; in bf16 also the CUDA kernels of one call (one
+    kernel unsplit, no K/V pass); then the D = 42 shape on the FMA variant.
     Returns the per-shape numbers and the largest error."""
-    from tmdiff_tpu_torch.bench_attention import kernel_ms
+    from tmdiff_tpu_torch.bench_attention import kernel_launches, kernel_ms
 
     bf16 = dtype == torch.bfloat16
     tag, plain = ("bf16 ", K4.flash_attention_plain) if bf16 else ("", K4.attention_reference)
@@ -1196,14 +1200,19 @@ def attention_shapes(K4, gen, dtype):
             ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
             per_kernel = kernel_ms(lambda: K4.flash_attention(q, k, v), 10)
             dev_l = sum(kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10).values())
+            launched = kernel_launches(lambda: K4.flash_attention(q, k, v))
         dev_k = sum(per_kernel.values())
         plan = K4.device_plan(q, skv)
         parts = ", ".join(f"{name} {t:.4f}" for name, t in per_kernel.items())
         if bf16:
             bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_BF16_FLOPS, 2)
-            route_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_TF32_BF16_ATTENTION, 2)
-            other = f"tf32_route_bound_ms={route_bnd:.4f}"
+            route_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_BF16_ATTENTION_ROUTE, 2)
+            other = f"route_bound_ms={route_bnd:.4f} kernels_per_call={launched}"
             bar = "one bf16 step"
+            if any("kv_split" in name for name in launched):
+                fail(f"attention {tag}{label} ran a K/V pass: {launched}")
+            if plan.splits == 1 and sum(launched.values()) != 1:
+                fail(f"attention {tag}{label} is unsplit but launched {launched}")
         else:
             bnd, bound_by = attention_bound(b, h, sq, skv, d, PEAK_TF32X3_FLOPS)
             ffma_bnd, _ = attention_bound(b, h, sq, skv, d, PEAK_FP32_FLOPS)
@@ -1244,7 +1253,8 @@ def spatial_transformer_check(K4, gen, dtype):
     one-token context, through K4 with the counts reset just before and
     read just after, and through the plain attention. Its proj_out starts
     at zero (the identity), so it is drawn at random here. fp32 within
-    FORWARD_ATOL; bf16 within BF16_MODULE_RTOL of the output's scale.
+    FORWARD_ATOL; bf16 within BF16_MODULE_RTOL of the output's scale, and no
+    K/V pass among the bf16 forward's CUDA kernels.
     Returns (launches, launches by variant, the error)."""
     from tmdiff_tpu_torch.ops.attention import SpatialTransformer
 
@@ -1265,6 +1275,12 @@ def spatial_transformer_check(K4, gen, dtype):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches, variants = K4.launches, dict(K4.variant_launches)
+        if bf16:
+            from tmdiff_tpu_torch.bench_attention import kernel_launches
+
+            launched = kernel_launches(lambda: st(x, ctx))
+            if any("kv_split" in name for name in launched):
+                fail(f"the bf16 SpatialTransformer ran a K/V pass: {launched}")
         for m in st.modules():
             if hasattr(m, "use_flash"):
                 m.use_flash = False

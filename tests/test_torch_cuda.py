@@ -4,8 +4,10 @@ the training step around it), the 3x3 NHWC conv (K3) and flash attention
 (K4) against their plain versions at edge shapes, the conv kernel's variants (3xTF32 tensor cores,
 with split-K, and the fp32 FMA kernel for Cin % 4 != 0) and its
 determinism, K4's variants (3xTF32 with split-KV, fp32 FMA for D % 4 != 0,
-and their bf16 instances against flash_attention_plain within one bf16
-step), plan, determinism and error at its deepest sums, the wrappers' refusals,
+the bf16 tensor-core kernel and the bf16 FMA instance against
+flash_attention_plain within one bf16 step, the bf16 kernel's tile edges,
+single launch and deepest sums against float64), plan, determinism and
+error at its deepest sums, the wrappers' refusals,
 and the model's kernel paths ("banded" and "auto") and a SpatialTransformer
 against their plain paths. Marked `cuda`; each test
 skips where no GPU is present. This file imports neither jax nor the JAX
@@ -709,14 +711,25 @@ def _bf16_half_step(t):
     ((1, 2, 48, 32), 130), ((1, 2, 100, 40), 100), ((3, 1, 1, 8), 77), ((1, 1, 70, 200), 33),
     ((1, 3, 129, 128), 65), ((1, 2, 50, 64), 7), ((1, 2, 50, 64), 4097),
     ((2, 4, 1024, 256), 1024), ((2, 2, 77, 42), 50), ((1, 2, 33, 12), 20),
+    # the key tile's edges (BK - 1, BK, BK + 1 at BK = 128 / 64 / 32 for head
+    # tiles 64 / 128 / 256), split and, with 160 blocks, unsplit
+    ((1, 2, 200, 64), 127), ((1, 2, 200, 64), 128), ((1, 2, 200, 64), 129),
+    ((2, 40, 256, 64), 129),
+    ((1, 2, 130, 128), 63), ((1, 2, 130, 128), 64), ((1, 2, 130, 128), 65),
+    ((2, 40, 256, 128), 65),
+    ((1, 2, 70, 256), 31), ((1, 2, 70, 256), 32), ((1, 2, 70, 256), 33),
+    ((2, 40, 128, 256), 33),
+    # head tile 256 with the columns past D = 136 zero-filled by the TMA
+    ((1, 2, 100, 136), 77), ((2, 40, 128, 136), 300),
 ])
 def test_flash_attention_bf16_matches_plain(cuda, q_shape, kv_len):
     """K4's bf16 instance against flash_attention_plain on the same bf16
     inputs: the output bf16, each element within one bf16 step (half a step
     of each side's value plus 1e-4 of the output's scale: two roundings of
     fp32 results that differ in their last bits); the tensor cores at D % 8
-    == 0 (split and unsplit, masked tails, one key), the FMA kernel over
-    bf16 loads at D = 42 and 12; a second launch bit-identical."""
+    == 0 (split and unsplit, masked tails, one key, the key tile's edges,
+    columns past D), the FMA kernel over bf16 loads at D = 42 and 12; a
+    second launch bit-identical."""
     from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
 
     q, k, v = (t.bfloat16() for t in _random_attention(cuda, q_shape, kv_len, seed=7))
@@ -731,6 +744,55 @@ def test_flash_attention_bf16_matches_plain(cuda, q_shape, kv_len):
     diff = (got.float() - ref.float()).abs()
     bar = _bf16_half_step(got) + _bf16_half_step(ref) + 1e-4 * ref.float().abs().max()
     assert bool((diff <= bar).all()), diff.max().item()
+
+
+# The bf16 instance at its deepest sums against float64 on the same bf16
+# inputs: beyond the output's own rounding (half a bf16 step), at most a
+# quarter of the bf16 bar's 1e-4 of the output's scale. P enters P.V as two
+# bf16 parts (16 of p's 24 bits: 2^-18 of sum p |v|, about 26x inside 1e-4;
+# tests/test_torch_flash_plan.py emulates it), and each key tile's P.V is
+# folded into O in fp32.
+DEEP_SUM_BF16_RTOL = 2.5e-5
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [((2, 8, 4096, 64), 4096), ((2, 4, 1024, 256), 1024)])
+def test_flash_attention_bf16_error_at_the_deepest_sums(cuda, q_shape, kv_len):
+    """Self-attention over 4096 keys at D = 64 and 1024 keys at D = 256 in
+    bf16, neither split over blocks, against the function in float64."""
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q, k, v = (t.bfloat16() for t in _random_attention(cuda, q_shape, kv_len, seed=8))
+    assert K4.device_plan(q, kv_len).splits == 1
+    with torch.no_grad():
+        got = K4.flash_attention(q, k, v).double()
+        s = torch.einsum("bhqd,bhkd->bhqk", q.double(), k.double()) * q_shape[3] ** -0.5
+        ref = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v.double())
+        torch.cuda.synchronize()
+    beyond = ((got - ref).abs() - _bf16_half_step(got).double()).clamp(min=0)
+    rel = beyond.max().item() / ref.abs().max().item()
+    print(f"{q_shape} Skv {kv_len}: beyond the bf16 rounding {rel:.3g} of scale")
+    assert rel <= DEEP_SUM_BF16_RTOL
+
+
+@pytest.mark.parametrize("q_shape,kv_len", [
+    ((2, 8, 4096, 64), 4096), ((2, 8, 4096, 64), 1), ((2, 4, 1024, 256), 1024),
+    ((2, 1, 1024, 256), 1024),
+])
+def test_flash_attention_bf16_launches_one_kernel_unsplit(cuda, q_shape, kv_len):
+    """An unsplit bf16 call is one CUDA kernel, the bf16 tensor-core kernel
+    (K and V read in place: no K/V pass); a split one adds the merge."""
+    from tmdiff_tpu_torch.bench_attention import kernel_launches
+    from tmdiff_tpu_torch.ops.cuda import flash_attention as K4
+
+    q, k, v = (t.bfloat16() for t in _random_attention(cuda, q_shape, kv_len, seed=9))
+    splits = K4.device_plan(q, kv_len).splits
+    with torch.no_grad():
+        kernels = kernel_launches(lambda: K4.flash_attention(q, k, v))
+    names = sorted(kernels)
+    assert all(n == 1 for n in kernels.values()), kernels
+    assert len(names) == (1 if splits == 1 else 2), kernels
+    assert any("flash_attention_bf16_kernel" in n for n in names), kernels
+    assert not any("kv_split" in n for n in names), kernels
 
 
 def test_flash_attention_bf16_refuses(cuda):

@@ -1234,26 +1234,6 @@ Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout,
   return p;
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found through the CUDA runtime so
-// that this library needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The TMA map of x (B, D, H, W, Cin) for a halo box of (ck, HW, HH, HD, 1)
 // elements; out-of-bounds elements (the SAME padding, channels past Cin)
 // read as zeros.

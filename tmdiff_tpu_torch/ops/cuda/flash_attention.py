@@ -7,17 +7,18 @@ differ (cross-attention). q, k and v are all float32 or all bfloat16.
 
 `flash_attention` replaces the Pallas TPU kernel
 `tmdiff_tpu/ops/pallas/flash_attention.py::flash_attention` and launches the
-kernel of `tmdiff_tpu_torch/csrc/flash_attention.cu` (its header says what
-bounds it on an H100 and how it is tiled). It takes D up to 256 and masks
-the ragged edges itself, so nothing is padded. `plan` picks the kernel's
-variant by D and the dtype: in float32 the 3xTF32 tensor-core kernel for
-D % 4 == 0 (with split-KV where the query tiles underfill the card), else
-the fp32 FMA kernel; `variant_launches` counts the launches of each. In bf16 it
-computes what the Pallas kernel computes for bf16 operands (each tile cast
-to fp32, both products and the softmax in fp32, the output rounded to bf16
-once): the bf16 instance of the tensor-core kernel ("bf16") for D % 8 == 0
-(16-byte bf16 rows), else the FMA kernel over bf16 loads ("bf16_fma"); the
-kernels read and write bf16 in device memory. On a CPU tensor it computes
+kernels of `tmdiff_tpu_torch/csrc/flash_attention.cu` (its header says what
+bounds them on an H100 and how they are tiled). It takes D up to 256 and
+masks the ragged edges itself, so nothing is padded. `plan` picks the
+kernel's variant by D and the dtype: in float32 the 3xTF32 tensor-core
+kernel for D % 4 == 0 (with split-KV where the query tiles underfill the
+card), else the fp32 FMA kernel; `variant_launches` counts the launches of
+each. In bf16 it computes what the Pallas kernel computes for bf16 operands
+(each tile cast to fp32, both products and the softmax in fp32, the output
+rounded to bf16 once): the bf16 tensor-core kernel ("bf16": bf16 wgmma, K
+and V read in place by TMA, p as two bf16 parts) for D % 8 == 0 (16-byte
+bf16 rows), else the FMA kernel over bf16 loads ("bf16_fma"); the kernels
+read and write bf16 in device memory. On a CPU tensor it computes
 `flash_attention_plain`, that function in plain PyTorch; on a CUDA tensor it
 launches the kernel or raises. The kernel has no backward: the wrapper
 refuses inputs that need a gradient.
@@ -43,7 +44,7 @@ from tmdiff_tpu_torch.ops.cuda import build
 
 MAX_HEAD_DIM = 256
 MAX_BATCH_HEADS = 65535  # the kernel's second grid dimension
-KEY_TILES = (8, 16, 32, 64)
+KEY_TILES = {torch.float32: (8, 16, 32, 64), torch.bfloat16: (16, 32, 64, 128)}
 
 # Launches of the CUDA kernel since the last reset_launches(), in all and by
 # variant: fp32 FMA, 3xTF32 tensor cores, and their bf16 instances.
@@ -126,16 +127,20 @@ class Plan(NamedTuple):
     rows: int             # query rows per block
     key_tile: int         # keys per staged K/V tile
     splits: int           # blocks that share one query tile's keys
-    workspace_bytes: int  # K/V images and split partials (tensor cores only)
+    workspace_bytes: int  # K/V images (float32) and split partials (tensor cores only)
 
 
 def head_tile(d: int) -> int:
-    """D padded up to the tensor-core kernel's head-dim tile."""
+    """D padded up to the tensor-core kernels' head-dim tile."""
     return 64 if d <= 64 else 128 if d <= 128 else 256
 
 
-def max_key_tile(dt: int) -> int:
-    """The longest key tile whose stages fit shared memory at head tile dt."""
+def max_key_tile(dt: int, dtype: torch.dtype = torch.float32) -> int:
+    """The longest key tile whose stages fit shared memory (and, in bf16,
+    whose S and P fit the registers beside O and the tile's accumulator) at
+    head tile dt."""
+    if dtype == torch.bfloat16:
+        return {64: 128, 128: 64, 256: 32}[dt]
     return {64: 64, 128: 32, 256: 16}[dt]
 
 
@@ -148,32 +153,38 @@ def plan(b: int, h: int, sq: int, skv: int, d: int, sm_count: int,
         kernel, "fma" or "bf16_fma" (64 rows, 64 keys, no split);
       * 128 query rows per block (two consumer warpgroups of 64), 64 at
         D > 128, where both consumers share the rows and split the columns;
-      * key tile: the smallest of 8, 16, 32, 64 that covers Skv, else 64,
-        at most 64 / 32 / 16 at head tile 64 / 128 / 256;
+      * key tile: the smallest of KEY_TILES[dtype] that covers Skv, else the
+        largest, at most max_key_tile(head tile, dtype): 64 / 32 / 16 in
+        float32 and 128 / 64 / 32 in bfloat16 at head tile 64 / 128 / 256;
       * splits: where the blocks fall short of one wave, the key tiles are
         shared out over floor(SMs / blocks) blocks (at most one per tile),
         whole tiles each, so the grid comes as close to one wave as it can
         without passing it;
-      * workspace: the split K/V^T images (per (batch*head, key tile),
-        head tile * key tile fp32 values of K and of V^T, each as TF32 hi
-        and lo in float32 and once in bfloat16: 16 or 8 bytes an element
-        pair), then, split, the 256-byte aligned fp32 partial O and (m, l)
-        of every split and query row.
+      * workspace: in float32 the split K/V^T images (per (batch*head, key
+        tile), head tile * key tile values of K and of V^T, each as TF32 hi
+        and lo: 16 bytes an element pair), 256-byte aligned; then, split, the
+        fp32 partial O and (m, l) of every split and query row. In bfloat16
+        the kernel reads K and V in place: only the partials, only when
+        split.
     """
     bf16 = dtype == torch.bfloat16
     if d % (8 if bf16 else 4):
         return Plan("bf16_fma" if bf16 else "fma", 64, 64, 1, 0)
     dt = head_tile(d)
     rows = 64 if dt == 256 else 128
-    key_tile = min(next((t for t in KEY_TILES if t >= skv), KEY_TILES[-1]), max_key_tile(dt))
+    tiles = KEY_TILES[dtype]
+    key_tile = min(next((t for t in tiles if t >= skv), tiles[-1]), max_key_tile(dt, dtype))
     n_tiles = _cdiv(skv, key_tile)
     blocks = b * h * _cdiv(sq, rows)
     splits = max(1, min(n_tiles, sm_count // blocks))
     splits = _cdiv(n_tiles, _cdiv(n_tiles, splits))  # every split owns a tile
-    nbytes = b * h * n_tiles * (8 if bf16 else 16) * dt * key_tile
-    if splits > 1:
-        nbytes = _cdiv(nbytes, 256) * 256 + 4 * splits * b * h * sq * (d + 2)
-    return Plan("bf16" if bf16 else "tc", rows, key_tile, splits, nbytes)
+    partials = 4 * splits * b * h * sq * (d + 2) if splits > 1 else 0
+    if bf16:
+        return Plan("bf16", rows, key_tile, splits, partials)
+    nbytes = b * h * n_tiles * 16 * dt * key_tile
+    if partials:
+        nbytes = _cdiv(nbytes, 256) * 256 + partials
+    return Plan("tc", rows, key_tile, splits, nbytes)
 
 
 _lib = None
@@ -258,7 +269,10 @@ def flash_attention(q, k, v, scale=None):
         int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b * h, sq, skv, d, float(scale), int(p.variant in ("tc", "bf16")), p.rows, p.key_tile,
         p.splits, None if ws is None else ws.data_ptr(), p.workspace_bytes,
-        torch.cuda.current_stream().cuda_stream)
+        # the current stream's handle without building a Stream object
+        # (several microseconds a call; the one-key cross-attention is bound
+        # by the host)
+        torch._C._cuda_getCurrentRawStream(q.device.index))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: {lib.tmdiff_flash_error_string(err).decode()}")
     global launches
