@@ -7,10 +7,10 @@ serves pansharpening requests on a seeded full-width WavBEST (channels
 sampler, in fp32 and in bf16, serves both serving presets through the HTTP
 server (`python -m tmdiff_tpu_torch.serve`), runs the attention library at
 SD-style widths in fp32 and bf16, runs the library modules that reach no
-TPU kernel on the card against the CPU, trains, drives the CLI's train, val
-and distill phases,
-runs the legacy UNet and its ControlNet adapter, and samples, trains and
-serves over a ("data", "space") mesh of four ranks.
+TPU kernel on the card against the CPU, trains in fp32 and bf16, drives the
+CLI's train, val and distill phases, runs the legacy UNet and its
+ControlNet adapter in fp32 and bf16, and samples, trains and serves over a
+("data", "space") mesh of four ranks.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --mesh-only    # build and the mesh phase alone; with
@@ -137,6 +137,22 @@ Phases (any failure ends the run with a non-zero exit code):
                batch; the median step time at 8 and at 4 bands, a device-time
                breakdown of a step under torch.profiler, and K1's input
                gradient against the library's at every shape of a step.
+               Then bf16 training (lines "[train] bf16"): the same model as
+               WavBEST(dtype=torch.bfloat16) on the same weights, every
+               gradient through K1's bf16 instance against the plain bf16
+               convs and the fp32 kernel at 8 bands (fixed t and noise,
+               dropout off, the plain bf16 path's L1 signs); the bf16
+               training forward against the served one; 10 steps of the
+               preset through the mixer and feeder, counts reset just before
+               and read just after (130 bf16 K1 forward + 65 input-gradient
+               launches, 65 weight gradients, no fp32 launch, no plain conv
+               a step; parameters, AdamW moments and EMA float32); two
+               DistillTrainer steps with a bf16 student and teacher (5 x 65
+               bf16 launches a step, no fp32 one); K1
+               bf16's input gradient and the bf16 weight gradient at every
+               shape of a step against their plain versions, timed beside
+               the bf16 library and bound; the median 8-band step beside the
+               fp32 step's and its device breakdown.
   9. cli       the train/val entry point (tmdiff_tpu_torch/cli.py) at the
                general_multi preset's settings, through its `_run` seam on
                data built in memory: batch 8 of the train phase's 64x64
@@ -174,7 +190,17 @@ Phases (any failure ends the run with a non-zero exit code):
                (sd_locked) with every trainable gradient against the plain
                path's (its L1 signs), no gradient on the base encoder, the
                frozen weights unchanged by the Adam step; the controlled
-               forward's K1 and library convs timed call by call.
+               forward's K1 and library convs timed call by call. Then in
+               bf16 on the same weights (lines "[controlnet] bf16"), at the
+               JAX package's flagship legacy geometry (batch 8, its
+               benchmarks/controlnet_bench.py): LegacyUNet, the controlled
+               model and its only_mid_control twin, forward ms and img/s
+               and controlled_over_base / mid_only_over_base, each against
+               the plain bf16 convs, bf16 K1 launches only, library convs
+               by kind; every K1 launch of the controlled forward against
+               its plain version (H 256, 127, 63, 31; three parts), timed;
+               a bf16 20-step controlled ddim and an sd_locked fine-tune
+               step at batch 2 against the plain bf16 convs.
  12. mesh      the ("data", "space") mesh (tmdiff_tpu_torch/parallel/): four
                ranks spawned by parallel/dryrun.py on card 0 over gloo through
                host memory, the full-width seeded model written once; the WV3
@@ -234,7 +260,13 @@ training losses within 1e-4 relative, the gradients as in
 the train phase; a meshed served bf16 image within 1e-2 of its one-process
 replay (the bf16 request bar). The legacy
 models: a forward through K1 within 5e-4 of the plain convs', the ddim
-request within 2e-3, the fine-tune gradients as in the train phase.
+request within 2e-3, the fine-tune gradients as in the train phase; in
+bf16 a forward and the ddim request within 1e-2 of their scale of the plain
+bf16 convs'. bf16 training: every gradient through K1's bf16 instance
+within twice the plain bf16 path's own gap to fp32 (floored at its median
+over the parameters) and within 5e-2 of its scale of the plain bf16 path's;
+the bf16 weight gradient within one bf16 step plus 1e-4 of scale of fp32
+sums of the same operands.
 """
 from __future__ import annotations
 
@@ -335,9 +367,9 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def conv_bound(b, d, h, w, cin, cout, style, bias, accumulate, peak):
+def conv_bound(b, d, h, w, cin, cout, style, bias, accumulate, peak, elem_bytes=4):
     flops = 2.0 * b * cin * cout * valid_taps(d) * valid_taps(h) * valid_taps(w)
-    nbytes = 4.0 * (b * d * h * w * (cin + cout * (2 if accumulate else 1))
+    nbytes = elem_bytes * (b * d * h * w * (cin + cout * (2 if accumulate else 1))
                     + 27 * cin * cout + (b * cin if style else 0) + (cout if bias else 0))
     return bound(flops, nbytes, peak)
 
@@ -1488,8 +1520,8 @@ def train_setup():
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.train.trainer import Trainer
 
-    def new_model():
-        model = WavBEST(CHANNELS, device=DEV, seed=SEED)
+    def new_model(dtype=torch.float32):
+        model = WavBEST(CHANNELS, device=DEV, seed=SEED, dtype=dtype)
         return apply_init_style(model, "torch", torch.Generator().manual_seed(SEED))
 
     def new_trainer(model, **overrides):
@@ -1783,18 +1815,21 @@ def profile_breakdown(prof, wall: float, steps: int, k1_input_grad_ms: float) ->
                             for e in host}}
 
 
-def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_ms):
-    """Median step seconds at 8 and at 4 bands, then a profiled window;
-    `input_grad_ms` = {bands: K1's input-gradient ms a step, by events}."""
+def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_ms,
+                       sensors=("WV3", "QB"), dtype=torch.float32):
+    """Median step seconds of the `dtype` model at each sensor's bands, then
+    a profiled window; `input_grad_ms` = {bands: K1's input-gradient ms a
+    step, by events}."""
     from torch.profiler import ProfilerActivity, profile
 
     from tmdiff_tpu_torch.data.pipeline import BatchIterator
     from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
 
-    trainer = new_trainer(new_model())
+    tag = "[train] bf16" if dtype == torch.bfloat16 else "[train]"
+    trainer = new_trainer(new_model(dtype))
     state = trainer.init_state()
     timing = {}
-    for sensor in ("WV3", "QB"):
+    for sensor in sensors:
         bands = TRAIN_SENSORS[sensor][0]
         source = ((b, sensor) for b in BatchIterator(datasets[sensor], TRAIN_BATCH, seed=SEED))
         feeder = DeviceFeeder(source, device=DEV, depth=2)
@@ -1819,7 +1854,7 @@ def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_
         br = profile_breakdown(prof, wall, PROFILED_STEPS, input_grad_ms[bands])
         timing[bands] = {"median_s": med, "img_per_s": TRAIN_BATCH / med, "steps_s": secs, **br}
         parts = ", ".join(f"{k} {v:.3f}" for k, v in br["parts"].items())
-        print(f"[train] {bands}-band step, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: median "
+        print(f"{tag} {bands}-band step, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: median "
               f"{med:.4f} s over {TIMED_STEPS} ({min(secs):.4f}-{max(secs):.4f}), "
               f"{TRAIN_BATCH / med:.1f} img/s; profiled {PROFILED_STEPS} steps: wall "
               f"{br['wall_ms']:.2f} ms/step, device {br['device_ms']:.2f} ms/step, busy share "
@@ -1827,18 +1862,24 @@ def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_
               f"{br['k1_ms']:.3f} (K1 launches linked to their ops: {br['k1_linked']})",
               flush=True)
         for name, v in br["top_kernels_ms"].items():
-            print(f"[train]   device {v:9.3f} ms/step  {name}", flush=True)
+            print(f"{tag}   device {v:9.3f} ms/step  {name}", flush=True)
         for name, v in br["top_host_ms"].items():
-            print(f"[train]   host   {v:9.3f} ms/step  {name}", flush=True)
+            print(f"{tag}   host   {v:9.3f} ms/step  {name}", flush=True)
     return timing
 
 
-def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
-    """K1's input gradient at every shape of one step of `sensor` against the
-    library's (aten.convolution_backward for the input, TF32 off, cuDNN in
-    benchmark mode) and the plain version, beside its bound; and the weight
-    gradient's time at the same shapes."""
-    trainer = new_trainer(new_model())
+def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
+                     dtype=torch.float32):
+    """K1's input gradient at every shape of one step of `sensor` in `dtype`
+    against the library's (aten.convolution_backward for the input, TF32
+    off, cuDNN in benchmark mode) and the plain version (fp32: CONV_RTOL;
+    bf16: one bf16 step, bf16_check), beside its bound; and the weight
+    gradient's time at the same shapes (bf16: also within one bf16 step
+    plus 1e-4 of scale of the fp32 sums of the same bf16 operands)."""
+    bf16 = dtype == torch.bfloat16
+    tag = "[train] bf16" if bf16 else "[train]"
+    peak, elem = (PEAK_BF16_FLOPS, 2) if bf16 else (PEAK_TF32X3_FLOPS, 4)
+    trainer = new_trainer(new_model(dtype))
     state = trainer.init_state()
     batch = {k: torch.as_tensor(v, device=DEV) for k, v in datasets[sensor].batch(
         np.arange(TRAIN_BATCH)).items()}
@@ -1858,21 +1899,35 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
         K._launch = launch
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "weight_grad_ms": 0.0,
            "weight_grad_bound_ms": 0.0, "weight_grad_fp32_bound_ms": 0.0, "ops_s": 0.0,
-           "bytes_s": 0.0}
+           "bytes_s": 0.0, "weight_grad_err_of_scale": 0.0}
     max_err = 0.0
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for (b, d, h, w, cout, cin), n in sorted(shapes.items()):
-        dy = torch.randn(b, d, h, w, cout, device=DEV, generator=gen)
-        k = torch.randn(3, 3, 3, cin, cout, device=DEV, generator=gen) / (27 * cin) ** 0.5
-        x = torch.randn(b, d, h, w, cin, device=DEV, generator=gen)
+        dy = torch.randn(b, d, h, w, cout, device=DEV, generator=gen).to(dtype)
+        k = (torch.randn(3, 3, 3, cin, cout, device=DEV, generator=gen) / (27 * cin) ** 0.5).to(dtype)
+        x = torch.randn(b, d, h, w, cin, device=DEV, generator=gen).to(dtype)
         kt = k.flip((0, 1, 2)).transpose(3, 4).contiguous()
         with torch.no_grad():
             got = K._launch(dy, kt, None, None, None, True)
             ref = K.conv3d_plain(dy, kt)
-            err = rel_to_scale(got, ref)
-            if not err <= CONV_RTOL:
-                fail(f"input gradient {(b, d, h, w, cout, cin)}: {err} of scale")
-            max_err = max(max_err, (got - ref).abs().max().item())
+            what = f"input gradient {(b, d, h, w, cout, cin)} {dtype}"
+            if bf16:
+                max_err = max(max_err, bf16_check(got, ref, what))
+                err = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+                dw, dw32 = K.conv3d_weight_grad(x, dy), K.conv3d_weight_grad(x.float(), dy.float())
+                wscale = dw32.abs().max().item()
+                over = ((dw.float() - dw32).abs() > 2 * bf16_half_step(dw32)
+                        + BF16_CONV_RTOL * wscale)
+                if dw.dtype != torch.bfloat16 or over.any():
+                    fail(f"bf16 weight gradient {(b, d, h, w, cin, cout)}: {int(over.sum())} "
+                         f"elements beyond one bf16 step of the fp32 sums")
+                tot["weight_grad_err_of_scale"] = max(
+                    tot["weight_grad_err_of_scale"], (dw.float() - dw32).abs().max().item() / wscale)
+            else:
+                err = rel_to_scale(got, ref)
+                if not err <= CONV_RTOL:
+                    fail(f"{what}: {err} of scale")
+                max_err = max(max_err, (got - ref).abs().max().item())
             ms_k = cuda_ms(lambda: K._launch(dy, kt, None, None, None, True), 10)
             ms_p = cuda_ms(lambda: K.conv3d_plain(dy, kt), 3)
             wl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
@@ -1880,13 +1935,13 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
                 dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), wl, None, [1, 1, 1],
                 [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [True, False, False]), 10)
             ms_w = cuda_ms(lambda: K.conv3d_weight_grad(x, dy), 10)
-        bnd, bound_by = conv_bound(b, d, h, w, cout, cin, False, False, False, PEAK_TF32X3_FLOPS)
+        bnd, bound_by = conv_bound(b, d, h, w, cout, cin, False, False, False, peak, elem)
         # the weight gradient: the forward's multiply-adds, x and dy read, dW written
         wg_flops = 2.0 * b * cin * cout * valid_taps(d) * valid_taps(h) * valid_taps(w)
-        wg_bytes = 4.0 * (b * d * h * w * (cin + cout) + 27 * cin * cout)
-        wg_bnd, _ = bound(wg_flops, wg_bytes, PEAK_TF32X3_FLOPS)
+        wg_bytes = elem * (b * d * h * w * (cin + cout) + 27 * cin * cout)
+        wg_bnd, _ = bound(wg_flops, wg_bytes, peak)
         wg_fp32, _ = bound(wg_flops, wg_bytes, PEAK_FP32_FLOPS)
-        print(f"[train] input gradient B{b} D{d} {h}x{w} {cout}->{cin} x{n}/step: K1 "
+        print(f"{tag} input gradient B{b} D{d} {h}x{w} {cout}->{cin} x{n}/step: K1 "
               f"{ms_k:.4f} ms, plain {ms_p:.4f}, library {ms_l:.4f}, bound {bnd:.4f} "
               f"({bound_by}); weight gradient (cuDNN, deterministic) {ms_w:.4f} ms, bound "
               f"{wg_bnd:.4f} (fp32 FMA {wg_fp32:.4f}); err {err:.3g} of scale", flush=True)
@@ -1896,17 +1951,201 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor):
             tot[key] += n * v
         tot["ops_s" if bound_by == "operations" else "bytes_s"] += n * bnd
     tot["bound_by"] = "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"
-    print(f"[train] one {TRAIN_SENSORS[sensor][0]}-band step's input gradients, summed: K1 "
+    rate = "bf16" if bf16 else "3xTF32"
+    against = (f"; the bf16 weight gradients within {tot['weight_grad_err_of_scale']:.3g} of "
+               "their scale of fp32 sums" if bf16 else "")
+    print(f"{tag} one {TRAIN_SENSORS[sensor][0]}-band step's input gradients, summed: K1 "
           f"{tot['ms']:.2f} ms, plain "
           f"{tot['plain_ms']:.2f}, library {tot['library_ms']:.2f}, bound {tot['bound_ms']:.2f} "
           f"({tot['bound_by']}); weight gradients {tot['weight_grad_ms']:.2f} ms, bound "
-          f"{tot['weight_grad_bound_ms']:.2f} at 3xTF32 ({tot['weight_grad_fp32_bound_ms']:.2f} "
-          f"at fp32 FMA); "
-          f"{sum(shapes.values())} launches at {len(shapes)} shapes", flush=True)
+          f"{tot['weight_grad_bound_ms']:.2f} at {rate} ({tot['weight_grad_fp32_bound_ms']:.2f} "
+          f"at fp32 FMA){against}; {sum(shapes.values())} launches at {len(shapes)} shapes",
+          flush=True)
     return tot, max_err
 
 
-def train_phase(K, K3, K4, gen):
+# bf16 training: every gradient through K1's bf16 instance within twice the
+# plain bf16 path's own gap to the fp32 path (that gap floored at its median
+# over the parameters: one gradient's gap is a draw of bf16 noise) of the
+# plain bf16 path's, and within BF16_GRAD_CAP of the gradient's scale
+BF16_GRAD_CAP = 5e-2
+BF16_TRAIN_STEPS = 10
+
+
+@contextlib.contextmanager
+def counting_plain_convs(K, modconv):
+    """Within the block, counts calls of the plain 3x3x3 conv (both names)
+    in the list it yields."""
+    calls = []
+    originals = K.conv3d_plain, modconv.conv3d_plain
+
+    def counted(*a, **k):
+        calls.append(1)
+        return originals[0](*a, **k)
+
+    K.conv3d_plain = modconv.conv3d_plain = counted
+    try:
+        yield calls
+    finally:
+        K.conv3d_plain, modconv.conv3d_plain = originals
+
+
+def bf16_grads_check(K, label, paths, params32, loss_of):
+    """Gradients of `loss_of(model)` (the L1 loss with the plain bf16 path's
+    signs) through the bf16 kernel, the plain bf16 convs and the fp32
+    kernel: `paths` = {"kernel": model16, "plain": model16, "fp32":
+    model32}, each model's parameters in one order; `params32` names them.
+    Holds each kernel gradient within twice the plain path's own gap to
+    fp32 (floored at its median) and BF16_GRAD_CAP of the plain path's, of
+    the fp32 gradient's scale; returns the worst (gap, own, to fp32) row,
+    the kernel pass's counts and its gradients by name."""
+    grads, n = {}, {}
+    for name in ("plain", "kernel", "fp32"):
+        model = paths[name]
+        model.use_plain_conv(name == "plain")
+        reset_counts(K)
+        ps = [p for _, p in model.named_parameters()]
+        grads[name] = torch.autograd.grad(loss_of(model, name), ps, allow_unused=True)
+        torch.cuda.synchronize()
+        n[name] = (K.dtype_launches["bfloat16"], K.dtype_launches["float32"], K.input_grad_launches,
+                   K.weight_grad_calls, {v for v, c in K.variant_launches.items() if c})
+        model.use_plain_conv(False)
+    rows = {}
+    for i, pname in enumerate(params32):
+        g32, gp, gk = grads["fp32"][i], grads["plain"][i], grads["kernel"][i]
+        if g32 is None or not g32.abs().max().item() > 0:
+            continue
+        scale = g32.abs().max().item()
+        rows[pname] = ((gk - gp).abs().max().item() / scale, (gp - g32).abs().max().item() / scale,
+                       (gk - g32).abs().max().item() / scale)
+    floor = float(np.median([own for _, own, _ in rows.values()]))
+    over = {k: r for k, r in rows.items()
+            if not (r[0] <= 2 * max(r[1], floor) and r[0] < BF16_GRAD_CAP)}
+    worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], floor))
+    print(f"[{label}] bf16 gradients, L1 with the plain bf16 path's signs: {len(rows)} "
+          f"gradients, worst {worst} at {rows[worst][0]:.3g} of scale against the plain bf16 "
+          f"path, whose own gap to fp32 is {rows[worst][1]:.3g} (median {floor:.3g}); largest "
+          f"gap to the plain path {max(r[0] for r in rows.values()):.3g} (cap {BF16_GRAD_CAP}), "
+          f"to fp32 {max(r[2] for r in rows.values()):.3g}; kernel pass "
+          f"launches (bf16, fp32, input gradient, weight gradients, variants) {n['kernel']}, "
+          f"plain pass {n['plain'][:4]}", flush=True)
+    if over:
+        fail(f"{label} bf16 gradients beyond the bar: {over}")
+    return rows[worst], n["kernel"], dict(zip(params32, grads["kernel"]))
+
+
+def distill_bf16_steps(K, student, schedule, batch, prompt, steps=2):
+    """`steps` DistillTrainer steps of a bf16 student (N = 10 of T = 1000)
+    from a bf16 teacher on its starting weights: per step 5 x 65 bf16 K1
+    launches (two teacher calls, the student's forward and remat's
+    recompute, its input gradient), 65 weight gradients, no fp32 launch;
+    finite losses, float32 state. Returns launches per step and s/step."""
+    from tmdiff_tpu_torch.train.distill import DistillTrainer
+
+    d_trainer = DistillTrainer(student, schedule, n_student_steps=10)
+    state = d_trainer.init_state()
+    teacher = {n: p.detach().clone() for n, p in student.named_parameters()}
+    reset_counts(K)
+    t0 = time.perf_counter()
+    losses = [d_trainer.train_step(state, batch, prompt, teacher)[1]["l_pix"].item()
+              for _ in range(steps)]
+    sec = (time.perf_counter() - t0) / steps
+    n = {"bf16": K.dtype_launches["bfloat16"] / steps, "fp32": K.dtype_launches["float32"] / steps,
+         "input_grad": K.input_grad_launches / steps, "weight_grad": K.weight_grad_calls / steps}
+    fp32_state = all(p.dtype == torch.float32 for p in [*student.parameters(), *state.ema_params])
+    print(f"[train] bf16 DistillTrainer (N = 10), 8-band batch {TRAIN_BATCH} "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}: {steps} steps, {sec:.4f} s/step, losses "
+          f"{[round(x, 6) for x in losses]}; launches per step {n}; state float32 {fp32_state}",
+          flush=True)
+    want = {"bf16": 5 * TRAIN_CONVS, "fp32": 0, "input_grad": TRAIN_CONVS,
+            "weight_grad": TRAIN_CONVS}
+    if n != want or not all(np.isfinite(losses)) or not fp32_state:
+        fail(f"bf16 distillation steps: launches {n} (want {want}), losses {losses}")
+    return {"launches_per_step": n, "s_per_step": sec}
+
+
+def train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen, fp32_timing):
+    """bf16 training of the full-width model (WavBEST(dtype=torch.bfloat16),
+    fp32 parameters, AdamW and EMA): every gradient through K1's bf16
+    instance against the plain bf16 convs and the fp32 kernel (8 bands,
+    fixed t and noise, dropout off); the bf16 training forward against the
+    served one (its concat parts rounded apart); BF16_TRAIN_STEPS of the
+    preset through the mixer and feeder, counts reset just before and read
+    just after (130 bf16 K1 forward + 65 input-gradient launches, 65 weight
+    gradients, no fp32 K1 launch, no plain conv a step; state fp32); K1
+    bf16's input gradient and the bf16 weight gradient at every shape of a
+    step against their plain versions; the median step at 8 bands beside
+    the fp32 step, with its device breakdown."""
+    from tmdiff_tpu_torch.runtime.prefetch import DeviceFeeder
+
+    model16, model32 = new_model(torch.bfloat16), new_model()
+    trainer = new_trainer(model16)
+    batch, t, noise = device_batch(datasets["WV3"], gen)
+    res, prompt = batch["Res"], prompts["WV3"]
+    signs = {}
+
+    def loss_of(model, name):
+        pred = predict(model, trainer.schedule, batch, prompt, t, noise)
+        if name == "plain":
+            signs["s"] = torch.sign(pred.detach() - res)
+        return torch.mean((pred - res) * signs["s"])
+
+    names = [n for n, _ in model32.named_parameters()]
+    worst, n_grad, _ = bf16_grads_check(K, "train", {"kernel": model16, "plain": model16,
+                                                     "fp32": model32}, names, loss_of)
+    if n_grad[:4] != (2 * TRAIN_CONVS, 0, TRAIN_CONVS, TRAIN_CONVS) or not n_grad[4] <= BF16_VARIANTS:
+        fail(f"bf16 gradient pass launches {n_grad}")
+    with torch.no_grad():
+        served = predict(model16, trainer.schedule, batch, prompt, t, noise)
+    trained = predict(model16, trainer.schedule, batch, prompt, t, noise).detach()
+    forward_gap = rel_to_scale(trained, served)
+    print(f"[train] bf16 training forward (concat parts rounded apart) against the served "
+          f"forward (one rounding): {forward_gap:.3g} of scale", flush=True)
+
+    state = trainer.init_state()
+    feeder = DeviceFeeder(mixer_for(datasets, SEED), device=DEV, depth=2)
+    try:
+        with counting_plain_convs(K, modconv) as plain_calls:
+            reset_counts(K)
+            losses = run_steps(trainer, state, feeder, prompts, BF16_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            n = {"k1_forward": K.launches - K.input_grad_launches,
+                 "k1_input_grad": K.input_grad_launches, "weight_grad": K.weight_grad_calls,
+                 "bf16": K.dtype_launches["bfloat16"], "fp32": K.dtype_launches["float32"],
+                 "plain": len(plain_calls)}
+            variants = {v for v, c in K.variant_launches.items() if c}
+    finally:
+        feeder.close()
+    per_step = {k: v / BF16_TRAIN_STEPS for k, v in n.items()}
+    moments = [v for st in state.optimizer.state.values() for k, v in st.items() if k != "step"]
+    fp32_state = all(x.dtype == torch.float32 for x in
+                     [*model16.parameters(), *state.ema_params, *moments])
+    print(f"[train] bf16: {BF16_TRAIN_STEPS} steps of the preset through SensorMixer 4:4:8 and "
+          f"DeviceFeeder: losses {[round(x, 6) for x in losses]}; per step {per_step}, variants "
+          f"{sorted(variants)}; parameters, AdamW moments ({len(moments)}) and EMA float32: "
+          f"{fp32_state}", flush=True)
+    want = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
+            "weight_grad": TRAIN_CONVS, "bf16": 3 * TRAIN_CONVS, "fp32": 0, "plain": 0}
+    if per_step != want or not variants <= BF16_VARIANTS:
+        fail(f"bf16 launches per training step {per_step}, variants {variants}; want {want}")
+    if not all(np.isfinite(losses)) or not fp32_state or len(moments) != 2 * len(names):
+        fail("bf16 training: losses not finite or a parameter, moment or EMA not float32")
+    distill = distill_bf16_steps(K, model16, trainer.schedule, batch, prompt)
+
+    input_grad, input_grad_err = input_grad_phase(K, new_model, new_trainer, prompts, datasets,
+                                                  "WV3", torch.bfloat16)
+    timing = train_timing_phase(K, new_model, new_trainer, prompts, datasets,
+                                {8: input_grad["ms"]}, ("WV3",), torch.bfloat16)[8]
+    print(f"[train] bf16 8-band step median {timing['median_s']:.4f} s against the fp32 step's "
+          f"{fp32_timing['median_s']:.4f} s in this run ({fp32_timing['median_s'] / timing['median_s']:.2f}x)",
+          flush=True)
+    return {"counts": per_step, "distill": distill,
+            "grad_worst_gap_own_to_fp32": worst, "forward_gap": forward_gap,
+            "input_grad": input_grad, "input_grad_max_abs_err": input_grad_err,
+            "timing": timing, "fp32_median_s": fp32_timing["median_s"]}
+
+
+def train_phase(K, K3, K4, modconv, gen):
     new_model, new_trainer, prompts, datasets = train_setup()
     grad_err = train_grads_phase(K, new_model, new_trainer, prompts, datasets, gen)
     n, losses = train_main_phase(K, K3, K4, new_model, new_trainer, prompts, datasets)
@@ -1916,8 +2155,10 @@ def train_phase(K, K3, K4, gen):
                   for sensor in ("WV3", "QB")}
     timing = train_timing_phase(K, new_model, new_trainer, prompts, datasets,
                                 {bands: tot["ms"] for bands, (tot, _) in input_grad.items()})
+    bf16 = train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen,
+                            timing[8])
     return {"counts": n, "grad_err": grad_err, "timing": timing, "input_grad": input_grad[8][0],
-            "input_grad_err": max(err for _, err in input_grad.values())}
+            "input_grad_err": max(err for _, err in input_grad.values()), "bf16": bf16}
 
 
 # The CLI at the general_multi preset: 7 steps, validation and a checkpoint
@@ -2637,22 +2878,22 @@ LEGACY_LIBRARY = {"strided": 6, "transposed": 3, "hint": 0}
 CONTROL_LIBRARY = {"strided": 3, "transposed": 0, "hint": 7}
 
 
-def controlnet_inputs(gen, bands=8):
-    """The legacy models' inputs at BATCH x SIZE x SIZE: x_t, t, pan, ms,
+def controlnet_inputs(gen, bands=8, batch=BATCH):
+    """The legacy models' inputs at batch x SIZE x SIZE: x_t, t, pan, ms,
     the WV3 prompt, a 3-channel hint and the task feature."""
     from tmdiff_tpu_torch.models.clip_text import load_prompt_table
     from tmdiff_tpu_torch.models.controlnet import task_feature
 
     table, index, _ = load_prompt_table()
-    shape = (BATCH, bands, SIZE, SIZE)
+    shape = (batch, bands, SIZE, SIZE)
     ms = torch.rand(shape, device=DEV, generator=gen)
-    batch = {"x_t": torch.randn(shape, device=DEV, generator=gen),
-             "t": torch.tensor([250.0, 750.0][:BATCH], device=DEV),
-             "pan": ms.mean(1, keepdim=True)
-             + 0.05 * torch.randn((BATCH, 1, SIZE, SIZE), device=DEV, generator=gen),
-             "ms": ms, "prompt_emb": torch.as_tensor(table[index["WV3"]], device=DEV)}
-    hint = torch.rand((BATCH, SIZE, SIZE, 3), device=DEV, generator=gen)
-    return batch, hint, task_feature(CONTROL_TASK)
+    inputs = {"x_t": torch.randn(shape, device=DEV, generator=gen),
+              "t": torch.linspace(250.0, 750.0, batch, device=DEV),
+              "pan": ms.mean(1, keepdim=True)
+              + 0.05 * torch.randn((batch, 1, SIZE, SIZE), device=DEV, generator=gen),
+              "ms": ms, "prompt_emb": torch.as_tensor(table[index["WV3"]], device=DEV)}
+    hint = torch.rand((batch, SIZE, SIZE, 3), device=DEV, generator=gen)
+    return inputs, hint, task_feature(CONTROL_TASK)
 
 
 def live_controlnet(base, gen):
@@ -2686,9 +2927,9 @@ def recorded_convs(K, lib, fn):
 
     class Recorded(conv):
         @staticmethod
-        def forward(ctx, x, weight, bias, kind):
-            convs.append((kind, x, weight, bias))
-            return conv.forward(ctx, x, weight, bias, kind)
+        def forward(ctx, x, weight, kind):
+            convs.append((kind, x, weight))
+            return conv.forward(ctx, x, weight, kind)
 
     K._launch, lib._Conv = record_launch, Recorded
     try:
@@ -2704,13 +2945,12 @@ def controlnet_times(K, lib, k1, convs):
         ms = sum(cuda_ms(lambda a=a: K._launch(*a), 3) for a in k1)
         plain_ms = sum(cuda_ms(lambda a=a: K.conv3d_plain(*a[:4], None), 1) for a in k1)
         by_kind = {}
-        for kind, x, w, b in convs:
-            by_kind[kind] = by_kind.get(kind, 0.0) + cuda_ms(
-                lambda: lib._Conv.apply(x, w, b, kind), 3)
+        for kind, x, w in convs:
+            by_kind[kind] = by_kind.get(kind, 0.0) + cuda_ms(lambda: lib._Conv.apply(x, w, kind), 3)
     return ms, plain_ms, by_kind
 
 
-def controlnet_phase(K, gen):
+def controlnet_phase(K, modconv, gen):
     """The legacy UNet and the ControlNet adapter (models/legacy_unet.py,
     models/controlnet.py) at their defaults (channels 32, 64, 128, 256,
     embed 128, inter 32), 8 bands, batch BATCH, SIZE x SIZE: a LegacyUNet
@@ -2876,6 +3116,239 @@ def controlnet_phase(K, gen):
     result["forward_convs"] = {"k1_ms": k1_ms, "k1_plain_ms": k1_plain_ms,
                                "library_ms": lib_ms, "k1_launches": len(k1),
                                "library_calls": len(convs)}
+    result["bf16"] = controlnet_bf16_phase(K, modconv, gen, base, model)
+    return result
+
+
+# The JAX package's flagship legacy geometry (benchmarks/controlnet_bench.py:
+# channels 32-256, 8 bands, 256x256, batch 8, bf16) and its three variants
+CONTROL_BF16_BATCH, CONTROL_BF16_REPS = 8, 3
+CONTROL_BF16_RTOL = 1e-2  # a bf16 forward or request against the plain bf16 convs, of scale
+# cuDNN's bf16 weight gradient drifts from one rounding of the fp32 sums as
+# the sum over positions lengthens: at the training shapes (2^18 positions)
+# it stays within one bf16 step plus 1e-4 of scale, at the legacy forward's
+# (2^22 at batch 8) a near-zero element lay 6.6e-4 of scale beyond one step
+# (NVIDIA H100 80GB HBM3, 700 W). Held here to one bf16 step of the scale,
+# the excess printed.
+BF16_WEIGHT_GRAD_RTOL = 2.0 ** -8
+
+
+def legacy_k1_bf16_shapes(K, k1):
+    """Each recorded bf16 K1 launch (x, kernel, style, bias, out) of a legacy
+    forward against its plain bf16 version element by element (bf16_check),
+    timed beside the plain version, the bf16 library conv (F.conv3d, cuDNN
+    benchmark mode) and the bf16 bound; and the bf16 weight gradient of its
+    operand bf16(x s) with a random dy against fp32 sums of the same
+    operands (beyond one bf16 step: BF16_WEIGHT_GRAD_RTOL of scale). Returns
+    the sums, the largest error and the weight gradient's largest excess."""
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0,
+           "bytes_s": 0.0, "max_abs_err": 0.0, "weight_grad_excess_of_scale": 0.0,
+           "weight_grad_over_1e-4": 0}
+    shapes = set()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    with torch.no_grad():
+        for x, k, st, bi, out in k1:
+            fresh = lambda: None if out is None else out.clone()
+            b, d, h, w, cin = x.shape
+            cout = k.shape[-1]
+            shapes.add((h, w, cin, cout, out is not None))
+            got, variant = launched_variant(K, lambda: K._launch(x, k, st, bi, fresh()))
+            if variant not in BF16_VARIANTS:
+                fail(f"legacy bf16 conv {tuple(x.shape)} -> {cout} took {variant}")
+            tot["max_abs_err"] = max(tot["max_abs_err"], bf16_check(
+                got, K.conv3d_plain(x, k, st, bi, fresh()), f"legacy bf16 conv {tuple(x.shape)}"))
+            acc = fresh()
+            tot["ms"] += cuda_ms(lambda: K._launch(x, k, st, bi, acc), 3)
+            tot["plain_ms"] += cuda_ms(lambda: K.conv3d_plain(x, k, st, bi, acc), 1)
+            xs = x if st is None else x * st.view(b, 1, 1, 1, cin)
+            dy = torch.randn(got.shape, device=DEV, generator=gen).bfloat16()
+            dw32 = K.conv3d_weight_grad(xs.float(), dy.float())
+            excess = ((K.conv3d_weight_grad(xs, dy).float() - dw32).abs()
+                      - 2 * bf16_half_step(dw32)).clamp(min=0) / dw32.abs().max()
+            tot["weight_grad_excess_of_scale"] = max(tot["weight_grad_excess_of_scale"],
+                                                     excess.max().item())
+            tot["weight_grad_over_1e-4"] += int((excess > 1e-4).sum())
+            if excess.max().item() > BF16_WEIGHT_GRAD_RTOL:
+                fail(f"legacy bf16 weight gradient {tuple(x.shape)} -> {cout}: "
+                     f"{excess.max().item()} of scale beyond one bf16 step")
+            wl = k.permute(4, 3, 0, 1, 2).contiguous()
+            tot["library_ms"] += library_ms(
+                lambda: F.conv3d(xs.permute(0, 4, 1, 2, 3), wl, bi, padding=1), 3)
+            bnd, by = conv_bound(b, d, h, w, cin, cout, st is not None, bi is not None,
+                                 out is not None, PEAK_BF16_FLOPS, 2)
+            tot["bound_ms"] += bnd
+            tot["ops_s" if by == "operations" else "bytes_s"] += bnd
+    tot["bound_by"] = "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"
+    tot["shapes"] = sorted(shapes)
+    return tot
+
+
+def controlnet_bf16_phase(K, modconv, gen, base32, model32):
+    """The legacy models in bf16 on the fp32 phase's weights: LegacyUNet,
+    the live ControlledLegacyUNet and its only_mid_control twin at the JAX
+    package's flagship legacy geometry (batch CONTROL_BF16_BATCH): forward
+    ms and img/s (CONTROL_BF16_REPS after a warm-up; controlled_over_base
+    and mid_only_over_base as controlnet_bench.py prints them), each
+    against the same model through the plain bf16 convs
+    (CONTROL_BF16_RTOL of scale), only bf16 K1 launches, library convs by
+    kind; every K1 launch of the controlled forward against its plain
+    version element by element; a CONTROL_STEPS-step controlled ddim at
+    batch BATCH against the plain bf16 convs; one sd_locked fine-tune step
+    at batch BATCH held as the bf16 training step is (bf16_grads_check
+    against the fp32 model), no base-encoder gradient, the frozen weights
+    unchanged by the Adam step."""
+    from tmdiff_tpu_torch.diffusion import gaussian
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.controlnet import (TASKS_TO_ID, ControlledLegacyUNet,
+                                                    trainable_labels, trainable_parameters)
+    from tmdiff_tpu_torch.models.legacy_unet import LegacyUNet
+    from tmdiff_tpu_torch.ops import library_conv as lib
+
+    bf16 = torch.bfloat16
+    base = LegacyUNet(CHANNELS, device=DEV, seed=SEED, dtype=bf16)
+    base.load_state_dict(base32.state_dict())
+    models = {}
+    for label, mid in (("controlled", False), ("mid_only", True)):
+        models[label] = ControlledLegacyUNet(CHANNELS, device=DEV, seed=SEED + 1, dtype=bf16,
+                                             only_mid_control=mid)
+        models[label].load_state_dict(model32.state_dict())
+    task_id = TASKS_TO_ID[CONTROL_TASK]
+    inputs, hint, feat = controlnet_inputs(gen, batch=CONTROL_BF16_BATCH)
+    control = dict(hint=hint, task_id=task_id, task_feat=feat)
+    result = {}
+    for label, net, kw, convs, library in (
+            ("base", base, {}, LEGACY_CONVS, LEGACY_LIBRARY),
+            *((label, models[label], control, LEGACY_CONVS + CONTROL_CONVS,
+               {k: LEGACY_LIBRARY[k] + CONTROL_LIBRARY[k] for k in LEGACY_LIBRARY})
+              for label in ("controlled", "mid_only"))):
+        with torch.no_grad():
+            net(**inputs, **kw)  # warm-up
+            reset_counts(K)
+            lib.reset_calls()
+            with counting_plain_convs(K, modconv) as plain_calls:
+                t0 = time.perf_counter()
+                for _ in range(CONTROL_BF16_REPS):
+                    y = net(**inputs, **kw)
+                torch.cuda.synchronize()
+                sec = (time.perf_counter() - t0) / CONTROL_BF16_REPS
+            counted = (K.dtype_launches["bfloat16"] // CONTROL_BF16_REPS,
+                       K.dtype_launches["float32"], len(plain_calls),
+                       {k: v // CONTROL_BF16_REPS for k, v in lib.calls.items()})
+            variants = {v for v, c in K.variant_launches.items() if c}
+            net.use_plain_conv(True)
+            plain = net(**inputs, **kw)
+            net.use_plain_conv(False)
+        err = rel_to_scale(y, plain)
+        print(f"[controlnet] bf16 {label} forward, 8-band batch {CONTROL_BF16_BATCH} "
+              f"{SIZE}x{SIZE}: {sec * 1e3:.2f} ms, {CONTROL_BF16_BATCH / sec:.2f} img/s; against "
+              f"the plain bf16 convs {err:.3g} of scale (bar {CONTROL_BF16_RTOL}); output "
+              f"{y.dtype}; bf16 / fp32 K1 launches, plain convs, library convs a forward "
+              f"{counted} (expected {convs} / 0, 0, {library}), variants {sorted(variants)}",
+              flush=True)
+        if not (err <= CONTROL_BF16_RTOL and y.dtype == torch.float32
+                and torch.isfinite(y).all()):
+            fail(f"bf16 {label} forward: {err} of scale from the plain bf16 convs")
+        if counted != (convs, 0, 0, library) or not variants <= BF16_VARIANTS:
+            fail(f"bf16 {label} forward launches {counted}, variants {variants}")
+        result[label] = {"ms": sec * 1e3, "img_per_s": CONTROL_BF16_BATCH / sec,
+                         "err_of_scale": err, "k1": convs}
+    result["controlled_over_base"] = result["controlled"]["ms"] / result["base"]["ms"]
+    result["mid_only_over_base"] = result["mid_only"]["ms"] / result["base"]["ms"]
+    print(f"[controlnet] bf16 controlled_over_base {result['controlled_over_base']:.3f}, "
+          f"mid_only_over_base {result['mid_only_over_base']:.3f}", flush=True)
+
+    model = models["controlled"]
+    with torch.no_grad():
+        _, k1, convs = recorded_convs(K, lib, lambda: model(**inputs, **control))
+    shapes = legacy_k1_bf16_shapes(K, k1)
+    lib_ms = controlnet_times(K, lib, [], convs)[2]
+    print(f"[controlnet] bf16 controlled forward's {len(k1)} K1 launches at "
+          f"{len(shapes['shapes'])} shapes (H, W, Cin, Cout, accumulate) "
+          f"{shapes['shapes']}: each within one bf16 step of its plain version (largest "
+          f"{shapes['max_abs_err']:.3g}); the bf16 weight gradient at each, beyond one bf16 "
+          f"step of fp32 sums by at most {shapes['weight_grad_excess_of_scale']:.3g} of scale "
+          f"(bar {BF16_WEIGHT_GRAD_RTOL:.3g}; {shapes['weight_grad_over_1e-4']} elements beyond "
+          f"1e-4); K1 {shapes['ms']:.3f} ms, plain "
+          f"{shapes['plain_ms']:.3f}, bf16 library conv {shapes['library_ms']:.3f}, bound "
+          f"{shapes['bound_ms']:.3f} ({shapes['bound_by']}); library convs {len(convs)} calls "
+          f"{sum(lib_ms.values()):.3f} ms by kind { {k: round(v, 3) for k, v in lib_ms.items()} }",
+          flush=True)
+    result["forward_convs"] = {**{k: v for k, v in shapes.items() if k != "shapes"},
+                               "k1_launches": len(k1), "library_convs_ms": lib_ms}
+
+    # a controlled ddim request in bf16 at the fp32 phase's batch
+    inputs2, hint2, _ = controlnet_inputs(gen)
+    control2 = dict(hint=hint2, task_id=task_id, task_feat=feat)
+    ns = NoiseSchedule.create("cosine", 1000).to(DEV)
+    shape = tuple(inputs2["x_t"].shape)
+    x_T = torch.randn(shape, device=DEV, generator=gen)
+    imgs = {}
+    for plain in (True, False):
+        model.use_plain_conv(plain)
+        denoise = lambda x, t, pan, ms: model(x, t, pan, ms, inputs2["prompt_emb"], **control2)
+        with torch.no_grad():
+            reset_counts(K)
+            t0 = time.perf_counter()
+            imgs[plain] = gaussian.ddim_sample(denoise, ns, None, inputs2["pan"], inputs2["ms"],
+                                               shape, steps=CONTROL_STEPS, x_init=x_T)
+            torch.cuda.synchronize()
+            imgs[(plain, "s")] = time.perf_counter() - t0
+            imgs[(plain, "n")] = (K.dtype_launches["bfloat16"], K.dtype_launches["float32"])
+    model.use_plain_conv(False)
+    gap = rel_to_scale(imgs[False], imgs[True])
+    want = (CONTROL_STEPS * (LEGACY_CONVS + CONTROL_CONVS), 0)
+    print(f"[controlnet] bf16 ddim {CONTROL_STEPS} steps with the controlled model, 8-band "
+          f"batch {BATCH} {SIZE}x{SIZE}: {imgs[(False, 's')]:.3f} s "
+          f"({CONTROL_STEPS / imgs[(False, 's')]:.1f} NFE/s), plain bf16 convs "
+          f"{imgs[(True, 's')]:.3f} s; {gap:.3g} of scale from the plain (bar "
+          f"{CONTROL_BF16_RTOL}); bf16 / fp32 K1 launches {imgs[(False, 'n')]} (expected {want})",
+          flush=True)
+    if not (gap <= CONTROL_BF16_RTOL and torch.isfinite(imgs[False]).all()
+            and imgs[(False, "n")] == want):
+        fail(f"bf16 controlled ddim: {gap} of scale, launches {imgs[(False, 'n')]}")
+    result["ddim"] = {"s": imgs[(False, "s")], "plain_s": imgs[(True, "s")], "gap": gap,
+                      "k1": want[0]}
+
+    # one sd_locked fine-tune step in bf16, held against the plain bf16 convs
+    labels = trainable_labels(model, sd_locked=True)
+    names = [n for n, _ in model.named_parameters()]
+    target = torch.randn(shape, device=DEV, generator=gen)
+    signs = {}
+
+    def loss_of(net, name):
+        pred = net(**inputs2, **control2)
+        if name == "plain":
+            signs["s"] = torch.sign(pred.detach() - target)
+        return torch.mean((pred - target) * signs["s"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    worst, n_step, grads = bf16_grads_check(K, "controlnet", {"kernel": model, "plain": model,
+                                                              "fp32": model32}, names, loss_of)
+    encoder = ("embed", "embed2", "conv1", "conv2", "down1", "down2", "down3", "down1_1",
+               "down2_1", "down3_1", "middle1")
+    leaked = [n for n in names if n.split(".")[0] in encoder and grads[n] is not None
+              and grads[n].abs().max().item() != 0.0]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    opt = torch.optim.Adam(trainable_parameters(model, labels), lr=CONTROL_LR)
+    for n, p in model.named_parameters():
+        p.grad = grads[n]
+    opt.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    moved = [n for n, p in model.named_parameters()
+             if labels[n] == "freeze" and not torch.equal(p, before[n])]
+    changed = sum(not torch.equal(p, before[n]) for n, p in model.named_parameters())
+    fp32_params = all(p.dtype == torch.float32 for p in model.parameters())
+    print(f"[controlnet] bf16 fine-tune step (sd_locked, Adam lr {CONTROL_LR}), 8-band batch "
+          f"{BATCH} {SIZE}x{SIZE}: the three gradient passes and the step {step_s:.3f} s; "
+          f"base-encoder gradients nonzero: {leaked}; {changed} parameters moved, frozen ones "
+          f"moved: {moved}; parameters float32: {fp32_params}", flush=True)
+    if leaked or moved or not changed or not fp32_params:
+        fail(f"bf16 controlnet fine-tune step: leaked {leaked}, frozen moved {moved}")
+    if n_step[1] or not (n_step[0] and n_step[2] and n_step[3]) or not n_step[4] <= BF16_VARIANTS:
+        fail(f"bf16 controlnet fine-tune launches {n_step}")
+    result["step"] = {"grad_worst_gap_own_to_fp32": worst, "launches": n_step[:4]}
     return result
 
 
@@ -3449,7 +3922,7 @@ def main() -> int:
     k4_totals, k4_err, k4_launches, k4_variants = k4["float32"]
     k4b_totals, k4b_err, k4b_launches, k4b_variants = k4["bfloat16"]
     timed("library", library_phase)
-    train = timed("train", train_phase, K, K3, K4, gen)
+    train = timed("train", train_phase, K, K3, K4, modconv, gen)
     root = tempfile.mkdtemp(prefix="tmdiff_cli_")
     try:
         cli = timed("cli", cli_phase, K, K3, K4,
@@ -3457,7 +3930,10 @@ def main() -> int:
         distill = timed("distill", distill_phase, K, K3, K4, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    controlnet = timed("controlnet", controlnet_phase, K, gen)
+    controlnet = timed("controlnet", controlnet_phase, K, modconv, gen)
+    # the bf16 controlnet phase's plain batch-8 forwards leave tens of GB
+    # cached; the mesh phase's ranks share this card
+    torch.cuda.empty_cache()
     mesh_root = tempfile.mkdtemp(prefix="tmdiff_mesh_")
     try:
         meshed = timed("mesh", mesh_phase, K, mesh_root, served)
@@ -3554,7 +4030,25 @@ def main() -> int:
                       f"forward, batch {BATCH}, 64x64x256, 8 heads x 64 (library: bf16 SDPA)"},
         {"name": "conv3d_333_bf16", "replaces": "tmdiff_tpu/ops/pallas/banded_conv3d.py:101",
          "replaces_also": "tmdiff_tpu/ops/pallas/banded_conv3d.py:182",
-         **bf16_entry("banded", bf16_totals["conv3d"], bf16_requests["banded"]["K1"])},
+         **bf16_entry("banded", bf16_totals["conv3d"], bf16_requests["banded"]["K1"]),
+         "train_launches": train["bf16"]["counts"],
+         "train_launches_are": f"per bf16 training step of batch {TRAIN_BATCH} "
+                               f"{TRAIN_SIZE}x{TRAIN_SIZE}, full width, remat on",
+         "train_input_grad": {k: train["bf16"]["input_grad"][k] for k in
+                              ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                               "weight_grad_ms", "weight_grad_bound_ms",
+                               "weight_grad_err_of_scale")},
+         "train_input_grad_max_abs_err": train["bf16"]["input_grad_max_abs_err"],
+         "train_step_8_band": {k: v for k, v in train["bf16"]["timing"].items()
+                               if k not in ("steps_s", "top_kernels_ms", "top_host_ms")},
+         "train_step_fp32_median_s": train["bf16"]["fp32_median_s"],
+         "train_grad_worst_gap_own_to_fp32": train["bf16"]["grad_worst_gap_own_to_fp32"],
+         "train_forward_gap_to_served": train["bf16"]["forward_gap"],
+         "controlnet": controlnet["bf16"],
+         "controlnet_is": f"the legacy models in bf16: forwards at 8-band batch "
+                          f"{CONTROL_BF16_BATCH} {SIZE}x{SIZE} (forward_convs: the controlled "
+                          f"forward's K1 launches, each timed alone), a {CONTROL_STEPS}-step "
+                          f"ddim and a fine-tune step at batch {BATCH}"},
         {"name": "conv3x3_nhwc_bf16", "replaces": "tmdiff_tpu/ops/pallas/conv2d.py:43",
          **bf16_entry("auto", bf16_totals["conv3x3_nhwc"], bf16_requests["auto"]["K3"])},
     ]

@@ -2,8 +2,9 @@
 plain versions of the bf16 K1/K2/K3 instances against the Pallas kernels in
 bf16 (interpret mode), `WavBEST(dtype=torch.bfloat16)` against the JAX
 `WavBEST(dtype=jnp.bfloat16)` on carried weights, bf16 requests against the
-JAX facade with x_T injected, and the refusal of a bf16 conv under a
-gradient. Inputs are made with numpy and handed to both packages.
+JAX facade with x_T injected, and a bf16 conv and model under a gradient
+(tests/test_torch_bf16_train.py holds bf16 training against JAX). Inputs
+are made with numpy and handed to both packages.
 
 The bars:
   * ROUNDING BAR (convs): each element within half a bf16 step (half the
@@ -256,18 +257,26 @@ def test_bf16_sample_takes_ema_params(carried):
     assert not np.array_equal(swapped, sharp.sample(batch, method="ddim", steps=2, x_init=x_T))
 
 
-def test_bf16_conv_under_a_gradient_raises():
-    """bf16 training is not ported: a bf16 conv that would record a
-    gradient raises, through the entries and through the model."""
+def test_bf16_conv_gradient_runs():
+    """A bf16 conv under a gradient runs (Conv3dFunction in bf16, the input
+    and weight gradients in bf16) through both entries; a bf16 WavBEST
+    forward with a gradient returns float32 and reaches every parameter,
+    as without one; float16 is refused."""
     x = torch.randn(1, 3, 8, 8, 8, dtype=torch.bfloat16, requires_grad=True)
-    k = torch.randn(3, 3, 3, 8, 8, dtype=torch.bfloat16)
+    k = torch.randn(3, 3, 3, 8, 8, dtype=torch.bfloat16, requires_grad=True)
     for fn in (K.banded_conv3d, K.banded_conv3d_v2):
-        with pytest.raises(TypeError, match="float32 only"):
-            fn(x, k)
+        x.grad = k.grad = None
+        y = fn(x, k)
+        assert y.dtype == torch.bfloat16 and y.grad_fn is not None
+        y.float().sum().backward()
+        assert x.grad.dtype == k.grad.dtype == torch.bfloat16
     model = WavBEST((8, 8, 8, 8), device="cpu", dtype=torch.bfloat16)
     pan, ms = torch.rand(1, 1, 16, 16), torch.rand(1, 4, 16, 16)
-    with pytest.raises(TypeError, match="float32 only"):
-        model(torch.randn(1, 4, 16, 16), torch.ones(1), pan, ms, torch.zeros(768))
+    y = model(torch.randn(1, 4, 16, 16), torch.ones(1), pan, ms, torch.zeros(768))
+    assert y.dtype == torch.float32
+    y.sum().backward()
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters())
     with torch.no_grad():
         assert model(torch.randn(1, 4, 16, 16), torch.ones(1), pan, ms,
                      torch.zeros(768)).dtype == torch.float32

@@ -9,13 +9,16 @@ flash_attention_plain within one bf16 step, the bf16 kernel's tile edges,
 single launch and deepest sums against float64), plan, determinism and
 error at its deepest sums, the wrappers' refusals,
 and the model's kernel paths ("banded" and "auto") and a SpatialTransformer
-against their plain paths. Marked `cuda`; each test
+against their plain paths; bf16 training (K1's bf16 instance as its own
+input gradient and cuDNN's bf16 weight gradient at the training and legacy
+shapes, a concat's parts, a bf16 training step). Marked `cuda`; each test
 skips where no GPU is present. This file imports neither jax nor the JAX
 package, so it runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import contextlib
+import math
 
 import pytest
 import torch
@@ -1233,7 +1236,8 @@ def test_bf16_conv3x3_nhwc_off_the_tile_and_split(cuda, shape, splits):
 def test_bf16_refusals(cuda):
     """No bf16 instance for Cin % 8 != 0: the wrapper raises instead of
     taking an fp32 kernel or the plain version; one launch takes one dtype;
-    a bf16 conv under a gradient raises."""
+    under a gradient the input gradient of a conv whose Cout % 8 != 0 (its
+    Cin) raises the same way, after a forward on the bf16 instance."""
     from tmdiff_tpu_torch.ops.cuda import conv2d as K3
     from tmdiff_tpu_torch.ops.cuda import conv3d as K
 
@@ -1248,8 +1252,11 @@ def test_bf16_refusals(cuda):
     x8 = torch.randn(1, 4, 8, 8, 8, device=cuda).bfloat16()
     with pytest.raises(TypeError, match="one dtype"):
         K.banded_conv3d(x8, torch.randn(3, 3, 3, 8, 8, device=cuda))
-    with pytest.raises(TypeError, match="float32 only"):
-        K.banded_conv3d(x8.requires_grad_(), torch.randn(3, 3, 3, 8, 8, device=cuda).bfloat16())
+    y = K.banded_conv3d(x8.requires_grad_(), torch.randn(3, 3, 3, 8, 4, device=cuda).bfloat16())
+    assert K.dtype_launches == {"float32": 0, "bfloat16": 1}
+    with pytest.raises(ValueError, match="Cin % 8"):
+        y.float().sum().backward()
+    assert K.launches == 1
 
 
 def test_bf16_model_runs_on_bf16_instances(cuda):
@@ -1278,3 +1285,120 @@ def test_bf16_model_runs_on_bf16_instances(cuda):
             assert K.dtype_launches["bfloat16"] + K3.dtype_launches["bfloat16"] == 13 + 52
             assert K.dtype_launches["float32"] == K3.dtype_launches["float32"] == 0
             assert (y - ref).abs().max().item() <= 5e-2 * ref.abs().max().item()
+
+
+# -- bf16 training: K1's bf16 instance as its own input gradient ---------------
+
+# (B, D, H, W, Cin, Cout) of forward convs: the full-width WavBEST's training
+# step (batch 8, 64x64, 8 and 4 bands; a decoder concat part takes Cin of
+# one part) and the legacy UNet's ResBlocks at 256x256 (H = 256, 127, 63, 31
+# after the VALID stride-2 convs; decoder parts of 256, 128 and 64 channels)
+BF16_TRAIN_SHAPES = [
+    (8, 8, 64, 64, 32, 32), (8, 4, 64, 64, 32, 64), (8, 8, 32, 32, 64, 128),
+    (8, 8, 16, 16, 128, 256), (8, 8, 8, 8, 256, 256), (8, 8, 8, 8, 256, 128),
+    (8, 4, 16, 16, 128, 64), (8, 8, 32, 32, 64, 32),
+]
+BF16_LEGACY_SHAPES = [
+    (2, 8, 256, 256, 32, 32), (2, 8, 256, 256, 32, 64), (2, 8, 127, 127, 64, 128),
+    (2, 8, 127, 127, 128, 128), (2, 8, 63, 63, 128, 256), (2, 8, 31, 31, 256, 256),
+    (2, 8, 31, 31, 256, 128), (2, 8, 63, 63, 128, 64), (2, 8, 127, 127, 64, 32),
+]
+
+
+# cuDNN's bf16 weight gradient is not one rounding of the fp32 sum at every
+# element: at (2, 8, 256, 256, 32, 64) 11 near-zero elements lay beyond one
+# bf16 step + 1e-4 of scale of the fp32 sums (this test's first card run,
+# NVIDIA H100 80GB HBM3, 700 W); the drift grows with the sum's length
+# (chip_smoke.py's "[controlnet] bf16" line prints it at batch 8)
+BF16_WEIGHT_GRAD_RTOL = 2e-4
+
+
+@pytest.mark.parametrize("shape", BF16_TRAIN_SHAPES + BF16_LEGACY_SHAPES)
+def test_bf16_gradients_match_plain(cuda, shape):
+    """At each training and legacy shape, the bf16 conv's backward through
+    Conv3dFunction (style and bias): d(x s) is K1's bf16 instance on dy with
+    the flipped, transposed kernel, within one bf16 step of its plain
+    version; dx is that times s, bit for bit; dW is the bf16 weight gradient
+    of bf16(x s), within one bf16 step (plus BF16_WEIGHT_GRAD_RTOL of scale)
+    of the fp32 sums of the same bf16 operands, and what the Function
+    returns, bit for bit."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, k, s, bias, _ = (t.bfloat16() for t in _random_conv(cuda, shape, seed=5))
+    s = (1 + 0.5 * s.float()).bfloat16()
+    dy = torch.randn(x.shape[:-1] + (k.shape[-1],), device=cuda).bfloat16()
+    xg, kg, sg = (t.clone().requires_grad_() for t in (x, k, s))
+    K.reset_launches()
+    K.banded_conv3d(xg, kg, sg, bias).backward(dy)
+    assert K.dtype_launches == {"float32": 0, "bfloat16": 2} and K.input_grad_launches == 1
+    assert K.weight_grad_calls == 1
+    flipped = k.flip((0, 1, 2)).transpose(3, 4).contiguous()
+    with torch.no_grad():
+        dxs = K._launch(dy, flipped, None, None, None, True)
+        assert_bf16_close(dxs, K.conv3d_plain(dy, flipped), f"input gradient {shape}")
+        assert torch.equal(xg.grad, dxs * s[:, None, None, None, :])
+        xs = x * s[:, None, None, None, :]
+        dw = K.conv3d_weight_grad(xs, dy)
+        ref = K.conv3d_weight_grad(xs.float(), dy.float())
+    assert dw.dtype == torch.bfloat16 and torch.equal(kg.grad, dw)
+    over = ((dw.float() - ref).abs()
+            > 2 * bf16_half_step(ref) + BF16_WEIGHT_GRAD_RTOL * ref.abs().max())
+    assert not over.any().item(), f"{shape}: {int(over.sum())} weight-gradient elements"
+
+
+def test_bf16_concat_parts_gradients(cuda):
+    """The legacy decoder's three-part conv (3 x 256 -> 128 at 31x31) under
+    a gradient in bf16: each part's gradient is K1's bf16 input gradient
+    with its slice of the kernel, each slice's gradient that part's bf16
+    weight gradient, bit for bit; every launch a bf16 one."""
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    parts = [torch.randn(2, 8, 31, 31, 256, device=cuda, generator=g).bfloat16().requires_grad_()
+             for _ in range(3)]
+    k = (torch.randn(3, 3, 3, 768, 128, device=cuda, generator=g) / 144.0).requires_grad_()
+    bias = torch.randn(128, device=cuda, generator=g).requires_grad_()
+    dy = torch.randn(2, 8, 31, 31, 128, device=cuda, generator=g).bfloat16()
+    K.reset_launches()
+    y = modconv.conv3d_cat(tuple(parts), k.bfloat16(), bias=bias.bfloat16())
+    assert y.dtype == torch.bfloat16
+    y.backward(dy)
+    assert K.dtype_launches == {"float32": 0, "bfloat16": 6} and K.weight_grad_calls == 3
+    with torch.no_grad():
+        kb = k.bfloat16()
+        for i, p in enumerate(parts):
+            ki = kb[..., 256 * i:256 * (i + 1), :]
+            dxi = K._launch(dy, ki.flip((0, 1, 2)).transpose(3, 4).contiguous(), None, None,
+                            None, True)
+            assert torch.equal(p.grad, dxi), i
+            assert torch.equal(k.grad[..., 256 * i:256 * (i + 1), :],
+                               K.conv3d_weight_grad(p.detach(), dy).float()), i
+
+
+def test_bf16_training_step_launches_no_fp32_kernel(cuda):
+    """Two steps of a bf16 WavBEST (8, 16, 32, 64) through Trainer.train_step
+    (remat, dropout on), 8 bands, batch 2, 32x32: 130 bf16 K1 forward and 65
+    input-gradient launches and 65 weight gradients a step, no fp32 launch,
+    every launch on a bf16 variant; finite losses; parameters, AdamW moments
+    and EMA float32."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(WavBEST((8, 16, 32, 64), seed=0, dtype=torch.bfloat16),
+                      NoiseSchedule.create("cosine", 1000), lr=1e-3, warmup_steps=1)
+    state = trainer.init_state()
+    K.reset_launches()
+    losses = [float(trainer.train_step(state, _card_batch(cuda), torch.zeros(768))[1]["l_pix"])
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(map(math.isfinite, losses))
+    assert K.dtype_launches == {"float32": 0, "bfloat16": 2 * 195}
+    assert K.input_grad_launches == 2 * 65 and K.weight_grad_calls == 2 * 65
+    assert {v for v, n in K.variant_launches.items() if n} <= {"bf16", "bf16_splitk"}
+    moments = [v for st in state.optimizer.state.values() for key, v in st.items()
+               if key != "step"]
+    assert all(t.dtype == torch.float32 for t in
+               [*trainer.model.parameters(), *state.ema_params, *moments])

@@ -35,7 +35,8 @@ Every block takes `dtype`, float32 (the default) or bfloat16, as the JAX
 package's blocks do: parameters stay float32 and are cast at use, convs and
 Linear layers run in `dtype` (a conv module casts its input to it, as the
 JAX Conv3d does; a Linear adds its bias after the product, in `dtype`), and
-the activations between them keep it.
+the activations between them keep it, forward and backward (dropout divides
+by its keep probability in `dtype`, as flax's Dropout does).
 
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
 CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
@@ -67,10 +68,13 @@ DROPOUT = 0.2
 
 def dropout(x, rate: float, rng, mesh=None):
     """Inverted dropout: each element kept with probability 1 - rate and
-    scaled by 1 / (1 - rate), the mask drawn from `rng`; identity when rng
-    is None. On a sharded placement `mesh` (parallel/mesh.py) the mask is
-    drawn at the global shape and this rank's shard of it is kept, so a
-    meshed step draws the masks the unsharded step draws."""
+    divided by 1 - rate, the mask drawn from `rng`; identity when rng is
+    None. The divisor is 1 - rate in x's dtype and the quotient is rounded
+    once, as flax's Dropout computes `inputs / keep_prob` (its Python float
+    takes x's dtype: 0.80078125 in bf16). On a sharded placement `mesh`
+    (parallel/mesh.py) the mask is drawn at the global shape and this
+    rank's shard of it is kept, so a meshed step draws the masks the
+    unsharded step draws."""
     if rng is None or rate == 0.0:
         return x
     if mesh is None:
@@ -78,7 +82,8 @@ def dropout(x, rate: float, rng, mesh=None):
     else:
         keep = mesh.shard(torch.rand(mesh.global_shape(x.shape), generator=rng,
                                      device=x.device)) >= rate
-    return torch.where(keep, x / (1.0 - rate), 0.0)
+    keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    return torch.where(keep, x / keep_prob, 0.0)
 
 
 def dropout_rng(train: bool, rng):

@@ -28,7 +28,10 @@ transposed convs and the hint encoder's (1, 3, 3) convs are no TPU kernel's
 function and run through ops/library_conv.py (the JAX package's XLA convs);
 the zero convs are 1x1x1 (matrix products). Module and parameter names are
 the JAX package's (flax `stem{i}_kernel` stacks (13, 1, 3, 3, Cin, Cout)),
-so utils/weights.py::from_flax fills them. float32 only.
+so utils/weights.py::from_flax fills them. Every module takes `dtype`,
+float32 or bfloat16, as the JAX package's do: parameters stay float32, the
+hint and the task feature are cast to `dtype`, and a zero conv computes
+conv(x · s) + b in it.
 """
 from __future__ import annotations
 
@@ -96,12 +99,13 @@ def task_feature(task_name: str) -> np.ndarray:
 
 
 class TaskHypernet(nn.Module):
-    """`task_id_hypernet`: 768 -> T -> T, SiLU after each Linear."""
+    """`task_id_hypernet`: 768 -> T -> T, SiLU after each Linear, in
+    `dtype`."""
 
-    def __init__(self, time_embed_dim: int, feature_dim: int = 768):
+    def __init__(self, time_embed_dim: int, feature_dim: int = 768, dtype=torch.float32):
         super().__init__()
-        self.fc1 = linear(feature_dim, time_embed_dim)
-        self.fc2 = linear(time_embed_dim, time_embed_dim)
+        self.fc1 = linear(feature_dim, time_embed_dim, dtype=dtype)
+        self.fc2 = linear(time_embed_dim, time_embed_dim, dtype=dtype)
 
     def forward(self, feature):
         return swish(self.fc2(swish(self.fc1(feature))))
@@ -110,19 +114,20 @@ class TaskHypernet(nn.Module):
 class ModulatedZeroConv(nn.Module):
     """Zero-initialised 1x1x1 conv whose input channels are scaled by the
     task style (a Linear of the task embedding, detached): conv(x · s) + b,
-    the reference's modulated conv with demodulate=False."""
+    the reference's modulated conv with demodulate=False, in `dtype`."""
 
-    def __init__(self, cin: int, features: int, task_dim: int):
+    def __init__(self, cin: int, features: int, task_dim: int, dtype=torch.float32):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(1, 1, 1, cin, features))
         self.bias = nn.Parameter(torch.zeros(features))
-        self.style = linear(task_dim, cin)
+        self.style = linear(task_dim, cin, dtype=dtype)
+        self.dtype = dtype
 
     def forward(self, x, task_emb):
         style = self.style(task_emb).detach()
         if style.dim() == 1:
             style = style.expand(x.shape[0], style.shape[0])
-        return modulated_conv3d(x, self.weight, style) + self.bias
+        return modulated_conv3d(x.to(self.dtype), self.weight, style) + self.bias.to(self.dtype)
 
 
 class HintEncoderMoE(nn.Module):
@@ -131,15 +136,16 @@ class HintEncoderMoE(nn.Module):
     zero conv to `model_channels`, every conv (1, 3, 3) SAME at stride 1 on
     the depth-1 hint. Each stem layer is one stacked parameter over every
     task (the checkpoint is task-independent); `task_id` picks its slice.
-    The hint is (B, H, W, hint_channels); the output (B, 1, H, W,
-    model_channels) broadcasts over the bands."""
+    The hint is (B, H, W, hint_channels), cast to `dtype`; the output
+    (B, 1, H, W, model_channels) broadcasts over the bands."""
 
     STEM = ((None, 16), (16, 16), (16, 32))
     TRUNK = ((32, 32), (32, 96), (96, 96), (96, 256))
 
     def __init__(self, model_channels: int, hint_channels: int = 3,
-                 all_tasks_num: int = ALL_TASKS_NUM):
+                 all_tasks_num: int = ALL_TASKS_NUM, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         task_dim = 4 * model_channels
         for li, (cin, cout) in enumerate(self.STEM):
             cin = cin or hint_channels
@@ -147,14 +153,14 @@ class HintEncoderMoE(nn.Module):
                 torch.randn(all_tasks_num, 1, 3, 3, cin, cout) / math.sqrt(9 * cin)))
             self.register_parameter(f"stem{li}_bias", nn.Parameter(
                 torch_conv_bias_init(9 * cin, (all_tasks_num, cout))))
-        self.zeroconv0 = ModulatedZeroConv(32, 32, task_dim)
+        self.zeroconv0 = ModulatedZeroConv(32, 32, task_dim, dtype)
         for li, (cin, cout) in enumerate(self.TRUNK):
             self.add_module(f"share{li}", LibraryConv3d(
-                cin, cout, "hint", bias=torch_conv_bias_init(9 * cin, (cout,))))
-        self.zeroconv1 = ModulatedZeroConv(256, model_channels, task_dim)
+                cin, cout, "hint", bias=torch_conv_bias_init(9 * cin, (cout,)), dtype=dtype))
+        self.zeroconv1 = ModulatedZeroConv(256, model_channels, task_dim, dtype)
 
     def forward(self, hint, task_id: int, task_emb):
-        h = hint.to(torch.float32)[:, None]
+        h = hint.to(self.dtype)[:, None]
         for li in range(len(self.STEM)):
             kernel = getattr(self, f"stem{li}_kernel")[task_id]
             bias = getattr(self, f"stem{li}_bias")[task_id]
@@ -169,23 +175,23 @@ class ControlBranch(nn.Module):
     """The trainable copy of the base x-encoder, middle and embedding MLPs
     (names as LegacyUNet's: `embed`, `embed2`, `conv2`, `down1-3`,
     `middle1`), the hint added to the head's output, and a zero conv per
-    tap (`zero0-4`). Returns the five control residuals."""
+    tap (`zero0-4`). Returns the five control residuals, in `dtype`."""
 
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), hint_channels: int = 3,
-                 embed_dim: int = 128, inter_dim: int = 32):
+                 embed_dim: int = 128, inter_dim: int = 32, dtype=torch.float32):
         super().__init__()
         c0, c1, c2, c3 = channels
-        e = embed_dim
-        self.embed = TimeMLP(inter_dim, e)
-        self.embed2 = PromptMLP(e)
-        self.hint = HintEncoderMoE(c0, hint_channels)
-        self.conv2 = AdaptionHead(1, c0, e)
-        self.down1 = StridedDownStage(c0, c1, e)
-        self.down2 = StridedDownStage(c1, c2, e)
-        self.down3 = StridedDownStage(c2, c3, e)
-        self.middle1 = ResBlockModulate(c3, c3, e)
+        e, d = embed_dim, dtype
+        self.embed = TimeMLP(inter_dim, e, d)
+        self.embed2 = PromptMLP(e, d)
+        self.hint = HintEncoderMoE(c0, hint_channels, dtype=d)
+        self.conv2 = AdaptionHead(1, c0, e, d)
+        self.down1 = StridedDownStage(c0, c1, e, d)
+        self.down2 = StridedDownStage(c1, c2, e, d)
+        self.down3 = StridedDownStage(c2, c3, e, d)
+        self.middle1 = ResBlockModulate(c3, c3, e, dtype=d)
         for i, f in enumerate((c0, c1, c2, c3, c3)):
-            self.add_module(f"zero{i}", ModulatedZeroConv(f, f, 4 * c0))
+            self.add_module(f"zero{i}", ModulatedZeroConv(f, f, 4 * c0, d))
 
     def forward(self, xt, gemb, prompt_emb, hint, task_id: int, task_emb, rng=None):
         temb = swish(self.embed(gemb))
@@ -204,18 +210,20 @@ class ControlledLegacyUNet(LegacyUNet):
     `ControlledUnetModel`). The base modules are LegacyUNet's, drawn from
     `seed`; the control branch and the task hypernetwork from `seed + 1`.
     With `hint=None`, or at the zero-init of the control branch, the
-    forward equals the plain LegacyUNet's bit for bit."""
+    forward equals the plain LegacyUNet's bit for bit. `dtype` as
+    LegacyUNet's."""
 
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), hint_channels: int = 3,
                  embed_dim: int = 128, inter_dim: int = 32, only_mid_control: bool = False,
-                 control_scales: Sequence[float] = (1.0,) * 5, *, device=None, seed: int = 0):
-        super().__init__(channels, embed_dim, inter_dim, device=device, seed=seed)
+                 control_scales: Sequence[float] = (1.0,) * 5, *, device=None, seed: int = 0,
+                 dtype=torch.float32):
+        super().__init__(channels, embed_dim, inter_dim, device=device, seed=seed, dtype=dtype)
         self.only_mid_control = only_mid_control
         self.control_scales = tuple(control_scales)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed + 1)
-            self.task_hypernet = TaskHypernet(4 * channels[0])
-            self.control = ControlBranch(channels, hint_channels, embed_dim, inter_dim)
+            self.task_hypernet = TaskHypernet(4 * channels[0], dtype=dtype)
+            self.control = ControlBranch(channels, hint_channels, embed_dim, inter_dim, dtype)
         self.to(self.device)
         self.eval()
 
@@ -224,8 +232,8 @@ class ControlledLegacyUNet(LegacyUNet):
         rng = dropout_rng(train, rng)
         if prompt_emb.dim() == 1:
             prompt_emb = prompt_emb.expand(x_t.shape[0], prompt_emb.shape[0])
-        cond = (pan - ms)[..., None]
-        xt = x_t[..., None]
+        cond = (pan - ms).to(self.dtype)[..., None]
+        xt = x_t.to(self.dtype)[..., None]
         # the reference's torch.no_grad() over the base embeddings, input
         # blocks and middle block (`cldm_unicontrol.py:72-79`)
         with torch.no_grad():
@@ -238,7 +246,7 @@ class ControlledLegacyUNet(LegacyUNet):
                 raise ValueError("hint conditioning requires task_feat (768-d, see "
                                  "task_feature())")
             task_emb = self.task_hypernet(torch.as_tensor(task_feat, dtype=torch.float32,
-                                                          device=self.device))
+                                                          device=self.device).to(self.dtype))
             res = self.control(xt, gemb, prompt_emb, hint, task_id, task_emb, rng)
             s = self.control_scales
             h = h + s[4] * res[4]  # `h += control.pop()`

@@ -13,7 +13,12 @@ the plain and the controlled model run one wiring on identically named
 modules. Inputs as WavBEST's: x_t (B, bands, H, W), t (B,), pan (B, 1, H, W)
 (or a tensor that broadcasts against ms), ms (B, bands, H, W), a prompt
 embedding (768,) or (B, 768). With train=True dropout draws from `rng`, a
-torch.Generator on the model's device. float32 only.
+torch.Generator on the model's device.
+
+`dtype` (float32, or bfloat16 as the JAX package's `LegacyUNet(dtype=...)`)
+is the type the blocks compute in; parameters stay float32. The time
+embedding, the prompt, the condition `pan - ms` and x_t are cast to it on
+the way in, and the output is float32 in either type.
 """
 from __future__ import annotations
 
@@ -39,8 +44,8 @@ def embeds(mod, x_t, t, prompt_emb):
     conditioning MLPs of `mod`."""
     if prompt_emb.dim() == 1:
         prompt_emb = prompt_emb.expand(x_t.shape[0], prompt_emb.shape[0])
-    gemb = gamma_embedding(t.reshape(-1), mod.inter_dim)
-    zemb = swish(mod.embed2(prompt_emb))
+    gemb = gamma_embedding(t.reshape(-1), mod.inter_dim).to(mod.dtype)
+    zemb = swish(mod.embed2(prompt_emb.to(mod.dtype)))
     temb = swish(mod.embed(gemb))
     return gemb, temb, zemb
 
@@ -76,39 +81,42 @@ def decode(mod, h, c_taps, x_taps, xt, temb, zemb, rng=None):
     h = crop_to(mod.up2(h, temb, zemb, c_h2, x_h2, rng), c_h1)
     h = crop_to(mod.up3(h, temb, zemb, c_h1, x_h1, rng), xt)
     h = mod.final((h, c_h0, x_h0), temb, zemb, rng)
-    return mod.out_proj(h)[..., 0]
+    return mod.out_proj(h)[..., 0].to(torch.float32)
 
 
 class LegacyUNet(nn.Module):
     """The legacy denoiser. Parameters are drawn from `seed` on the CPU and
     moved to `device`: CUDA unless the caller passes another; with no
-    device given and no GPU, construction raises."""
+    device given and no GPU, construction raises. `dtype`: float32 or
+    bfloat16 (module doc)."""
 
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), embed_dim: int = 128,
-                 inter_dim: int = 32, *, device=None, seed: int = 0):
+                 inter_dim: int = 32, *, device=None, seed: int = 0, dtype=torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"LegacyUNet runs in float32 or bfloat16, got {dtype}")
         device = resolve_device(device)
-        self.channels, self.inter_dim = tuple(channels), inter_dim
+        self.channels, self.inter_dim, self.dtype = tuple(channels), inter_dim, dtype
         c0, c1, c2, c3 = channels
-        e = embed_dim
+        e, d = embed_dim, dtype
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            self.embed2 = PromptMLP(e)
-            self.embed = TimeMLP(inter_dim, e)
-            self.conv1 = AdaptionHead(1, c0, e)
-            self.down1_1 = StridedDownStage(c0, c1, e)
-            self.down2_1 = StridedDownStage(c1, c2, e)
-            self.down3_1 = StridedDownStage(c2, c3, e)
-            self.conv2 = AdaptionHead(1, c0, e)
-            self.down1 = StridedDownStage(c0, c1, e)
-            self.down2 = StridedDownStage(c1, c2, e)
-            self.down3 = StridedDownStage(c2, c3, e)
-            self.middle1 = ResBlockModulate(c3, c3, e)
-            self.up1 = TransposedUpStage(3 * c3, c2, e)
-            self.up2 = TransposedUpStage(3 * c2, c1, e)
-            self.up3 = TransposedUpStage(3 * c1, c0, e)
-            self.final = LegacyFinalBlock(3 * c0, c0, e)
-            self.out_proj = linear(c0, 1)
+            self.embed2 = PromptMLP(e, d)
+            self.embed = TimeMLP(inter_dim, e, d)
+            self.conv1 = AdaptionHead(1, c0, e, d)
+            self.down1_1 = StridedDownStage(c0, c1, e, d)
+            self.down2_1 = StridedDownStage(c1, c2, e, d)
+            self.down3_1 = StridedDownStage(c2, c3, e, d)
+            self.conv2 = AdaptionHead(1, c0, e, d)
+            self.down1 = StridedDownStage(c0, c1, e, d)
+            self.down2 = StridedDownStage(c1, c2, e, d)
+            self.down3 = StridedDownStage(c2, c3, e, d)
+            self.middle1 = ResBlockModulate(c3, c3, e, dtype=d)
+            self.up1 = TransposedUpStage(3 * c3, c2, e, d)
+            self.up2 = TransposedUpStage(3 * c2, c1, e, d)
+            self.up3 = TransposedUpStage(3 * c1, c0, e, d)
+            self.final = LegacyFinalBlock(3 * c0, c0, e, d)
+            self.out_proj = linear(c0, 1, dtype=d)
         self.to(device)
         self.eval()
 
@@ -128,8 +136,8 @@ class LegacyUNet(nn.Module):
     def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
         rng = dropout_rng(train, rng)
         _, temb, zemb = embeds(self, x_t, t, prompt_emb)
-        cond = (pan - ms)[..., None]
-        xt = x_t[..., None]
+        cond = (pan - ms).to(self.dtype)[..., None]
+        xt = x_t.to(self.dtype)[..., None]
         c_taps, x_taps = encode(self, cond, xt, temb, zemb, rng)
         h = middle(self, x_taps[3], temb, zemb, rng)
         return decode(self, h, c_taps, x_taps, xt, temb, zemb, rng)

@@ -16,7 +16,10 @@ at every diffusion step: `encode_condition` computes them once per image and
 is the type the blocks compute in; parameters stay float32. The prompt, the
 time embedding, the condition `pan - ms` and x_t are cast to it on the way
 in, and the denoise output is float32 in either type (the deep-trunk
-features of denoise_deep keep `dtype`), so samplers run in float32.
+features of denoise_deep keep `dtype`), so samplers run in float32 and a
+training loss stays float32: a bf16 model trains with float32 parameters,
+AdamW state and EMA (train/trainer.py), its convs' forward and input
+gradient on K1's bf16 instance.
 
 Each takes `train` (False by default, as serving runs): with train=True,
 dropout draws its masks from `rng`, a torch.Generator on the model's device,

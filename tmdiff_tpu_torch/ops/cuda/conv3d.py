@@ -43,12 +43,26 @@ conv(x * s, W) + b,
 
 which is the forward function with Cin and Cout swapped. Then dx = d(x * s)
 * s, ds = sum over (D, H, W) of x * d(x * s), and db = sum of dy. The weight
-gradient goes to `aten.convolution_backward` (cuDNN on the card, fp32, TF32
-off, deterministic algorithms), as the JAX package takes it from XLA's conv
-VJP outside its Pallas kernel. `input_grad_launches` counts the kernel's
+gradient goes to `aten.convolution_backward` (cuDNN on the card, TF32 off,
+deterministic algorithms), as the JAX package takes it from XLA's conv VJP
+outside its Pallas kernel. `input_grad_launches` counts the kernel's
 launches for input gradients (a part of `launches`), `weight_grad_calls` the
 weight gradients computed on the card. Without a gradient the entries launch
 the kernel directly, so serving pays no autograd bookkeeping.
+
+The backward runs in the forward's dtype. In bf16 it computes what XLA's
+bf16 conv VJP computes in the JAX package: bf16 operands, fp32 sums, one
+rounding to bf16 of each gradient. d(x * s) is the bf16 kernel instance on
+dy (the same Cin % 8 rule, where Cin is the forward's Cout: a shape with no
+instance raises); dW is cuDNN's bf16 weight gradient of bf16(x * s), the
+forward's own operand, with fp32 accumulation (not quite one rounding: at a
+legacy 256x256 shape a few elements near zero lay 1.3e-4 of scale beyond one
+bf16 step of the fp32 sums); dx = d(x * s) * s and db are one rounding each,
+and ds is an fp32 sum of the exact products x * d(x * s), rounded once. Under a gradient a concat part's conv is added to the
+accumulated parts after its own rounding (ops/modconv.py, out of place),
+where the served forward adds it in the kernel before the one rounding: the
+bf16 training forward differs from the served one by at most a rounding
+step a part (and rounds the parts as the JAX package does).
 """
 from __future__ import annotations
 
@@ -58,6 +72,7 @@ import torch
 import torch.nn.functional as F
 
 from tmdiff_tpu_torch.ops.cuda import build
+from tmdiff_tpu_torch.ops.library_conv import cudnn_fp32, widen_on_cpu
 
 # Launches of the CUDA kernel since the last reset_launches(), in all, by
 # variant (tmdiff_conv_plan's numbering from 0) and by dtype; of them, those
@@ -251,18 +266,22 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=Non
 
 def conv3d_weight_grad(xs, dy):
     """dW (3, 3, 3, Cin, Cout) of the SAME conv of xs (B, D, H, W, Cin) with
-    output gradient dy (B, D, H, W, Cout): `aten.convolution_backward` on
-    channels-last-3d views of both (no copy), fp32 with TF32 off and
-    deterministic algorithms, so that a step repeats bit for bit."""
+    output gradient dy (B, D, H, W, Cout), in their dtype (float32, or
+    bfloat16 with fp32 accumulation and one rounding):
+    `aten.convolution_backward` on channels-last-3d views of both (no copy),
+    under the library convs' flags (ops/library_conv.py::cudnn_fp32: TF32
+    off, deterministic algorithms, so that a step repeats bit for bit); a
+    bf16 one on the CPU in fp32 on the bf16 values (`widen_on_cpu`)."""
     global weight_grad_calls
     cin, cout = xs.shape[-1], dy.shape[-1]
-    # read for its shape and layout only
-    weight = torch.empty((cout, cin, 3, 3, 3), device=xs.device, memory_format=torch.channels_last_3d)
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                    allow_tf32=False):
+    # read for its shape, dtype and layout only
+    weight = torch.empty((cout, cin, 3, 3, 3), dtype=xs.dtype, device=xs.device,
+                         memory_format=torch.channels_last_3d)
+    with cudnn_fp32():
         _, dw, _ = torch.ops.aten.convolution_backward(
-            dy.permute(0, 4, 1, 2, 3), xs.permute(0, 4, 1, 2, 3), weight, None,
+            *widen_on_cpu(dy.permute(0, 4, 1, 2, 3), xs.permute(0, 4, 1, 2, 3), weight), None,
             [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [False, True, False])
+    dw = dw.to(xs.dtype)
     if xs.device.type == "cuda":
         weight_grad_calls += 1
     return dw.permute(2, 3, 4, 1, 0)
@@ -272,13 +291,10 @@ class Conv3dFunction(torch.autograd.Function):
     """y = conv3d_same(x * s, kernel) + bias with the backward of the module
     doc; style and bias may be None. The forward and the input gradient run
     the kernel on a CUDA tensor and the plain version on a CPU tensor, both
-    planned for `unsharded` (see plan)."""
+    planned for `unsharded` (see plan), in float32 or bfloat16."""
 
     @staticmethod
     def forward(ctx, x, kernel, style, bias, unsharded=None):
-        if x.dtype != torch.float32:
-            raise TypeError(f"the conv's gradient is float32 only, got {x.dtype}: run a bf16 "
-                            "model under torch.no_grad() (bf16 training is not ported)")
         ctx.save_for_backward(x, kernel, style)
         ctx.unsharded = unsharded
         return _launch(x, kernel, style, bias, None, unsharded=unsharded)
@@ -295,8 +311,8 @@ class Conv3dFunction(torch.autograd.Function):
                           unsharded=ctx.unsharded)
             if need_x:
                 dx = dxs if style is None else dxs * style[:, None, None, None, :]
-            if need_s:
-                ds = (x * dxs).sum((1, 2, 3))
+            if need_s:  # fp32 products and sum, one rounding in bf16
+                ds = (x.float() * dxs.float()).sum((1, 2, 3)).to(x.dtype)
         if need_k:
             xs = x if style is None else x * style[:, None, None, None, :]
             with torch.profiler.record_function("conv3d.weight_grad"):

@@ -17,12 +17,16 @@ takes 1x1x1 and SAME stride-1 3x3x3 kernels only):
     which the JAX package folds to a 2-D XLA conv).
 
 Activations are (B, D, H, W, C) and kernels (kd, kh, kw, Cin, Cout) as
-everywhere in the port; the weight and bias are cast to x's dtype. The
-forward and the backward run in fp32 with TF32 off and cuDNN's
-deterministic algorithms (an autograd Function sets the flags for both), as
-the weight gradient of ops/cuda/conv3d.py does. `calls` counts the forward
-calls by kind on every device, for the smoke run's report beside K1's
-launches.
+everywhere in the port. Each conv runs in x's dtype, float32 or bfloat16
+(the weight and bias are cast to it): the forward and the backward with
+TF32 off and cuDNN's deterministic algorithms (an autograd Function sets
+the flags for both), as the weight gradient of ops/cuda/conv3d.py does; in
+bf16 cuDNN accumulates in fp32 and rounds each result once. The bias is
+added after the conv, in x's dtype, as the JAX package adds it (flax's
+Conv, `out + bias.astype(out.dtype)` of the transposed conv, the hint
+stems): in bf16 that is a second rounding, as there (aten's cuDNN route
+adds a given bias after the conv too). `calls` counts the forward calls by
+kind on every device, for the smoke run's report beside K1's launches.
 
 `conv_nd` is XLA's conv_general_dilated for the library modules that reach
 no TPU kernel (ops/dynamic_conv.py, ops/pgcu.py, utils/image_ops.py):
@@ -51,40 +55,58 @@ def reset_calls() -> None:
 
 
 def cudnn_fp32():
-    """cuDNN in fp32 with TF32 off and its deterministic algorithms: the
-    flags every library conv of the port runs under."""
+    """cuDNN with TF32 off (an fp32 conv stays fp32; a bf16 one takes bf16
+    operands with fp32 accumulation) and its deterministic algorithms: the
+    flags every library conv of the port runs under, in either dtype."""
     return torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                       allow_tf32=False)
 
 
+def widen_on_cpu(*tensors):
+    """bf16 CPU operands (None allowed) as their exact fp32 values, others as
+    given. PyTorch's CPU convs do not take a bf16 conv as one rounding of
+    fp32 sums: oneDNN's bf16 weight gradient of a 3-D conv was off by half
+    its scale at the hint trunk's shape (96 -> 256 channels, 32x32; NaN on
+    other operands) and the native path's forward strays beyond one
+    rounding, so on the CPU a bf16 conv runs in fp32 on the bf16 values and
+    its result is rounded once: what cuDNN computes on the card."""
+    t0 = tensors[0]
+    if t0.device.type != "cpu" or t0.dtype != torch.bfloat16:
+        return tensors
+    return tuple(None if t is None else t.float() for t in tensors)
+
+
 class _Conv(torch.autograd.Function):
-    """aten.convolution of an NCDHW x and a torch-layout weight, and its
-    backward, both under `cudnn_fp32`."""
+    """aten.convolution of an NCDHW x and a torch-layout weight (no bias),
+    and its backward, both under `cudnn_fp32`."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, kind):
+    def forward(ctx, x, weight, kind):
         _, stride, padding, transposed, out_pad = KINDS[kind]
         ctx.save_for_backward(x, weight)
-        ctx.kind, ctx.bias_shape = kind, None if bias is None else list(bias.shape)
+        ctx.kind = kind
         with cudnn_fp32():
-            return torch.ops.aten.convolution(x, weight, bias, stride, padding, [1, 1, 1],
-                                              transposed, out_pad, 1)
+            y = torch.ops.aten.convolution(*widen_on_cpu(x, weight), None, stride, padding,
+                                           [1, 1, 1], transposed, out_pad, 1)
+        return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         _, stride, padding, transposed, out_pad = KINDS[ctx.kind]
-        need_x, need_w, need_b, _ = ctx.needs_input_grad
+        need_x, need_w, _ = ctx.needs_input_grad
         with cudnn_fp32():
-            dx, dw, db = torch.ops.aten.convolution_backward(
-                dy, x, weight, ctx.bias_shape, stride, padding, [1, 1, 1], transposed, out_pad,
-                1, [need_x, need_w, need_b and ctx.bias_shape is not None])
-        return dx, dw, db, None
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                *widen_on_cpu(dy, x, weight), None, stride, padding, [1, 1, 1], transposed,
+                out_pad, 1, [need_x, need_w, False])
+        cast = lambda g: None if g is None else g.to(x.dtype)
+        return cast(dx), cast(dw), None
 
 
 def library_conv3d(x, kernel, bias=None, *, kind: str):
     """The conv `kind` (module doc) of x (B, D, H, W, Cin) with kernel
-    (kd, kh, kw, Cin, Cout), plus bias: (B, D', H', W', Cout)."""
+    (kd, kh, kw, Cin, Cout), plus bias: (B, D', H', W', Cout) in x's
+    dtype."""
     size = KINDS[kind][0]
     if tuple(kernel.shape[:3]) != size or kernel.shape[3] != x.shape[-1]:
         raise ValueError(f'a "{kind}" conv takes a {size + (x.shape[-1],)} + (Cout,) kernel, '
@@ -93,10 +115,10 @@ def library_conv3d(x, kernel, bias=None, *, kind: str):
     # for a transposed one
     order = (3, 4, 0, 1, 2) if KINDS[kind][3] else (4, 3, 0, 1, 2)
     dt = x.dtype
-    y = _Conv.apply(x.permute(0, 4, 1, 2, 3), kernel.to(dt).permute(order),
-                    None if bias is None else bias.to(dt), kind)
+    y = _Conv.apply(x.permute(0, 4, 1, 2, 3), kernel.to(dt).permute(order), kind)
     calls[kind] += 1
-    return y.permute(0, 2, 3, 4, 1).contiguous()
+    y = y.permute(0, 2, 3, 4, 1).contiguous()
+    return y if bias is None else y + bias.to(dt)
 
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
@@ -128,5 +150,5 @@ def conv_nd(x, kernel, stride: int = 1, padding="SAME", groups: int = 1):
         h = F.pad(h, flat)
     w = kernel.to(x.dtype).permute(rank + 1, rank, *range(rank))
     with cudnn_fp32():
-        y = _CONV[rank](h, w, stride=stride, groups=groups)
-    return y.movedim(1, -1)
+        y = _CONV[rank](*widen_on_cpu(h, w), stride=stride, groups=groups)
+    return y.to(x.dtype).movedim(1, -1)

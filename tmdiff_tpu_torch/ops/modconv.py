@@ -17,7 +17,9 @@ kernels are (kd, kh, kw, Cin, Cout). Two kernel sizes occur:
   * 1x1x1: a (B*D*H*W, Cin) @ (Cin, Cout) matrix product, under either impl.
 
 Under a gradient every 3x3x3 conv takes "banded" (K1's autograd Function:
-the forward and the input gradient through the kernel, ops/cuda/conv3d.py);
+the forward and the input gradient through the kernel, ops/cuda/conv3d.py,
+in fp32 or bf16; the weight's cast to x's dtype is differentiated back to
+the float32 parameter);
 "auto" raises there, since K3 has no backward, as the JAX package's Pallas
 3x3 conv has no VJP. `out` is then added out of place, so no tensor that
 autograd saved is written; without a gradient it accumulates in place in the

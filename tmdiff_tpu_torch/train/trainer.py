@@ -20,7 +20,10 @@ the recompute draws the same masks.
 
 Every 3x3x3 conv must take the "banded" lowering: its forward and input
 gradient run K1 (ops/cuda/conv3d.py). "auto" is refused, since its 3x3
-kernel has no backward.
+kernel has no backward. A model of dtype bfloat16 (WavBEST(dtype=...)) trains
+as the JAX trainer's bf16 model does: bf16 compute, float32 parameters,
+AdamW state and EMA (the loss is float32, the gradients reach the float32
+parameters through their casts).
 
 With a `mesh` (parallel/mesh.py) the step has the JAX trainer's semantics:
 the batch is sharded (over "data", the height over "space", with the
