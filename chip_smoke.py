@@ -1440,6 +1440,25 @@ def library_cases():
         fn = getattr(loss_zoo, name)
         yield f"loss zoo {name}, 8-band {img}x{img}", fn, fn, args, {}, None
 
+    # the JAX conv API's library routes (ops/modconv.py): a strided
+    # modulated conv, a transposed modulated conv and a 5x5x5 conv
+    from tmdiff_tpu_torch.ops import modconv
+
+    k3 = normal(3, 3, 3, f, f) / np.sqrt(27 * f)
+    k5 = normal(5, 5, 5, f, f) / np.sqrt(125 * f)
+    style = uniform(BATCH, f) + 0.5
+    x = normal(BATCH, 8, f, f, f)
+    yield (f"modulated_conv3d 3x3x3 stride (1, 2, 2) SAME, {feat}",
+           lambda x, k, s: modconv.modulated_conv3d(x, k, s, stride=(1, 2, 2)),
+           lambda x, k, s: modconv.modulated_conv3d(x, k, s, stride=(1, 2, 2)),
+           [x, k3, style], {}, None)
+    yield (f"modulated_conv_transpose3d 3x3x3 stride (1, 2, 2) SAME, {feat}",
+           lambda x, k, s: modconv.modulated_conv_transpose3d(x, k, s, stride=(1, 2, 2)),
+           lambda x, k, s: modconv.modulated_conv_transpose3d(x, k, s, stride=(1, 2, 2)),
+           [x, k3, style], {}, None)
+    yield (f"conv3d 5x5x5 SAME, {feat}", lambda x, k: modconv.conv3d(x, k),
+           lambda x, k: modconv.conv3d(x, k), [x, k5], {}, None)
+
     def db2_round_trip(x):
         bands = wavelet.dwt2d(x, "db2")
         return (*bands, wavelet.idwt2d(*bands, "db2"))
@@ -3359,6 +3378,12 @@ MESH_STEPS = 10  # dpm++ steps of a meshed request (11 denoise calls)
 MESH_REQUESTS = (("WV3", 8, 4, SIZE, MESH_SHAPES), ("QB", 4, 1, 2 * SIZE, ((1, 4),)))
 MESH_TRAIN_MESH, MESH_TRAIN_STEPS = (2, 2), 3
 MESH_LOSS_RTOL = 1e-4
+# the bf16 meshed steps against one process's bf16 steps: the first loss
+# (the meshed forward computes one process's bits; the loss is summed over
+# the ranks in another order), then the later ones (weights moved by
+# gradients rounded per shard: each rank's weight gradient, ds and db, and
+# the halo's edge rows, tests/test_torch_mesh_bf16_train.py)
+MESH_BF16_LOSS_RTOL = (1e-4, 1e-3)
 MESH_TIMEOUT = 420.0
 
 
@@ -3382,8 +3407,9 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
     each request on each of its meshes (a regression warm-up, then dpm++
     at MESH_STEPS, counts reset just before and read just after), then on
     `train_mesh` the gradient check (fixed t and noise, dropout off, the
-    single-process path's L1 signs) and MESH_TRAIN_STEPS training steps.
-    Returns what each rank measured and sampled."""
+    single-process path's L1 signs) and MESH_TRAIN_STEPS training steps,
+    in fp32 and then in bf16 (mesh_bf16_worker). Returns what each rank
+    measured and sampled."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.ops import modconv
@@ -3465,13 +3491,83 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
     out["train"] = {"losses": losses, "s": secs, "per_step": per_step, "plain": plain["plain"],
                     "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
                     if mesh.rank in (0, mesh.size - 1) else None}
+    out["bf16"] = mesh_bf16_worker(K, mesh, train_weights, train, plain)
     return out
+
+
+def mesh_bf16_worker(K, mesh, train_weights, train, plain):
+    """The bf16 part of a mesh phase rank: the training weights as
+    WavBEST(dtype=torch.bfloat16) on `mesh`, the gradient check (fixed t and
+    noise, dropout off, the single-process bf16 path's L1 signs) and
+    MESH_TRAIN_STEPS bf16 steps, counts reset just before and read just
+    after each."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.parallel import mesh as mesh_lib
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    model = WavBEST(CHANNELS, device=dev, dtype=torch.bfloat16)
+    model.load_state_dict(torch.load(train_weights, map_location=dev, weights_only=True))
+    trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), lr=1e-4, weight_decay=1e-4,
+                      warmup_steps=100, max_iter=300_000, loss_type="l1", ema_decay=0.9999,
+                      remat=True, seed=SEED, mesh=mesh)
+    state = trainer.init_state()
+    params = list(model.parameters())
+    prompt = torch.as_tensor(train["prompt"], device=dev)
+    gbatch = {k: torch.as_tensor(v, device=dev) for k, v in train["check"].items()}
+    placed = mesh.place(tuple(gbatch["MS"].shape))
+    model.use_mesh(placed)
+    batch = {k: placed.shard(v) for k, v in gbatch.items()}
+    t = placed.shard(torch.as_tensor(train["t"], device=dev))
+    noise, sign = (placed.shard(torch.as_tensor(train[k], device=dev))
+                   for k in ("noise", "sign16"))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    plain["plain"] = 0
+    pred = predict(model, trainer.schedule, batch, prompt, t, noise)
+    held = torch.mean((pred - batch["Res"]) * sign) / mesh.size
+    state.optimizer.zero_grad(set_to_none=True)
+    held.backward()
+    loss = trainer.all_reduce_grads(state, held.detach())
+    torch.cuda.synchronize()
+    check = {"loss": loss.item(), "grads": [p.grad.cpu() for p in params] if mesh.rank == 0
+             else None,
+             "launches": (K.dtype_launches["bfloat16"], K.dtype_launches["float32"],
+                          K.input_grad_launches, K.weight_grad_calls),
+             "plain": plain["plain"]}
+    state = trainer.init_state()
+    losses, secs, per_step = [], [], []
+    for batch in train["steps"]:
+        torch.cuda.synchronize()
+        K.reset_launches()
+        mesh_lib.reset_stats()
+        plain["plain"] = 0
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, batch, prompt)
+        losses.append(metrics["l_pix"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append({"k1_forward": K.launches - K.input_grad_launches,
+                         "k1_input_grad": K.input_grad_launches,
+                         "weight_grad": K.weight_grad_calls,
+                         "k1_fp32": K.dtype_launches["float32"],
+                         "k1_off_bf16": K.launches - sum(K.variant_launches[v]
+                                                         for v in BF16_VARIANTS),
+                         "plain": plain["plain"], "stats": dict(mesh_lib.stats)})
+    moments = [v for st in state.optimizer.state.values() for k, v in st.items() if k != "step"]
+    fp32_state = all(x.dtype == torch.float32 for x in [*params, *state.ema_params, *moments])
+    return {"grad_check": check, "losses": losses, "s": secs, "per_step": per_step,
+            "fp32_state": fp32_state,
+            "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
+            if mesh.rank in (0, mesh.size - 1) else None}
 
 
 def mesh_single(weights, train_weights, requests, train):
     """The mesh phase's cases in this process on the card: each request's
     image and seconds, the gradient check's loss, gradients, prediction and
-    signs, and the training steps' losses."""
+    signs, the training steps' losses, and their bf16 references
+    (mesh_single_bf16)."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.pipeline import Pansharpener
@@ -3514,7 +3610,50 @@ def mesh_single(weights, train_weights, requests, train):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     check["s"] = secs
+    check["bf16"] = mesh_single_bf16(train_weights, train)
     return images, check, losses
+
+
+def mesh_single_bf16(train_weights, train):
+    """The bf16 references of the mesh phase in this process: the bf16
+    model's x0 prediction at the check's t and noise, its L1 signs, its
+    gradients and the fp32 model's (the same weights) under those signs;
+    then MESH_TRAIN_STEPS bf16 steps' losses and seconds."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    weights = torch.load(train_weights, map_location=DEV, weights_only=True)
+    model, model32 = (WavBEST(CHANNELS, device=DEV, dtype=dt)
+                      for dt in (torch.bfloat16, torch.float32))
+    model.load_state_dict(weights)
+    model32.load_state_dict(weights)
+    trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), lr=1e-4, weight_decay=1e-4,
+                      warmup_steps=100, max_iter=300_000, loss_type="l1", ema_decay=0.9999,
+                      remat=True, seed=SEED)
+    prompt = torch.as_tensor(train["prompt"], device=DEV)
+    batch = {k: torch.as_tensor(v, device=DEV) for k, v in train["check"].items()}
+    t = torch.as_tensor(train["t"], device=DEV)
+    noise = torch.as_tensor(train["noise"], device=DEV)
+    pred = predict(model, trainer.schedule, batch, prompt, t, noise)
+    sign = torch.sign(pred.detach() - batch["Res"])
+    grads = torch.autograd.grad(torch.mean((pred - batch["Res"]) * sign),
+                                list(model.parameters()))
+    pred32 = predict(model32, trainer.schedule, batch, prompt, t, noise)
+    grads32 = torch.autograd.grad(torch.mean((pred32 - batch["Res"]) * sign),
+                                  list(model32.parameters()))
+    state = trainer.init_state()
+    losses, secs = [], []
+    for b in train["steps"]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, b, prompt)
+        losses.append(metrics["l_pix"].item())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"grads": [g.cpu() for g in grads], "grads32": [g.cpu() for g in grads32],
+            "sign": sign.cpu().numpy(), "losses": losses, "s": secs,
+            "names": [n for n, _ in model.named_parameters()]}
 
 
 def mesh_phase(K, root, served=None):
@@ -3531,8 +3670,12 @@ def mesh_phase(K, root, served=None):
     (the single-process path's L1 signs, every gradient within GRAD_RTOL of
     its scale, the x0 prediction within TRAIN_FORWARD_ATOL) and
     MESH_TRAIN_STEPS steps with their losses within MESH_LOSS_RTOL, the EMA
-    equal across ranks. Prints each mesh's backend and transport, seconds,
-    halo exchanges and bytes per request, collectives per step. Under NCCL,
+    equal across ranks; then the same in bf16 (WavBEST(dtype=torch.bfloat16),
+    mesh_bf16_check: the gradient check at the `[train] bf16` bar, the
+    losses against one process's bf16 steps, 130 + 65 bf16 K1 launches a
+    step per rank and no fp32 one, half the fp32 step's halo bytes). Prints
+    each mesh's backend and transport, seconds, halo exchanges and bytes
+    per request, collectives per step. Under NCCL,
     a card a rank, the same cases run when MESH_RANKS cards are visible,
     and the training steps data-parallel on MESH_DP_RANKS cards when that
     many are. Then the meshed server (mesh_serve_phase), beside `served`,
@@ -3565,6 +3708,7 @@ def mesh_phase(K, root, served=None):
                        for i in range(1, 1 + MESH_TRAIN_STEPS)]}
     images, single_check, single_losses = mesh_single(weights, train_weights, requests, train)
     train["sign"] = single_check["sign"]
+    train["sign16"] = single_check["bf16"]["sign"]
     cards = torch.cuda.device_count()
     # (label, ranks, device, backend, requests, training mesh)
     worlds = [("gloo", MESH_RANKS, "cuda:0", "gloo", requests, MESH_TRAIN_MESH)]
@@ -3664,7 +3808,82 @@ def mesh_check(label, ranks, images, single_check, single_losses, wall, train_me
                 train_single_s_per_step=float(np.median(single_check["s"])),
                 grad_err=max(errs), collectives_per_step=last["stats"]["collectives"],
                 halo_exchanges_per_step=last["stats"]["exchanges"])
+    kept["bf16"] = mesh_bf16_check(label, ranks, single_check["bf16"], train_mesh,
+                                   [s["stats"]["halo_bytes"] for s in steps[0]], kept)
     return kept
+
+
+def mesh_bf16_check(label, ranks, single, train_mesh, fp32_halo_bytes, fp32_kept):
+    """Holds one world's bf16 training against one process's bf16 path:
+    the gradient check at the `[train] bf16` bar (each gradient within twice
+    the single-process bf16 gradient's own gap to fp32, floored at its
+    median, and BF16_GRAD_CAP, of the fp32 gradient's scale), 130 + 65 bf16
+    K1 launches, 65 weight gradients, no fp32 launch and no plain conv a
+    step on every rank, the losses within MESH_BF16_LOSS_RTOL, the state
+    float32 and the EMA equal across ranks, half the fp32 step's halo
+    bytes. Prints the `[mesh] ... bf16 train` lines; returns the numbers
+    kept."""
+    check = ranks[0]["bf16"]["grad_check"]
+    rows = {}
+    for name, gm, g16, g32 in zip(single["names"], check["grads"], single["grads"],
+                                  single["grads32"]):
+        scale = g32.abs().max().item()
+        if scale > 0:
+            rows[name] = ((gm - g16).abs().max().item() / scale,
+                          (g16 - g32).abs().max().item() / scale,
+                          (gm - g32).abs().max().item() / scale)
+    floor = float(np.median([own for _, own, _ in rows.values()]))
+    over = {k: r for k, r in rows.items()
+            if not (r[0] <= 2 * max(r[1], floor) and r[0] < BF16_GRAD_CAP)}
+    worst = max(rows, key=lambda k: rows[k][0] / max(rows[k][1], floor))
+    n16, n32, n_in, n_w = check["launches"]
+    print(f"[mesh] {label} bf16 train gradient check on {train_mesh}, WV3 8-band batch "
+          f"{TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}, fixed t and noise, dropout off, the "
+          f"single-process bf16 L1 signs: {len(rows)} gradients, worst {worst} at "
+          f"{rows[worst][0]:.3g} of scale against one process's bf16 gradient, whose own gap "
+          f"to fp32 is {rows[worst][1]:.3g} (median {floor:.3g}); largest gap "
+          f"{max(r[0] for r in rows.values()):.3g} (cap {BF16_GRAD_CAP}), to fp32 "
+          f"{max(r[2] for r in rows.values()):.3g}; rank 0 K1 launches bf16 {n16}, fp32 {n32}, "
+          f"input gradient {n_in}, weight gradients {n_w}, plain convs {check['plain']}",
+          flush=True)
+    if over:
+        fail(f"{label} meshed bf16 gradients beyond the bar: {over}")
+    if (n16, n32, n_in, n_w) != (2 * TRAIN_CONVS, 0, TRAIN_CONVS, TRAIN_CONVS) or check["plain"]:
+        fail(f"{label} meshed bf16 gradient pass launches {check['launches']}, plain "
+             f"{check['plain']}")
+    runs = [r["bf16"] for r in ranks]
+    losses = runs[0]["losses"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, single["losses"])]
+    bars = [MESH_BF16_LOSS_RTOL[0]] + [MESH_BF16_LOSS_RTOL[1]] * (len(rels) - 1)
+    secs = [max(r["s"][k] for r in runs) for k in range(MESH_TRAIN_STEPS)]
+    ema_same = torch.equal(runs[0]["ema"], runs[-1]["ema"])
+    last = runs[0]["per_step"][-1]
+    halo = [s["stats"]["halo_bytes"] for s in runs[0]["per_step"]]
+    counts = {k: v for k, v in last.items() if k != "stats"}
+    print(f"[mesh] {label} bf16 train {MESH_TRAIN_STEPS} steps on {train_mesh}: losses "
+          f"{losses} vs single-process bf16 {single['losses']} (rel {[f'{r:.3g}' for r in rels]}, "
+          f"rtol {bars}); s/step {[round(s, 4) for s in secs]} (meshed fp32 median "
+          f"{fp32_kept['train_s_per_step']:.4f}, single-process bf16 "
+          f"{[round(s, 4) for s in single['s']]}); rank 0 per step {counts}, "
+          f"{last['stats']['exchanges']} halo exchanges, halo bytes {halo} against the fp32 "
+          f"step's {fp32_halo_bytes}, {last['stats']['collectives']} collectives of "
+          f"{last['stats']['collective_bytes']} bytes; state float32 on every rank "
+          f"{all(r['fp32_state'] for r in runs)}; EMA equal on ranks 0 and {len(ranks) - 1}: "
+          f"{ema_same}", flush=True)
+    if any(r > b for r, b in zip(rels, bars)) or not ema_same or \
+            not all(r["fp32_state"] for r in runs):
+        fail(f"{label} meshed bf16 training: loss rel {rels}, EMA equal {ema_same}")
+    want = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
+            "weight_grad": TRAIN_CONVS, "k1_fp32": 0, "k1_off_bf16": 0, "plain": 0}
+    if any({k: v for k, v in s.items() if k != "stats"} != want
+           for r in runs for s in r["per_step"]):
+        fail(f"{label} meshed bf16 training launches {[r['per_step'] for r in runs]}")
+    if any(2 * b != f for b, f in zip(halo, fp32_halo_bytes)):
+        fail(f"{label} bf16 halo bytes {halo}, not half the fp32 step's {fp32_halo_bytes}")
+    return {"losses_rel": rels, "s_per_step": float(np.median(secs)),
+            "single_s_per_step": float(np.median(single["s"])),
+            "grad_worst_gap_own_to_fp32": rows[worst], "halo_bytes_per_step": halo[-1],
+            "fp32_halo_bytes_per_step": fp32_halo_bytes[-1], "counts_per_step": counts}
 
 
 # (preset, bands, sensors, --mesh-space) of the meshed serve cases: JAX's

@@ -1402,3 +1402,42 @@ def test_bf16_training_step_launches_no_fp32_kernel(cuda):
                if key != "step"]
     assert all(t.dtype == torch.float32 for t in
                [*trainer.model.parameters(), *state.ema_params, *moments])
+
+
+def test_bf16_input_gradient_at_the_mesh_shard_shapes(cuda):
+    """Every distinct bf16 K1 input-gradient launch of a (2, 2) bf16
+    training step of the full-width WavBEST (channels 32-256, 8 bands,
+    batch 8, 64x64; four gloo ranks sharing card 0, recorded from the step
+    by tests/torch_mesh_workers.py::bf16_step_shapes): each shard's dy has
+    H_l + 2 rows (its halo), and K1 on it, launched as the step launches it
+    (`input_grad`, the unsharded call's (B, H)), is within one bf16 step of
+    its plain bf16 version, on a bf16 tensor-core variant, with the split
+    count of the unsharded call's plan."""
+    import os
+
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    ranks = run_world("torch_mesh_workers:bf16_step_shapes", 4,
+                      ((2, 2), (32, 64, 128, 256), 8, 8, 64), device="cuda:0", backend="gloo",
+                      sys_path=[tests], threads=2, timeout=600)
+    shapes = sorted({s for r in ranks for s in r}, key=repr)
+    heights = sorted({shape[2] for shape, _, _ in shapes})
+    assert heights == [6, 10, 18, 34], heights  # 64, 32, 16, 8 rows over two ranks, + 2
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for shape, cout, unsharded in shapes:
+        b, d, h, w, cin = shape
+        assert unsharded == (8, 2 * (h - 2)) and b == 4, (shape, unsharded)
+        dy = torch.randn(shape, device=cuda, generator=g).bfloat16()
+        k = (torch.randn(3, 3, 3, cin, cout, device=cuda, generator=g) / (27 * cin) ** 0.5)
+        k = k.bfloat16()
+        K.reset_launches()
+        with torch.no_grad():
+            got = K._launch(dy, k, None, None, None, True, unsharded)
+        assert K.dtype_launches == {"float32": 0, "bfloat16": 1} and K.input_grad_launches == 1
+        assert {v for v, n in K.variant_launches.items() if n} <= {"bf16", "bf16_splitk"}
+        assert_bf16_close(got, K.conv3d_plain(dy, k), f"input gradient {shape} -> {cout}")
+        whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), device=cuda,
+                            dtype=torch.bfloat16)
+        assert K.plan(3, dy, d, cout, unsharded=unsharded)[1] == K.plan(3, whole, d, cout)[1]

@@ -109,8 +109,9 @@ def test_plain_matches_f_conv3d(rng, shape):
 
 def test_conv3d_cat_and_grouped_slices(rng):
     """conv3d_cat equals the conv of the concat (one accumulate per part),
-    and a kernel sliced along Cout (a group of GroupedSkipConv) or Cin (a
-    concat part) is taken as a view; atol 1e-4."""
+    a kernel sliced along Cout (a group of GroupedSkipConv) or Cin (a
+    concat part) is taken as a view, and a 5x5x5 SAME conv (the library
+    route) equals F.conv3d; atol 1e-4."""
     parts = tuple(_t(rng.standard_normal((2, 4, 8, 8, c))) for c in (3, 5, 4))
     k = _t(rng.standard_normal((3, 3, 3, 12, 6)) * 0.2)
     bias = _t(rng.standard_normal(6))
@@ -123,8 +124,10 @@ def test_conv3d_cat_and_grouped_slices(rng):
     k1 = _t(rng.standard_normal((1, 1, 1, 12, 6)))
     np.testing.assert_allclose(modconv.conv3d_cat(parts, k1, bias=bias).numpy(),
                                _ref_conv(torch.cat(parts, -1), k1, bias=bias).numpy(), atol=1e-4)
-    with pytest.raises(ValueError, match="only 1x1x1 and 3x3x3"):
-        modconv.conv3d(parts[0], _t(np.zeros((5, 5, 5, 3, 2))))
+    # any other kernel size takes the library conv (the JAX conv API in full)
+    k5 = _t(rng.standard_normal((5, 5, 5, 3, 2)) * 0.1)
+    np.testing.assert_allclose(modconv.conv3d(parts[0], k5).numpy(),
+                               _ref_conv(parts[0], k5).numpy(), atol=1e-4)
 
 
 def test_wrapper_checks_and_no_fallback(rng):

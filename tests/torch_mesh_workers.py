@@ -10,6 +10,7 @@ import torch
 from tmdiff_tpu_torch.models import blocks
 from tmdiff_tpu_torch.models.wavbest import WavBEST
 from tmdiff_tpu_torch.ops import modconv
+from tmdiff_tpu_torch.ops.cuda import conv3d as K
 from tmdiff_tpu_torch.parallel import halo
 from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 from tmdiff_tpu_torch.parallel.mesh import make_mesh
@@ -46,6 +47,34 @@ def exchange(meshes, seed: int = 0):
         y.backward(g)
         out.append({"d": placed.d, "s": placed.s, "y": y.detach().numpy(),
                     "grad": xs.grad.numpy(), "g": g.numpy(), "stats": dict(mesh_lib.stats)})
+    return out
+
+
+def halo_bf16(space: int, seed: int = 0):
+    """On a (1, space) mesh: exchange_rows of one bf16 tensor and of its
+    fp32 values (the halo bytes each sends and the dtype it receives), then
+    a bf16 3x3x3 conv's input gradient on the height shards against the
+    unsharded one. Returns this rank's stats and its rows of both input
+    gradients."""
+    mesh = make_mesh(1, space)
+    rng = np.random.default_rng(seed)
+    h = 8 * space
+    x = _t(rng.standard_normal((2, 4, h, 6, 8))).bfloat16()
+    k = _t(rng.standard_normal((3, 3, 3, 8, 8)) / np.sqrt(27 * 8)).bfloat16()
+    dy = _t(rng.standard_normal((2, 4, h, 6, 8))).bfloat16()
+    placed = mesh.place(tuple(x.shape))
+    out = {"s": placed.s}
+    for dtype in (torch.bfloat16, torch.float32):
+        mesh_lib.reset_stats()
+        y = halo.exchange_rows(placed.shard(x).to(dtype), placed)
+        out[str(dtype)] = {"halo_bytes": mesh_lib.stats["halo_bytes"], "dtype": str(y.dtype)}
+    grads = []
+    for m, sh in ((placed, placed.shard), (None, lambda a: a)):
+        xs = sh(x).clone().requires_grad_(True)
+        modconv.conv3d(xs, k, mesh=m).backward(sh(dy))
+        grads.append(xs.grad)
+    out["sharded"] = grads[0].float().numpy()
+    out["unsharded"] = placed.shard(grads[1]).float().numpy()
     return out
 
 
@@ -163,30 +192,44 @@ def adaptive(mesh_shape, state_dict, batch, x_T, n_timestep: int = 10):
 
 
 def train(mesh_shape, state_dict, batches, prompt, *, draws=None, remat=True, dropout=True,
-          lr=2e-3, warmup=2, distill_n=None):
+          lr=2e-3, warmup=2, distill_n=None, dtype="float32", channels=CHANNELS,
+          loss_type="l1"):
     """Steps of Trainer.train_step (DistillTrainer with `distill_n`, the
-    teacher the initial weights) on the mesh (None: one process), one per
-    global batch: the losses, every gradient of step 0 after the
-    all-reduce, the parameters after the last step, the EMA, and the
-    collective counts of the last step. `draws` gives each step's t and
-    noise (the global batch's); `dropout=False` sets the blocks' rate to 0."""
-    rate = blocks.DROPOUT
+    teacher the initial weights) of a WavBEST of `channels` computing in
+    `dtype` on the mesh (None: one process), one per global batch: the
+    losses, every gradient of step 0 after the all-reduce, the parameters
+    after the last step, the EMA, AdamW's moments, the collective counts of
+    the last step and the conv launches of the last step by (dtype, input
+    gradient). `draws` gives each step's t and noise (the global batch's);
+    `dropout=False` sets the blocks' rate to 0; `loss_type` is the
+    trainer's."""
+    rate, launch = blocks.DROPOUT, K._launch
     blocks.DROPOUT = rate if dropout else 0.0
+    launches = {}
+
+    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+        key = (str(x.dtype).replace("torch.", ""), bool(input_grad))
+        launches[key] = launches.get(key, 0) + 1
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+
+    K._launch = record
     try:
         return _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup,
-                      distill_n)
+                      distill_n, getattr(torch, dtype), channels, loss_type, launches)
     finally:
-        blocks.DROPOUT = rate
+        blocks.DROPOUT, K._launch = rate, launch
 
 
-def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, distill_n):
+def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, distill_n,
+           dtype, channels, loss_type, launches):
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.train.distill import DistillTrainer
     from tmdiff_tpu_torch.train.trainer import Trainer
 
-    model = _model(state_dict)
+    model = _model(state_dict, channels, dtype)
     mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
-    kw = dict(lr=lr, warmup_steps=warmup, max_iter=1000, remat=remat, mesh=mesh)
+    kw = dict(lr=lr, warmup_steps=warmup, max_iter=1000, remat=remat, mesh=mesh,
+              loss_type=loss_type)
     if distill_n:
         trainer = DistillTrainer(model, NoiseSchedule.create("cosine", 1000),
                                  n_student_steps=distill_n, **kw)
@@ -198,6 +241,7 @@ def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, di
     losses, grads = [], None
     for k, batch in enumerate(batches):
         mesh_lib.reset_stats()
+        launches.clear()
         step_draws = {} if draws is None else {n: torch.as_tensor(v[k]) for n, v in
                                                 draws.items()}
         state, metrics = trainer.train_step(state, batch, _t(prompt), *extra, **step_draws)
@@ -206,8 +250,40 @@ def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, di
             grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
     params = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
     ema = np.concatenate([e.numpy().ravel() for e in state.ema_params])
+    moments = [v.numpy().copy() for st in state.optimizer.state.values()
+               for name, v in sorted(st.items()) if name != "step"]
     return {"losses": losses, "grads": grads, "params": params, "ema": ema,
-            "stats": dict(mesh_lib.stats)}
+            "moments": moments, "stats": dict(mesh_lib.stats), "launches": dict(launches)}
+
+
+def bf16_step_shapes(mesh_shape, channels, batch_size, bands, size, seed: int = 0):
+    """One bf16 Trainer step of a seeded WavBEST of `channels` on the mesh
+    (on the world's device), on a random global batch: this rank's distinct
+    K1 input-gradient launches as (dy shape, the launch's Cout, the
+    unsharded call's (B, H)), in a fixed order."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(*mesh_shape)
+    model = WavBEST(channels, device=mesh.device, seed=seed, dtype=torch.bfloat16)
+    trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), mesh=mesh)
+    rng = np.random.default_rng(seed)
+    shape = (batch_size, bands, size, size)
+    batch = {"Res": 0.1 * rng.standard_normal(shape), "MS": rng.uniform(size=shape),
+             "PAN": rng.uniform(size=(batch_size, 1, size, size))}
+    seen, launch = set(), K._launch
+
+    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+        if input_grad:
+            seen.add((tuple(x.shape), int(kernel.shape[-1]), unsharded))
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+
+    K._launch = record
+    try:
+        trainer.train_step(trainer.init_state(), batch, np.zeros(768, np.float32))
+    finally:
+        K._launch = launch
+    return sorted(seen, key=repr)
 
 
 def serve(mesh_shape, state_dict, channels, dtype, waves, engine_kw, n_timestep: int = 10):
@@ -247,27 +323,29 @@ def serve(mesh_shape, state_dict, channels, dtype, waves, engine_kw, n_timestep:
 
 
 def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, task_feat,
-                        steps: int = 2):
-    """Adam steps (lr 1e-2) of a ControlledLegacyUNet (embed 16, inter 8) on
-    its "train" parameters (sd_locked) with the loss mean((y - target)^2),
-    data-parallel on a `mesh_shape` (data, 1) mesh (each rank its rows of
-    the global batch, the gradients and the loss summed over the world) or
-    in one process with mesh_shape None: the losses and the trained
-    parameters."""
+                        steps: int = 2, dtype="float32"):
+    """Adam steps (lr 1e-2) of a ControlledLegacyUNet (embed 16, inter 8)
+    computing in `dtype` on its "train" parameters (sd_locked) with the loss
+    mean((y - target)^2), data-parallel on a `mesh_shape` (data, 1) mesh
+    (each rank its rows of the global batch, the gradients and the loss
+    summed over the world) or in one process with mesh_shape None: the
+    losses, the trained parameters and the first step's gradients of
+    them."""
     from tmdiff_tpu_torch.models.controlnet import (ControlledLegacyUNet, trainable_labels,
                                                     trainable_parameters)
 
     mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
     placed = None if mesh is None else mesh.place(np.shape(batch["x_t"]))
     shard = (lambda a: a) if mesh is None else placed.shard
-    model = ControlledLegacyUNet(channels, embed_dim=16, inter_dim=8, device="cpu")
+    model = ControlledLegacyUNet(channels, embed_dim=16, inter_dim=8, device="cpu",
+                                 dtype=getattr(torch, dtype))
     model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
     labels = trainable_labels(model, sd_locked=True)
     params = trainable_parameters(model, labels)
     opt = torch.optim.Adam(params, lr=1e-2)
     inputs = {k: _t(v) if k == "prompt_emb" else shard(_t(v)) for k, v in batch.items()}
     hint, target = shard(_t(hint)), shard(_t(target))
-    losses = []
+    losses, grads = [], None
     for _ in range(steps):
         opt.zero_grad()
         y = model(**inputs, hint=hint, task_id=1, task_feat=task_feat)
@@ -278,8 +356,11 @@ def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, t
                 if p.grad is not None:
                     mesh_lib.all_reduce_(p.grad, mesh)
             loss = mesh_lib.all_reduce_(loss.detach(), mesh)
+        if grads is None:
+            grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()
+                     if labels[n] == "train" and p.grad is not None}
         opt.step()
         losses.append(loss.item())
-    return {"losses": losses,
+    return {"losses": losses, "grads": grads,
             "params": {n: p.detach().numpy() for n, p in model.named_parameters()
                        if labels[n] == "train"}}

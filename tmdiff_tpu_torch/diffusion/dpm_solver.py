@@ -4,7 +4,7 @@ The solver subset of the official implementation (`core/dpm_solver_pytorch.py`)
 that the reference drives:
 
   * the discrete VP schedule in continuous time (log alpha piecewise linear
-    in t);
+    in t) and the continuous "linear" VP schedule;
   * model types noise / x_start / v / score, unconditional or with
     classifier-free guidance (`model_wrapper`, `:184-348`), the guidance a
     scalar or one scale per sample;
@@ -51,21 +51,40 @@ from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 
 
 class NoiseScheduleVP:
-    """Discrete VP schedule in continuous time t in (0, T]: log alpha(t) is
-    the piecewise-linear interpolant of 0.5 log(alpha_bar_i) over
-    t_i = (i + 1) / N (float64 numpy)."""
+    """VP schedule in continuous time t in (0, T] (float64 numpy):
 
-    def __init__(self, schedule: str = "discrete", betas: Optional[np.ndarray] = None):
-        if schedule != "discrete" or betas is None:
-            raise NotImplementedError("the port has the discrete schedule, given its betas")
-        betas = np.asarray(betas, dtype=np.float64)
-        self.log_alpha_array = 0.5 * np.cumsum(np.log(1.0 - betas))
-        self.total_N = len(self.log_alpha_array)
+      * "discrete" (given the betas): log alpha(t) is the piecewise-linear
+        interpolant of 0.5 log(alpha_bar_i) over t_i = (i + 1) / N;
+      * "linear": the continuous VP-SDE with beta(t) linear from
+        `continuous_beta_0` to `continuous_beta_1`, log alpha(t) =
+        -(beta_1 - beta_0) t^2 / 4 - beta_0 t / 2, N = 1000, and the
+        model's time label t itself. Its inverse_lambda is the closed form
+        of the official implementation, which inverts marginal_lambda; the
+        JAX package's has a factor 2 more (it returns 2 t), a deliberate
+        divergence."""
+
+    def __init__(self, schedule: str = "discrete", betas: Optional[np.ndarray] = None,
+                 continuous_beta_0: float = 0.1, continuous_beta_1: float = 20.0):
+        self.schedule = schedule
         self.T = 1.0
-        self.t_array = np.linspace(0.0, 1.0, self.total_N + 1)[1:]
+        if schedule == "discrete":
+            if betas is None:
+                raise ValueError('the "discrete" schedule needs its betas')
+            betas = np.asarray(betas, dtype=np.float64)
+            self.log_alpha_array = 0.5 * np.cumsum(np.log(1.0 - betas))
+            self.total_N = len(self.log_alpha_array)
+            self.t_array = np.linspace(0.0, 1.0, self.total_N + 1)[1:]
+        elif schedule == "linear":
+            self.total_N = 1000
+            self.beta_0, self.beta_1 = continuous_beta_0, continuous_beta_1
+        else:
+            raise NotImplementedError(f"unknown VP schedule {schedule!r}")
 
     def marginal_log_mean_coeff(self, t):
-        return np.interp(np.asarray(t, dtype=np.float64), self.t_array, self.log_alpha_array)
+        t = np.asarray(t, dtype=np.float64)
+        if self.schedule == "discrete":
+            return np.interp(t, self.t_array, self.log_alpha_array)
+        return -0.25 * t**2 * (self.beta_1 - self.beta_0) - 0.5 * t * self.beta_0
 
     def marginal_alpha(self, t):
         return np.exp(self.marginal_log_mean_coeff(t))
@@ -78,12 +97,18 @@ class NoiseScheduleVP:
         return log_mean - 0.5 * np.log(1.0 - np.exp(2.0 * log_mean))
 
     def inverse_lambda(self, lamb):
-        log_alpha = -0.5 * np.logaddexp(0.0, -2.0 * np.asarray(lamb, dtype=np.float64))
-        return np.interp(log_alpha, self.log_alpha_array[::-1], self.t_array[::-1])
+        lamb = np.asarray(lamb, dtype=np.float64)
+        if self.schedule == "discrete":
+            log_alpha = -0.5 * np.logaddexp(0.0, -2.0 * lamb)
+            return np.interp(log_alpha, self.log_alpha_array[::-1], self.t_array[::-1])
+        tmp = 2.0 * (self.beta_1 - self.beta_0) * np.logaddexp(-2.0 * lamb, 0.0)
+        return tmp / (np.sqrt(self.beta_0**2 + tmp) + self.beta_0) / (self.beta_1 - self.beta_0)
 
     def model_input_time(self, t):
-        """Continuous t -> the model's discrete time label."""
-        return (np.asarray(t, dtype=np.float64) - 1.0 / self.total_N) * 1000.0
+        """Continuous t -> the model's time label (discrete: its step)."""
+        if self.schedule == "discrete":
+            return (np.asarray(t, dtype=np.float64) - 1.0 / self.total_N) * 1000.0
+        return t
 
 
 def _f32(v) -> torch.Tensor:
@@ -141,12 +166,18 @@ class _Schedule32:
     expm1 = staticmethod(torch.expm1)
 
     def __init__(self, ns: NoiseScheduleVP):
+        self.schedule = ns.schedule
         self.total_N = ns.total_N
-        self.t_array = _f32(ns.t_array)
-        self.log_alpha_array = _f32(ns.log_alpha_array)
+        if ns.schedule == "discrete":
+            self.t_array = _f32(ns.t_array)
+            self.log_alpha_array = _f32(ns.log_alpha_array)
+        else:
+            self.beta_0, self.beta_1 = ns.beta_0, ns.beta_1
 
     def log_alpha(self, t):
-        return _interp32(t, self.t_array, self.log_alpha_array)
+        if self.schedule == "discrete":
+            return _interp32(t, self.t_array, self.log_alpha_array)
+        return -0.25 * t**2 * (self.beta_1 - self.beta_0) - 0.5 * t * self.beta_0
 
     def alpha(self, t):
         return torch.exp(self.log_alpha(t))
@@ -159,11 +190,16 @@ class _Schedule32:
         return la - 0.5 * torch.log(1.0 - torch.exp(2.0 * la))
 
     def inverse_lambda(self, lamb):
-        log_alpha = -0.5 * torch.logaddexp(_f32(0.0), -2.0 * lamb)
-        return _interp32(log_alpha, self.log_alpha_array.flip(0), self.t_array.flip(0))
+        if self.schedule == "discrete":
+            log_alpha = -0.5 * torch.logaddexp(_f32(0.0), -2.0 * lamb)
+            return _interp32(log_alpha, self.log_alpha_array.flip(0), self.t_array.flip(0))
+        tmp = 2.0 * (self.beta_1 - self.beta_0) * torch.logaddexp(-2.0 * lamb, _f32(0.0))
+        return tmp / (torch.sqrt(self.beta_0**2 + tmp) + self.beta_0) / (self.beta_1 - self.beta_0)
 
     def model_input_time(self, t):
-        return (t - 1.0 / self.total_N) * 1000.0
+        if self.schedule == "discrete":
+            return (t - 1.0 / self.total_N) * 1000.0
+        return t
 
     @staticmethod
     def item(v) -> float:

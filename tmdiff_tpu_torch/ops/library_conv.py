@@ -29,10 +29,13 @@ adds a given bias after the conv too). `calls` counts the forward calls by
 kind on every device, for the smoke run's report beside K1's launches.
 
 `conv_nd` is XLA's conv_general_dilated for the library modules that reach
-no TPU kernel (ops/dynamic_conv.py, ops/pgcu.py, utils/image_ops.py):
-channels-last, a flax-layout kernel, XLA's "SAME"/"VALID" or explicit
-padding, a stride and feature groups, under the same flags (forward only:
-autograd differentiates it as PyTorch's conv).
+no TPU kernel (ops/dynamic_conv.py, ops/pgcu.py, utils/image_ops.py) and
+for every conv of ops/modconv.py's API that is not a SAME stride-1 3x3x3 or
+1x1x1 kernel: channels-last, a flax-layout kernel, XLA's "SAME"/"VALID" or
+explicit padding, a stride per axis and feature groups, under the same
+flags, forward and backward. `conv_transpose_nd` is lax.conv_transpose
+with transpose_kernel=False (modconv.modulated_conv_transpose3d), through
+`conv_nd` on the stride-dilated input.
 """
 from __future__ import annotations
 
@@ -121,34 +124,101 @@ def library_conv3d(x, kernel, bias=None, *, kind: str):
     return y if bias is None else y + bias.to(dt)
 
 
-_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+def _per_axis(v, rank: int) -> tuple:
+    return (int(v),) * rank if isinstance(v, int) else tuple(int(a) for a in v)
 
 
-def xla_padding(padding, spatial: Sequence[int], kernel: Sequence[int], stride: int):
+def xla_padding(padding, spatial: Sequence[int], kernel: Sequence[int], stride=1):
     """XLA's "SAME" / "VALID" (or explicit (lo, hi) pairs) as (lo, hi) per
-    spatial axis. SAME at stride s gives ceil(n / s) outputs and puts the
-    odd pixel of the padding after."""
+    spatial axis; `stride` an int or one per axis. SAME at stride s gives
+    ceil(n / s) outputs and puts the odd pixel of the padding after."""
     if padding == "VALID":
         return [(0, 0)] * len(spatial)
     if padding == "SAME":
         pads = []
-        for n, k in zip(spatial, kernel):
-            total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        for n, k, s in zip(spatial, kernel, _per_axis(stride, len(spatial))):
+            total = max((-(-n // s) - 1) * s + k - n, 0)
             pads.append((total // 2, total - total // 2))
         return pads
     return [tuple(p) for p in padding]
 
 
-def conv_nd(x, kernel, stride: int = 1, padding="SAME", groups: int = 1):
+class _ConvND(torch.autograd.Function):
+    """aten.convolution of a channels-first h (already padded) with a
+    torch-layout weight, no bias, and its backward, both under
+    `cudnn_fp32`."""
+
+    @staticmethod
+    def forward(ctx, h, w, stride, groups):
+        ctx.save_for_backward(h, w)
+        ctx.stride, ctx.groups = stride, groups
+        rank = w.dim() - 2
+        with cudnn_fp32():
+            y = torch.ops.aten.convolution(*widen_on_cpu(h, w), None, stride, [0] * rank,
+                                           [1] * rank, False, [0] * rank, groups)
+        return y.to(h.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        rank = w.dim() - 2
+        need_h, need_w = ctx.needs_input_grad[:2]
+        with cudnn_fp32():
+            dh, dw, _ = torch.ops.aten.convolution_backward(
+                *widen_on_cpu(dy.contiguous(), h, w), None, ctx.stride, [0] * rank, [1] * rank,
+                False, [0] * rank, ctx.groups, [need_h, need_w, False])
+        cast = lambda g: None if g is None else g.to(h.dtype)
+        return cast(dh), cast(dw), None, None
+
+
+def conv_nd(x, kernel, stride=1, padding="SAME", groups: int = 1):
     """XLA's conv_general_dilated on channels-last x (B, *spatial, Cin) with
-    a flax-layout kernel (*kernel_size, Cin / groups, Cout)."""
+    a flax-layout kernel (*kernel_size, Cin / groups, Cout): `stride` an int
+    or one per spatial axis, `padding` "SAME", "VALID" or (lo, hi) pairs
+    (negative ones crop); in x's dtype, forward and backward under
+    `cudnn_fp32`."""
     rank = kernel.dim() - 2
+    stride = _per_axis(stride, rank)
     pads = xla_padding(padding, x.shape[1:-1], kernel.shape[:rank], stride)
     h = x.movedim(-1, 1)
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last axis first
     if any(flat):
         h = F.pad(h, flat)
     w = kernel.to(x.dtype).permute(rank + 1, rank, *range(rank))
-    with cudnn_fp32():
-        y = _CONV[rank](*widen_on_cpu(h, w), stride=stride, groups=groups)
-    return y.to(x.dtype).movedim(1, -1)
+    return _ConvND.apply(h, w, list(stride), groups).movedim(1, -1)
+
+
+def _transpose_padding(k: int, s: int, padding) -> tuple:
+    """lax.conv_transpose's (lo, hi) padding of the stride-dilated input on
+    one axis for "SAME" or "VALID" (of the forward conv it transposes)."""
+    if padding == "SAME":
+        total = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-total // 2)
+    else:
+        total = k + s - 2 + max(k - s, 0)
+        lo = k - 1
+    return lo, total - lo
+
+
+def conv_transpose_nd(x, kernel, stride=1, padding="SAME"):
+    """lax.conv_transpose(x, kernel, stride, padding) with transpose_kernel
+    False on channels-last x (B, *spatial, Cin) and a flax-layout kernel
+    (*kernel_size, Cin, Cout), not flipped: x dilated by the stride (s - 1
+    zeros between elements), padded ("SAME" / "VALID" as lax.conv_transpose
+    pads them, or explicit (lo, hi) pairs of the dilated input), then a
+    stride-1 `conv_nd`. In x's dtype; autograd differentiates the dilation
+    and the conv."""
+    rank = kernel.dim() - 2
+    stride = _per_axis(stride, rank)
+    if isinstance(padding, str):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        pads = [_transpose_padding(k, s, padding) for k, s in zip(kernel.shape[:rank], stride)]
+    else:
+        pads = [tuple(p) for p in padding]
+    if any(s > 1 for s in stride):
+        size = [(n - 1) * s + 1 for n, s in zip(x.shape[1:-1], stride)]
+        dilated = x.new_zeros((x.shape[0], *size, x.shape[-1]))
+        dilated[(slice(None), *(slice(None, None, s) for s in stride))] = x
+        x = dilated
+    return conv_nd(x, kernel, 1, pads)

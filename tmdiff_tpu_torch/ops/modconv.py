@@ -1,7 +1,9 @@
-"""3-D convolutions of WavBEST, band-as-depth channels-last layout.
+"""3-D convolutions of WavBEST, band-as-depth channels-last layout, and the
+JAX package's conv API (tmdiff_tpu/ops/modconv.py) in full.
 
 Activations are (B, D, H, W, C) with the spectral bands as conv depth D;
-kernels are (kd, kh, kw, Cin, Cout). Two kernel sizes occur:
+kernels are (kd, kh, kw, Cin, Cout). WavBEST's convs are SAME and stride 1,
+of two kernel sizes:
 
   * SAME stride-1 3x3x3, lowered by `impl`:
       - "banded" (the default): the 3x3x3 CUDA kernel (ops/cuda/conv3d.py)
@@ -15,6 +17,13 @@ kernels are (kd, kh, kw, Cin, Cout). Two kernel sizes occur:
     operand as it loads it: conv(x * s, W) without writing x * s out. Each
     kernel's plain version runs on a CPU tensor or when `plain=True`.
   * 1x1x1: a (B*D*H*W, Cin) @ (Cin, Cout) matrix product, under either impl.
+
+Every other conv of the API (another kernel size, padding "VALID" or
+explicit pairs, a stride) and the transposed `modulated_conv_transpose3d`
+go to ops/library_conv.py (cuDNN, TF32 off, deterministic), as the JAX
+package sends them to XLA's conv (its "auto" folds a kd = 1 SAME conv into
+a 2-D one, the same function). They have no halo path, so they refuse a
+space-split mesh placement.
 
 Under a gradient every 3x3x3 conv takes "banded" (K1's autograd Function:
 the forward and the input gradient through the kernel, ops/cuda/conv3d.py,
@@ -56,6 +65,7 @@ import torch
 
 from tmdiff_tpu_torch.ops.cuda.conv2d import conv3x3_nhwc, conv3x3_nhwc_plain
 from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad
+from tmdiff_tpu_torch.ops.library_conv import conv_nd, conv_transpose_nd
 from tmdiff_tpu_torch.parallel.halo import exchange_rows
 
 IMPLS = ("banded", "auto")
@@ -170,16 +180,53 @@ def _fold(impl: str, x, kernel, mesh) -> bool:
     return impl == "auto" and _bandlanes_wins(x.shape[1], 3, kernel.shape[-1], h)
 
 
+def _kernel_route(kernel, padding, stride) -> bool:
+    """Whether the conv is one of WavBEST's own: SAME, stride 1, a 3x3x3
+    (K1) or 1x1x1 (a matrix product) kernel."""
+    return (padding == "SAME" and tuple(stride) == (1, 1, 1)
+            and tuple(kernel.shape[:3]) in ((3, 3, 3), (1, 1, 1)))
+
+
+def _refuse_split_rows(mesh, x, kernel, padding, stride) -> None:
+    if _halo(mesh):
+        raise ValueError(
+            f"a {tuple(kernel.shape[:3])} conv with padding {padding!r} and stride "
+            f"{tuple(stride)} of x {tuple(x.shape)} has no halo path: it cannot run on a "
+            "space-split mesh placement (only SAME stride-1 3x3x3 and 1x1x1 convs can)")
+
+
+def _library(x, kernel, style, bias, out, padding, stride, mesh):
+    """Any other conv, as the JAX package sends it to XLA's conv: x * s in
+    x's dtype, `library_conv.conv_nd`, then the bias in x's dtype."""
+    _refuse_split_rows(mesh, x, kernel, padding, stride)
+    dt = x.dtype
+    if style is not None:
+        x = x * style.to(dt)[:, None, None, None, :]
+    y = conv_nd(x, kernel, stride, padding)
+    if bias is not None:
+        y = y + bias.to(dt)
+    if out is None:
+        return y
+    return out + y if needs_grad(out, y) else out.add_(y)
+
+
 def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
-           impl: str = "banded", mesh=None):
-    """SAME stride-1 conv of x (B, D, H, W, Cin) with kernel (k, k, k, Cin,
-    Cout), k in {1, 3}, of the style-scaled input, plus bias; added into `out`
-    when given (in place without a gradient). `impl` picks the 3x3x3 lowering
-    (module doc). On a space-sharded placement `mesh` (parallel/mesh.py)
-    a 3x3x3 conv exchanges one halo row with each neighbouring rank
-    (parallel/halo.py), runs on the H + 2 rows and keeps the middle H."""
+           impl: str = "banded", mesh=None, padding="SAME", stride=(1, 1, 1)):
+    """Conv of x (B, D, H, W, Cin) with kernel (kd, kh, kw, Cin, Cout) of
+    the style-scaled input, plus bias; added into `out` when given (in
+    place without a gradient). `padding` ("SAME", "VALID" or (lo, hi)
+    pairs) and `stride` as the JAX package's conv3d takes them. SAME
+    stride-1 3x3x3 convs take the kernel of `impl` (module doc), SAME
+    stride-1 1x1x1 convs a matrix product, and every other conv
+    `library_conv.conv_nd` (cuDNN, TF32 off), as the JAX package sends it to
+    XLA's conv. On a space-sharded placement `mesh` (parallel/mesh.py) a
+    3x3x3 conv exchanges one halo row with each neighbouring rank
+    (parallel/halo.py), runs on the H + 2 rows and keeps the middle H; any
+    conv other than those two raises there."""
     if impl not in IMPLS:
         raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
+    if not _kernel_route(kernel, padding, stride):
+        return _library(x, kernel, style, bias, out, padding, stride, mesh)
     if needs_grad(x, kernel, style, bias, out):
         _refuse_auto_grad(impl)
         if out is not None:
@@ -188,8 +235,6 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
     dt = x.dtype
     if size == (3, 3, 3):
         return _sharded(x, kernel, style, bias, out, plain, mesh, _fold(impl, x, kernel, mesh))
-    if size != (1, 1, 1):
-        raise ValueError(f"only 1x1x1 and 3x3x3 kernels occur in WavBEST, got {size}")
     if style is not None:
         x = x * style.to(dt)[:, None, None, None, :]
     y = torch.matmul(x.reshape(-1, x.shape[-1]), kernel[0, 0, 0].to(dt))
@@ -200,21 +245,28 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
 
 
 def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "banded",
-               mesh=None):
+               mesh=None, padding="SAME", stride=(1, 1, 1)):
     """conv3d(cat(parts, -1), kernel) + bias without materialising the concat:
     each part convolves with its slice of the kernel's input channels (a
     view, through which its gradient reaches the kernel), and the parts
     accumulate into one output. On a space-sharded placement the 3x3x3
     parts each get their halo rows and accumulate into one (H + 2)-row
-    buffer, cropped once."""
-    halo = _halo(mesh) and tuple(kernel.shape[:3]) == (3, 3, 3)
+    buffer, cropped once. A conv of the library route (see conv3d) sums its
+    parts' convs, each rounded to x's dtype, as the JAX package does, and
+    concatenates them first where the window overhangs the image."""
+    library = not _kernel_route(kernel, padding, stride)
+    if library and (parts[0].shape[2] < kernel.shape[1] or parts[0].shape[3] < kernel.shape[2]):
+        return conv3d(torch.cat(parts, -1), kernel, bias=bias, plain=plain, impl=impl,
+                      mesh=mesh, padding=padding, stride=stride)
+    halo = not library and _halo(mesh) and tuple(kernel.shape[:3]) == (3, 3, 3)
     off, out = 0, None
     for p in parts:
         kpart = kernel[..., off:off + p.shape[-1], :]
         off += p.shape[-1]
         b = bias if out is None else None
         if not halo:
-            out = conv3d(p, kpart, bias=b, out=out, plain=plain, impl=impl, mesh=mesh)
+            out = conv3d(p, kpart, bias=b, out=out, plain=plain, impl=impl, mesh=mesh,
+                         padding=padding, stride=stride)
             continue
         if needs_grad(p, kpart, b, out):
             _refuse_auto_grad(impl)
@@ -231,6 +283,19 @@ def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "ba
 
 
 def modulated_conv3d(x, kernel, style, *, plain: bool = False, impl: str = "banded",
-                     mesh=None):
+                     mesh=None, padding="SAME", stride=(1, 1, 1)):
     """y_b = conv3d(x_b * s_b, kernel) for style (B, Cin), no bias."""
-    return conv3d(x, kernel, style=style, plain=plain, impl=impl, mesh=mesh)
+    return conv3d(x, kernel, style=style, plain=plain, impl=impl, mesh=mesh, padding=padding,
+                  stride=stride)
+
+
+def modulated_conv_transpose3d(x, kernel, style, *, stride=(1, 1, 1), padding="SAME",
+                               mesh=None):
+    """The transposed twin of modulated_conv3d: lax.conv_transpose(x_b *
+    s_b, kernel, stride, padding) with kernel (kd, kh, kw, Cin, Cout), not
+    flipped (transpose_kernel=False), padding "SAME", "VALID" or (lo, hi)
+    pairs of the stride-dilated input (library_conv.conv_transpose_nd); x's
+    dtype. It has no halo path: a space-split placement raises."""
+    _refuse_split_rows(mesh, x, kernel, padding, stride)
+    scaled = x * style.to(x.dtype)[:, None, None, None, :]
+    return conv_transpose_nd(scaled, kernel, stride, padding)
