@@ -3500,7 +3500,10 @@ def mesh_bf16_worker(K, mesh, train_weights, train, plain):
     WavBEST(dtype=torch.bfloat16) on `mesh`, the gradient check (fixed t and
     noise, dropout off, the single-process bf16 path's L1 signs) and
     MESH_TRAIN_STEPS bf16 steps, counts reset just before and read just
-    after each."""
+    after each. The first step also records each distinct K1 launch
+    (input gradient or not, x's shape, the kernel's shape and strides,
+    which of style, bias and out it was given, the unsharded call's (B, H))
+    for mesh_bf16_launch_check."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.parallel import mesh as mesh_lib
@@ -3538,13 +3541,25 @@ def mesh_bf16_worker(K, mesh, train_weights, train, plain):
              "plain": plain["plain"]}
     state = trainer.init_state()
     losses, secs, per_step = [], [], []
-    for batch in train["steps"]:
+    launch, shard_launches = K._launch, set()
+
+    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+        shard_launches.add((bool(input_grad), tuple(x.shape), tuple(kernel.shape),
+                            tuple(kernel.stride()), style is not None, bias is not None,
+                            out is not None, unsharded))
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+
+    for step, batch in enumerate(train["steps"]):
         torch.cuda.synchronize()
         K.reset_launches()
         mesh_lib.reset_stats()
         plain["plain"] = 0
+        K._launch = record if step == 0 else launch
         t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, batch, prompt)
+        try:
+            state, metrics = trainer.train_step(state, batch, prompt)
+        finally:
+            K._launch = launch
         losses.append(metrics["l_pix"].item())
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -3558,7 +3573,7 @@ def mesh_bf16_worker(K, mesh, train_weights, train, plain):
     moments = [v for st in state.optimizer.state.values() for k, v in st.items() if k != "step"]
     fp32_state = all(x.dtype == torch.float32 for x in [*params, *state.ema_params, *moments])
     return {"grad_check": check, "losses": losses, "s": secs, "per_step": per_step,
-            "fp32_state": fp32_state,
+            "fp32_state": fp32_state, "shard_launches": sorted(shard_launches, key=repr),
             "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
             if mesh.rank in (0, mesh.size - 1) else None}
 
@@ -3729,6 +3744,8 @@ def mesh_phase(K, root, served=None):
         wall = time.perf_counter() - t0
         summary[label] = mesh_check(label, ranks, images, single_check, single_losses, wall,
                                     train_mesh)
+        summary[label]["bf16"]["launches_checked"] = mesh_bf16_launch_check(K, label, ranks,
+                                                                            train_mesh)
     summary["serve"] = mesh_serve_phase(ckpt, root, served, np.random.default_rng(SEED + 1))
     return summary
 
@@ -3884,6 +3901,63 @@ def mesh_bf16_check(label, ranks, single, train_mesh, fp32_halo_bytes, fp32_kept
             "single_s_per_step": float(np.median(single["s"])),
             "grad_worst_gap_own_to_fp32": rows[worst], "halo_bytes_per_step": halo[-1],
             "fp32_halo_bytes_per_step": fp32_halo_bytes[-1], "counts_per_step": counts}
+
+
+def mesh_bf16_launch_check(K, label, ranks, train_mesh):
+    """Every distinct K1 launch of the first meshed bf16 step on any rank
+    (mesh_bf16_worker records them: the forward and remat's recompute on
+    the space shards' H_l + 2 rows, the input gradient on the shards' dy),
+    relaunched here on card 0 with its `unsharded` argument on seeded bf16
+    operands of its shape and strides (style, bias and out where it had
+    them): within one bf16 step of the plain version (bf16_check), one bf16
+    launch on a bf16 tensor-core variant, planned with the split count of
+    the unsharded call, and each x either a shard of the unsharded height
+    with its two halo rows or the whole height. Prints the
+    `[mesh] ... bf16 train launches` line; returns the counts checked."""
+    shapes = sorted({s for r in ranks for s in r["bf16"]["shard_launches"]}, key=repr)
+    space = train_mesh[1]
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    rand = lambda *shape: torch.randn(shape, device=DEV, generator=gen)
+    worst, heights, splits = 0.0, set(), set()
+    for input_grad, shape, kshape, kstride, styled, biased, accum, unsharded in shapes:
+        b, d, h, w, cin = shape
+        cout = kshape[-1]
+        what = (f"{label} meshed bf16 {'input gradient' if input_grad else 'forward'} {shape} "
+                f"-> {cout} (unsharded (B, H) {unsharded})")
+        if unsharded is None:
+            fail(f"{what}: not planned for the unsharded call")
+        if h not in (unsharded[1], unsharded[1] // space + 2 if space > 1 else None):
+            fail(f"{what}: neither the whole height nor a shard with its halo rows")
+        x = rand(*shape).bfloat16()
+        k = torch.empty_strided(kshape, kstride, dtype=torch.bfloat16, device=DEV)
+        k.copy_(rand(*kshape) / (27 * cin) ** 0.5)
+        style = (1 + 0.1 * rand(b, cin)).bfloat16() if styled else None
+        bias = (0.1 * rand(cout)).bfloat16() if biased else None
+        out = rand(b, d, h, w, cout).bfloat16() if accum else None
+        K.reset_launches()
+        with torch.no_grad():
+            got = K._launch(x, k, style, bias, None if out is None else out.clone(), input_grad,
+                            unsharded)
+        variants = {v for v, n in K.variant_launches.items() if n}
+        if (K.launches, K.dtype_launches["bfloat16"]) != (1, 1) or not variants <= BF16_VARIANTS:
+            fail(f"{what}: launched {dict(K.dtype_launches)} on {variants}")
+        ref = K.conv3d_plain(x, k, style, bias, None if out is None else out.clone())
+        worst = max(worst, bf16_check(got, ref, what))
+        whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), dtype=torch.bfloat16,
+                            device=DEV)
+        n_split, n_whole = K.plan(3, x, d, cout, unsharded)[1], K.plan(3, whole, d, cout)[1]
+        if n_split != n_whole:
+            fail(f"{what}: split count {n_split}, the unsharded call's {n_whole}")
+        heights.add(h)
+        splits.add(n_split)
+    n_in = sum(1 for s in shapes if s[0])
+    print(f"[mesh] {label} bf16 train launches on {train_mesh}: {len(shapes)} distinct K1 "
+          f"launches of the first step over the ranks ({len(shapes) - n_in} forward, {n_in} "
+          f"input gradient; x heights {sorted(heights)}) relaunched with their unsharded "
+          f"(B, H): each within one bf16 step of its plain version (largest |err| "
+          f"{worst:.3g}), on a bf16 variant, at the unsharded call's split count "
+          f"(counts {sorted(splits)})", flush=True)
+    return {"launches": len(shapes), "input_grad": n_in, "max_abs_err": worst}
 
 
 # (preset, bands, sensors, --mesh-space) of the meshed serve cases: JAX's

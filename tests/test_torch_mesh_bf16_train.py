@@ -33,9 +33,21 @@ The bars:
     the ranks; one collective a step; every K1 launch, forward and input
     gradient, in bf16 (130 + 65 a step);
   * against the JAX bf16 Trainer (dropout off, JAX's t and noise handed to
-    the port, L1, the trainers' default): the losses within 2e-2 of
-    JAX-bf16's and of JAX-fp32's (the forward's MODEL cap of
-    tests/test_torch_bf16_train.py).
+    the port, L2 on both sides): the losses within 2e-2 of JAX-bf16's and
+    of JAX-fp32's (the forward's MODEL cap of
+    tests/test_torch_bf16_train.py), and step 0's all-reduced gradients at
+    the MODEL BAR against the JAX bf16 and fp32 Trainers' gradients on
+    their (4, 2) mesh;
+  * the bf16 ControlNet fine-tune (Adam, lr 1e-2, two steps) against one
+    process's: the losses within 2e-2, the first step's gradients at the
+    MODEL BAR, and Adam's first moments after the last step within twice
+    one process's own gap to its fp32 fine-tune (floored at the median):
+    the MODEL BAR without its cap, since the fp32 run's second gradient is
+    taken at its own weights. Each trained parameter within half an Adam
+    step (atol lr / 2, rtol 2e-3), except where one process's first moment
+    lies within the meshed moment's largest gap of zero: there the second
+    step's direction is bf16 noise, and the element may be up to two
+    steps off (2 lr). Such elements stay below 1e-4 of all.
 """
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -44,6 +56,7 @@ import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -69,13 +82,13 @@ FIRST_LOSS_RTOL, LATER_LOSS_RTOL = 1e-4, 1e-3
 BF16 = dict(dtype="bfloat16", channels=CHANNELS)
 STEP = dict(BF16, loss_type="l2")  # dropout and remat on (the worker's defaults)
 DISTILL = dict(STEP, distill_n=5)
-JAX_DRAWS = dict(BF16, dropout=False)
-# the ControlNet fine-tune: tests/test_torch_controlnet.py's widths, batch 8;
-# its Adam lr is 1e-2, so the fp32 mesh test's parameter atol (5e-3 at lr
-# 2e-3: a flipped sign of a near-zero gradient moves a weight by twice the
-# lr) scales to 2.5e-2
+JAX_DRAWS = dict(BF16, dropout=False, loss_type="l2")
+# the ControlNet fine-tune: tests/test_torch_controlnet.py's widths, batch 8,
+# the worker's Adam lr; the parameter bars of the module doc
 CN_CH, CN_D, CN_SIZE = (8, 12, 16, 20), 4, 16
-CN_PARAM_ATOL = PARAM_ATOL / 2e-3 * 1e-2
+CN_LR = 1e-2
+CN_PARAM_ATOL = CN_LR / 2
+CN_NOISY_SHARE = 1e-4
 
 
 def _batches(n=2):
@@ -161,23 +174,32 @@ def singles(worlds):
 
 @pytest.fixture(scope="module")
 def jax_losses(carried):
-    """The JAX Trainer's two losses on its (4, 2) mesh with the bf16 and the
-    fp32 model, dropout off, the same weights and hyperparameters as the
-    port's (remat off there: recomputing changes no value)."""
+    """The JAX Trainer's two L2 losses on its (4, 2) mesh with the bf16 and
+    the fp32 model, dropout off, the same weights and hyperparameters as the
+    port's (remat off there: recomputing changes no value), and step 0's
+    gradients under the port's names. The step reports
+    `optax.global_norm(grads)` in its metrics; with that function patched to
+    the identity for the fixture, the jitted step returns the gradient tree
+    itself, with no second compile."""
     params, _, batches, prompt = carried
     out = {}
     with pytest.MonkeyPatch.context() as m:
         m.setattr(flax_nn, "Dropout", _NoDropout)
+        m.setattr(optax, "global_norm", lambda tree: tree)
         for dtype in (jnp.bfloat16, jnp.float32):
             trainer = JaxTrainer(model=JaxWavBEST(channels=CHANNELS, dtype=dtype),
                                  schedule=JaxNoiseSchedule.create("cosine", 1000), lr=2e-3,
-                                 warmup_steps=2, max_iter=1000,
+                                 warmup_steps=2, max_iter=1000, loss_type="l2",
                                  mesh=jax_make_mesh(data=4, space=2), remat=False)
-            state, losses = trainer.state_from_params(params), []
+            state, losses, grads = trainer.state_from_params(params), [], None
             for batch in batches:
                 state, metrics = trainer.train_step(state, batch, prompt)
                 losses.append(float(metrics["l_pix"]))
-            out[dtype] = losses
+                if grads is None:
+                    grads = from_flax(WavBEST(CHANNELS, device="cpu"),
+                                      jax.tree.map(np.asarray, metrics["grad_norm"]))
+            out[dtype] = {"losses": losses,
+                          "grads": {k: v.numpy() for k, v in grads.state_dict().items()}}
     return out
 
 
@@ -229,12 +251,15 @@ def test_meshed_bf16_steps_match_one_process(world4, singles):
 
 def test_meshed_bf16_steps_match_the_jax_bf16_mesh(world4, jax_losses):
     """The port's bf16 model on (2, 2) with the JAX trainer's t and noise,
-    against the JAX Trainer's bf16 model on its (4, 2) mesh, dropout off on
-    both sides: each loss within LOSS_CAP of JAX-bf16's and JAX-fp32's."""
+    against the JAX Trainer's bf16 model on its (4, 2) mesh, dropout off and
+    L2 on both sides: each loss within LOSS_CAP of JAX-bf16's and
+    JAX-fp32's, and every all-reduced step-0 gradient at the MODEL BAR
+    against the JAX bf16 and fp32 Trainers' (equal on every rank)."""
+    j16, j32 = jax_losses[jnp.bfloat16], jax_losses[jnp.float32]
     for r in world4:
-        for got, j16, j32 in zip(r[1]["losses"], jax_losses[jnp.bfloat16],
-                                 jax_losses[jnp.float32]):
-            assert_loss_bar(got, j16, j32)
+        for got, l16, l32 in zip(r[1]["losses"], j16["losses"], j32["losses"]):
+            assert_loss_bar(got, l16, l32)
+        assert_gradients_model_bar(_grads(r[1]), j32["grads"], j16["grads"])
 
 
 def test_halo_edge_rows_in_bf16(world2):
@@ -277,17 +302,44 @@ def test_bf16_distill_step_on_space_mesh(world2, singles):
 
 def test_bf16_controlnet_finetune_data_parallel(world2, singles):
     """The sd_locked ControlNet fine-tune in bf16 on (2, 1), each rank half
-    the batch: the losses within LOSS_CAP of one process's bf16 and fp32
-    fine-tunes, the first step's gradients at the MODEL BAR (one process's
-    bf16 and fp32 fine-tunes as the references), the trained parameters
-    within CN_PARAM_ATOL and PARAM_RTOL of one process's and equal on both
-    ranks."""
+    the batch, against one process's bf16 and fp32 fine-tunes at the bars
+    of the module doc: the losses, the first step's gradients, Adam's first
+    moments after the last step, and the trained parameters (equal on both
+    ranks)."""
     one, fp32 = singles["controlnet_bfloat16"], singles["controlnet_float32"]
     ranks = [r[2] for r in world2]
     for got, l16, l32 in zip(ranks[0]["losses"], one["losses"], fp32["losses"]):
         assert_loss_bar(got, l16, l32)
     assert_gradients_model_bar(_grads(ranks[0]), fp32["grads"], one["grads"])
+    moment_gap = _assert_moments_bar(ranks[0]["exp_avg"], fp32["exp_avg"], one["exp_avg"])
+    noisy = total = 0
     for name, p in one["params"].items():
-        np.testing.assert_allclose(ranks[0]["params"][name], p, atol=CN_PARAM_ATOL,
-                                   rtol=PARAM_RTOL, err_msg=name)
-        np.testing.assert_array_equal(ranks[1]["params"][name], ranks[0]["params"][name])
+        got = ranks[0]["params"][name]
+        gap = np.abs(got - p)
+        over = gap > CN_PARAM_ATOL + PARAM_RTOL * np.abs(p)
+        total += p.size
+        if over.any():
+            near_zero = np.abs(one["exp_avg"][name][over]) <= moment_gap[name]
+            assert near_zero.all() and (gap[over] <= 2 * CN_LR).all(), (name, gap[over])
+            noisy += int(over.sum())
+        np.testing.assert_array_equal(ranks[1]["params"][name], got)
+    print(f"{noisy} of {total} trained elements beyond lr / 2, each where the first moment "
+          "lies within the meshed moment's gap of zero")
+    assert noisy <= CN_NOISY_SHARE * total, (noisy, total)
+
+
+def _assert_moments_bar(got, ref32, ref16):
+    """Each first moment of `got` within twice `ref16`'s own gap to
+    `ref32` (floored at the median over parameters), of `ref32`'s scale;
+    returns each parameter's largest |got - ref16|."""
+    rows = {}
+    for name, m in got.items():
+        a, b, g = (np.asarray(t, np.float64) for t in (ref32[name], ref16[name], m))
+        scale = np.abs(a).max()
+        if scale > 0:
+            rows[name] = (np.abs(g - b).max() / scale, np.abs(b - a).max() / scale)
+    floor = np.median([own for _, own in rows.values()])
+    for name, (gap, own) in rows.items():
+        assert gap <= 2 * max(own, floor), (name, gap, own, floor)
+    return {name: np.abs(np.asarray(m, np.float64) - ref16[name]).max()
+            for name, m in got.items()}

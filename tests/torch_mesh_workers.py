@@ -329,8 +329,8 @@ def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, t
     mean((y - target)^2), data-parallel on a `mesh_shape` (data, 1) mesh
     (each rank its rows of the global batch, the gradients and the loss
     summed over the world) or in one process with mesh_shape None: the
-    losses, the trained parameters and the first step's gradients of
-    them."""
+    losses, the trained parameters, the first step's gradients of them and
+    Adam's first moments after the last step."""
     from tmdiff_tpu_torch.models.controlnet import (ControlledLegacyUNet, trainable_labels,
                                                     trainable_parameters)
 
@@ -361,6 +361,8 @@ def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, t
                      if labels[n] == "train" and p.grad is not None}
         opt.step()
         losses.append(loss.item())
+    trained = [(n, p) for n, p in model.named_parameters() if labels[n] == "train"]
     return {"losses": losses, "grads": grads,
-            "params": {n: p.detach().numpy() for n, p in model.named_parameters()
-                       if labels[n] == "train"}}
+            "params": {n: p.detach().numpy() for n, p in trained},
+            "exp_avg": {n: opt.state[p]["exp_avg"].numpy().copy() for n, p in trained
+                        if p in opt.state}}

@@ -252,12 +252,8 @@ def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "ba
     accumulate into one output. On a space-sharded placement the 3x3x3
     parts each get their halo rows and accumulate into one (H + 2)-row
     buffer, cropped once. A conv of the library route (see conv3d) sums its
-    parts' convs, each rounded to x's dtype, as the JAX package does, and
-    concatenates them first where the window overhangs the image."""
+    parts' convs, each rounded to x's dtype, as the JAX package does."""
     library = not _kernel_route(kernel, padding, stride)
-    if library and (parts[0].shape[2] < kernel.shape[1] or parts[0].shape[3] < kernel.shape[2]):
-        return conv3d(torch.cat(parts, -1), kernel, bias=bias, plain=plain, impl=impl,
-                      mesh=mesh, padding=padding, stride=stride)
     halo = not library and _halo(mesh) and tuple(kernel.shape[:3]) == (3, 3, 3)
     off, out = 0, None
     for p in parts:
