@@ -130,13 +130,20 @@ Phases (any failure ends the run with a non-zero exit code):
                1e-4, EMA 0.9999, remat, L1, cosine schedule of 1000 steps):
                every parameter's gradient through K1 (forward and input
                gradient) against the plain convs at 8 and 4 bands; remat on
-               and off with dropout on; 20 steps with the counts reset just
+               and off with dropout on; 10 steps with the counts reset just
                before and read just after (K1 forward and input-gradient
                launches and weight gradients per step, K3 and K4 at 0);
-               five steps twice from one seed; 30 steps at lr 2e-4 on one
+               three steps twice from one seed; 30 steps at lr 2e-4 on one
                batch; the median step time at 8 and at 4 bands, a device-time
                breakdown of a step under torch.profiler, and K1's input
                gradient against the library's at every shape of a step.
+               Then Trainer.compiled_step (lines "[train] graphed"), one CUDA
+               graph of the whole step, against train_step from one start
+               at 8 and 4 bands: the states bit for bit, the capture's
+               seconds, each replay's K1 kernels read on the card by the
+               profiler (130 forward + 65 input gradient in the captured
+               order), both medians, the busy share, the peak memory, the
+               card's name and power limit.
                Then bf16 training (lines "[train] bf16"): the same model as
                WavBEST(dtype=torch.bfloat16) on the same weights, every
                gradient through K1's bf16 instance against the plain bf16
@@ -152,14 +159,17 @@ Phases (any failure ends the run with a non-zero exit code):
                bf16's input gradient and the bf16 weight gradient at every
                shape of a step against their plain versions, timed beside
                the bf16 library and bound; the median 8-band step beside the
-               fp32 step's and its device breakdown.
+               fp32 step's and its device breakdown; the "[train] graphed
+               bf16" lines as above.
   9. cli       the train/val entry point (tmdiff_tpu_torch/cli.py) at the
                general_multi preset's settings, through its `_run` seam on
                data built in memory: batch 8 of the train phase's 64x64
                scenes through the 4:4:8 mixer, two 256x256 scenes a sensor
-               to validate, 7 steps, validation (EMA weights) and a
-               checkpoint every 3, keep 2; counts reset just before the run
-               and read just after. Then: I6 and I7 on disk and I3 pruned,
+               to validate, 7 steps through compiled_step (one capture a
+               band count, then replays; one replay's K1 kernels read on the
+               card), validation (EMA weights) and a checkpoint every 3,
+               keep 2; counts reset just before the run and read just
+               after. Then: I6 and I7 on disk and I3 pruned,
                the .mat files' shapes and stamp; I7 restored into a fresh
                state bit for bit, and one step on each bit for bit; a run
                stopped by SIGTERM after step 2 and resumed with
@@ -172,10 +182,13 @@ Phases (any failure ends the run with a non-zero exit code):
                I7 checkpoint (EMA teacher): phases N = 10 and 5 of 6 steps
                on the train phase's batches, each student checkpointed
                (distill_N10, distill_N5, the student in both weight slots)
-               and validated with ddim at N steps; counts reset just before
-               and read just after (per step: two teacher calls and the
+               and validated with ddim at N steps, each phase's steps
+               through its DistillTrainer's compiled_step (one replay's K1
+               kernels read on the card: two teacher calls and the
                student's forward and remat recompute through K1, its input
-               and weight gradients). Then the distillation loss and every
+               gradient); counts reset just before and read just after (on
+               the host they tick at each capture's eager step and
+               capture). Then the distillation loss and every
                gradient through K1 against the plain convs at 8 and 4 bands
                from I7, with the plain path's L1 signs; prints s/step.
  11. controlnet the legacy UNet and the ControlNet adapter
@@ -211,7 +224,10 @@ Phases (any failure ends the run with a non-zero exit code):
                cores, no plain conv; the training step (WV3 8 bands, batch 8,
                64x64) on (2, 2): the train phase's gradient check and 3 steps
                against one process; seconds, halo exchanges and bytes per
-               request, collectives per step, each mesh's backend. With four
+               request, collectives per step, each mesh's backend; a
+               strided, a 5x5 and a transposed library conv (fp32, bf16) on
+               a (1, 2) space split of each data row against one process,
+               output and gradients. With four
                cards visible the same under NCCL, a card a rank, and with two
                the training steps data-parallel on two cards. Then the meshed
                server: `python -m tmdiff_tpu_torch.serve`'s main() on the
@@ -271,6 +287,7 @@ sums of the same operands.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -1384,8 +1401,6 @@ def library_cases():
     inputs, keyword inputs, border) at the reference's sizes: batch 2, 8
     bands. `border` is None but for a wavelet round trip, whose last output
     must give back its input away from a border of that width."""
-    import copy
-
     from tmdiff_tpu_torch.models.blocks import AdaptiveGroupNorm, ChannelWiseAttention
     from tmdiff_tpu_torch.ops import dynamic_conv, kernel_adaption, pgcu, wavelet
     from tmdiff_tpu_torch.train import loss_zoo, losses
@@ -1511,7 +1526,7 @@ def library_phase():
 # max_iter 300000, AdamW wd 1e-4, EMA 0.9999, remat, L1, cosine schedule of
 # 1000 steps, init_type "torch".
 TRAIN_SIZE, TRAIN_BATCH, TRAIN_SCENES = 64, 8, 24
-TRAIN_STEPS, REPEAT_STEPS, LEARN_STEPS, TIMED_STEPS, PROFILED_STEPS = 20, 5, 30, 10, 3
+TRAIN_STEPS, REPEAT_STEPS, LEARN_STEPS, TIMED_STEPS, PROFILED_STEPS = 10, 3, 30, 6, 3
 TRAIN_SENSORS = {"QB": (4, 1), "GF2": (4, 2), "WV3": (8, 3)}  # bands, data seed
 GRAD_LOSS_RTOL, GRAD_RTOL = 1e-4, 1e-3
 # the x0 prediction through K1 against the plain convs at the gradient
@@ -1887,6 +1902,195 @@ def train_timing_phase(K, new_model, new_trainer, prompts, datasets, input_grad_
     return timing
 
 
+# compiled_step against train_step: steps compared from one start, then
+# timed steps each way; the compiled run's last GRAPHED_PROFILED under the
+# profiler
+GRAPHED_STEPS, GRAPHED_TIMED, GRAPHED_PROFILED = 3, 5, 1
+# K1's main kernel per wrapper launch, by variant (its weight pass and
+# split-K reduce are further kernels of the same launch)
+K1_KERNELS = {"ffma": "conv_3x3_ffma_kernel", "tf32x3": "conv_3x3_tf32x3_kernel",
+              "tf32x3_splitk": "conv_3x3_tf32x3_kernel", "bf16": "conv_3x3_bf16_kernel",
+              "bf16_splitk": "conv_3x3_bf16_kernel"}
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def device_kernels(fn, steps: int = 1):
+    """(the kernels fn() ran on the card, `steps` times, in start order as
+    (name, device us); the wall seconds), read by torch.profiler; a CUDA
+    graph's replay shows each of its kernel nodes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and e.name not in PROFILE_LABELS), key=lambda e: e.time_range.start)
+    return [(e.name, e.device_time_total) for e in events], wall
+
+
+def k1_kernels(kernels) -> list:
+    """K1's main kernels among `kernels` (device_kernels), in order, by
+    their K1_KERNELS name: one per wrapper launch."""
+    names = set(K1_KERNELS.values())
+    return [n for name, _ in kernels for n in names if n in name]
+
+
+def state_tensors(state) -> list:
+    """(name, tensor) of every tensor of a TrainState: parameters, EMA,
+    AdamW's moments and step counts, the lr."""
+    out = [(f"param {n}", p.detach()) for n, p in state.model.named_parameters()]
+    out += [(f"ema {i}", e) for i, e in enumerate(state.ema_params)]
+    for i, p in enumerate(state.model.parameters()):
+        out += [(f"adamw {i} {k}", v) for k, v in sorted(state.optimizer.state[p].items())]
+    out += [(f"lr {i}", torch.as_tensor(g["lr"])) for i, g in
+            enumerate(state.optimizer.param_groups)]
+    return out
+
+
+def state_gap(a, b) -> tuple:
+    """(every tensor equal, the largest difference over its tensor's scale,
+    that tensor's name) between two lists of state_tensors, which must name
+    the same tensors."""
+    if [n for n, _ in a] != [n for n, _ in b]:
+        fail("two training states hold different tensors")
+    gaps = {n: rel_to_scale(x.float(), y.float()) for (n, x), (_, y) in zip(a, b)
+            if not torch.equal(x, y)}
+    worst = max(gaps, key=gaps.get) if gaps else None
+    return not gaps, (gaps[worst] if gaps else 0.0), worst
+
+
+def train_graphed_phase(K, new_model, new_trainer, prompts, datasets, dtype=torch.float32):
+    """Trainer.compiled_step against train_step on the full-width model of
+    `dtype`, at 8 and 4 bands, from one start on the same batches: the
+    eager run (GRAPHED_STEPS steps, its state kept, then GRAPHED_TIMED
+    timed ones), then the compiled run (its first call: its own step, then
+    the capture, whose seconds it gives; then replays, the same steps
+    timed, and GRAPHED_PROFILED replays under the profiler, which read the
+    K1 kernels each replay runs on the card and the busy share). Each run
+    trains a copy of one seeded model; its peak memory is
+    max_memory_allocated above what was allocated before the copy. Gated:
+    the states after GRAPHED_STEPS and at the end bit for bit, and the
+    losses; every replay runs the K1 kernels the capture recorded, in its
+    order: 130 forward + 65 input gradient; the capture records the
+    sequence the call's eager step and the eager run's first step
+    launched."""
+    from tmdiff_tpu_torch.data.pipeline import BatchIterator
+
+    bf16 = dtype == torch.bfloat16
+    tag = "[train] graphed" + (" bf16" if bf16 else "")
+    gpu = card()
+    out = {}
+    for sensor in ("WV3", "QB"):
+        bands = TRAIN_SENSORS[sensor][0]
+        prompt = prompts[sensor]
+        it = BatchIterator(datasets[sensor], TRAIN_BATCH, seed=SEED)
+        n_all = GRAPHED_STEPS + GRAPHED_TIMED
+        batches = [{k: torch.as_tensor(b[k], device=DEV) for k in ("Res", "PAN", "MS")}
+                   for b, _ in zip(it, range(n_all + GRAPHED_PROFILED))]
+        runs, start = {}, new_model(dtype)
+        for path in ("eager", "compiled"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            trainer = new_trainer(copy.deepcopy(start))
+            state = trainer.init_state()
+            step = trainer.compiled_step() if path == "compiled" else trainer.train_step
+            feed = iter(batches)
+            seq = []
+            real = K._launch
+
+            def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+                before = dict(K.variant_launches)
+                y = real(x, kernel, style, bias, out, input_grad=input_grad, unsharded=unsharded)
+                seq.append((input_grad, next(v for v in K.VARIANTS
+                                             if K.variant_launches[v] != before[v])))
+                return y
+
+            K._launch = recorder
+            try:
+                t0 = time.perf_counter()
+                _, m = step(state, next(feed), prompt)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            finally:
+                K._launch = real
+            losses = [m["l_pix"].item()]
+            for _ in range(GRAPHED_STEPS - 1):
+                losses.append(step(state, next(feed), prompt)[1]["l_pix"].item())
+            after_n = [(n, t.clone()) for n, t in state_tensors(state)]
+            secs = []
+            for _ in range(GRAPHED_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, next(feed), prompt)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            runs[path] = {"first_s": first_s, "losses": losses, "after_n": after_n,
+                          "end": [(n, t.clone()) for n, t in state_tensors(state)], "seq": seq,
+                          "median_s": float(np.median(secs)),
+                          "max_memory_allocated": torch.cuda.max_memory_allocated() - held}
+            if path == "compiled":
+                kernels, wall = device_kernels(lambda: step(state, next(feed), prompt),
+                                               GRAPHED_PROFILED)
+                runs[path].update(k1=k1_kernels(kernels),
+                                  busy_share=sum(us for _, us in kernels) / 1e6 / wall,
+                                  capture_s=sum(trainer.capture_seconds().values()))
+                trainer.release_compiled()
+        eager, comp = runs["eager"], runs["compiled"]
+        same_n = state_gap(comp["after_n"], eager["after_n"])
+        same_end = state_gap(comp["end"], eager["end"])
+        half = len(comp["seq"]) // 2
+        captured = comp["seq"][half:]
+        fwd = sum(not ig for ig, _ in captured)
+        per_replay = len(comp["k1"]) / GRAPHED_PROFILED
+        res = {"capture_s": comp["capture_s"], "first_call_s": comp["first_s"],
+               "replay_k1": per_replay, "replay_k1_forward": fwd,
+               "replay_k1_input_grad": len(captured) - fwd,
+               "bit_identical_after": {GRAPHED_STEPS: same_n[0], n_all: same_end[0]},
+               "largest_gap_of_scale": max(same_n[1], same_end[1]),
+               "losses_equal": comp["losses"] == eager["losses"],
+               "median_s": comp["median_s"], "eager_median_s": eager["median_s"],
+               "busy_share": comp["busy_share"],
+               "max_memory_allocated": comp["max_memory_allocated"],
+               "eager_max_memory_allocated": eager["max_memory_allocated"], "card": gpu}
+        out[bands] = res
+        print(f"{tag} {bands}-band step, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: capture "
+              f"{res['capture_s']:.3f} s (first call {res['first_call_s']:.3f} s with its own "
+              f"step); each of {GRAPHED_PROFILED} replays ran {per_replay:g} K1 kernels on the "
+              f"card (profiler), {fwd} forward + {res['replay_k1_input_grad']} input gradient "
+              f"in the captured order, as the eager step launched them; state after "
+              f"{GRAPHED_STEPS} compiled steps against {GRAPHED_STEPS} eager ones bit for bit "
+              f"{same_n[0]}, after {n_all} {same_end[0]} (largest gap "
+              f"{res['largest_gap_of_scale']:.3g} of scale at {same_n[2] or same_end[2]}); "
+              f"losses equal {res['losses_equal']}; median step compiled {res['median_s']:.4f} "
+              f"s, eager {res['eager_median_s']:.4f} s over {GRAPHED_TIMED}; busy share "
+              f"compiled {res['busy_share']:.3f}; max_memory_allocated compiled "
+              f"{res['max_memory_allocated'] / 2**30:.2f} GiB, eager "
+              f"{res['eager_max_memory_allocated'] / 2**30:.2f} GiB; {gpu}", flush=True)
+        if comp["seq"][:half] != captured or eager["seq"] != captured:
+            fail(f"{tag} {bands}-band: the capture launched another K1 sequence than the "
+                 "eager step")
+        want = [K1_KERNELS[v] for _, v in captured] * GRAPHED_PROFILED
+        if comp["k1"] != want or (fwd, len(captured) - fwd) != (2 * TRAIN_CONVS, TRAIN_CONVS):
+            fail(f"{tag} {bands}-band: {GRAPHED_PROFILED} replays ran {len(comp['k1'])} K1 "
+                 f"kernels on the card; captured {fwd} forward + {len(captured) - fwd} input "
+                 "gradient")
+        if not (same_n[0] and same_end[0] and res["losses_equal"]):
+            fail(f"{tag} {bands}-band: compiled steps differ from eager ones")
+    return out
+
+
 def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
                      dtype=torch.float32):
     """K1's input gradient at every shape of one step of `sensor` in `dtype`
@@ -2158,7 +2362,8 @@ def train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen,
     print(f"[train] bf16 8-band step median {timing['median_s']:.4f} s against the fp32 step's "
           f"{fp32_timing['median_s']:.4f} s in this run ({fp32_timing['median_s'] / timing['median_s']:.2f}x)",
           flush=True)
-    return {"counts": per_step, "distill": distill,
+    graphed = train_graphed_phase(K, new_model, new_trainer, prompts, datasets, torch.bfloat16)
+    return {"graphed": graphed, "counts": per_step, "distill": distill,
             "grad_worst_gap_own_to_fp32": worst, "forward_gap": forward_gap,
             "input_grad": input_grad, "input_grad_max_abs_err": input_grad_err,
             "timing": timing, "fp32_median_s": fp32_timing["median_s"]}
@@ -2174,10 +2379,12 @@ def train_phase(K, K3, K4, modconv, gen):
                   for sensor in ("WV3", "QB")}
     timing = train_timing_phase(K, new_model, new_trainer, prompts, datasets,
                                 {bands: tot["ms"] for bands, (tot, _) in input_grad.items()})
+    graphed = train_graphed_phase(K, new_model, new_trainer, prompts, datasets)
     bf16 = train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen,
                             timing[8])
     return {"counts": n, "grad_err": grad_err, "timing": timing, "input_grad": input_grad[8][0],
-            "input_grad_err": max(err for _, err in input_grad.values()), "bf16": bf16}
+            "input_grad_err": max(err for _, err in input_grad.values()), "bf16": bf16,
+            "graphed": graphed}
 
 
 # The CLI at the general_multi preset: 7 steps, validation and a checkpoint
@@ -2207,26 +2414,51 @@ def cli_config(root: str, name: str, **train) -> str:
 
 class CliProbe:
     """While installed: the end time of each training step (after a
-    synchronize), each checkpoint save's seconds and bytes, and each
-    validation's scores, read around the CLI's own calls."""
+    synchronize) and the K1 launches its wrapper counted on the host (a
+    replay of a captured step counts none: its launches are read on the
+    card), the K1 kernels one replay ran on the card (the first step at a
+    batch shape its trainer has stepped before, under the profiler), each
+    checkpoint save's seconds and bytes, and each validation's scores, read
+    around the CLI's own calls (its loop steps through compiled_step)."""
 
     def __init__(self):
         self.step_ends, self.saves, self.scores = [], [], []
+        self.host_launches = []  # per step: (K1 forward, input gradient, weight gradients)
+        self.profiled = []  # per step: whether it ran under the profiler
+        self.replay_k1 = None
 
     def __enter__(self):
         from tmdiff_tpu_torch.eval import harness
+        from tmdiff_tpu_torch.ops.cuda import conv3d as K
         from tmdiff_tpu_torch.train import checkpoint, trainer
 
         self._saved = [(obj, name, getattr(obj, name)) for obj, name in (
-            (trainer.Trainer, "train_step"), (checkpoint, "save_checkpoint"),
+            (trainer.Trainer, "compiled_step"), (checkpoint, "save_checkpoint"),
             (harness, "validate"))]
-        train_step, save, validate = (f for _, _, f in self._saved)
+        compiled_step, save, validate = (f for _, _, f in self._saved)
+        probe = self
+        counted = lambda: (K.launches - K.input_grad_launches, K.input_grad_launches,
+                           K.weight_grad_calls)
 
-        def timed_step(*args, **kw):
-            out = train_step(*args, **kw)
-            torch.cuda.synchronize()
-            self.step_ends.append(time.perf_counter())
-            return out
+        def timed_compiled_step(tr):
+            step, seen = compiled_step(tr), set()
+
+            def timed_step(state, batch, *rest):
+                shape, before, out = tuple(batch["MS"].shape), counted(), []
+                run = lambda: out.append(step(state, batch, *rest))
+                profiled = shape in seen and probe.replay_k1 is None
+                if profiled:
+                    probe.replay_k1 = len(k1_kernels(device_kernels(run)[0]))
+                else:
+                    run()
+                probe.profiled.append(profiled)
+                seen.add(shape)
+                torch.cuda.synchronize()
+                probe.step_ends.append(time.perf_counter())
+                probe.host_launches.append(tuple(a - b for a, b in zip(counted(), before)))
+                return out[0]
+
+            return timed_step
 
         def timed_save(root, state, keep=None, mesh=None):
             torch.cuda.synchronize()
@@ -2241,7 +2473,7 @@ class CliProbe:
             self.scores.append(out)
             return out
 
-        trainer.Trainer.train_step = timed_step
+        trainer.Trainer.compiled_step = timed_compiled_step
         checkpoint.save_checkpoint = timed_save
         harness.validate = scored
         return self
@@ -2249,6 +2481,22 @@ class CliProbe:
     def __exit__(self, *exc):
         for obj, name, f in self._saved:
             setattr(obj, name, f)
+
+    def replays(self, first: int = 1) -> list:
+        """1-based numbers of the steps, from `first`, that replayed a graph
+        outside the profiler: the loop's steady state."""
+        return [i for i, (h, p) in enumerate(zip(self.host_launches, self.profiled), 1)
+                if i >= first and h == (0, 0, 0) and not p]
+
+    def captures(self, per_step: tuple) -> int:
+        """The steps that captured a graph, each of which counted its own
+        step and the capture's (2 x `per_step`) on the host; every other
+        step must be a replay that counted none."""
+        twice = tuple(2 * n for n in per_step)
+        if any(h not in (twice, (0, 0, 0)) for h in self.host_launches):
+            fail(f"host-counted K1 launches per step {self.host_launches}: each a capture "
+                 f"{twice} or a replay (0, 0, 0)")
+        return self.host_launches.count(twice)
 
 
 def run_cli(cfg_path, phase, datasets, stop=None):
@@ -2278,7 +2526,8 @@ def same_state(a, b) -> list:
         for k, v in sa["state"][i].items():
             if not torch.equal(torch.as_tensor(v), torch.as_tensor(sb["state"][i][k])):
                 diff.append(f"optimizer.{i}.{k}")
-    if [g["lr"] for g in sa["param_groups"]] != [g["lr"] for g in sb["param_groups"]]:
+    if [float(g["lr"]) for g in sa["param_groups"]] != [float(g["lr"]) for g in
+                                                        sb["param_groups"]]:
         diff.append("lr")
     if a.scheduler.state_dict() != b.scheduler.state_dict():
         diff.append("scheduler")
@@ -2360,17 +2609,29 @@ def cli_phase(K, K3, K4, train_median_s, root):
     ckpt_dir = os.path.join(root, "train", "checkpoint")
     kept = sorted(os.listdir(ckpt_dir))
     steps = np.diff(probe.step_ends)
-    # intervals inside a stretch of training, not across a validation
-    loop = [d for i, d in enumerate(steps, 2) if (i - 1) % CLI_VAL_FREQ]
+    # intervals that end at a replay, inside a stretch of training (not
+    # across a validation)
+    replays = set(probe.replays(2))
+    loop = [d for i, d in enumerate(steps, 2) if (i - 1) % CLI_VAL_FREQ and i in replays]
     s_step = float(np.median(loop))
     print(f"[cli] train: {CLI_MAX_ITER} steps of batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} "
           f"with validation at {list(range(CLI_VAL_FREQ, CLI_MAX_ITER + 1, CLI_VAL_FREQ))}: "
           f"{wall:.2f} s in all; the loop's median {s_step:.4f} s/step "
-          f"({TRAIN_BATCH / s_step:.1f} img/s) over {len(loop)} steps (the train phase's "
-          f"8-band step {train_median_s[8]:.4f} s, 4-band {train_median_s[4]:.4f} s); "
+          f"({TRAIN_BATCH / s_step:.1f} img/s) over its {len(loop)} replays of a captured "
+          f"step (the train phase's compiled 8-band step {train_median_s[8]:.4f} s, 4-band "
+          f"{train_median_s[4]:.4f} s); "
           f"launches {n}; checkpoints on disk {kept}", flush=True)
     if n["k1_forward"] == 0 or n["k1_input_grad"] == 0 or n["k3"] or n["k4"]:
         fail(f"the CLI's run launched {n}")
+    # (the val run below installs a probe of its own)
+    captures = probe.captures((2 * TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS))
+    replay_k1 = probe.replay_k1
+    print(f"[cli] train ran compiled_step: {captures} captures (one a band count), "
+          f"{len(probe.host_launches) - captures} replays; a replay ran {replay_k1} K1 "
+          f"kernels on the card (profiler; {3 * TRAIN_CONVS} a step)", flush=True)
+    if replay_k1 != 3 * TRAIN_CONVS or not 1 <= captures <= 2:
+        fail(f"the CLI's compiled steps: {captures} captures, a replay ran {replay_k1} K1 "
+             "kernels")
     if kept != ["I6", "I7"]:
         fail(f"checkpoints {kept}, expected I6 and I7 (I3 pruned)")
     saves = probe.saves
@@ -2494,6 +2755,7 @@ def cli_phase(K, K3, K4, train_median_s, root):
     return {"launches": n, "s_per_step": s_step, "img_per_s": TRAIN_BATCH / s_step,
             "sec_per_image": sec_per_image, "checkpoint_bytes": saves[-1][2],
             "save_s": [sec for _, sec, _ in saves], "restore_s": restore_s,
+            "captures": captures, "replay_k1": replay_k1,
             "score_err_vs_host": metric_err}
 
 
@@ -2850,12 +3112,19 @@ def distill_phase(K, K3, K4, root):
         n = counts(K, K3, K4)
     steps = len(DISTILL_PHASES) * DISTILL_STEPS
     ends = probe.step_ends
-    # intervals within a phase, not across a phase's checkpoint and validation
-    loop = [b - a for j, (a, b) in enumerate(zip(ends, ends[1:]), 1) if j % DISTILL_STEPS]
+    # intervals that end at a replay within a phase, not across a phase's
+    # checkpoint and validation
+    replays = set(probe.replays(2))
+    loop = [b - a for j, (a, b) in enumerate(zip(ends, ends[1:]), 1)
+            if j % DISTILL_STEPS and j + 1 in replays]
     s_step = float(np.median(loop))
     val_convs = sum(len(val_sets) * (ENCODE_CONVS + DENOISE_CONVS * m) for m in DISTILL_PHASES)
-    expected = {"k1_forward": steps * 4 * TRAIN_CONVS + val_convs,
-                "k1_input_grad": steps * TRAIN_CONVS, "weight_grad": steps * TRAIN_CONVS,
+    # the host counts a captured step's launches at its eager step and its
+    # capture; a replay's are read on the card
+    captures = probe.captures((4 * TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS))
+    expected = {"k1_forward": 2 * captures * 4 * TRAIN_CONVS + val_convs,
+                "k1_input_grad": 2 * captures * TRAIN_CONVS,
+                "weight_grad": 2 * captures * TRAIN_CONVS,
                 "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
     ckpt_root = os.path.join(root, "distill", "checkpoint")
     kept = sorted(os.path.relpath(os.path.join(d, s), ckpt_root)
@@ -2870,11 +3139,14 @@ def distill_phase(K, K3, K4, root):
     print(f"[distill] -p distill from I{CLI_MAX_ITER}: phases {list(DISTILL_PHASES)} of "
           f"{DISTILL_STEPS} steps, batch {TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE}: {wall:.2f} s "
           f"in all; median {s_step:.4f} s/step ({TRAIN_BATCH / s_step:.1f} img/s) over "
-          f"{len(loop)} steps; launches {n} (expected {expected}); checkpoints {kept}; the "
+          f"{len(loop)} replays; compiled_step: {captures} captures (one a phase and band "
+          f"count), {steps - captures} replays, a replay ran {probe.replay_k1} K1 kernels on "
+          f"the card ({5 * TRAIN_CONVS} a step); host-counted launches {n} (expected "
+          f"{expected}); checkpoints {kept}; the "
           f"student in both weight slots {both_slots}; ddim validations {len(scores)}, last "
           f"{scores[-len(val_sets):]}", flush=True)
-    if n != expected:
-        fail(f"the distill run launched {n}")
+    if n != expected or probe.replay_k1 != 5 * TRAIN_CONVS or len(probe.host_launches) != steps:
+        fail(f"the distill run launched {n}; a replay ran {probe.replay_k1} K1 kernels")
     if kept != sorted(f"distill_N{m}/I{DISTILL_STEPS}" for m in DISTILL_PHASES):
         fail(f"distill checkpoints {kept}")
     if not all(both_slots) or len(scores) != len(DISTILL_PHASES) * len(val_sets) or not all(
@@ -2882,7 +3154,7 @@ def distill_phase(K, K3, K4, root):
         fail(f"distill students or validation scores: {both_slots} {scores}")
     grad_err = distill_grads_phase(K, root, torch.Generator(device=DEV).manual_seed(SEED))
     return {"launches": n, "s_per_step": s_step, "img_per_s": TRAIN_BATCH / s_step,
-            "grad_err": grad_err}
+            "grad_err": grad_err, "captures": captures, "replay_k1": probe.replay_k1}
 
 
 CONTROL_TASK = "control_canny"
@@ -3377,6 +3649,7 @@ MESH_DP_RANKS = 2  # the data-parallel training world under NCCL, a card a rank
 MESH_STEPS = 10  # dpm++ steps of a meshed request (11 denoise calls)
 MESH_REQUESTS = (("WV3", 8, 4, SIZE, MESH_SHAPES), ("QB", 4, 1, 2 * SIZE, ((1, 4),)))
 MESH_TRAIN_MESH, MESH_TRAIN_STEPS = (2, 2), 3
+MESH_LIBRARY_RTOL = 1e-5  # a library conv on a space split, of each tensor's scale
 MESH_LOSS_RTOL = 1e-4
 # the bf16 meshed steps against one process's bf16 steps: the first loss
 # (the meshed forward computes one process's bits; the loss is summed over
@@ -3492,7 +3765,97 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
                     "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
                     if mesh.rank in (0, mesh.size - 1) else None}
     out["bf16"] = mesh_bf16_worker(K, mesh, train_weights, train, plain)
+    if (2, 2) in meshes:
+        out["library"] = mesh_library_worker(meshes[(2, 2)], dev)
     return out
+
+
+# the library routes of the conv API on a (1, 2) space split: a strided, a
+# 5x5 and a transposed conv (SAME), fp32 and bf16, at a (B, D, H, W, C)
+# the size of a legacy UNet level
+MESH_LIBRARY_CASES = (("strided", "modulated_conv3d", (3, 3, 3), (1, 2, 2)),
+                      ("5x5", "conv3d", (1, 5, 5), (1, 1, 1)),
+                      ("transposed", "modulated_conv_transpose3d", (3, 3, 3), (1, 2, 2)))
+MESH_LIBRARY_X = (1, 8, 64, 64, 32)
+
+
+def library_split_case(case, dtype, dev, seed, placed=None):
+    """One conv of MESH_LIBRARY_CASES in `dtype` on `dev`, on the placement
+    `placed` (its rows) or unsharded: the output and the gradients of
+    sum(y * dy), dy made from `seed` at the global output shape (x's rows;
+    the kernel's and the style's parts of the sums), as float32 CPU
+    tensors, with the rank's s."""
+    from tmdiff_tpu_torch.ops import modconv
+
+    _, entry, kernel, stride = case
+    g = torch.Generator().manual_seed(seed)
+    c = MESH_LIBRARY_X[-1]
+    x = torch.randn(MESH_LIBRARY_X, generator=g)
+    k = torch.randn(kernel + (c, c), generator=g) / float(np.sqrt(np.prod(kernel) * c))
+    style = 0.5 + torch.rand((MESH_LIBRARY_X[0], c), generator=g)
+    shard = (lambda a: a) if placed is None else placed.shard
+    xs = shard(x.to(dev, dtype)).clone().requires_grad_(True)
+    ss = style.to(dev, dtype).requires_grad_(True)  # batch 1: replicated over "data"
+    kk = k.to(dev).requires_grad_(True)
+    fn = getattr(modconv, entry)
+    if entry == "conv3d":
+        y = fn(xs, kk, stride=stride, mesh=placed)
+    else:
+        y = fn(xs, kk, ss, stride=stride, mesh=placed)
+    rows = y.shape[2] * (1 if placed is None else placed.space)
+    dy = torch.randn((*y.shape[:2], rows, *y.shape[3:]), generator=g).to(dev, dtype)
+    (y.float() * shard(dy).float()).sum().backward()
+    f = lambda t: None if t is None else t.detach().float().cpu()
+    return {"s": 0 if placed is None else placed.s, "y": f(y), "x": f(xs.grad),
+            "kernel": f(kk.grad), "style": f(ss.grad)}
+
+
+def mesh_library_worker(mesh22, dev):
+    """Every case of MESH_LIBRARY_CASES in fp32 and bf16 on a (1, 2) space
+    split: the (2, 2) mesh with its batch replicated over "data", so each
+    data row's two space ranks split the height as a (1, 2) mesh does."""
+    mesh12 = dataclasses.replace(mesh22, data=1)
+    placed = mesh12.place(MESH_LIBRARY_X)
+    if placed.split_batch or not placed.halo:
+        fail(f"the library cases' placement {placed} is not a (1, 2) space split")
+    return {(case[0], str(dtype)): library_split_case(case, dtype, dev, SEED + i, placed)
+            for i, case in enumerate(MESH_LIBRARY_CASES)
+            for dtype in (torch.float32, torch.bfloat16)}
+
+
+def mesh_library_check(label, ranks) -> dict:
+    """Each data row's two ranks' library cases, gathered (rows) and summed
+    (the kernel's and style's gradients), against one process on card 0:
+    fp32 within MESH_LIBRARY_RTOL of each tensor's scale, bf16 within one
+    bf16 step at its scale."""
+    worst = {}
+    for i, case in enumerate(MESH_LIBRARY_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = (case[0], str(dtype))
+            ref = library_split_case(case, dtype, DEV, SEED + i)
+            gaps = {}
+            for pair in (ranks[:2], ranks[2:]):
+                parts = sorted((r["library"][key] for r in pair), key=lambda r: r["s"])
+                got = {"y": torch.cat([p["y"] for p in parts], 2),
+                       "x": torch.cat([p["x"] for p in parts], 2),
+                       "kernel": sum(p["kernel"].double() for p in parts)}
+                if ref["style"] is not None:
+                    got["style"] = sum(p["style"].double() for p in parts)
+                for name, g in got.items():
+                    scale = ref[name].abs().max().item()
+                    bar = (MESH_LIBRARY_RTOL * scale if dtype == torch.float32
+                           else 2.0 ** (np.floor(np.log2(scale)) - 7))
+                    gap = (g.double() - ref[name].double()).abs().max().item()
+                    gaps[name] = max(gaps.get(name, 0.0), gap / bar)
+            worst[f"{case[0]} {str(dtype).replace('torch.', '')}"] = gaps
+    print(f"[mesh] {label} library convs on a (1, 2) space split of each data row, "
+          f"{MESH_LIBRARY_X} SAME, against one process (gap over the bar: fp32 "
+          f"{MESH_LIBRARY_RTOL} of scale, bf16 one step at scale): "
+          + "; ".join(f"{k} " + ", ".join(f"{n} {v:.3g}" for n, v in g.items())
+                      for k, g in worst.items()), flush=True)
+    if any(v > 1.0 for g in worst.values() for v in g.values()):
+        fail(f"{label}: a library conv on a space split differs from one process: {worst}")
+    return worst
 
 
 def mesh_bf16_worker(K, mesh, train_weights, train, plain):
@@ -3746,6 +4109,8 @@ def mesh_phase(K, root, served=None):
                                     train_mesh)
         summary[label]["bf16"]["launches_checked"] = mesh_bf16_launch_check(K, label, ranks,
                                                                             train_mesh)
+        if "library" in ranks[0]:
+            summary[label]["library_gap_over_bar"] = mesh_library_check(label, ranks)
     summary["serve"] = mesh_serve_phase(ckpt, root, served, np.random.default_rng(SEED + 1))
     return summary
 
@@ -4219,7 +4584,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="tmdiff_cli_")
     try:
         cli = timed("cli", cli_phase, K, K3, K4,
-                    {b: tm["median_s"] for b, tm in train["timing"].items()}, root)
+                    {b: g["median_s"] for b, g in train["graphed"].items()}, root)
         distill = timed("distill", distill_phase, K, K3, K4, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4268,12 +4633,17 @@ def main() -> int:
                                       if k not in ("steps_s", "top_kernels_ms",
                                                    "top_host_ms")}
                         for b, tm in train["timing"].items()},
+         "train_step_graphed": {f"{b}_band": g for b, g in train["graphed"].items()},
+         "train_step_graphed_is": f"Trainer.compiled_step, one CUDA graph of the whole step "
+                                  f"per band count, against train_step from one start: "
+                                  f"replay_k1 is the K1 kernels one replay ran on the card",
          "cli_launches": cli["launches"],
          "cli_launches_are": f"over the CLI's train run: {CLI_MAX_ITER} steps of batch "
                              f"{TRAIN_BATCH} {TRAIN_SIZE}x{TRAIN_SIZE} and two validations of "
                              f"{CLI_VAL_SCENES} {CLI_VAL_SIZE}x{CLI_VAL_SIZE} scenes a sensor",
          "cli": {k: cli[k] for k in ("s_per_step", "img_per_s", "sec_per_image",
-                                      "checkpoint_bytes", "save_s", "restore_s")},
+                                      "checkpoint_bytes", "save_s", "restore_s", "captures",
+                                      "replay_k1")},
          "sampler_launches": {label: r["k1_launches"] for label, r in samplers.items()},
          "sampler_launches_are": "per request of the samplers phase (NFE and seconds beside "
                                  "each in its [samplers] line)",
@@ -4283,6 +4653,7 @@ def main() -> int:
                                  f"of {DISTILL_STEPS} steps of batch {TRAIN_BATCH} "
                                  f"{TRAIN_SIZE}x{TRAIN_SIZE} and a ddim validation a phase",
          "distill_s_per_step": distill["s_per_step"],
+         "distill_compiled": {k: distill[k] for k in ("captures", "replay_k1")},
          "distill_grad_max_err_of_scale": distill["grad_err"],
          "controlnet": controlnet,
          "controlnet_is": f"the legacy models at full width, 8-band batch {BATCH} "
@@ -4337,6 +4708,7 @@ def main() -> int:
          "train_step_fp32_median_s": train["bf16"]["fp32_median_s"],
          "train_grad_worst_gap_own_to_fp32": train["bf16"]["grad_worst_gap_own_to_fp32"],
          "train_forward_gap_to_served": train["bf16"]["forward_gap"],
+         "train_step_graphed": {f"{b}_band": g for b, g in train["bf16"]["graphed"].items()},
          "controlnet": controlnet["bf16"],
          "controlnet_is": f"the legacy models in bf16: forwards at 8-band batch "
                           f"{CONTROL_BF16_BATCH} {SIZE}x{SIZE} (forward_convs: the controlled "

@@ -989,8 +989,8 @@ def _card_batch(cuda, bands=8):
 
 def test_remat_gives_the_same_gradients_on_the_card(cuda):
     """Dropout on: remat on and off give the same loss and gradients bit for
-    bit (the recompute rebuilds the dropout generator; K1 and the weight
-    gradient are deterministic)."""
+    bit (the recompute draws from a generator seeded as the first pass's;
+    K1 and the weight gradient are deterministic)."""
     batch, prompt = _card_batch(cuda), torch.randn(768, device=cuda)
     got = []
     for remat in (True, False):
@@ -1019,6 +1019,81 @@ def test_training_steps_repeat_bit_for_bit(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+def _full_width_trainer(cuda, dtype, **kw):
+    """The general_multi preset's training step at full width (channels 32,
+    64, 128, 256), remat on, in `dtype`."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    model = WavBEST((32, 64, 128, 256), seed=0, dtype=dtype)
+    return Trainer(model, NoiseSchedule.create("cosine", 1000), lr=1e-4, warmup_steps=2,
+                   ema_start=1, p_uncond=0.1, seed=5, **kw)
+
+
+def _full_width_batch(cuda, seed, bands=8):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return {"Res": 0.1 * torch.randn(8, bands, 64, 64, device=cuda, generator=g),
+            "PAN": torch.rand(8, 1, 64, 64, device=cuda, generator=g),
+            "MS": torch.rand(8, bands, 64, 64, device=cuda, generator=g)}
+
+
+def _train_state_tensors(state):
+    out = [p.detach() for p in state.model.parameters()] + list(state.ema_params)
+    for p in state.model.parameters():
+        out += [v for _, v in sorted(state.optimizer.state[p].items())]
+    return out + [g["lr"] for g in state.optimizer.param_groups]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_compiled_step_matches_train_step_at_full_width(cuda, dtype):
+    """Trainer.compiled_step (a CUDA graph of the whole step, captured at its
+    first call, replayed after) against train_step at full width, batch 8,
+    64x64, 8 then 4 then 8 bands (two graphs of one pool), the lr warm-up
+    and the EMA's copy phase ending inside: the losses, norms and every
+    state tensor bit for bit after each step (the bar: one program of the
+    same kernels on the same inputs, so no difference is expected)."""
+    eager, compiled = _full_width_trainer(cuda, dtype), _full_width_trainer(cuda, dtype)
+    s_e, s_c = eager.init_state(), compiled.init_state()
+    step = compiled.compiled_step()
+    prompt = torch.randn(768, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    for i, bands in enumerate((8, 4, 8, 4)):
+        batch = _full_width_batch(cuda, i, bands)
+        _, m_e = eager.train_step(s_e, batch, prompt)
+        _, m_c = step(s_c, batch, prompt)
+        assert torch.equal(m_e["l_pix"], m_c["l_pix"]), i
+        assert torch.equal(m_e["grad_norm"], m_c["grad_norm"]), i
+        a, b = _train_state_tensors(s_e), _train_state_tensors(s_c)
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), i
+    assert len(compiled.capture_seconds()) == 2  # one graph a band count
+    compiled.release_compiled()
+
+
+def test_replay_draws_its_steps_numbers(cuda):
+    """A replay at step k draws step k's t, noise, dropout masks and CFG
+    coins: after the capture at step 0, both states jump to step 7 and the
+    replay's step equals train_step's at 7, bit for bit; the next step on
+    the same batch (a replay at 8) gives another loss."""
+    eager, compiled = _full_width_trainer(cuda, torch.float32), _full_width_trainer(
+        cuda, torch.float32)
+    s_e, s_c = eager.init_state(), compiled.init_state()
+    step = compiled.compiled_step()
+    prompt = torch.randn(768, device=cuda)
+    batch = _full_width_batch(cuda, 0)
+    eager.train_step(s_e, batch, prompt)
+    step(s_c, batch, prompt)
+    s_e.step = s_c.step = 7
+    _, m_e = eager.train_step(s_e, batch, prompt)
+    _, m_c = step(s_c, batch, prompt)
+    assert torch.equal(m_e["l_pix"], m_c["l_pix"]) and torch.equal(m_e["grad_norm"],
+                                                                   m_c["grad_norm"])
+    assert all(torch.equal(x, y) for x, y in zip(_train_state_tensors(s_e),
+                                                 _train_state_tensors(s_c)))
+    _, m_next = step(s_c, batch, prompt)
+    assert not torch.equal(m_next["l_pix"], m_c["l_pix"])
+    compiled.release_compiled()
 
 
 def test_device_feeder_on_a_side_stream(cuda):
@@ -1056,7 +1131,7 @@ def test_auto_lowering_refuses_gradients_on_the_card(cuda):
 
 def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     """A state on the card saved and restored into a fresh one: weights,
-    AdamW's moments (and their step counts, which stay on the host), the lr,
+    AdamW's moments (and their step counts, on the card: AdamW is capturable), the lr,
     the schedule and the EMA bit for bit; one more step on each gives the
     same bits."""
     from tmdiff_tpu_torch.train import checkpoint as ckpt

@@ -297,15 +297,21 @@ def _patch_port(m, rec):
     from tmdiff_tpu_torch import pipeline
     from tmdiff_tpu_torch.train import distill
 
-    step = distill.DistillTrainer.train_step
+    compiled = distill.DistillTrainer.compiled_step
 
-    def train_step(self, state, batch, emb, teacher):
-        given = {k: batch[k].clone() for k in ("Res", "PAN", "MS")}
-        out = step(self, state, batch, emb, teacher)
-        rec.step(given, emb)
-        return out
+    def compiled_step(self):
+        step = compiled(self)
 
-    m.setattr(distill.DistillTrainer, "train_step", train_step)
+        def recorded(state, batch, emb, teacher):
+            given = {k: batch[k].clone() for k in ("Res", "PAN", "MS")}
+            out = step(state, batch, emb, teacher)
+            rec.step(given, emb)
+            return out
+
+        return recorded
+
+    # the CLI's loop steps through compiled_step in one process
+    m.setattr(distill.DistillTrainer, "compiled_step", compiled_step)
     m.setattr(pipeline.Pansharpener, "sample", lambda self, batch, **kw: rec.sample(batch, **kw))
 
 

@@ -12,9 +12,19 @@ Bars: fp32 within 1e-5 of the output's scale (fp32 sums in another order);
 bf16 within one bf16 step (half a step of each side's rounding) plus 1e-4
 of scale, the ROUNDING BAR of tests/test_torch_bf16.py with its fp32-order
 term at 1e-4; the gradients of the library routes against jax.vjp in fp32
-within 1e-4 of each gradient's scale. A space-split placement refuses a
-library route, naming the shape."""
+within 1e-4 of each gradient's scale.
+
+On a space split: the library routes of the four entries at the kernels
+(1, 3, 3), (3, 5, 5), (1, 5, 5), the strides (1, 1, 1), (1, 2, 2) and the
+paddings SAME and explicit, fp32 and bf16, on a (1, 2) and a (2, 2) gloo
+world (parallel/dryrun.py, tests/torch_mesh_workers.py::library_convs, both
+worlds started together), the output and every gradient against one
+process: fp32 within 1e-5 of each tensor's scale, bf16 within one bf16 step
+at its scale (SPLIT_BARS). A shape whose split does not hold raises, naming
+it."""
 import itertools
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +35,9 @@ import torch
 from test_torch_bf16 import half_step
 from tmdiff_tpu.ops import modconv as jax_modconv
 from tmdiff_tpu_torch.ops import library_conv, modconv
+from tmdiff_tpu_torch.parallel.dryrun import run_world
 from tmdiff_tpu_torch.parallel.mesh import Mesh
+import torch_mesh_workers as workers
 
 torch.set_num_threads(2)
 
@@ -207,17 +219,96 @@ def _space_split():
 
 
 def test_space_split_placement_refuses_library_routes():
-    """On a space-split placement every library route raises a ValueError
-    naming the kernel, padding, stride and shape."""
+    """On a space-split placement a library route whose split does not hold
+    raises a ValueError naming the kernel, padding, stride and shape and the
+    reason: an output height that is not the height over the stride, a
+    stride that does not divide the shard's rows, a window that reaches
+    past the next rank."""
     mesh = _space_split()
     assert mesh.halo
     x, k, s = (torch.as_tensor(a) for a in _inputs((5, 5, 5)))
-    with pytest.raises(ValueError, match=r"\(5, 5, 5\) conv .* of x \(2, 5, 9, 8, 8\)"):
-        modconv.conv3d(x, k, mesh=mesh)
+    with pytest.raises(ValueError, match=r"\(5, 5, 5\) conv .* of x \(2, 5, 9, 8, 8\) .*"
+                                         r"output height 14 is not the height 18"):
+        modconv.conv3d(x, k, mesh=mesh, padding="VALID")
     k3 = torch.as_tensor(_inputs((3, 3, 3))[1])
-    with pytest.raises(ValueError, match="stride \\(1, 2, 2\\)"):
+    with pytest.raises(ValueError, match="stride \\(1, 2, 2\\).*does not divide the shard's 9"):
         modconv.modulated_conv3d(x, k3, s, mesh=mesh, stride=(1, 2, 2))
     with pytest.raises(ValueError, match="'VALID'"):
         modconv.conv3d_cat((x, x), torch.cat([k3, k3], 3), mesh=mesh, padding="VALID")
-    with pytest.raises(ValueError, match="no halo path"):
-        modconv.modulated_conv_transpose3d(x, k3, s, mesh=mesh, stride=(1, 2, 2))
+    with pytest.raises(ValueError, match="transposed conv with padding 'VALID'.*output height"):
+        modconv.modulated_conv_transpose3d(x, k3, s, mesh=mesh, stride=(1, 2, 2),
+                                           padding="VALID")
+    tall = torch.as_tensor(_inputs((1, 21, 1))[1])
+    with pytest.raises(ValueError, match="reaches 10 rows past a 9-row shard"):
+        modconv.conv3d(x, tall, mesh=mesh)
+
+
+# -- the library routes split over space shards, against one process ----------
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+SPLIT_CASES = [(entry, kernel, stride, pad, dtype)
+               for entry in workers.LIBRARY_ENTRIES
+               for kernel in ((1, 3, 3), (3, 5, 5), (1, 5, 5))
+               for stride in ((1, 1, 1), (1, 2, 2))
+               for pad in ("SAME", "explicit")
+               for dtype in ("float32", "bfloat16")]
+SPLIT_MESHES = ((1, 2), (2, 2))
+
+
+@pytest.fixture(scope="module")
+def split_worlds():
+    """A 2-rank world on (1, 2) and a 4-rank one on (2, 2), started together,
+    each running every case of SPLIT_CASES."""
+    def world(mesh):
+        return run_world("torch_mesh_workers:library_convs", mesh[0] * mesh[1],
+                         ([mesh], SPLIT_CASES), sys_path=[TESTS], threads=1, timeout=300)
+
+    with ThreadPoolExecutor(2) as pool:
+        yield {m: pool.submit(world, m) for m in SPLIT_MESHES}
+
+
+def _split_bar(dtype, scale):
+    """fp32: 1e-5 of the scale; bf16: one bf16 step at the scale."""
+    if dtype == "float32":
+        return 1e-5 * scale
+    return 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+def _case_id(case):
+    entry, kernel, stride, pad, dtype = case
+    return f"{entry}-{''.join(map(str, kernel))}-s{stride[1]}-{pad}-{dtype}"
+
+
+@pytest.mark.parametrize("mesh", SPLIT_MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=_case_id)
+def test_library_routes_split_over_space_shards(split_worlds, mesh, case):
+    """The output and the gradients of x, the kernel, the style and the bias
+    gathered over the ranks (each rank's rows; the parameters' sums over
+    the ranks) against one process, within the dtype's bar of each tensor's
+    scale."""
+    data, space = mesh
+    i = SPLIT_CASES.index(case)
+    ref = workers.library_grads(case, i)
+    ranks = [r[0][i] for r in split_worlds[mesh].result()]
+    b = workers.LIBRARY_X[0] // data
+    got = {"y": np.zeros_like(ref["y"]), "x": [np.zeros_like(g) for g in ref["x"]]}
+    for name in ("kernel", "style", "bias"):
+        got[name] = None if ref[name] is None else np.zeros_like(ref[name], np.float64)
+    for r in ranks:
+        rows = lambda a: slice(r["s"] * a.shape[2], (r["s"] + 1) * a.shape[2])
+        batch = slice(r["d"] * b, (r["d"] + 1) * b)
+        got["y"][batch, :, rows(r["y"])] = r["y"]
+        for g, part in zip(got["x"], r["x"]):
+            g[batch, :, rows(part)] = part
+        for name in ("kernel", "bias"):
+            if got[name] is not None:
+                got[name] += r[name]
+        if got["style"] is not None:
+            got["style"][batch] += r["style"]
+    pairs = [("y", got["y"], ref["y"])] + [(f"x{j}", g, w) for j, (g, w) in
+                                          enumerate(zip(got["x"], ref["x"]))]
+    pairs += [(n, got[n], ref[n]) for n in ("kernel", "style", "bias") if ref[n] is not None]
+    for name, g, w in pairs:
+        scale = np.abs(w).max()
+        gap = np.abs(np.asarray(g, np.float64) - w).max()
+        assert gap <= _split_bar(case[-1], scale), (name, gap, scale)

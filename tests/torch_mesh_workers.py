@@ -128,6 +128,88 @@ def convs(meshes, seed: int = 0):
     return errs
 
 
+# the library routes of the conv API on a space split: entry, kernel, stride,
+# padding ("SAME" or the explicit pairs of `library_padding`), dtype
+LIBRARY_ENTRIES = ("conv3d", "modulated_conv3d", "conv3d_cat", "modulated_conv_transpose3d")
+LIBRARY_X = (2, 3, 16, 6, 8)  # (B, D, H, W, C): 16 rows split over two space ranks
+
+
+def library_padding(entry, kernel, stride):
+    """Explicit (lo, hi) pairs whose output height is the height over the
+    stride (so the split holds) and that differ from SAME: one-sided along
+    the height. For the transposed conv, pairs of the dilated input."""
+    kd, kh, kw = kernel
+    _, sh, sw = stride
+    if entry == "modulated_conv_transpose3d":
+        return ((kd - 1, kd - 1), (kh - 1, sh - 1), (kw - 1, sw - 1))
+    return (((kd - 1) // 2, kd - 1 - (kd - 1) // 2), (kh - sh, sh - 1), (kw - 1, 0))
+
+
+def library_inputs(case, seed):
+    """The global numpy inputs of a library case: x (two parts for
+    conv3d_cat), the kernel, the style (B, Cin) and the bias (Cout)."""
+    entry, kernel, _, _, _ = case
+    rng = np.random.default_rng(seed)
+    cin = LIBRARY_X[-1] + (4 if entry == "conv3d_cat" else 0)
+    xs = [rng.standard_normal(LIBRARY_X).astype(np.float32)]
+    if entry == "conv3d_cat":
+        xs.append(rng.standard_normal(LIBRARY_X[:-1] + (4,)).astype(np.float32))
+    k = (rng.standard_normal(tuple(kernel) + (cin, 6)) / np.sqrt(np.prod(kernel) * cin))
+    style = rng.uniform(0.5, 1.5, (LIBRARY_X[0], LIBRARY_X[-1]))
+    bias = 0.1 * rng.standard_normal(6)
+    return xs, k.astype(np.float32), style.astype(np.float32), bias.astype(np.float32)
+
+
+def library_call(case, xs, k, style, bias, mesh):
+    """The entry of `case` on tensors (the x parts, kernel, style, bias;
+    the ones it takes) on the placement `mesh` or None."""
+    entry, kernel, stride, pad, _ = case
+    padding = "SAME" if pad == "SAME" else library_padding(entry, kernel, stride)
+    kw = dict(mesh=mesh, padding=padding, stride=stride)
+    if entry == "conv3d":
+        return modconv.conv3d(xs[0], k, bias=bias, **kw)
+    if entry == "modulated_conv3d":
+        return modconv.modulated_conv3d(xs[0], k, style, **kw)
+    if entry == "conv3d_cat":
+        return modconv.conv3d_cat(tuple(xs), k, bias=bias, **kw)
+    return modconv.modulated_conv_transpose3d(xs[0], k, style, **kw)
+
+
+def library_grads(case, seed, mesh=None):
+    """The case's output and the gradients of sum(y * dy), dy made from
+    `seed` at the global output shape: on `mesh` for this rank's shard
+    (its rows of the output and of each x's gradient, its part of the
+    kernel's, style's and bias's sums), else for the whole. As float32
+    numpy arrays, with the rank's (d, s)."""
+    dtype = getattr(torch, case[-1])
+    xs, k, style, bias = library_inputs(case, seed)
+    placed = None if mesh is None else mesh.place((LIBRARY_X[0],) + LIBRARY_X[1:])
+    shard = (lambda a: a) if placed is None else placed.shard
+    xs = [shard(_t(x).to(dtype)).clone().requires_grad_(True) for x in xs]
+    style_t = shard(_t(style).to(dtype)).clone().requires_grad_(True)
+    k_t, bias_t = _t(k).requires_grad_(True), _t(bias).requires_grad_(True)
+    with torch.no_grad():
+        full = library_call(case, [_t(x).to(dtype) for x in library_inputs(case, seed)[0]], k_t,
+                            _t(style).to(dtype), bias_t, None).shape
+    dy = _t(np.random.default_rng(seed + 1).standard_normal(tuple(full))).to(dtype)
+    y = library_call(case, xs, k_t, style_t, bias_t, placed)
+    (y.float() * shard(dy).float()).sum().backward()
+    f = lambda t: None if t is None else t.detach().float().numpy()
+    return {"d": 0 if placed is None else placed.d, "s": 0 if placed is None else placed.s,
+            "y": f(y), "x": [f(x.grad) for x in xs], "kernel": f(k_t.grad),
+            "style": f(style_t.grad), "bias": f(bias_t.grad)}
+
+
+def library_convs(meshes, cases, seed: int = 0):
+    """library_grads of every case on each (data, space) mesh: per mesh, a
+    list in the cases' order."""
+    out = []
+    for data, space in meshes:
+        mesh = make_mesh(data, space)
+        out.append([library_grads(case, seed + i, mesh) for i, case in enumerate(cases)])
+    return out
+
+
 def thresholding(meshes, seed: int = 0):
     """dynamic_thresholding at a small max_val (so that it clamps) on each
     mesh's shard against the unsharded call: the gathered result's largest

@@ -22,7 +22,11 @@ steps; a SIGTERM mid-phase saves `distill_N{N}_partial` and skips its
 validation.
 
 Runs on CUDA unless `--device` says otherwise, and raises without a card.
-`-gpu` is accepted for the reference's command line and ignored.
+`-gpu` is accepted for the reference's command line and ignored. In one
+process the train and distill loops run `Trainer.compiled_step()`, as the
+JAX CLI runs its jitted step: on a card each step is one replay of a CUDA
+graph of the whole step (train/trainer.py); each distillation phase's
+trainer captures its own, released when the phase ends.
 
 Over several processes, one per rank, under torchrun:
 
@@ -32,8 +36,9 @@ Over several processes, one per rank, under torchrun:
 the run takes the ("data", "space") mesh of the config's `parallel: {data,
 space}` block (parallel/mesh.py), or every rank on "data" without one, as
 the JAX CLI does. The mesh shards training, distillation and validation
-sampling; the backend follows parallel/mesh.py's rule (gloo with `--device
-cpu`, NCCL with a card per rank). Rank 0 alone writes the logs, the .mat
+sampling (the loops run `train_step` there, and say so once in the log);
+the backend follows parallel/mesh.py's rule (gloo with `--device cpu`,
+NCCL with a card per rank). Rank 0 alone writes the logs, the .mat
 results, provenance.json and the checkpoints, and scores the validation
 images; every rank samples its shard and restores the checkpoints. A stop
 signal on any rank stops every rank after the same step.
@@ -353,10 +358,11 @@ def _run(args, opt, stop, datasets=None):
         last_print = (time.monotonic(), current_step)
         last_saved = current_step  # the resume point (or step 0) is on disk already
         feeder = make_feeder(mixer, sharp, train_opt)
+        step_fn = training_step(trainer, logger)
         try:
             while current_step < max_iter and not stopping():
                 batch, emb, bsz = next(feeder)
-                state, metrics = trainer.train_step(state, batch, emb)
+                state, metrics = step_fn(state, batch, emb)
                 current_step += 1
                 if current_step % print_freq == 0:
                     now = time.monotonic()
@@ -371,6 +377,7 @@ def _run(args, opt, stop, datasets=None):
                     last_saved = current_step
         finally:
             feeder.close()
+            trainer.release_compiled()
         if current_step != last_saved:
             # the end of the run (or a stop) between validations: the state
             # still goes to disk
@@ -387,6 +394,19 @@ def _run(args, opt, stop, datasets=None):
         logger.info("Begin Model Evaluation.")
         run_validation(state)
     return trainer, state
+
+
+def training_step(trainer, logger, say: bool = True):
+    """The loop's step: `trainer.compiled_step()` in one process, as the
+    JAX CLI runs its jitted step; `trainer.train_step` on a mesh of more
+    than one rank (a captured step over a mesh is not ported), logged when
+    `say`."""
+    if trainer.mesh is None or trainer.mesh.size == 1:
+        return trainer.compiled_step()
+    if say:
+        logger.info(f"mesh of {trainer.mesh.size} ranks: each step runs train_step, not "
+                    "compiled_step (a captured step runs one process)")
+    return trainer.train_step
 
 
 def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stopping, logger,
@@ -426,15 +446,19 @@ def _distill(opt, train_opt, model, trainer, state, sharp, mixer, stopping, logg
                                        max_iter=steps_per_phase, loss_type=trainer.loss_type,
                                        mesh=trainer.mesh)
             p_state = d_trainer.state_from_params(teacher)
-            for k in range(steps_per_phase):
-                if stopping():
-                    break
-                batch, emb, _ = next(feeder)
-                p_state, m = d_trainer.train_step(p_state, batch, emb, teacher)
-                done_steps = k + 1
-                if (k + 1) % print_freq == 0:
-                    logger.info(f"distill N={n} step {k + 1} "
-                                f"l_distill: {float(m['l_pix']):.3e}")
+            step_fn = training_step(d_trainer, logger, say=n == phases[0])
+            try:
+                for k in range(steps_per_phase):
+                    if stopping():
+                        break
+                    batch, emb, _ = next(feeder)
+                    p_state, m = step_fn(p_state, batch, emb, teacher)
+                    done_steps = k + 1
+                    if (k + 1) % print_freq == 0:
+                        logger.info(f"distill N={n} step {k + 1} "
+                                    f"l_distill: {float(m['l_pix']):.3e}")
+            finally:
+                d_trainer.release_compiled()
             # the student in both weight slots: the phase's EMA starts at the
             # teacher and barely moves in a short phase, and a few-step
             # sampler must not deploy the teacher through it

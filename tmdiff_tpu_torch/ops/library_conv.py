@@ -35,7 +35,8 @@ for every conv of ops/modconv.py's API that is not a SAME stride-1 3x3x3 or
 explicit padding, a stride per axis and feature groups, under the same
 flags, forward and backward. `conv_transpose_nd` is lax.conv_transpose
 with transpose_kernel=False (modconv.modulated_conv_transpose3d), through
-`conv_nd` on the stride-dilated input.
+`conv_nd` on the stride-dilated input (`dilate`, `transpose_padding`; on a
+space-split mesh ops/modconv.py splits both over the height's shards).
 """
 from __future__ import annotations
 
@@ -124,7 +125,7 @@ def library_conv3d(x, kernel, bias=None, *, kind: str):
     return y if bias is None else y + bias.to(dt)
 
 
-def _per_axis(v, rank: int) -> tuple:
+def per_axis(v, rank: int) -> tuple:
     return (int(v),) * rank if isinstance(v, int) else tuple(int(a) for a in v)
 
 
@@ -136,7 +137,7 @@ def xla_padding(padding, spatial: Sequence[int], kernel: Sequence[int], stride=1
         return [(0, 0)] * len(spatial)
     if padding == "SAME":
         pads = []
-        for n, k, s in zip(spatial, kernel, _per_axis(stride, len(spatial))):
+        for n, k, s in zip(spatial, kernel, per_axis(stride, len(spatial))):
             total = max((-(-n // s) - 1) * s + k - n, 0)
             pads.append((total // 2, total - total // 2))
         return pads
@@ -146,7 +147,11 @@ def xla_padding(padding, spatial: Sequence[int], kernel: Sequence[int], stride=1
 class _ConvND(torch.autograd.Function):
     """aten.convolution of a channels-first h (already padded) with a
     torch-layout weight, no bias, and its backward, both under
-    `cudnn_fp32`."""
+    `cudnn_fp32`, in w's dtype. h may hold w's bf16 values in float32 (a
+    space shard's halo, ops/modconv.py): the conv then runs on them in
+    bf16, and h's gradient comes back in float32, unrounded (a float32 conv
+    of the bf16 values), so that its halo rows' parts add up before the one
+    rounding that one process makes."""
 
     @staticmethod
     def forward(ctx, h, w, stride, groups):
@@ -154,37 +159,43 @@ class _ConvND(torch.autograd.Function):
         ctx.stride, ctx.groups = stride, groups
         rank = w.dim() - 2
         with cudnn_fp32():
-            y = torch.ops.aten.convolution(*widen_on_cpu(h, w), None, stride, [0] * rank,
-                                           [1] * rank, False, [0] * rank, groups)
-        return y.to(h.dtype)
+            y = torch.ops.aten.convolution(*widen_on_cpu(h.to(w.dtype), w), None, stride,
+                                           [0] * rank, [1] * rank, False, [0] * rank, groups)
+        return y.to(w.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         h, w = ctx.saved_tensors
         rank = w.dim() - 2
         need_h, need_w = ctx.needs_input_grad[:2]
+        wide = need_h and h.dtype != w.dtype
+        args = (None, ctx.stride, [0] * rank, [1] * rank, False, [0] * rank, ctx.groups)
         with cudnn_fp32():
             dh, dw, _ = torch.ops.aten.convolution_backward(
-                *widen_on_cpu(dy.contiguous(), h, w), None, ctx.stride, [0] * rank, [1] * rank,
-                False, [0] * rank, ctx.groups, [need_h, need_w, False])
-        cast = lambda g: None if g is None else g.to(h.dtype)
-        return cast(dh), cast(dw), None, None
+                *widen_on_cpu(dy.contiguous(), h.to(w.dtype), w), *args,
+                [need_h and not wide, need_w, False])
+            if wide:
+                dh = torch.ops.aten.convolution_backward(
+                    dy.to(h.dtype).contiguous(), h, w.to(h.dtype), *args, [True, False, False])[0]
+        cast = lambda g, t: None if g is None else g.to(t.dtype)
+        return cast(dh, h), cast(dw, w), None, None
 
 
-def conv_nd(x, kernel, stride=1, padding="SAME", groups: int = 1):
+def conv_nd(x, kernel, stride=1, padding="SAME", groups: int = 1, dtype=None):
     """XLA's conv_general_dilated on channels-last x (B, *spatial, Cin) with
     a flax-layout kernel (*kernel_size, Cin / groups, Cout): `stride` an int
     or one per spatial axis, `padding` "SAME", "VALID" or (lo, hi) pairs
-    (negative ones crop); in x's dtype, forward and backward under
-    `cudnn_fp32`."""
+    (negative ones crop); in x's dtype, or in `dtype` (bfloat16) on a
+    float32 x that holds its values (x's gradient then comes back in
+    float32, see _ConvND), forward and backward under `cudnn_fp32`."""
     rank = kernel.dim() - 2
-    stride = _per_axis(stride, rank)
+    stride = per_axis(stride, rank)
     pads = xla_padding(padding, x.shape[1:-1], kernel.shape[:rank], stride)
     h = x.movedim(-1, 1)
     flat = [p for lo_hi in reversed(pads) for p in lo_hi]  # F.pad: last axis first
     if any(flat):
         h = F.pad(h, flat)
-    w = kernel.to(x.dtype).permute(rank + 1, rank, *range(rank))
+    w = kernel.to(dtype or x.dtype).permute(rank + 1, rank, *range(rank))
     return _ConvND.apply(h, w, list(stride), groups).movedim(1, -1)
 
 
@@ -200,6 +211,31 @@ def _transpose_padding(k: int, s: int, padding) -> tuple:
     return lo, total - lo
 
 
+def transpose_padding(kernel_size, stride, padding) -> list:
+    """lax.conv_transpose's (lo, hi) padding of the stride-dilated input on
+    each spatial axis: "SAME" or "VALID" (of the forward conv it
+    transposes), or explicit (lo, hi) pairs as given."""
+    if isinstance(padding, str):
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"unknown padding {padding!r}")
+        return [_transpose_padding(k, s, padding) for k, s in zip(kernel_size, stride)]
+    return [tuple(p) for p in padding]
+
+
+def dilate(x, stride, trailing=()):
+    """Channels-last x (B, *spatial, C) with s - 1 zeros between elements of
+    each spatial axis of stride s; on the axes in `trailing` (spatial axis
+    numbers) also after the last one, so that a space shard dilates to its
+    part of the dilated image."""
+    if all(s == 1 for s in stride):
+        return x
+    size = [n * s if i in trailing else (n - 1) * s + 1
+            for i, (n, s) in enumerate(zip(x.shape[1:-1], stride))]
+    dilated = x.new_zeros((x.shape[0], *size, x.shape[-1]))
+    dilated[(slice(None), *(slice(None, None, s) for s in stride))] = x
+    return dilated
+
+
 def conv_transpose_nd(x, kernel, stride=1, padding="SAME"):
     """lax.conv_transpose(x, kernel, stride, padding) with transpose_kernel
     False on channels-last x (B, *spatial, Cin) and a flax-layout kernel
@@ -209,16 +245,6 @@ def conv_transpose_nd(x, kernel, stride=1, padding="SAME"):
     stride-1 `conv_nd`. In x's dtype; autograd differentiates the dilation
     and the conv."""
     rank = kernel.dim() - 2
-    stride = _per_axis(stride, rank)
-    if isinstance(padding, str):
-        if padding not in ("SAME", "VALID"):
-            raise ValueError(f"unknown padding {padding!r}")
-        pads = [_transpose_padding(k, s, padding) for k, s in zip(kernel.shape[:rank], stride)]
-    else:
-        pads = [tuple(p) for p in padding]
-    if any(s > 1 for s in stride):
-        size = [(n - 1) * s + 1 for n, s in zip(x.shape[1:-1], stride)]
-        dilated = x.new_zeros((x.shape[0], *size, x.shape[-1]))
-        dilated[(slice(None), *(slice(None, None, s) for s in stride))] = x
-        x = dilated
-    return conv_nd(x, kernel, 1, pads)
+    stride = per_axis(stride, rank)
+    pads = transpose_padding(kernel.shape[:rank], stride, padding)
+    return conv_nd(dilate(x, stride), kernel, 1, pads)

@@ -22,8 +22,16 @@ Every other conv of the API (another kernel size, padding "VALID" or
 explicit pairs, a stride) and the transposed `modulated_conv_transpose3d`
 go to ops/library_conv.py (cuDNN, TF32 off, deterministic), as the JAX
 package sends them to XLA's conv (its "auto" folds a kd = 1 SAME conv into
-a 2-D one, the same function). They have no halo path, so they refuse a
-space-split mesh placement.
+a 2-D one, the same function). On a space-split placement such a conv
+runs on its shard where each rank's rows of the global output are a
+contiguous block of equal size (`_split_plan`: the stride divides the
+shard's height and the output height is the global height over the
+stride): the shard takes the rows its window reaches past it from its
+neighbours (the kernel height less the stride in all, split as the padding
+splits it; zeros only at the image's edges), and the conv runs with no
+padding along the height. The transposed conv does so on the stride-dilated
+shard. Any other shape raises, naming it, where XLA's partitioner would
+take it.
 
 Under a gradient every 3x3x3 conv takes "banded" (K1's autograd Function:
 the forward and the input gradient through the kernel, ops/cuda/conv3d.py,
@@ -65,7 +73,8 @@ import torch
 
 from tmdiff_tpu_torch.ops.cuda.conv2d import conv3x3_nhwc, conv3x3_nhwc_plain
 from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad
-from tmdiff_tpu_torch.ops.library_conv import conv_nd, conv_transpose_nd
+from tmdiff_tpu_torch.ops.library_conv import (conv_nd, conv_transpose_nd, dilate, per_axis,
+                                               transpose_padding, xla_padding)
 from tmdiff_tpu_torch.parallel.halo import exchange_rows
 
 IMPLS = ("banded", "auto")
@@ -187,22 +196,60 @@ def _kernel_route(kernel, padding, stride) -> bool:
             and tuple(kernel.shape[:3]) in ((3, 3, 3), (1, 1, 1)))
 
 
-def _refuse_split_rows(mesh, x, kernel, padding, stride) -> None:
-    if _halo(mesh):
-        raise ValueError(
-            f"a {tuple(kernel.shape[:3])} conv with padding {padding!r} and stride "
-            f"{tuple(stride)} of x {tuple(x.shape)} has no halo path: it cannot run on a "
-            "space-split mesh placement (only SAME stride-1 3x3x3 and 1x1x1 convs can)")
+def _split_plan(mesh, x, kernel, padding, stride, name: str):
+    """(lo, hi, pads) of a library conv of the space shard x: the rows its
+    window reaches before and after the shard (a negative count: the
+    shard's rows there that no output of this rank reads) and the conv's
+    padding with the height's pair (0, 0), the exchange padding the image's
+    edges. Raises where the split does not hold (module doc), naming the
+    call `name` and the reason."""
+    h_l = x.shape[2]
+    h = h_l * mesh.space
+    kh, sh = kernel.shape[1], stride[1]
+    pads = xla_padding(padding, (x.shape[1], h, x.shape[3]), kernel.shape[:3], stride)
+    p_lo, p_hi = pads[1]
+    h_out = (h + p_lo + p_hi - kh) // sh + 1
+    lo, hi = p_lo, kh - sh - p_lo
+    if h_l % sh:
+        why = f"the stride {sh} does not divide the shard's {h_l} rows"
+    elif h_out != h // sh:
+        why = f"its output height {h_out} is not the height {h} over the stride {sh}"
+    elif max(lo, hi) > h_l:
+        why = f"its window reaches {max(lo, hi)} rows past a {h_l}-row shard"
+    else:
+        pads[1] = (0, 0)
+        return lo, hi, pads
+    raise ValueError(f"{name} cannot run on a space-split placement of {mesh.space} ranks: {why}")
+
+
+def _split_conv(x, kernel, padding, stride, mesh, name: str):
+    """conv_nd of the space shard x: this rank's rows of the conv of the
+    unsharded x (`_split_plan`). A bf16 x goes through the exchange as its
+    float32 values (its rows cross as bf16), so the conv's input gradient
+    comes back in float32 and a halo row's two parts add up before one
+    rounding, as one process rounds the whole sum."""
+    lo, hi, pads = _split_plan(mesh, x, kernel, padding, stride, name)
+    dt = x.dtype
+    xe = exchange_rows(x.float(), mesh, lo=max(lo, 0), hi=max(hi, 0), wire=dt)
+    if lo < 0 or hi < 0:
+        xe = xe[:, :, max(-lo, 0):xe.shape[2] - max(-hi, 0)]
+    return conv_nd(xe, kernel, stride, pads, dtype=dt)
 
 
 def _library(x, kernel, style, bias, out, padding, stride, mesh):
     """Any other conv, as the JAX package sends it to XLA's conv: x * s in
-    x's dtype, `library_conv.conv_nd`, then the bias in x's dtype."""
-    _refuse_split_rows(mesh, x, kernel, padding, stride)
+    x's dtype, `library_conv.conv_nd` (split over a space-split placement's
+    shards), then the bias in x's dtype."""
     dt = x.dtype
+    stride = per_axis(stride, 3)
     if style is not None:
         x = x * style.to(dt)[:, None, None, None, :]
-    y = conv_nd(x, kernel, stride, padding)
+    if _halo(mesh):
+        y = _split_conv(x, kernel, padding, stride, mesh,
+                        f"a {tuple(kernel.shape[:3])} conv with padding {padding!r} and stride "
+                        f"{stride} of x {tuple(x.shape)}")
+    else:
+        y = conv_nd(x, kernel, stride, padding)
     if bias is not None:
         y = y + bias.to(dt)
     if out is None:
@@ -221,8 +268,9 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
     `library_conv.conv_nd` (cuDNN, TF32 off), as the JAX package sends it to
     XLA's conv. On a space-sharded placement `mesh` (parallel/mesh.py) a
     3x3x3 conv exchanges one halo row with each neighbouring rank
-    (parallel/halo.py), runs on the H + 2 rows and keeps the middle H; any
-    conv other than those two raises there."""
+    (parallel/halo.py), runs on the H + 2 rows and keeps the middle H; a
+    library conv takes the rows its window reaches past the shard where the
+    split holds, and raises elsewhere (module doc)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
     if not _kernel_route(kernel, padding, stride):
@@ -291,7 +339,18 @@ def modulated_conv_transpose3d(x, kernel, style, *, stride=(1, 1, 1), padding="S
     s_b, kernel, stride, padding) with kernel (kd, kh, kw, Cin, Cout), not
     flipped (transpose_kernel=False), padding "SAME", "VALID" or (lo, hi)
     pairs of the stride-dilated input (library_conv.conv_transpose_nd); x's
-    dtype. It has no halo path: a space-split placement raises."""
-    _refuse_split_rows(mesh, x, kernel, padding, stride)
+    dtype. On a space-split placement each shard is dilated with s - 1 zero
+    rows after its last row too (its part of the dilated image; past the
+    image's last row they stand for as much of the padding) and the
+    stride-1 conv is split over the shards as a library conv is (module
+    doc)."""
     scaled = x * style.to(x.dtype)[:, None, None, None, :]
-    return conv_transpose_nd(scaled, kernel, stride, padding)
+    if not _halo(mesh):
+        return conv_transpose_nd(scaled, kernel, stride, padding)
+    stride = per_axis(stride, 3)
+    pads = transpose_padding(kernel.shape[:3], stride, padding)
+    p_lo, p_hi = pads[1]
+    pads[1] = (p_lo, p_hi - (stride[1] - 1))
+    return _split_conv(dilate(scaled, stride, trailing=(1,)), kernel, pads, (1, 1, 1), mesh,
+                       f"a {tuple(kernel.shape[:3])} transposed conv with padding {padding!r} "
+                       f"and stride {stride} of x {tuple(x.shape)}")

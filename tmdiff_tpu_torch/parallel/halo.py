@@ -1,11 +1,14 @@
 """Halo exchange along the height of a space-sharded tensor.
 
-`exchange_rows(x, mesh, axis)` returns x with one row added on each side of
-`axis`: the top row is the previous space rank's last row, the bottom row the
-next rank's first row, and zeros at the image's edges (what a SAME conv pads
-there). A 3x3x3 conv of the result keeps its middle rows, which are then the
-rows of the unsharded conv. Its backward sends the pads' gradients back to
-the ranks the rows came from, which add them to those rows.
+`exchange_rows(x, mesh, axis, lo, hi)` returns x with `lo` rows added
+before it along `axis` and `hi` rows after: the previous space rank's last
+`lo` rows and the next rank's first `hi` rows, and zeros at the image's
+edges (what the conv pads there). One row each side (the default) is the
+halo of a SAME 3x3x3 conv, whose middle rows are then the rows of the
+unsharded conv; a library conv of another window or stride
+(ops/modconv.py) takes the rows its window reaches past the shard. Its
+backward sends the pads' gradients back to the ranks the rows came from,
+which add them to those rows. Rows cross in x's dtype (bf16 as bf16).
 
 Transport: `dist.batch_isend_irecv` under NCCL; under gloo each row goes
 through a host copy with `isend`/`irecv` (a CUDA tensor is copied out and
@@ -20,16 +23,23 @@ import torch.distributed as dist
 from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 
 
-def _swap(to_prev, to_next, mesh):
+def _swap(to_prev, to_next, mesh, wire=None):
     """Sends `to_prev` to the previous space rank and `to_next` to the next;
-    returns (from the previous rank, from the next), zeros at the edges."""
+    returns (what the previous rank sent as its `to_next`, what the next
+    rank sent as its `to_prev`), zeros at the edges. Every rank passes the
+    same shapes, so the first has `to_next`'s shape and the second
+    `to_prev`'s; an empty tensor is not sent. `wire`: the dtype the rows
+    cross in (their values must be exact in it), by default their own."""
     s, space = mesh.s, mesh.space
     prev = mesh.rank - 1 if s > 0 else None
     nxt = mesh.rank + 1 if s < space - 1 else None
     mesh_lib.stats["exchanges"] += 1
     staged = mesh.backend == "gloo" and to_prev.is_cuda
-    stage = (lambda t: t.detach().cpu()) if staged else (lambda t: t.detach().contiguous())
-    from_prev, from_next = torch.zeros_like(to_prev), torch.zeros_like(to_next)
+    wire = wire or to_prev.dtype
+    stage = ((lambda t: t.detach().to(wire).cpu()) if staged
+             else (lambda t: t.detach().to(wire).contiguous()))
+    zeros = lambda t: torch.zeros_like(t, dtype=wire, memory_format=torch.contiguous_format)
+    from_prev, from_next = zeros(to_next), zeros(to_prev)
     recv_prev, recv_next = (from_prev.cpu(), from_next.cpu()) if staged else (from_prev, from_next)
     sends, recvs = [], []
     if prev is not None:
@@ -38,11 +48,13 @@ def _swap(to_prev, to_next, mesh):
     if nxt is not None:
         sends.append((stage(to_next), nxt))
         recvs.append((recv_next, nxt))
+    sends = [(t, peer) for t, peer in sends if t.numel()]
+    recvs = [(t, peer) for t, peer in recvs if t.numel()]
     mesh_lib.stats["halo_bytes"] += sum(t.numel() * t.element_size() for t, _ in sends)
     if mesh.backend == "nccl":
         ops = [dist.P2POp(dist.isend, t, peer) for t, peer in sends]
         ops += [dist.P2POp(dist.irecv, t, peer) for t, peer in recvs]
-        works = dist.batch_isend_irecv(ops)
+        works = dist.batch_isend_irecv(ops) if ops else []
     else:
         works = [dist.isend(t, peer) for t, peer in sends]
         works += [dist.irecv(t, peer) for t, peer in recvs]
@@ -51,33 +63,42 @@ def _swap(to_prev, to_next, mesh):
     if staged:
         from_prev.copy_(recv_prev)
         from_next.copy_(recv_next)
-    return from_prev, from_next
+    return from_prev.to(to_next.dtype), from_next.to(to_prev.dtype)
 
 
 class ExchangeRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, axis):
-        ctx.mesh, ctx.axis = mesh, axis
+    def forward(ctx, x, mesh, axis, lo, hi, wire):
+        ctx.mesh, ctx.axis, ctx.lo, ctx.hi = mesh, axis, lo, hi
         n = x.shape[axis]
-        top, bottom = _swap(x.narrow(axis, 0, 1), x.narrow(axis, n - 1, 1), mesh)
+        # the previous rank's bottom pad is my first hi rows, the next
+        # rank's top pad my last lo rows
+        top, bottom = _swap(x.narrow(axis, 0, hi), x.narrow(axis, n - lo, lo), mesh, wire)
         return torch.cat([top, x, bottom], dim=axis)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axis = ctx.mesh, ctx.axis
-        n = g.shape[axis] - 2
-        # the top pad's gradient belongs to the previous rank's last row, the
-        # bottom pad's to the next rank's first row
-        to_first, to_last = _swap(g.narrow(axis, 0, 1), g.narrow(axis, n + 1, 1), mesh)
-        gx = g.narrow(axis, 1, n).clone()
-        gx.narrow(axis, 0, 1).add_(to_first)
-        gx.narrow(axis, n - 1, 1).add_(to_last)
-        return gx, None, None
+        mesh, axis, lo, hi = ctx.mesh, ctx.axis, ctx.lo, ctx.hi
+        n = g.shape[axis] - lo - hi
+        # the top pad's gradient belongs to the previous rank's last lo
+        # rows, the bottom pad's to the next rank's first hi rows
+        to_first, to_last = _swap(g.narrow(axis, 0, lo), g.narrow(axis, lo + n, hi), mesh)
+        gx = g.narrow(axis, lo, n).clone()
+        gx.narrow(axis, 0, hi).add_(to_first)
+        gx.narrow(axis, n - lo, lo).add_(to_last)
+        return gx, None, None, None, None, None
 
 
-def exchange_rows(x, mesh, axis: int = 2):
-    """x with its halo rows along `axis` (module doc); x itself where the
-    placement `mesh` does not split the height."""
+def exchange_rows(x, mesh, axis: int = 2, lo: int = 1, hi: int = 1, wire=None):
+    """x with `lo` halo rows before it and `hi` after along `axis` (module
+    doc); x itself where the placement `mesh` does not split the height.
+    Both must lie within one shard: a window that reaches past the next
+    rank raises. `wire`: the dtype x's rows cross in (bf16 values held in
+    float32 cross as bf16); the gradients cross in their own."""
     if mesh is None or not mesh.halo:
         return x
-    return ExchangeRows.apply(x, mesh, axis)
+    n = x.shape[axis]
+    if not (0 <= lo <= n and 0 <= hi <= n):
+        raise ValueError(f"a halo of {lo} rows before and {hi} after reaches past the "
+                         f"neighbouring ranks' {n}-row shards")
+    return ExchangeRows.apply(x, mesh, axis, lo, hi, wire)

@@ -18,9 +18,10 @@ calls.
     call (`train_step(state, batch, prompt, teacher_params)`).
 
 The student index i and the noise come from the step's t-and-noise
-generator (`trainer.step_seeds`), in that order, and the dropout masks from
-its dropout generator, as the training step's; `loss` also takes i and the
-noise, so that a test can hand it the JAX package's draws. Every 3x3x3 conv
+generator (`Trainer.generators`), in that order, and the dropout masks from
+its dropout generators, as the training step's; `loss` also takes i and the
+noise, so that a test can hand it the JAX package's draws. `compiled_step`
+is the Trainer's, with the teacher's weights as its static `extra`. Every 3x3x3 conv
 of the three model calls runs K1 on the card: the teacher's forwards, the
 student's forward and its input gradient.
 
@@ -37,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tmdiff_tpu_torch.diffusion import gaussian
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
-from tmdiff_tpu_torch.train.trainer import Trainer, step_seeds
+from tmdiff_tpu_torch.train.trainer import Trainer, dropout_rngs
 
 
 def progressive_target(ns: NoiseSchedule, x_t, x_t2, t, t2):
@@ -94,15 +95,17 @@ class DistillTrainer(Trainer):
             w = torch.clamp(a_t * a_t / torch.clamp(1.0 - a_t * a_t, min=1e-12), min=1.0)
         return x_t, t, target, w
 
-    def loss(self, step: int, batch: dict, prompt_emb, teacher_params, *, i=None, noise=None):
+    def loss(self, step: int, batch: dict, prompt_emb, teacher_params, *, i=None, noise=None,
+             gens=None):
         """The distillation loss of `batch` (the global batch) at step
         `step` (see `teacher_target` for `teacher_params`); i (B,) in [1, N]
         and the noise (at the global batch) are drawn unless given. On a
-        mesh, this rank's share of the loss."""
-        seed_tn, seed_drop, _ = step_seeds(self.seed, step)
+        mesh, this rank's share of the loss. `gens`: the generators, already
+        seeded (`generators(step)` when None)."""
+        gens = self.generators(step) if gens is None else gens
         model, device = self.model, self.device
         res = batch["Res"]
-        gen = torch.Generator(device=device).manual_seed(seed_tn)
+        gen = gens["tn"]
         if i is None:
             i = torch.randint(1, self.n_student_steps + 1, (res.shape[0],), generator=gen,
                               device=device)
@@ -112,9 +115,10 @@ class DistillTrainer(Trainer):
         x_t, t, target, w = self.teacher_target(batch, prompt_emb, teacher_params, shard(i),
                                                 shard(noise))
 
+        dropout_rng = dropout_rngs(gens)
+
         def student(x, u, pan, ms, emb):
-            rng = torch.Generator(device=device).manual_seed(seed_drop)
-            return model(x, u, pan, ms, emb, train=True, rng=rng)
+            return model(x, u, pan, ms, emb, train=True, rng=dropout_rng())
 
         args = (x_t, t, batch["PAN"], batch["MS"], prompt_emb)
         if self.remat:

@@ -14,9 +14,19 @@ new step count, and all of a step's randomness derives from (seed, step):
 t and the noise, the CFG coin and the dropout masks each come from a
 torch.Generator on the model's device seeded from `step_seeds`, so a resumed
 run repeats the steps it would have taken. Under `remat` the model call is
-recomputed in the backward pass (torch.utils.checkpoint); the dropout
-generator is created inside the recomputed function from the step's seed, so
-the recompute draws the same masks.
+recomputed in the backward pass (torch.utils.checkpoint); the recompute
+draws its dropout masks from a second generator seeded as the first, so it
+draws the same masks.
+
+`compiled_step()` is the JAX trainer's jitted step: on a CUDA model it
+captures the whole step (loss, backward, clip, AdamW, EMA) as one CUDA graph
+per shape and replays it. So the step reads nothing from the host that
+changes between steps: the trainer owns its generators and seeds them
+before each step (a replay draws from the seeds set before it), AdamW is
+`capturable` with its lr in a device tensor that the schedule fills after
+each step, and the EMA factor is a device tensor filled before each step.
+`train_step` runs the same step eagerly, with the same arithmetic, so the
+two give the same state bit for bit and may be mixed on one state.
 
 Every 3x3x3 conv must take the "banded" lowering: its forward and input
 gradient run K1 (ops/cuda/conv3d.py). "auto" is refused, since its 3x3
@@ -43,17 +53,24 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from tmdiff_tpu_torch.diffusion import gaussian
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from tmdiff_tpu_torch.parallel import mesh as mesh_lib
-from tmdiff_tpu_torch.train.ema import ema_update
+from tmdiff_tpu_torch.train.ema import ema_factor, ema_update
+
+BATCH_KEYS = ("Res", "PAN", "MS")
+# the trainer's generators: t and noise, the model call's dropout masks, its
+# recompute's (seeded as the model call's) and the CFG coin
+GENERATORS = ("tn", "drop", "drop_re", "cfg")
 
 
 def hf_linear_schedule(base_lr: float, warmup_steps: int, total_steps: int):
@@ -95,10 +112,13 @@ class TrainState:
     def load_state_dict(self, sd: dict) -> "TrainState":
         """Loads a `state_dict()` into this state in place (the model's and
         the EMA's tensors keep their devices) and shares no tensor with
-        `sd`; returns it."""
+        `sd`; returns it. The optimiser keeps its own settings where they
+        differ by device (`capturable`, an lr held in a device tensor) and
+        the tensors it already holds, so a step captured on this state
+        (Trainer.compiled_step) stays valid, and a state saved on one
+        device loads on another."""
         self.model.load_state_dict(sd["model"], strict=True)
-        # the optimiser would keep the given moment tensors themselves
-        self.optimizer.load_state_dict(copy.deepcopy(sd["optimizer"]))
+        _load_optimizer(self.optimizer, sd["optimizer"])
         self.scheduler.load_state_dict(sd["scheduler"])
         if len(sd["ema_params"]) != len(self.ema_params):
             raise ValueError(f"{len(sd['ema_params'])} EMA tensors for {len(self.ema_params)} "
@@ -108,6 +128,60 @@ class TrainState:
                 e.copy_(v)
         self.step = int(sd["step"])
         return self
+
+
+def dropout_rngs(gens: dict):
+    """The dropout generator of each call of a step's model function, in
+    turn: "drop" for the first, "drop_re" for remat's recompute."""
+    order = iter((gens["drop"], gens["drop_re"]))
+    return lambda: next(order)
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, sd: dict) -> None:
+    """`opt.load_state_dict(sd)` that keeps, per group, the lr tensor and
+    the `capturable` flag `opt` had (the tensor takes the saved value), and
+    copies the saved moments and step counts into the tensors `opt` already
+    holds; new ones go where `capturable` wants them (the step counts on the
+    parameter's device, else on the host)."""
+    groups = [(g["lr"], g["capturable"]) for g in opt.param_groups]
+    held = {p: dict(st) for p, st in opt.state.items()}
+    # the optimiser would keep the given tensors themselves
+    opt.load_state_dict(copy.deepcopy(sd))
+    for g, (lr, capturable) in zip(opt.param_groups, groups):
+        if torch.is_tensor(lr):
+            lr.fill_(float(g["lr"]))
+            g["lr"] = lr
+        else:
+            g["lr"] = float(g["lr"])
+        g["capturable"] = capturable
+        for p in g["params"]:
+            st = opt.state.get(p)
+            if not st:
+                continue
+            step = st["step"].to(torch.float32)
+            st["step"] = step.to(p.device) if capturable else step.cpu()
+            for k, old in held.get(p, {}).items():
+                new = st.get(k)
+                if (torch.is_tensor(new) and new.shape == old.shape and new.dtype == old.dtype
+                        and new.device == old.device):
+                    st[k] = old.copy_(new)
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One shape's captured step: its static inputs (the call copies its
+    arguments into them), the graph (None on the CPU, and until the first
+    call has run), its outputs, the pointers of the state's tensors it was
+    captured on (`Trainer._fingerprint`) and the capture's host seconds."""
+
+    batch: dict
+    prompt: torch.Tensor
+    extra: tuple
+    graph: Any = None
+    loss: Any = None
+    grad_norm: Any = None
+    fingerprint: tuple = ()
+    capture_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -144,6 +218,12 @@ class Trainer:
         self.lr_fn = hf_linear_schedule(self.lr, self.warmup_steps, self.max_iter)
         self.device = self.model.device
         self.schedule = self.schedule.to(self.device)
+        # device values a step reads, set on the host before it
+        self._ema_factor = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._gens = {k: torch.Generator(device=self.device) for k in GENERATORS}
+        # compiled_step's captured steps by shape, their memory pool and stream
+        self._captured: dict = {}
+        self._pool = self._stream = None
 
     # -- state ---------------------------------------------------------------
 
@@ -158,8 +238,14 @@ class Trainer:
                 for p in params:
                     p.copy_(flat[off:off + p.numel()].view_as(p))
                     off += p.numel()
-        opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=self.weight_decay)
+        # on a card AdamW reads its lr from a device tensor (capturable), so
+        # that a captured step takes the schedule's value at each replay
+        cuda = self.device.type == "cuda"
+        lr = torch.tensor(self.lr, dtype=torch.float32, device=self.device) if cuda else self.lr
+        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=self.weight_decay, capturable=cuda)
+        for g in opt.param_groups:  # the schedule's base: a float, whatever holds the lr
+            g["initial_lr"] = float(self.lr)
         factor = hf_linear_schedule(1.0, self.warmup_steps, self.max_iter)
         sched = torch.optim.lr_scheduler.LambdaLR(opt, factor)
         return TrainState(step=0, model=self.model, optimizer=opt, scheduler=sched,
@@ -185,19 +271,30 @@ class Trainer:
             prompt_emb = shard(prompt_emb)
         return mesh, shard, batch, prompt_emb
 
-    def loss(self, step: int, batch: dict, prompt_emb, *, t=None, noise=None):
+    def generators(self, step: int) -> dict:
+        """The trainer's generators (GENERATORS) seeded for step `step`
+        (`step_seeds`; "drop_re" as "drop"), on the model's device. A
+        step's draws come from these; seeding them is host work, done
+        before a step, never inside a captured one."""
+        seed_tn, seed_drop, seed_cfg = step_seeds(self.seed, step)
+        for name, s in zip(GENERATORS, (seed_tn, seed_drop, seed_drop, seed_cfg)):
+            self._gens[name].manual_seed(s)
+        return self._gens
+
+    def loss(self, step: int, batch: dict, prompt_emb, *, t=None, noise=None, gens=None):
         """The training loss of `batch` (the global batch, tensors on the
         model's device) with step `step`'s randomness, dropout on; t and
         noise as in gaussian.diffusion_loss, at the global batch. On a mesh,
-        this rank's share of the loss (module doc)."""
-        seed_tn, seed_drop, seed_cfg = step_seeds(self.seed, step)
+        this rank's share of the loss (module doc). `gens`: the generators,
+        already seeded (`generators(step)` when None)."""
+        gens = self.generators(step) if gens is None else gens
         model, device = self.model, self.device
         res_shape = tuple(batch["Res"].shape)
         mesh, shard, batch, prompt_emb = self.place(batch, prompt_emb)
+        dropout_rng = dropout_rngs(gens)
 
         def apply(x, t, pan, ms, emb):
-            rng = torch.Generator(device=device).manual_seed(seed_drop)
-            return model(x, t, pan, ms, emb, train=True, rng=rng)
+            return model(x, t, pan, ms, emb, train=True, rng=dropout_rng())
 
         def denoise(x, t, pan, ms):
             if self.remat:
@@ -207,10 +304,9 @@ class Trainer:
 
         ms = batch["MS"]
         if self.p_uncond > 0.0:
-            gen = torch.Generator(device=device).manual_seed(seed_cfg)
-            ms = gaussian.cfg_dropout_condition(gen, ms, self.p_uncond, per_sample=True,
+            ms = gaussian.cfg_dropout_condition(gens["cfg"], ms, self.p_uncond, per_sample=True,
                                                 mesh=mesh)
-        gen = torch.Generator(device=device).manual_seed(seed_tn)
+        gen = gens["tn"]
         if t is None:
             t = torch.randint(1, self.schedule.num_timesteps + 1, (res_shape[0],), generator=gen,
                               device=device)
@@ -220,6 +316,41 @@ class Trainer:
                                        ms, self.loss_type, t=shard(t), noise=shard(noise))
         return loss if mesh is None else loss / mesh.size
 
+    def _begin(self, state: TrainState) -> dict:
+        """The host's work before a step: the EMA factor of the step count
+        it makes, and the generators seeded; returns them."""
+        self._ema_factor.fill_(float(ema_factor(state.step + 1, self.ema_decay, self.ema_start)))
+        return self.generators(state.step)
+
+    def _step(self, state: TrainState, batch: dict, prompt_emb, extra, gens, draws):
+        """The device work of one step: the loss and its gradients, their
+        all-reduce on a mesh, the norm (and clip), AdamW at the lr its group
+        holds and the EMA at `_ema_factor`. Returns (loss, norm), 0-d device
+        tensors. It reads no host value that changes from step to step, so
+        a capture of it replays any step."""
+        state.optimizer.zero_grad(set_to_none=True)
+        # profiler ranges (chip_smoke.py's step breakdown reads them)
+        with torch.profiler.record_function("train.loss"):
+            loss = self.loss(state.step, batch, prompt_emb, *extra, gens=gens, **draws)
+        loss.backward()
+        with torch.profiler.record_function("train.optimizer"):
+            loss = self.all_reduce_grads(state, loss.detach())
+            grad_norm = self._update(state)
+        return loss, grad_norm
+
+    def _end(self, state: TrainState, loss, grad_norm) -> dict:
+        """The host's work after a step: the schedule (it fills the next
+        step's lr) and the step count; returns the step's metrics."""
+        lr = self.lr_fn(state.step)
+        state.scheduler.step()
+        state.step += 1
+        return {"l_pix": loss, "lr": lr, "grad_norm": grad_norm}
+
+    def _inputs(self, batch: dict, prompt_emb):
+        return ({k: torch.as_tensor(batch[k], dtype=torch.float32, device=self.device)
+                 for k in BATCH_KEYS},
+                torch.as_tensor(prompt_emb, dtype=torch.float32, device=self.device))
+
     def train_step(self, state: TrainState, batch: dict, prompt_emb, *extra, **draws):
         """One optimisation step on `batch` ({"Res", "PAN", "MS"}: numpy
         arrays or tensors); returns (state, {"l_pix", "lr", "grad_norm"}),
@@ -227,20 +358,114 @@ class Trainer:
         step). `extra` goes to `loss` after the prompt (a subclass's
         operands, e.g. the distillation teacher's weights); `draws` (t and
         noise here) fix the step's draws (tests)."""
-        dev = self.device
-        batch = {k: torch.as_tensor(batch[k], dtype=torch.float32, device=dev)
-                 for k in ("Res", "PAN", "MS")}
-        prompt_emb = torch.as_tensor(prompt_emb, dtype=torch.float32, device=dev)
-        state.optimizer.zero_grad(set_to_none=True)
-        # profiler ranges (chip_smoke.py's step breakdown reads them)
-        with torch.profiler.record_function("train.loss"):
-            loss = self.loss(state.step, batch, prompt_emb, *extra, **draws)
-        loss.backward()
-        lr = self.lr_fn(state.step)
-        with torch.profiler.record_function("train.optimizer"):
-            loss = self.all_reduce_grads(state, loss.detach())
-            grad_norm = self.apply_gradients(state)
-        return state, {"l_pix": loss, "lr": lr, "grad_norm": grad_norm}
+        batch, prompt_emb = self._inputs(batch, prompt_emb)
+        gens = self._begin(state)
+        loss, grad_norm = self._step(state, batch, prompt_emb, extra, gens, draws)
+        return state, self._end(state, loss, grad_norm)
+
+    def compiled_step(self):
+        """The JAX trainer's compiled_step: a callable (state, batch,
+        prompt_emb, *extra) -> (state, metrics) that runs one step, the one
+        `train_step` runs, and updates `state` in place (JAX donates it).
+        On a CUDA model each shape of the arguments (the batch's, the
+        prompt's, `extra`'s tensors) gets one CUDA graph of the whole step,
+        captured at the shape's first call after that call's own step has
+        run eagerly, and replayed at every later call; the graphs share
+        one memory pool. A call copies the batch, the prompt and `extra`
+        into the graph's static inputs first, and copies the loss and norm
+        out after, so its metrics outlive the next replay. A graph is
+        captured again if the state's tensors are no longer the ones it
+        was captured on (another state, a fresh optimiser). A capture that
+        fails raises, after the call's own step; the step never falls back
+        to running eagerly. On a CPU model the callable runs the same step
+        without a capture. `release_compiled` frees the graphs."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(
+                f"compiled_step runs one process; this trainer's mesh has {self.mesh.size} "
+                "ranks: use train_step (a step captured with its all-reduce and halo exchange "
+                "is ROADMAP.md's queue 1 item 20, compiled_step over an NCCL mesh)")
+        return self._compiled
+
+    def release_compiled(self) -> None:
+        """Frees compiled_step's graphs, their static inputs and outputs and
+        their memory pool; the gradients they left on the model go too."""
+        self._captured.clear()
+        self._pool = self._stream = None
+        for p in self.model.parameters():
+            p.grad = None
+
+    def capture_seconds(self) -> dict:
+        """The host seconds of each of compiled_step's captures, by the
+        batch shapes of its key."""
+        return {key[0]: c.capture_s for key, c in self._captured.items() if c.graph is not None}
+
+    def _fingerprint(self, state: TrainState) -> tuple:
+        """The pointers of every state tensor a captured step reads or
+        writes in place: parameters, EMA, AdamW's moments, step counts and
+        lr tensors."""
+        ptrs = [t.data_ptr() for t in (*state.model.parameters(), *state.ema_params)]
+        for g in state.optimizer.param_groups:
+            ptrs.append(g["lr"].data_ptr() if torch.is_tensor(g["lr"]) else -1)
+        for st in state.optimizer.state.values():
+            ptrs += [v.data_ptr() for v in st.values() if torch.is_tensor(v)]
+        return (id(state), *ptrs)
+
+    def _compiled(self, state: TrainState, batch: dict, prompt_emb, *extra):
+        batch = {k: torch.as_tensor(batch[k]) for k in BATCH_KEYS}
+        prompt_emb = torch.as_tensor(prompt_emb)
+        leaves, spec = pytree.tree_flatten(extra)
+        key = (tuple(tuple(batch[k].shape) for k in BATCH_KEYS), tuple(prompt_emb.shape),
+               str(spec), tuple((tuple(v.shape), v.dtype) if torch.is_tensor(v) else v
+                                for v in leaves))
+        entry = self._captured.get(key)
+        if entry is not None and entry.graph is not None:
+            if entry.fingerprint != self._fingerprint(state):
+                entry = None
+        if entry is None:
+            dev = lambda v: v.detach().to(self.device).clone() if torch.is_tensor(v) else v
+            batch_dev, prompt_dev = self._inputs(batch, prompt_emb)
+            entry = self._captured[key] = _Captured(
+                {k: v.clone() for k, v in batch_dev.items()}, prompt_dev.clone(),
+                tuple(pytree.tree_unflatten([dev(v) for v in leaves], spec)))
+        else:
+            for k in BATCH_KEYS:
+                entry.batch[k].copy_(batch[k])
+            entry.prompt.copy_(prompt_emb)
+            static = [v for v in pytree.tree_flatten(entry.extra)[0] if torch.is_tensor(v)]
+            given = [v for v in leaves if torch.is_tensor(v)]
+            if static:
+                torch._foreach_copy_(static, [v.to(self.device) for v in given])
+        gens = self._begin(state)
+        if self.device.type != "cuda":
+            loss, grad_norm = self._step(state, entry.batch, entry.prompt, entry.extra, gens, {})
+        elif entry.graph is None:
+            loss, grad_norm = self._capture(state, entry, gens)
+        else:
+            entry.graph.replay()
+            loss, grad_norm = entry.loss.clone(), entry.grad_norm.clone()
+        return state, self._end(state, loss, grad_norm)
+
+    def _capture(self, state: TrainState, entry: _Captured, gens: dict):
+        """The call's own step, eagerly (it also makes every lazy allocation
+        and plan: AdamW's moments, the kernels' plans, cuBLAS and cuDNN
+        state), then a capture of the step on the static inputs into the
+        trainer's pool on a side stream. A capture runs nothing, so the
+        state holds exactly the one step. Returns the eager step's (loss,
+        norm)."""
+        loss, grad_norm = self._step(state, entry.batch, entry.prompt, entry.extra, gens, {})
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device=self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in gens.values():
+            graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+            entry.loss, entry.grad_norm = self._step(state, entry.batch, entry.prompt,
+                                                     entry.extra, gens, {})
+        entry.graph, entry.capture_s = graph, time.perf_counter() - t0
+        entry.fingerprint = self._fingerprint(state)
+        return loss, grad_norm
 
     def all_reduce_grads(self, state: TrainState, loss):
         """On a mesh of more than one rank, every parameter's `.grad` and
@@ -260,11 +485,10 @@ class Trainer:
             off += n
         return flat[off]
 
-    def apply_gradients(self, state: TrainState):
-        """The parameters' `.grad` into the state: the global norm (clipped
-        to grad_clip when set), an AdamW step at lr_fn(state.step), the step
-        count, then the EMA at the new count. Returns the norm before
-        clipping, a 0-d device tensor."""
+    def _update(self, state: TrainState):
+        """The gradients into the state on the device: the global norm
+        (clipped to grad_clip when set), AdamW, then the EMA at
+        `_ema_factor`. Returns the norm before clipping."""
         params = list(state.model.parameters())
         if self.grad_clip:
             grad_norm = torch.nn.utils.clip_grad_norm_(params, self.grad_clip)
@@ -272,7 +496,15 @@ class Trainer:
             grads = [p.grad for p in params if p.grad is not None]
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        ema_update(state.ema_params, params, state.step, self.ema_decay, self.ema_start)
+        ema_update(state.ema_params, params, factor=self._ema_factor)
+        return grad_norm
+
+    def apply_gradients(self, state: TrainState):
+        """The parameters' `.grad` into the state: the global norm (clipped
+        to grad_clip when set), an AdamW step at lr_fn(state.step), the step
+        count, then the EMA at the new count. Returns the norm before
+        clipping, a 0-d device tensor."""
+        self._begin(state)
+        grad_norm = self._update(state)
+        self._end(state, None, grad_norm)
         return grad_norm
