@@ -290,6 +290,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
@@ -3649,6 +3650,9 @@ MESH_DP_RANKS = 2  # the data-parallel training world under NCCL, a card a rank
 MESH_STEPS = 10  # dpm++ steps of a meshed request (11 denoise calls)
 MESH_REQUESTS = (("WV3", 8, 4, SIZE, MESH_SHAPES), ("QB", 4, 1, 2 * SIZE, ((1, 4),)))
 MESH_TRAIN_MESH, MESH_TRAIN_STEPS = (2, 2), 3
+# the meshes of the NCCL worlds' compiled steps (Trainer.compiled_step against
+# train_step), and the timed replays of each after the compared steps
+MESH_COMPILED, MESH_COMPILED_TIMED = ((2, 2), (4, 1)), 5
 MESH_LIBRARY_RTOL = 1e-5  # a library conv on a space split, of each tensor's scale
 MESH_LOSS_RTOL = 1e-4
 # the bf16 meshed steps against one process's bf16 steps: the first loss
@@ -3675,14 +3679,115 @@ def _plain_counter(modconv):
     return seen
 
 
-def mesh_worker(weights, train_weights, requests, train, train_mesh):
+def launch_recorder(seen: set, launch):
+    """A K._launch that adds each launch's (input gradient or not, x's
+    shape, the kernel's shape and strides, which of style, bias and out it
+    was given, the unsharded call's (B, H)) to `seen`, then calls
+    `launch`."""
+    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+        seen.add((bool(input_grad), tuple(x.shape), tuple(kernel.shape), tuple(kernel.stride()),
+                  style is not None, bias is not None, out is not None, unsharded))
+        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+
+    return record
+
+
+def mesh_compiled(K, mesh, train_weights, train, dtype, distill=False):
+    """One rank's Trainer.compiled_step against train_step on `mesh`, the
+    training weights as WavBEST of `dtype` (a DistillTrainer, N = 5, the
+    initial weights as its teacher `extra`, with `distill`): the eager run
+    (MESH_TRAIN_STEPS train_steps on train["steps"], each timed), then a
+    fresh trainer from the same weights stepping through compiled_step on
+    the same batches (its first call runs its own step, then the capture),
+    then MESH_COMPILED_TIMED timed replays and one under the profiler (the
+    K1 kernels a replay ran on the card, the device's busy share of the
+    wall and NCCL's kernels' part of it). Both runs record their first
+    call's distinct K1 launches (launch_recorder) and host-counted
+    launches. Returns what the rank measured: whether the compiled state
+    equals the eager one bit for bit, and the rest."""
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.train.distill import DistillTrainer
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    dev = mesh.device
+    prompt = torch.as_tensor(train["prompt"], device=dev)
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in b.items()} for b in train["steps"]]
+    weights = torch.load(train_weights, map_location=dev, weights_only=True)
+    runs = {}
+    for path in ("eager", "compiled"):
+        model = WavBEST(CHANNELS, device=dev, dtype=dtype)
+        model.load_state_dict(weights)
+        kw = dict(lr=1e-4, weight_decay=1e-4, warmup_steps=100, max_iter=300_000,
+                  loss_type="l1", ema_decay=0.9999, remat=True, seed=SEED, mesh=mesh)
+        if distill:
+            trainer = DistillTrainer(model, NoiseSchedule.create("cosine", 1000),
+                                     n_student_steps=5, **kw)
+            extra = ({n: p.detach().clone() for n, p in model.named_parameters()},)
+        else:
+            trainer, extra = Trainer(model, NoiseSchedule.create("cosine", 1000), **kw), ()
+        state = trainer.init_state()
+        step = trainer.compiled_step() if path == "compiled" else trainer.train_step
+        run = {"losses": [], "secs": [], "seen": set()}
+        launch = K._launch
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            K._launch = launch_recorder(run["seen"], launch) if i == 0 else launch
+            t0 = time.perf_counter()
+            try:
+                _, m = step(state, batch, prompt, *extra)
+            finally:
+                K._launch = launch
+            run["losses"].append(m["l_pix"].item())
+            torch.cuda.synchronize()
+            run["secs"].append(time.perf_counter() - t0)
+            if i == 0:
+                run["first"] = (K.launches - K.input_grad_launches, K.input_grad_launches,
+                                K.weight_grad_calls)
+        run["state"] = [(n, t.clone()) for n, t in state_tensors(state)]
+        if path == "compiled":
+            timed = []
+            for i in range(MESH_COMPILED_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(state, batches[i % len(batches)], prompt, *extra)
+                torch.cuda.synchronize()
+                timed.append(time.perf_counter() - t0)
+            kernels, wall = device_kernels(lambda: step(state, batches[0], prompt, *extra))
+            nccl_us = sum(us for name, us in kernels if "nccl" in name.lower())
+            run.update(median_s=float(np.median(timed)), k1=k1_kernels(kernels),
+                       busy_share=sum(us for _, us in kernels) / 1e6 / wall,
+                       nccl_share=nccl_us / 1e6 / wall,
+                       capture_s=sum(trainer.capture_seconds().values()),
+                       captures=len(trainer.capture_seconds()))
+            trainer.release_compiled()
+        runs[path] = run
+        del trainer, state, model, step
+    eager, comp = runs["eager"], runs["compiled"]
+    same, gap, where = state_gap(comp["state"], eager["state"])
+    return {"bit_identical": same, "gap": gap, "gap_at": where,
+            "losses_equal": comp["losses"] == eager["losses"], "losses": comp["losses"],
+            "median_s": comp["median_s"], "eager_median_s": float(np.median(eager["secs"])),
+            "first_call_s": comp["secs"][0], "capture_s": comp["capture_s"],
+            "captures": comp["captures"], "k1": comp["k1"], "busy_share": comp["busy_share"],
+            "nccl_share": comp["nccl_share"], "first_call_launches": comp["first"],
+            "eager_first_launches": eager["first"], "same_launches": comp["seen"] == eager["seen"],
+            "shard_launches": sorted(comp["seen"], key=repr)}
+
+
+def mesh_worker(weights, train_weights, requests, train, train_mesh, compiled_meshes):
     """One rank of the mesh phase (parallel/dryrun.py runs it on every rank):
     each request on each of its meshes (a regression warm-up, then dpm++
     at MESH_STEPS, counts reset just before and read just after), then on
     `train_mesh` the gradient check (fixed t and noise, dropout off, the
-    single-process path's L1 signs) and MESH_TRAIN_STEPS training steps,
-    in fp32 and then in bf16 (mesh_bf16_worker). Returns what each rank
-    measured and sampled."""
+    single-process path's L1 signs) and MESH_TRAIN_STEPS training steps
+    (the first one's distinct K1 launches recorded), then compiled_step
+    against train_step on each of `compiled_meshes` (mesh_compiled; a
+    DistillTrainer too on the first), in fp32 and then in bf16
+    (mesh_bf16_worker). On a gloo world on the card: compiled_step's
+    refusal and the CLI loop's step. Returns what each rank measured and
+    sampled."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.ops import modconv
@@ -3694,12 +3799,14 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     plain = _plain_counter(modconv)
-    shapes = list(dict.fromkeys([s for _, _, ss in requests for s in ss] + [train_mesh]))
+    shapes = list(dict.fromkeys([s for _, _, ss in requests for s in ss] + [train_mesh]
+                                + list(compiled_meshes)))
     meshes = {shape: mesh_lib.make_mesh(*shape) for shape in shapes}
     dev = meshes[train_mesh].device
     model = WavBEST(CHANNELS, device=dev)
     model.load_state_dict(torch.load(weights, map_location=dev, weights_only=True))
-    out = {"mesh": {s: repr(m) for s, m in meshes.items()}, "requests": []}
+    out = {"mesh": {s: repr(m) for s, m in meshes.items()}, "requests": [],
+           "train_mesh": train_mesh}
     for sensor, batch, shapes in requests:
         for shape in shapes:
             sharp = Pansharpener(model, mesh=meshes[shape])
@@ -3747,12 +3854,17 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
                          "plain": plain["plain"]}
     state = trainer.init_state()  # the weights are untouched: zero_grad only
     losses, secs, per_step = [], [], []
-    for batch in train["steps"]:
+    launch, shard_launches = K._launch, set()
+    for step, batch in enumerate(train["steps"]):
         torch.cuda.synchronize()
         K.reset_launches()
         mesh_lib.reset_stats()
+        K._launch = launch_recorder(shard_launches, launch) if step == 0 else launch
         t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, batch, prompt)
+        try:
+            state, metrics = trainer.train_step(state, batch, prompt)
+        finally:
+            K._launch = launch
         losses.append(metrics["l_pix"].item())
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
@@ -3762,9 +3874,28 @@ def mesh_worker(weights, train_weights, requests, train, train_mesh):
                          "k1_off_tensor_cores": K.variant_launches["ffma"],
                          "stats": dict(mesh_lib.stats)})
     out["train"] = {"losses": losses, "s": secs, "per_step": per_step, "plain": plain["plain"],
+                    "shard_launches": sorted(shard_launches, key=repr),
                     "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
                     if mesh.rank in (0, mesh.size - 1) else None}
-    out["bf16"] = mesh_bf16_worker(K, mesh, train_weights, train, plain)
+    if mesh.device.type == "cuda" and not mesh.capturable:
+        from tmdiff_tpu_torch import cli
+
+        loop_step = cli.training_step(trainer, logging.getLogger("mesh_worker"), say=False)
+        try:
+            trainer.compiled_step()
+            out["refusal"] = None
+        except ValueError as err:
+            out["refusal"] = str(err)
+        out["loop_runs_train_step"] = loop_step == trainer.train_step
+    del trainer, state, model, params
+    out["compiled"] = {shape: mesh_compiled(K, meshes[shape], train_weights, train,
+                                            torch.float32) for shape in compiled_meshes}
+    if compiled_meshes:
+        first = compiled_meshes[0]
+        out["compiled_distill"] = {first: mesh_compiled(K, meshes[first], train_weights, train,
+                                                        torch.float32, distill=True)}
+    out["bf16"] = mesh_bf16_worker(K, mesh, train_weights, train, plain,
+                                   [meshes[shape] for shape in compiled_meshes])
     if (2, 2) in meshes:
         out["library"] = mesh_library_worker(meshes[(2, 2)], dev)
     return out
@@ -3858,15 +3989,14 @@ def mesh_library_check(label, ranks) -> dict:
     return worst
 
 
-def mesh_bf16_worker(K, mesh, train_weights, train, plain):
+def mesh_bf16_worker(K, mesh, train_weights, train, plain, compiled):
     """The bf16 part of a mesh phase rank: the training weights as
     WavBEST(dtype=torch.bfloat16) on `mesh`, the gradient check (fixed t and
     noise, dropout off, the single-process bf16 path's L1 signs) and
     MESH_TRAIN_STEPS bf16 steps, counts reset just before and read just
     after each. The first step also records each distinct K1 launch
-    (input gradient or not, x's shape, the kernel's shape and strides,
-    which of style, bias and out it was given, the unsharded call's (B, H))
-    for mesh_bf16_launch_check."""
+    (launch_recorder) for mesh_launch_check. Then compiled_step against
+    train_step in bf16 on each mesh of `compiled` (mesh_compiled)."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.parallel import mesh as mesh_lib
@@ -3905,19 +4035,12 @@ def mesh_bf16_worker(K, mesh, train_weights, train, plain):
     state = trainer.init_state()
     losses, secs, per_step = [], [], []
     launch, shard_launches = K._launch, set()
-
-    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
-        shard_launches.add((bool(input_grad), tuple(x.shape), tuple(kernel.shape),
-                            tuple(kernel.stride()), style is not None, bias is not None,
-                            out is not None, unsharded))
-        return launch(x, kernel, style, bias, out, input_grad, unsharded)
-
     for step, batch in enumerate(train["steps"]):
         torch.cuda.synchronize()
         K.reset_launches()
         mesh_lib.reset_stats()
         plain["plain"] = 0
-        K._launch = record if step == 0 else launch
+        K._launch = launch_recorder(shard_launches, launch) if step == 0 else launch
         t0 = time.perf_counter()
         try:
             state, metrics = trainer.train_step(state, batch, prompt)
@@ -3935,10 +4058,14 @@ def mesh_bf16_worker(K, mesh, train_weights, train, plain):
                          "plain": plain["plain"], "stats": dict(mesh_lib.stats)})
     moments = [v for st in state.optimizer.state.values() for k, v in st.items() if k != "step"]
     fp32_state = all(x.dtype == torch.float32 for x in [*params, *state.ema_params, *moments])
-    return {"grad_check": check, "losses": losses, "s": secs, "per_step": per_step,
-            "fp32_state": fp32_state, "shard_launches": sorted(shard_launches, key=repr),
-            "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
-            if mesh.rank in (0, mesh.size - 1) else None}
+    out = {"grad_check": check, "losses": losses, "s": secs, "per_step": per_step,
+           "fp32_state": fp32_state, "shard_launches": sorted(shard_launches, key=repr),
+           "ema": torch.cat([e.reshape(-1) for e in state.ema_params]).cpu()
+           if mesh.rank in (0, mesh.size - 1) else None}
+    del trainer, state, model, params, moments
+    out["compiled"] = {(m.data, m.space): mesh_compiled(K, m, train_weights, train,
+                                                        torch.bfloat16) for m in compiled}
+    return out
 
 
 def mesh_single(weights, train_weights, requests, train):
@@ -4056,8 +4183,15 @@ def mesh_phase(K, root, served=None):
     per request, collectives per step. Under NCCL,
     a card a rank, the same cases run when MESH_RANKS cards are visible,
     and the training steps data-parallel on MESH_DP_RANKS cards when that
-    many are. Then the meshed server (mesh_serve_phase), beside `served`,
-    the http phase's one-card results."""
+    many are; there Trainer.compiled_step runs against train_step
+    (mesh_compiled, mesh_compiled_check: on each mesh of MESH_COMPILED, or
+    the data-parallel one, in fp32 and bf16, and a DistillTrainer on the
+    first; every rank's state bit for bit, a replay's K1 kernels read on
+    the card). The gloo world checks that compiled_step refuses it. Every
+    distinct K1 launch recorded, fp32 and bf16, is relaunched against its
+    plain version (mesh_launch_check). Then the meshed server
+    (mesh_serve_phase), beside `served`, the http phase's one-card
+    results."""
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.parallel.dryrun import run_world
@@ -4089,26 +4223,33 @@ def mesh_phase(K, root, served=None):
     train["sign16"] = single_check["bf16"]["sign"]
     cards = torch.cuda.device_count()
     # (label, ranks, device, backend, requests, training mesh)
-    worlds = [("gloo", MESH_RANKS, "cuda:0", "gloo", requests, MESH_TRAIN_MESH)]
+    # (label, ranks, device, backend, requests, training mesh, compiled meshes)
+    worlds = [("gloo", MESH_RANKS, "cuda:0", "gloo", requests, MESH_TRAIN_MESH, ())]
     if cards >= MESH_RANKS:
-        worlds.append(("nccl", MESH_RANKS, "cuda", None, requests, MESH_TRAIN_MESH))
+        worlds.append(("nccl", MESH_RANKS, "cuda", None, requests, MESH_TRAIN_MESH,
+                       MESH_COMPILED))
     if cards >= MESH_DP_RANKS:
+        dp = (MESH_DP_RANKS, 1)
         worlds.append((f"nccl data-parallel on {MESH_DP_RANKS} cards", MESH_DP_RANKS, "cuda",
-                       None, [], (MESH_DP_RANKS, 1)))
+                       None, [], dp, (dp,)))
+    print(f"[mesh] torch {torch.__version__}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+          f"; {cards} card(s) visible", flush=True)
     if cards < MESH_RANKS:
         print(f"[mesh] NCCL: {cards} card(s) visible, {MESH_RANKS} needed for the mesh cases "
               f"and {MESH_DP_RANKS} for the data-parallel step", flush=True)
     summary = {}
-    for label, n, device, backend, reqs, train_mesh in worlds:
+    for label, n, device, backend, reqs, train_mesh, compiled in worlds:
         t0 = time.perf_counter()
         ranks = run_world("chip_smoke:mesh_worker", n,
-                          (weights, train_weights, reqs, train, train_mesh), device=device,
-                          backend=backend, threads=2, timeout=MESH_TIMEOUT)
+                          (weights, train_weights, reqs, train, train_mesh, compiled),
+                          device=device, backend=backend, threads=2, timeout=MESH_TIMEOUT)
         wall = time.perf_counter() - t0
         summary[label] = mesh_check(label, ranks, images, single_check, single_losses, wall,
                                     train_mesh)
-        summary[label]["bf16"]["launches_checked"] = mesh_bf16_launch_check(K, label, ranks,
-                                                                            train_mesh)
+        if "refusal" in ranks[0]:
+            mesh_refusal_check(label, ranks)
+        for dtype, kept in (("float32", summary[label]), ("bfloat16", summary[label]["bf16"])):
+            kept["launches_checked"] = mesh_launch_check(K, label, ranks, dtype)
         if "library" in ranks[0]:
             summary[label]["library_gap_over_bar"] = mesh_library_check(label, ranks)
     summary["serve"] = mesh_serve_phase(ckpt, root, served, np.random.default_rng(SEED + 1))
@@ -4116,8 +4257,10 @@ def mesh_phase(K, root, served=None):
 
 
 def mesh_check(label, ranks, images, single_check, single_losses, wall, train_mesh):
-    """Holds one world's results against the single-process ones; prints
-    them and returns the numbers kept in the summary line."""
+    """Holds one world's results against the single-process ones, then its
+    compiled runs against its train_steps (mesh_compiled_check, fp32 here,
+    bf16 in mesh_bf16_check); prints them and returns the numbers kept in
+    the summary line."""
     for shape, rep in ranks[0]["mesh"].items():
         print(f"[mesh] {label} {shape}: {rep}", flush=True)
     kept = {"world_s": wall, "requests": []}
@@ -4190,9 +4333,84 @@ def mesh_check(label, ranks, images, single_check, single_losses, wall, train_me
                 train_single_s_per_step=float(np.median(single_check["s"])),
                 grad_err=max(errs), collectives_per_step=last["stats"]["collectives"],
                 halo_exchanges_per_step=last["stats"]["exchanges"])
+    kept["compiled"] = mesh_compiled_check(label, [r["compiled"] for r in ranks], "float32")
+    if "compiled_distill" in ranks[0]:
+        kept["compiled"].update(mesh_compiled_check(
+            label, [r["compiled_distill"] for r in ranks], "float32", distill=True))
     kept["bf16"] = mesh_bf16_check(label, ranks, single_check["bf16"], train_mesh,
                                    [s["stats"]["halo_bytes"] for s in steps[0]], kept)
     return kept
+
+
+def mesh_compiled_check(label, runs, dtype, distill=False) -> dict:
+    """Holds one world's compiled_step runs in `dtype` (mesh_compiled; per
+    rank {mesh: result}): on every rank the state after MESH_TRAIN_STEPS
+    compiled steps equals the state after as many train_steps bit for bit,
+    and so do the losses; one capture; the first call counted twice the
+    eager first step's K1 launches and weight gradients on the host (its
+    own step and the capture) and the same distinct launches; each rank's
+    replay ran 130 + 65 K1 kernels on the card (a distillation step 4 x 65
+    + 65), each on the tensor cores of the dtype. Prints a `[mesh] <world>
+    compiled` line a mesh; returns the numbers kept."""
+    per_step = (4 if distill else 2) * TRAIN_CONVS, TRAIN_CONVS, TRAIN_CONVS
+    kernel = K1_KERNELS["bf16" if dtype == "bfloat16" else "tf32x3"]
+    kind = "distill" if distill else "train"
+    gpu = card() if runs and runs[0] else None
+    kept = {}
+    for shape in runs[0]:
+        rs = [r[shape] for r in runs]
+        k1 = [len(r["k1"]) for r in rs]
+        med, eager_med = max(r["median_s"] for r in rs), max(r["eager_median_s"] for r in rs)
+        same = all(r["bit_identical"] for r in rs)
+        losses = all(r["losses_equal"] for r in rs)
+        res = {"median_s": med, "eager_median_s": eager_med,
+               "busy_share": [r["busy_share"] for r in rs],
+               "nccl_share": [r["nccl_share"] for r in rs],
+               "capture_s": max(r["capture_s"] for r in rs),
+               "first_call_s": max(r["first_call_s"] for r in rs), "replay_k1": k1,
+               "bit_identical": same, "card": gpu}
+        kept[f"{kind} {dtype} {shape}"] = res
+        print(f"[mesh] {label} compiled {dtype} {kind} on {shape}: {MESH_TRAIN_STEPS} compiled "
+              f"steps against {MESH_TRAIN_STEPS} train_steps from one start, state bit for bit "
+              f"on every rank {same} (largest gap {max(r['gap'] for r in rs):.3g} of scale), "
+              f"losses equal {losses}; a replay ran {k1} K1 kernels per rank on the card "
+              f"(expected {per_step[0] + per_step[1]}, each {kernel}); first call's host "
+              f"launches {rs[0]['first_call_launches']} (the eager step's "
+              f"{rs[0]['eager_first_launches']}); median step compiled {med:.4f} s over "
+              f"{MESH_COMPILED_TIMED} replays, eager {eager_med:.4f} s over {MESH_TRAIN_STEPS} "
+              f"steps (slowest rank); busy share per rank "
+              f"{[round(b, 3) for b in res['busy_share']]} (NCCL kernels "
+              f"{[round(b, 3) for b in res['nccl_share']]}); capture {res['capture_s']:.3f} s "
+              f"(first call {res['first_call_s']:.3f} s with its own step); {gpu}", flush=True)
+        if not (same and losses):
+            fail(f"{label} compiled {dtype} {kind} on {shape}: not the train_steps' state "
+                 f"({[(r['gap'], r['gap_at']) for r in rs]})")
+        twice = tuple(2 * n for n in per_step)
+        for r in rs:
+            if (r["captures"] != 1 or r["eager_first_launches"] != per_step
+                    or r["first_call_launches"] != twice or not r["same_launches"]):
+                fail(f"{label} compiled {dtype} {kind} on {shape}: {r['captures']} captures, "
+                     f"first call's launches {r['first_call_launches']} against the eager "
+                     f"step's {r['eager_first_launches']}, same distinct launches "
+                     f"{r['same_launches']}")
+            if r["k1"] != [kernel] * (per_step[0] + per_step[1]):
+                fail(f"{label} compiled {dtype} {kind} on {shape}: a replay ran K1 kernels "
+                     f"{sorted(set(r['k1']))} x {len(r['k1'])}")
+    return kept
+
+
+def mesh_refusal_check(label, ranks):
+    """On a gloo world on the card, every rank's compiled_step raised,
+    naming NCCL and train_step, and the CLI's loop steps through
+    train_step; prints the `[mesh] <world> compiled` refusal line."""
+    refusals = [r["refusal"] for r in ranks]
+    print(f"[mesh] {label} compiled: compiled_step refused on every rank "
+          f"{all(m and 'NCCL' in m and 'train_step' in m for m in refusals)} "
+          f"({refusals[0]!r}); the CLI loop steps through train_step "
+          f"{all(r['loop_runs_train_step'] for r in ranks)}", flush=True)
+    if not all(m and "NCCL" in m and "train_step" in m for m in refusals) or not all(
+            r["loop_runs_train_step"] for r in ranks):
+        fail(f"{label}: compiled_step on a gloo mesh on the card: {refusals}")
 
 
 def mesh_bf16_check(label, ranks, single, train_mesh, fp32_halo_bytes, fp32_kept):
@@ -4265,63 +4483,82 @@ def mesh_bf16_check(label, ranks, single, train_mesh, fp32_halo_bytes, fp32_kept
     return {"losses_rel": rels, "s_per_step": float(np.median(secs)),
             "single_s_per_step": float(np.median(single["s"])),
             "grad_worst_gap_own_to_fp32": rows[worst], "halo_bytes_per_step": halo[-1],
-            "fp32_halo_bytes_per_step": fp32_halo_bytes[-1], "counts_per_step": counts}
+            "fp32_halo_bytes_per_step": fp32_halo_bytes[-1], "counts_per_step": counts,
+            "compiled": mesh_compiled_check(label, [r["compiled"] for r in runs], "bfloat16")}
 
 
-def mesh_bf16_launch_check(K, label, ranks, train_mesh):
-    """Every distinct K1 launch of the first meshed bf16 step on any rank
-    (mesh_bf16_worker records them: the forward and remat's recompute on
-    the space shards' H_l + 2 rows, the input gradient on the shards' dy),
-    relaunched here on card 0 with its `unsharded` argument on seeded bf16
-    operands of its shape and strides (style, bias and out where it had
-    them): within one bf16 step of the plain version (bf16_check), one bf16
-    launch on a bf16 tensor-core variant, planned with the split count of
-    the unsharded call, and each x either a shard of the unsharded height
-    with its two halo rows or the whole height. Prints the
-    `[mesh] ... bf16 train launches` line; returns the counts checked."""
-    shapes = sorted({s for r in ranks for s in r["bf16"]["shard_launches"]}, key=repr)
-    space = train_mesh[1]
+def mesh_launch_check(K, label, ranks, dtype):
+    """Every distinct K1 launch in `dtype` that the world's ranks recorded
+    (the forward and remat's recompute on the space shards' H_l + 2 rows,
+    the input gradient on the shards' dy; the eager training steps' and
+    the compiled runs'), relaunched here on card 0 with its `unsharded`
+    argument on seeded operands of its shape and strides (style, bias and
+    out where it had them): bf16 within one bf16 step of the plain version
+    (bf16_check), fp32 within CONV_RTOL of its scale; one launch on a
+    tensor-core variant of the dtype, planned with the split count of the
+    unsharded call, and each x either a shard of the unsharded height with
+    its two halo rows or the whole height. Prints the `[mesh] ... train
+    launches` line; returns the counts checked."""
+    bf16 = dtype == "bfloat16"
+    cast = torch.bfloat16 if bf16 else torch.float32
+    variants = BF16_VARIANTS if bf16 else {"tf32x3", "tf32x3_splitk"}
+    shapes = set()
+    for r in ranks:
+        part = r["bf16"] if bf16 else r["train"]
+        shapes |= {(launch, r["train_mesh"][1]) for launch in part["shard_launches"]}
+        compiled = r["bf16"]["compiled"] if bf16 else {**r["compiled"], **r.get(
+            "compiled_distill", {})}
+        for mesh_shape, run in compiled.items():
+            shapes |= {(launch, mesh_shape[1]) for launch in run["shard_launches"]}
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     rand = lambda *shape: torch.randn(shape, device=DEV, generator=gen)
     worst, heights, splits = 0.0, set(), set()
-    for input_grad, shape, kshape, kstride, styled, biased, accum, unsharded in shapes:
+    for (input_grad, shape, kshape, kstride, styled, biased, accum, unsharded), space in sorted(
+            shapes, key=repr):
         b, d, h, w, cin = shape
         cout = kshape[-1]
-        what = (f"{label} meshed bf16 {'input gradient' if input_grad else 'forward'} {shape} "
-                f"-> {cout} (unsharded (B, H) {unsharded})")
+        what = (f"{label} meshed {dtype} {'input gradient' if input_grad else 'forward'} "
+                f"{shape} -> {cout} (unsharded (B, H) {unsharded})")
         if unsharded is None:
             fail(f"{what}: not planned for the unsharded call")
         if h not in (unsharded[1], unsharded[1] // space + 2 if space > 1 else None):
             fail(f"{what}: neither the whole height nor a shard with its halo rows")
-        x = rand(*shape).bfloat16()
-        k = torch.empty_strided(kshape, kstride, dtype=torch.bfloat16, device=DEV)
+        x = rand(*shape).to(cast)
+        k = torch.empty_strided(kshape, kstride, dtype=cast, device=DEV)
         k.copy_(rand(*kshape) / (27 * cin) ** 0.5)
-        style = (1 + 0.1 * rand(b, cin)).bfloat16() if styled else None
-        bias = (0.1 * rand(cout)).bfloat16() if biased else None
-        out = rand(b, d, h, w, cout).bfloat16() if accum else None
+        style = (1 + 0.1 * rand(b, cin)).to(cast) if styled else None
+        bias = (0.1 * rand(cout)).to(cast) if biased else None
+        out = rand(b, d, h, w, cout).to(cast) if accum else None
         K.reset_launches()
         with torch.no_grad():
             got = K._launch(x, k, style, bias, None if out is None else out.clone(), input_grad,
                             unsharded)
-        variants = {v for v, n in K.variant_launches.items() if n}
-        if (K.launches, K.dtype_launches["bfloat16"]) != (1, 1) or not variants <= BF16_VARIANTS:
-            fail(f"{what}: launched {dict(K.dtype_launches)} on {variants}")
+        ran = {v for v, n in K.variant_launches.items() if n}
+        if (K.launches, K.dtype_launches[dtype]) != (1, 1) or not ran <= variants:
+            fail(f"{what}: launched {dict(K.dtype_launches)} on {ran}")
         ref = K.conv3d_plain(x, k, style, bias, None if out is None else out.clone())
-        worst = max(worst, bf16_check(got, ref, what))
-        whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), dtype=torch.bfloat16,
-                            device=DEV)
+        if bf16:
+            worst = max(worst, bf16_check(got, ref, what))
+        else:
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if not err <= CONV_RTOL * ref.abs().max().item():
+                fail(f"{what}: max abs err {err} > {CONV_RTOL} of the plain version's scale")
+            worst = max(worst, err)
+        whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), dtype=cast, device=DEV)
         n_split, n_whole = K.plan(3, x, d, cout, unsharded)[1], K.plan(3, whole, d, cout)[1]
         if n_split != n_whole:
             fail(f"{what}: split count {n_split}, the unsharded call's {n_whole}")
         heights.add(h)
         splits.add(n_split)
-    n_in = sum(1 for s in shapes if s[0])
-    print(f"[mesh] {label} bf16 train launches on {train_mesh}: {len(shapes)} distinct K1 "
-          f"launches of the first step over the ranks ({len(shapes) - n_in} forward, {n_in} "
+    n_in = sum(1 for launch, _ in shapes if launch[0])
+    bar = "one bf16 step" if bf16 else f"{CONV_RTOL} of scale"
+    print(f"[mesh] {label} {dtype} train launches: {len(shapes)} distinct K1 launches over the "
+          f"ranks' first eager steps and compiled calls ({len(shapes) - n_in} forward, {n_in} "
           f"input gradient; x heights {sorted(heights)}) relaunched with their unsharded "
-          f"(B, H): each within one bf16 step of its plain version (largest |err| "
-          f"{worst:.3g}), on a bf16 variant, at the unsharded call's split count "
-          f"(counts {sorted(splits)})", flush=True)
+          f"(B, H): each within {bar} of its plain version (largest |err| {worst:.3g}), on a "
+          f"{dtype} tensor-core variant, at the unsharded call's split count (counts "
+          f"{sorted(splits)})", flush=True)
     return {"launches": len(shapes), "input_grad": n_in, "max_abs_err": worst}
 
 

@@ -5,7 +5,7 @@ moments and step counts, the schedule, the EMA, the metrics), in fp32 and
 bf16, for Trainer and DistillTrainer, with the CFG coin and a gradient clip,
 across a change of band count and across the ends of the lr warm-up and of
 the EMA's copy phase; the draws of steps k and k + 1 on one batch; a
-checkpoint resumed across the two paths; the refusal on a mesh of ranks.
+checkpoint resumed across the two paths; the refusal of a gloo mesh on a card.
 `train_step` itself is held against the JAX trainer by
 tests/test_torch_train.py and tests/test_torch_distill.py, and the captured
 step against train_step on the card by tests/test_torch_cuda.py. Tiny
@@ -195,15 +195,24 @@ def test_checkpoint_resumes_across_the_paths(tmp_path, first):
 
 
 def test_compiled_step_refuses_a_mesh_of_ranks():
-    """A mesh of more than one rank raises, naming the queue item; the
-    trainer's train_step stays the meshed step."""
-    mesh = Mesh(data=2, space=1, rank=0, backend="gloo", device=torch.device("cpu"),
-                space_group=None, data_group=None, world_group=None)
-    trainer = Trainer(WavBEST(CHANNELS, device="cpu", seed=0), NoiseSchedule.create("cosine", T),
-                      mesh=mesh)
-    with pytest.raises(ValueError, match="2 ranks: use train_step .*queue 1 item 20"):
-        trainer.compiled_step()
-    single = Mesh(data=1, space=1, rank=0, backend="gloo", device=torch.device("cpu"),
-                  space_group=None, data_group=None, world_group=None)
-    assert callable(Trainer(WavBEST(CHANNELS, device="cpu", seed=0),
-                            NoiseSchedule.create("cosine", T), mesh=single).compiled_step())
+    """A gloo mesh of ranks on a card raises, naming NCCL and train_step
+    (gloo's collectives go through host memory, which no CUDA graph holds);
+    an NCCL mesh on a card and a CPU mesh of two ranks give the callable
+    (captured on every rank; uncaptured on the CPU), and so does a mesh of
+    one rank. The trainer's device is set to a card after it is built on
+    the CPU: the rule reads only the device and the mesh."""
+    mesh = lambda backend, device, data=2: Mesh(
+        data=data, space=1, rank=0, backend=backend, device=torch.device(device),
+        space_group=None, data_group=None, world_group=None)
+    trainer = lambda m: Trainer(WavBEST(CHANNELS, device="cpu", seed=0),
+                                NoiseSchedule.create("cosine", T), mesh=m)
+    on_card = trainer(mesh("gloo", "cuda:0"))
+    on_card.device = torch.device("cuda", 0)
+    with pytest.raises(ValueError, match="2 ranks needs NCCL.*gloo through host memory.*"
+                                         "use train_step"):
+        on_card.compiled_step()
+    nccl = trainer(mesh("nccl", "cuda:0"))
+    nccl.device = torch.device("cuda", 0)
+    assert callable(nccl.compiled_step())
+    assert callable(trainer(mesh("gloo", "cpu")).compiled_step())
+    assert callable(trainer(mesh("gloo", "cpu", data=1)).compiled_step())

@@ -11,7 +11,9 @@ error at its deepest sums, the wrappers' refusals,
 and the model's kernel paths ("banded" and "auto") and a SpatialTransformer
 against their plain paths; bf16 training (K1's bf16 instance as its own
 input gradient and cuDNN's bf16 weight gradient at the training and legacy
-shapes, a concat's parts, a bf16 training step). Marked `cuda`; each test
+shapes, a concat's parts, a bf16 training step); Trainer.compiled_step on
+a (2, 1) NCCL world against train_step (two cards) and its refusal of a
+gloo world on card 0. Marked `cuda`; each test
 skips where no GPU is present. This file imports neither jax nor the JAX
 package, so it runs where only the port is installed:
 
@@ -1094,6 +1096,119 @@ def test_replay_draws_its_steps_numbers(cuda):
     _, m_next = step(s_c, batch, prompt)
     assert not torch.equal(m_next["l_pix"], m_c["l_pix"])
     compiled.release_compiled()
+
+
+def _mesh_train_case(bands=8):
+    """A seeded full-width WavBEST's weights and three global batches (8,
+    `bands`, 64x64) as numpy arrays, for the mesh workers."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+
+    state = {k: v.numpy() for k, v in WavBEST((32, 64, 128, 256), device="cpu",
+                                               seed=0).state_dict().items()}
+    rng = torch.Generator().manual_seed(5)
+    batches = [{"Res": (0.1 * torch.randn(8, bands, 64, 64, generator=rng)).numpy(),
+                "PAN": torch.rand(8, 1, 64, 64, generator=rng).numpy(),
+                "MS": torch.rand(8, bands, 64, 64, generator=rng).numpy()} for _ in range(3)]
+    return state, batches, torch.randn(768, generator=rng).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compiled_step_on_an_nccl_mesh_matches_train_step(cuda, dtype):
+    """Trainer.compiled_step on a (2, 1) NCCL world, a card a rank (each
+    rank's graph holds the gradient all-reduce), against train_step from
+    the same start: three steps of the full-width model, batch 8, 64x64,
+    the losses, the parameters, AdamW's moments, step counts and lr and the
+    EMA bit for bit on both ranks, one capture a rank (not the step-0
+    gradients: after the capturing call `.grad` holds the graph's buffers,
+    which the capture did not compute). Skips where fewer than two cards
+    are visible."""
+    import os
+
+    import numpy as np
+
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    state, batches, prompt = _mesh_train_case()
+    kw = {"dtype": dtype, "channels": (32, 64, 128, 256)}
+    tasks = [("train", ((2, 1), state, batches, prompt), dict(kw, compiled=True)),
+             ("train", ((2, 1), state, batches, prompt), kw)]
+    ranks = run_world("torch_mesh_workers:run_all", 2, (tasks,), device="cuda",
+                      sys_path=[os.path.dirname(os.path.abspath(__file__))], threads=2,
+                      timeout=600)
+    for compiled, eager in ranks:
+        assert compiled["captures"] == 1 and compiled["fresh"] == [True, False, False]
+        assert compiled["losses"] == eager["losses"]
+        assert (compiled["lr"], compiled["adamw_steps"]) == (eager["lr"], eager["adamw_steps"])
+        for name, v in eager["params"].items():
+            np.testing.assert_array_equal(compiled["params"][name], v, err_msg=name)
+        np.testing.assert_array_equal(compiled["ema"], eager["ema"])
+        for a, b in zip(compiled["moments"], eager["moments"]):
+            np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(ranks[0][0]["ema"], ranks[1][0]["ema"])
+
+
+def test_cli_steps_through_compiled_step_on_an_nccl_world(cuda, tmp_path):
+    """The CLI on a (2, 1) NCCL world, a card a rank (parallel/dryrun.py,
+    as torchrun's ranks join): -p train, 2 steps of the full-width model at
+    64x64, then -p distill from its checkpoint (one phase, N = 10, 2 steps
+    and its ddim validation), on data built in memory
+    (tests/torch_mesh_workers.py::cli_main). Each log says every step
+    replays a captured step on every rank; the checkpoints are written.
+    Skips where fewer than two cards are visible."""
+    import json
+    import os
+
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    synthetic = {"QB": (4, 4, 64), "GF2": (4, 4, 64), "WV3": (8, 4, 64)}
+    logs = {}
+    for phase in ("train", "distill"):
+        root = tmp_path / phase
+        cfg = {"name": phase, "path": {"log": "logs", "results": "results",
+                                       "checkpoint": "checkpoint", "experiments_root": str(root),
+                                       "resume": str(tmp_path / "train" / "checkpoint")
+                                       if phase == "distill" else None},
+               "datasets": {name: {"dataroot": "in memory", "data_len": -1} for name in (
+                   "train_qb", "train_gf2", "train_wv3", "val_QB", "val_GF2", "val_WV3")},
+               "model": {"beta_schedule": {"train": {"schedule": "cosine", "n_timestep": 1000},
+                                           "val": {"schedule": "cosine", "n_timestep": 1000}},
+                         "unet": {"channel_multiplier": None},
+                         "diffusion": {"loss_type": "l1"}},
+               "train": {"max_iter": 2, "val_freq": 1000, "print_freq": 1,
+                         "distill": {"phases": [10], "steps_per_phase": 2}},
+               "val_max_images": 1, "val_batch_size": 1}
+        path = tmp_path / f"{phase}.json"
+        path.write_text(json.dumps(cfg))
+        run_world("torch_mesh_workers:cli_main", 2,
+                  (["-c", str(path), "-p", phase, "--sampler", "regression"], False, synthetic),
+                  device="cuda", sys_path=[os.path.dirname(os.path.abspath(__file__))],
+                  threads=2, timeout=600)
+        logs[phase] = (root / "logs" / "train.log").read_text()
+    for log in logs.values():
+        assert ("mesh of 2 ranks: each step runs compiled_step (a captured step on every rank, "
+                "its collectives inside the graph)") in log
+    assert os.path.isdir(tmp_path / "train" / "checkpoint" / "I2")
+    assert os.path.isdir(tmp_path / "distill" / "checkpoint" / "distill_N10")
+
+
+def test_compiled_step_refuses_a_gloo_mesh_on_the_card(cuda):
+    """A (1, 2) gloo world on card 0 (its collectives staged through host
+    memory): compiled_step raises, naming NCCL and train_step, and the
+    CLI's loop steps through train_step."""
+    import os
+
+    from tmdiff_tpu_torch.parallel.dryrun import run_world
+
+    ranks = run_world("torch_mesh_workers:compiled_refusal", 2, ((1, 2),), device="cuda:0",
+                      backend="gloo", sys_path=[os.path.dirname(os.path.abspath(__file__))],
+                      threads=2, timeout=300)
+    for message, loop_is_train_step in ranks:
+        assert message is not None and "needs NCCL" in message and "train_step" in message
+        assert loop_is_train_step
 
 
 def test_device_feeder_on_a_side_stream(cuda):

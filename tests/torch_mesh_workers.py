@@ -22,8 +22,8 @@ def _t(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 
 
-def _model(state_dict, channels=CHANNELS, dtype=torch.float32):
-    model = WavBEST(channels, device="cpu", dtype=dtype)
+def _model(state_dict, channels=CHANNELS, dtype=torch.float32, device="cpu"):
+    model = WavBEST(channels, device=device, dtype=dtype)
     model.load_state_dict({k: _t(v) for k, v in state_dict.items()})
     return model
 
@@ -275,16 +275,21 @@ def adaptive(mesh_shape, state_dict, batch, x_T, n_timestep: int = 10):
 
 def train(mesh_shape, state_dict, batches, prompt, *, draws=None, remat=True, dropout=True,
           lr=2e-3, warmup=2, distill_n=None, dtype="float32", channels=CHANNELS,
-          loss_type="l1"):
+          loss_type="l1", compiled=False, stub_fingerprint=None):
     """Steps of Trainer.train_step (DistillTrainer with `distill_n`, the
-    teacher the initial weights) of a WavBEST of `channels` computing in
-    `dtype` on the mesh (None: one process), one per global batch: the
-    losses, every gradient of step 0 after the all-reduce, the parameters
-    after the last step, the EMA, AdamW's moments, the collective counts of
-    the last step and the conv launches of the last step by (dtype, input
-    gradient). `draws` gives each step's t and noise (the global batch's);
-    `dropout=False` sets the blocks' rate to 0; `loss_type` is the
-    trainer's."""
+    teacher the initial weights), or of its compiled_step with `compiled`,
+    of a WavBEST of `channels` computing in `dtype` on the mesh (None: one
+    process) on the mesh's device, one per global batch: the losses, every
+    gradient of step 0 after the all-reduce, the parameters after the last
+    step, the EMA, AdamW's moments, step counts and lr, the collective
+    counts of the last step and the conv launches of the last step by
+    (dtype, input gradient). `draws` gives each step's t and noise (the
+    global batch's); `dropout=False` sets the blocks' rate to 0;
+    `loss_type` is the trainer's. `stub_fingerprint` = (rank, call): on
+    that rank, from that compiled call on (0 the first), the trainer sees
+    its state as new (another fingerprint). With `compiled`, "fresh" says of each call
+    whether it made a new entry of its batch shape (on a card: captured).
+    """
     rate, launch = blocks.DROPOUT, K._launch
     blocks.DROPOUT = rate if dropout else 0.0
     launches = {}
@@ -297,19 +302,21 @@ def train(mesh_shape, state_dict, batches, prompt, *, draws=None, remat=True, dr
     K._launch = record
     try:
         return _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup,
-                      distill_n, getattr(torch, dtype), channels, loss_type, launches)
+                      distill_n, getattr(torch, dtype), channels, loss_type, launches, compiled,
+                      stub_fingerprint)
     finally:
         blocks.DROPOUT, K._launch = rate, launch
 
 
 def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, distill_n,
-           dtype, channels, loss_type, launches):
+           dtype, channels, loss_type, launches, compiled, stub_fingerprint):
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
     from tmdiff_tpu_torch.train.distill import DistillTrainer
     from tmdiff_tpu_torch.train.trainer import Trainer
 
-    model = _model(state_dict, channels, dtype)
     mesh = None if mesh_shape is None else make_mesh(*mesh_shape)
+    device = "cpu" if mesh is None else mesh.device
+    model = _model(state_dict, channels, dtype, device)
     kw = dict(lr=lr, warmup_steps=warmup, max_iter=1000, remat=remat, mesh=mesh,
               loss_type=loss_type)
     if distill_n:
@@ -320,22 +327,47 @@ def _train(mesh_shape, state_dict, batches, prompt, draws, remat, lr, warmup, di
         trainer = Trainer(model, NoiseSchedule.create("cosine", 1000), **kw)
         extra = ()
     state = trainer.init_state()
-    losses, grads = [], None
+    step_draws = lambda k: ({} if draws is None else
+                            {n: torch.as_tensor(v[k]).to(device) for n, v in draws.items()})
+    if compiled:
+        # the compiled step takes no draws: the loss reads them by the step
+        if draws is not None:
+            loss = trainer.loss
+            trainer.loss = lambda step, *a, **kw: loss(step, *a, **kw, **step_draws(step))
+        fingerprint = trainer._fingerprint
+        calls = []
+        if stub_fingerprint is not None and stub_fingerprint[0] == mesh.rank:
+            trainer._fingerprint = lambda st: (fingerprint(st) if len(calls) <= stub_fingerprint[1]
+                                               else ("stub", len(calls)))
+        step_fn = trainer.compiled_step()
+    losses, grads, entries = [], None, []
     for k, batch in enumerate(batches):
         mesh_lib.reset_stats()
         launches.clear()
-        step_draws = {} if draws is None else {n: torch.as_tensor(v[k]) for n, v in
-                                                draws.items()}
-        state, metrics = trainer.train_step(state, batch, _t(prompt), *extra, **step_draws)
+        batch = {n: _t(v).to(device) for n, v in batch.items()}
+        if compiled:
+            calls.append(k)
+            state, metrics = step_fn(state, batch, _t(prompt).to(device), *extra)
+            entries.append(trainer._captured[next(iter(trainer._captured))])
+        else:
+            state, metrics = trainer.train_step(state, batch, _t(prompt).to(device), *extra,
+                                                **step_draws(k))
         losses.append(float(metrics["l_pix"]))
         if k == 0:
-            grads = {n: p.grad.numpy().copy() for n, p in model.named_parameters()}
-    params = {n: p.detach().numpy().copy() for n, p in model.named_parameters()}
-    ema = np.concatenate([e.numpy().ravel() for e in state.ema_params])
-    moments = [v.numpy().copy() for st in state.optimizer.state.values()
+            grads = {n: p.grad.cpu().numpy().copy() for n, p in model.named_parameters()}
+    params = {n: p.detach().cpu().numpy().copy() for n, p in model.named_parameters()}
+    ema = np.concatenate([e.cpu().numpy().ravel() for e in state.ema_params])
+    moments = [v.cpu().numpy().copy() for st in state.optimizer.state.values()
                for name, v in sorted(st.items()) if name != "step"]
+    adamw_steps = [float(st["step"]) for st in state.optimizer.state.values()]
+    lrs = [float(g["lr"]) for g in state.optimizer.param_groups]
+    captures = trainer.capture_seconds()
+    trainer.release_compiled()
     return {"losses": losses, "grads": grads, "params": params, "ema": ema,
-            "moments": moments, "stats": dict(mesh_lib.stats), "launches": dict(launches)}
+            "moments": moments, "adamw_steps": adamw_steps, "lr": lrs, "step": state.step,
+            "stats": dict(mesh_lib.stats), "launches": dict(launches),
+            "fresh": [k == 0 or e is not entries[k - 1] for k, e in enumerate(entries)],
+            "captures": len(captures)}
 
 
 def bf16_step_shapes(mesh_shape, channels, batch_size, bands, size, seed: int = 0):
@@ -448,3 +480,56 @@ def controlnet_finetune(mesh_shape, state_dict, channels, batch, hint, target, t
             "params": {n: p.detach().numpy() for n, p in trained},
             "exp_avg": {n: opt.state[p]["exp_avg"].numpy().copy() for n, p in trained
                         if p in opt.state}}
+
+
+def cli_main(argv, eager=False, synthetic=None):
+    """tmdiff_tpu_torch.cli.main(argv) on this rank of a joined world; with
+    `eager` the train loop's step is train_step (said in the log), where
+    the CLI steps through compiled_step. `synthetic` = {sensor: (bands,
+    scenes, size)}: the datasets are built in memory (data/synthetic.py,
+    batch 2) in place of the config's h5 files, for a machine without
+    h5py."""
+    from tmdiff_tpu_torch import cli
+
+    if eager:
+        def training_step(trainer, logger, say=True):
+            logger.info("each step runs train_step")
+            return trainer.train_step
+
+        cli.training_step = training_step
+    if synthetic is not None:
+        from tmdiff_tpu_torch.data.h5 import PanDataset
+        from tmdiff_tpu_torch.data.pipeline import BatchIterator, SensorMixer
+        from tmdiff_tpu_torch.data.synthetic import make_arrays
+
+        def build_datasets(opt, phase):
+            seed = cli.train_seed(opt)
+            sets = {s: PanDataset(make_arrays(n, bands, size, seed=i))
+                    for i, (s, (bands, n, size)) in enumerate(synthetic.items())}
+            mixer = SensorMixer({s: BatchIterator(ds, batch_size=2, seed=seed)
+                                 for s, ds in sets.items()}, seed=seed)
+            return (mixer if phase == "train" else None), sets
+
+        cli.build_datasets = build_datasets
+    cli.main(argv)
+
+
+def compiled_refusal(mesh_shape):
+    """Trainer.compiled_step of a seeded WavBEST on the mesh (on the world's
+    device): (the ValueError's message, or None where it gives the
+    callable; whether the CLI's loop steps through train_step there)."""
+    import logging
+
+    from tmdiff_tpu_torch import cli
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(*mesh_shape)
+    trainer = Trainer(WavBEST(CHANNELS, device=mesh.device, seed=0),
+                      NoiseSchedule.create("cosine", 1000), mesh=mesh)
+    loop_step = cli.training_step(trainer, logging.getLogger("compiled_refusal"))
+    try:
+        trainer.compiled_step()
+    except ValueError as err:
+        return str(err), loop_step == trainer.train_step
+    return None, loop_step == trainer.train_step

@@ -22,10 +22,10 @@ steps; a SIGTERM mid-phase saves `distill_N{N}_partial` and skips its
 validation.
 
 Runs on CUDA unless `--device` says otherwise, and raises without a card.
-`-gpu` is accepted for the reference's command line and ignored. In one
-process the train and distill loops run `Trainer.compiled_step()`, as the
-JAX CLI runs its jitted step: on a card each step is one replay of a CUDA
-graph of the whole step (train/trainer.py); each distillation phase's
+`-gpu` is accepted for the reference's command line and ignored. The train
+and distill loops run `Trainer.compiled_step()`, as the JAX CLI runs its
+jitted step: on a card each step is one replay of a CUDA graph of the whole
+step (train/trainer.py), on every rank of a mesh; each distillation phase's
 trainer captures its own, released when the phase ends.
 
 Over several processes, one per rank, under torchrun:
@@ -36,12 +36,16 @@ Over several processes, one per rank, under torchrun:
 the run takes the ("data", "space") mesh of the config's `parallel: {data,
 space}` block (parallel/mesh.py), or every rank on "data" without one, as
 the JAX CLI does. The mesh shards training, distillation and validation
-sampling (the loops run `train_step` there, and say so once in the log);
-the backend follows parallel/mesh.py's rule (gloo with `--device cpu`,
-NCCL with a card per rank). Rank 0 alone writes the logs, the .mat
-results, provenance.json and the checkpoints, and scores the validation
-images; every rank samples its shard and restores the checkpoints. A stop
-signal on any rank stops every rank after the same step.
+sampling; the backend follows parallel/mesh.py's rule (gloo with `--device
+cpu`, NCCL with a card per rank). Under NCCL each rank's captured step
+holds its halo exchanges and the gradient all-reduce; on the CPU the step
+runs uncaptured; a gloo world on cards (a caller's, not torchrun's) runs
+`train_step`. The log says which, once. Between steps the stop poll and the
+checkpoints' barrier run eagerly, in the same order on every rank. Rank 0
+alone writes the logs, the .mat results, provenance.json and the
+checkpoints, and scores the validation images; every rank samples its
+shard and restores the checkpoints. A stop signal on any rank stops every
+rank after the same step.
 """
 from __future__ import annotations
 
@@ -397,15 +401,22 @@ def _run(args, opt, stop, datasets=None):
 
 
 def training_step(trainer, logger, say: bool = True):
-    """The loop's step: `trainer.compiled_step()` in one process, as the
-    JAX CLI runs its jitted step; `trainer.train_step` on a mesh of more
-    than one rank (a captured step over a mesh is not ported), logged when
-    `say`."""
-    if trainer.mesh is None or trainer.mesh.size == 1:
+    """The loop's step: `trainer.compiled_step()`, as the JAX CLI runs its
+    jitted step, in one process, on an NCCL mesh (each rank replays its
+    captured step) and on a CPU mesh (uncaptured); `trainer.train_step` on
+    a gloo mesh on CUDA, whose host-staged collectives no graph can hold,
+    logged when `say`."""
+    mesh = trainer.mesh
+    if trainer.device.type != "cuda" or mesh is None or mesh.size == 1 or mesh.capturable:
+        if say and mesh is not None and mesh.size > 1:
+            logger.info(f"mesh of {mesh.size} ranks: each step runs compiled_step ("
+                        + ("a captured step on every rank, its collectives inside the graph)"
+                           if trainer.device.type == "cuda" else "uncaptured on the CPU)"))
         return trainer.compiled_step()
     if say:
-        logger.info(f"mesh of {trainer.mesh.size} ranks: each step runs train_step, not "
-                    "compiled_step (a captured step runs one process)")
+        logger.info(f"mesh of {mesh.size} ranks on {mesh.transport}: each step runs "
+                    "train_step, not compiled_step (a CUDA graph cannot hold gloo's "
+                    "collectives)")
     return trainer.train_step
 
 

@@ -14,6 +14,14 @@ Transport: `dist.batch_isend_irecv` under NCCL; under gloo each row goes
 through a host copy with `isend`/`irecv` (a CUDA tensor is copied out and
 back explicitly). With one space rank, or a placement whose height is not
 split, x is returned untouched and nothing is sent.
+
+Under NCCL the exchange is legal inside a CUDA graph (Trainer.compiled_step
+on a mesh): the sends and receives are NCCL kernels ordered after the
+current stream's work, `wait()` makes the current stream wait for them
+without a host sync, and the staged rows and zero buffers are allocations
+of the current stream (the graph's pool while capturing). `mesh_lib.stats`
+is host work: it counts an exchange when the step runs eagerly or is
+captured, not at a replay.
 """
 from __future__ import annotations
 

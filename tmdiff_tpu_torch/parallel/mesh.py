@@ -150,6 +150,15 @@ class Mesh:
         return "gloo through host memory" if self.device.type == "cuda" else "gloo"
 
     @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives and halo
+        exchanges (Trainer.compiled_step on a card): under NCCL each is
+        stream-ordered work on the card; under gloo each goes through host
+        memory (`_staged`, parallel/halo.py), which no graph can hold. A
+        CPU mesh captures nothing: compiled_step runs its step uncaptured."""
+        return self.backend == "nccl"
+
+    @property
     def halo(self) -> bool:
         """Whether the convs of this placement exchange rows."""
         return self.split_rows and self.space > 1

@@ -26,7 +26,12 @@ before each step (a replay draws from the seeds set before it), AdamW is
 `capturable` with its lr in a device tensor that the schedule fills after
 each step, and the EMA factor is a device tensor filled before each step.
 `train_step` runs the same step eagerly, with the same arithmetic, so the
-two give the same state bit for bit and may be mixed on one state.
+two give the same state bit for bit and may be mixed on one state. On an
+NCCL mesh each rank captures its own step with its collectives inside the
+graph (the halo exchanges of the forward and backward, the gradient
+all-reduce), as JAX compiles one SPMD program of the step; the ranks agree
+before every call whether it captures, so that all of them capture at the
+same call and replay the same collectives in one order.
 
 Every 3x3x3 conv must take the "banded" lowering: its forward and input
 gradient run K1 (ops/cuda/conv3d.py). "auto" is refused, since its 3x3
@@ -172,7 +177,7 @@ class _Captured:
     """One shape's captured step: its static inputs (the call copies its
     arguments into them), the graph (None on the CPU, and until the first
     call has run), its outputs, the pointers of the state's tensors it was
-    captured on (`Trainer._fingerprint`) and the capture's host seconds."""
+    made on (`Trainer._fingerprint`) and the capture's host seconds."""
 
     batch: dict
     prompt: torch.Tensor
@@ -378,12 +383,31 @@ class Trainer:
         was captured on (another state, a fresh optimiser). A capture that
         fails raises, after the call's own step; the step never falls back
         to running eagerly. On a CPU model the callable runs the same step
-        without a capture. `release_compiled` frees the graphs."""
-        if self.mesh is not None and self.mesh.size > 1:
+        without a capture. `release_compiled` frees the graphs. The
+        parameters' `.grad` are the graph's buffers after a capturing call
+        (which computes nothing in them) and the step's gradients after a
+        replay.
+
+        On a mesh of ranks every rank must make the same calls. Under NCCL
+        each rank's graph holds its step's collectives; whether a call
+        captures is put to every rank first (`Mesh.any`), so a shape or a
+        state new on one rank makes all of them run the eager step and
+        capture at that call (that vote is one host collective a call,
+        counted in `mesh_lib.stats`). The eager step before a capture runs
+        every collective of the step, so each communicator exists before
+        the capture starts. NCCL's watchdog does not see a replayed
+        collective: a rank that hangs in a replay is ended by its launcher
+        (torchrun, `run_world`'s timeout), not by NCCL's timeout. A CPU mesh
+        runs the step uncaptured. gloo on a card stages every collective
+        through host memory, which a graph cannot hold: that mesh raises
+        here."""
+        mesh = self.mesh
+        if (self.device.type == "cuda" and mesh is not None and mesh.size > 1
+                and not mesh.capturable):
             raise ValueError(
-                f"compiled_step runs one process; this trainer's mesh has {self.mesh.size} "
-                "ranks: use train_step (a step captured with its all-reduce and halo exchange "
-                "is ROADMAP.md's queue 1 item 20, compiled_step over an NCCL mesh)")
+                f"compiled_step on a mesh of {mesh.size} ranks needs NCCL: this mesh's "
+                f"collectives run on {mesh.transport}, which a CUDA graph cannot hold; "
+                "use train_step")
         return self._compiled
 
     def release_compiled(self) -> None:
@@ -418,10 +442,12 @@ class Trainer:
                str(spec), tuple((tuple(v.shape), v.dtype) if torch.is_tensor(v) else v
                                 for v in leaves))
         entry = self._captured.get(key)
-        if entry is not None and entry.graph is not None:
-            if entry.fingerprint != self._fingerprint(state):
-                entry = None
-        if entry is None:
+        fresh = entry is None or entry.fingerprint != self._fingerprint(state)
+        if self.mesh is not None and self.mesh.size > 1:
+            # a rank that captured while another replays would run other
+            # collectives than its peers
+            fresh = self.mesh.any(fresh)
+        if fresh:
             dev = lambda v: v.detach().to(self.device).clone() if torch.is_tensor(v) else v
             batch_dev, prompt_dev = self._inputs(batch, prompt_emb)
             entry = self._captured[key] = _Captured(
@@ -438,11 +464,13 @@ class Trainer:
         gens = self._begin(state)
         if self.device.type != "cuda":
             loss, grad_norm = self._step(state, entry.batch, entry.prompt, entry.extra, gens, {})
-        elif entry.graph is None:
+        elif fresh:
             loss, grad_norm = self._capture(state, entry, gens)
         else:
             entry.graph.replay()
             loss, grad_norm = entry.loss.clone(), entry.grad_norm.clone()
+        if fresh:
+            entry.fingerprint = self._fingerprint(state)
         return state, self._end(state, loss, grad_norm)
 
     def _capture(self, state: TrainState, entry: _Captured, gens: dict):
@@ -464,7 +492,6 @@ class Trainer:
             entry.loss, entry.grad_norm = self._step(state, entry.batch, entry.prompt,
                                                      entry.extra, gens, {})
         entry.graph, entry.capture_s = graph, time.perf_counter() - t0
-        entry.fingerprint = self._fingerprint(state)
         return loss, grad_norm
 
     def all_reduce_grads(self, state: TrainState, loss):
