@@ -1,0 +1,10 @@
+"""The benchmark of tmdiff_tpu_torch on one NVIDIA H100.
+
+`python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace
+<0|1>` runs one cell of BENCHMARK.json once and prints its result line;
+`portbench.sweep` finds a serve mix's knee, `portbench.control` reads the
+controls a cell's limits are set from. Nothing here imports JAX or the JAX
+package; the program under test is imported only by the drivers
+(`serve.py`, `train.py`). Tests: `python -m pytest portbench/tests` (CPU;
+the `cuda`-marked ones skip without a card).
+"""
