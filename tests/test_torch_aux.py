@@ -143,16 +143,6 @@ def test_dip_optimize_matches_optax(optimizer):
 # --- utils/profiling.py ------------------------------------------------------
 
 
-def test_throughput():
-    tp = profiling.Throughput()
-    for _ in range(5):
-        tp.step(n_images=8)
-    stats = tp.per_chip(n_devices=2)
-    assert stats["steps_per_sec"] > 0 and stats["images_per_sec"] > stats["steps_per_sec"]
-    assert stats["devices"] == 2
-    assert stats["images_per_sec_per_chip"] == stats["images_per_sec"] / 2
-
-
 def test_cost_analysis_and_params():
     """A 64x64 matmul counts 2 * 64^3 FLOPs (XLA's cost analysis gives as
     many); parameters of a dict and of a module."""

@@ -13,7 +13,9 @@ against their plain paths; bf16 training (K1's bf16 instance as its own
 input gradient and cuDNN's bf16 weight gradient at the training and legacy
 shapes, a concat's parts, a bf16 training step); Trainer.compiled_step on
 a (2, 1) NCCL world against train_step (two cards) and its refusal of a
-gloo world on card 0. Marked `cuda`; each test
+gloo world on card 0; the card-only spans of utils/profiling.py
+(compiled_step's capture and replays, K1's plan on a miss). Marked `cuda`;
+each test
 skips where no GPU is present. This file imports neither jax nor the JAX
 package, so it runs where only the port is installed:
 
@@ -1631,3 +1633,50 @@ def test_bf16_input_gradient_at_the_mesh_shard_shapes(cuda):
         whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), device=cuda,
                             dtype=torch.bfloat16)
         assert K.plan(3, dy, d, cout, unsharded=unsharded)[1] == K.plan(3, whole, d, cout)[1]
+
+
+def test_compiled_step_spans_capture_once_then_replay(cuda):
+    """utils/profiling.py's spans of compiled_step on the card: the first
+    call of a shape is one `step.capture` (its key the batch shapes), each
+    later call one `step.replay`, every call one `step.copy_in`,
+    `step.begin` and `step.end`; K1's plans of the step's shapes are made
+    inside the capture's eager step, none later."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.utils import profiling
+
+    batch, prompt = _card_batch(cuda), torch.randn(768, device=cuda)
+    trainer = _card_trainer(cuda)
+    state, step = trainer.init_state(), trainer.compiled_step()
+    K._plans.clear()
+    profiling.drain()
+    with profiling.recording():
+        for _ in range(3):
+            step(state, batch, prompt)
+    spans = sorted(profiling.drain(), key=lambda s: s.start)
+    trainer.release_compiled()
+    call = lambda middle: ["step.copy_in", "step.begin", middle, "step.end"]
+    steps = [s for s in spans if s.name.startswith("step.")]
+    assert [s.name for s in steps] == (call("step.capture") + call("step.replay")
+                                       + call("step.replay"))
+    assert steps[2].attrs == {"key": tuple(tuple(batch[k].shape) for k in ("Res", "PAN", "MS"))}
+    plans = [s for s in spans if s.name == "conv3d.plan"]
+    assert plans and all(steps[2].start <= s.start <= s.end <= steps[2].end for s in plans)
+
+
+def test_conv3d_plan_span_on_a_miss_only(cuda):
+    """A shape's first launch records one `conv3d.plan` span (kd, shape,
+    variant); its second launch finds the plan and records none."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+    from tmdiff_tpu_torch.utils import profiling
+
+    x = torch.randn(1, 4, 24, 40, 16, device=cuda)
+    k = torch.randn(3, 3, 3, 16, 48, device=cuda)
+    K._plans.clear()
+    profiling.drain()
+    with profiling.recording(), torch.no_grad():
+        K.banded_conv3d(x, k)
+        K.banded_conv3d(x, k)
+    spans = profiling.drain()
+    assert [s.name for s in spans] == ["conv3d.plan"]
+    (plan,) = K._plans.values()
+    assert spans[0].attrs == {"kd": 3, "shape": (1, 4, 24, 40, 16, 48), "variant": plan[0]}

@@ -73,6 +73,7 @@ import torch.nn.functional as F
 
 from tmdiff_tpu_torch.ops.cuda import build
 from tmdiff_tpu_torch.ops.library_conv import cudnn_fp32, widen_on_cpu
+from tmdiff_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel since the last reset_launches(), in all, by
 # variant (tmdiff_conv_plan's numbering from 0) and by dtype; of them, those
@@ -187,18 +188,22 @@ def plan(kd, x, d, cout, unsharded=None):
     here so that the kernel allocates nothing. With `unsharded`, the (B, H)
     of the unsharded call x is a mesh shard of, the split count is that
     call's (module doc). A bf16 shape that no bf16 instance takes raises: it
-    never goes to an fp32 kernel or the plain version."""
+    never goes to an fp32 kernel or the plain version. A shape planned for
+the first time is a `conv3d.plan` span (utils/profiling.py; `kd`, `shape`
+= (B, D, H, W, Cin, Cout), `variant`)."""
     b, h, w, cin = x.shape[0], x.shape[-3], x.shape[-2], x.shape[-1]
     key = (kd, x.dtype, b, d, h, w, cin, cout, x.data_ptr() % 16 == 0, x.device.index,
            unsharded)
     if key not in _plans:
-        want = 0 if unsharded is None else _ask(kd, x, unsharded[0], d, unsharded[1], w, cin,
-                                                cout)[2]
-        variant, nbytes, splits = _ask(kd, x, b, d, h, w, cin, cout, want)
-        if variant < 0:
-            raise ValueError(f"no {x.dtype} conv kernel instance for Cin = {cin} (needs "
-                             "Cin % 8 == 0) or an x that is not 16-byte aligned")
-        _plans[key] = (VARIANTS[variant], nbytes, splits)
+        with profiling.span("conv3d.plan", kd=kd, shape=(b, d, h, w, cin, cout)) as span:
+            want = 0 if unsharded is None else _ask(kd, x, unsharded[0], d, unsharded[1], w,
+                                                    cin, cout)[2]
+            variant, nbytes, splits = _ask(kd, x, b, d, h, w, cin, cout, want)
+            if variant < 0:
+                raise ValueError(f"no {x.dtype} conv kernel instance for Cin = {cin} (needs "
+                                 "Cin % 8 == 0) or an x that is not 16-byte aligned")
+            _plans[key] = (VARIANTS[variant], nbytes, splits)
+            span.set(variant=VARIANTS[variant])
     variant, nbytes, splits = _plans[key]
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     return variant, splits, workspace

@@ -36,6 +36,12 @@ with the fallback to replication along an axis that does not divide. x_T
 and the ancestral noise are drawn at the global shape from `seed` and
 sharded; PAN, MS, `x_init`, `step_noise` and a per-sample guidance are
 sharded; the output is gathered, so every rank returns the whole batch.
+
+Spans of a `sample` call (utils/profiling.py, while its recorder is on):
+`sample.h2d` (PAN, MS and the prompt rows to the device), `sample.encode`
+(`encode_condition`), `sample.loop` (x_T to the residual) with one
+`sample.denoise` around every network call (`kind` = "denoise", "deep" or
+"reuse"), and `sample.d2h` (res2img, clamp, gather and the copy to numpy).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from tmdiff_tpu_torch.diffusion import gaussian
 from tmdiff_tpu_torch.diffusion.dpm_solver import DPMSolver, NoiseScheduleVP, WrappedModel
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule, make_beta_schedule
 from tmdiff_tpu_torch.models.clip_text import load_prompt_table
+from tmdiff_tpu_torch.utils import profiling
 from tmdiff_tpu_torch.utils.device import resolve_device
 from tmdiff_tpu_torch.utils.residual import res2img
 
@@ -124,71 +131,79 @@ class Pansharpener:
         mesh = None if self.mesh is None else self.mesh.place(np.shape(batch["MS"]))
         model.use_mesh(mesh)
         shard = (lambda a, lead=0: a) if mesh is None else mesh.shard
-        pan = shard(torch.as_tensor(batch["PAN"], dtype=torch.float32, device=dev))
-        ms_global = torch.as_tensor(batch["MS"], dtype=torch.float32, device=dev)
-        ms = shard(ms_global)
-        prompt_emb = self.prompt_embedding(sensor)
-        if prompt_emb.dim() == 2:
-            prompt_emb = shard(prompt_emb)
-        cache = model.encode_condition(pan, ms, prompt_emb)
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        x_T = self._tensor(x_init)
-        if x_T is None:
-            x_T = torch.randn(ms_global.shape, generator=gen, device=dev)
-        x_T = shard(x_T)
-        if step_noise is not None:
-            step_noise = shard(self._tensor(step_noise), 1)
-        if np.ndim(guidance) > 0:
-            guidance = shard(np.asarray(guidance, np.float32))
-        denoise = lambda x, t, *_: model.denoise(x, t, cache)
-        shape = tuple(ms.shape)
-        gather = (lambda a, lead=0: a) if mesh is None else mesh.gather
+        with profiling.span("sample.h2d"):
+            pan = shard(torch.as_tensor(batch["PAN"], dtype=torch.float32, device=dev))
+            ms_global = torch.as_tensor(batch["MS"], dtype=torch.float32, device=dev)
+            ms = shard(ms_global)
+            prompt_emb = self.prompt_embedding(sensor)
+            if prompt_emb.dim() == 2:
+                prompt_emb = shard(prompt_emb)
+        with profiling.span("sample.encode"):
+            cache = model.encode_condition(pan, ms, prompt_emb)
+        frames = None
+        with profiling.span("sample.loop"):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x_T = self._tensor(x_init)
+            if x_T is None:
+                x_T = torch.randn(ms_global.shape, generator=gen, device=dev)
+            x_T = shard(x_T)
+            if step_noise is not None:
+                step_noise = shard(self._tensor(step_noise), 1)
+            if np.ndim(guidance) > 0:
+                guidance = shard(np.asarray(guidance, np.float32))
+            denoise = _spanned("denoise", lambda x, t, *_: model.denoise(x, t, cache))
+            shape = tuple(ms.shape)
 
-        if method == "ancestral":
-            res = gaussian.ancestral_sample(
-                denoise, self.ns, gen, pan, ms, shape, legacy_noise_inversion=legacy,
-                num_frames=num_frames, x_init=x_T, step_noise=step_noise, mesh=mesh)
-            if num_frames:
-                final, frames = res
-                return (gather(torch.clamp(res2img(final, ms), 0.0, 1.0)).cpu().numpy(),
-                        gather(torch.clamp(res2img(frames, ms[None]), 0.0, 1.0), 1)
-                        .cpu().numpy())
-        elif method == "regression":
-            res = gaussian.regression_sample(denoise, gen, pan, ms, shape, x_init=x_T)
-        elif method == "ddim":
-            res = gaussian.ddim_sample(denoise, self.ns, gen, pan, ms, shape, steps=steps or 50,
-                                       x_init=x_T, mesh=mesh)
-        elif method == "ddim_cached":
-            full = lambda x, t: model.denoise_deep(x, t, cache, cache_level=cache_level)
-            reuse = lambda x, t, deep: model.denoise_reuse(x, t, cache, deep,
-                                                           cache_level=cache_level)
-            res = gaussian.ddim_sample_blockcached(
-                full, reuse, self.ns, gen, pan, ms, shape, steps=steps or 20,
-                refresh_every=refresh_every, x_init=x_T, forecast=forecast,
-                refresh_mask=refresh_mask, mesh=mesh)
-        elif method == "dpm++_cfg":
-            # both branches' condition features are time-independent: each
-            # is encoded once, and the guidance wrapper concatenates them
-            if np.ndim(guidance) == 0:
-                scale = float(np.float32(guidance))
+            if method == "ancestral":
+                res = gaussian.ancestral_sample(
+                    denoise, self.ns, gen, pan, ms, shape, legacy_noise_inversion=legacy,
+                    num_frames=num_frames, x_init=x_T, step_noise=step_noise, mesh=mesh)
+                if num_frames:
+                    res, frames = res
+            elif method == "regression":
+                res = gaussian.regression_sample(denoise, gen, pan, ms, shape, x_init=x_T)
+            elif method == "ddim":
+                res = gaussian.ddim_sample(denoise, self.ns, gen, pan, ms, shape, steps=steps or 50,
+                                           x_init=x_T, mesh=mesh)
+            elif method == "ddim_cached":
+                full = _spanned("deep", lambda x, t: model.denoise_deep(
+                    x, t, cache, cache_level=cache_level))
+                reuse = _spanned("reuse", lambda x, t, deep: model.denoise_reuse(
+                    x, t, cache, deep, cache_level=cache_level))
+                res = gaussian.ddim_sample_blockcached(
+                    full, reuse, self.ns, gen, pan, ms, shape, steps=steps or 20,
+                    refresh_every=refresh_every, x_init=x_T, forecast=forecast,
+                    refresh_mask=refresh_mask, mesh=mesh)
+            elif method == "dpm++_cfg":
+                # both branches' condition features are time-independent: each
+                # is encoded once, and the guidance wrapper concatenates them
+                if np.ndim(guidance) == 0:
+                    scale = float(np.float32(guidance))
+                else:
+                    scale = torch.as_tensor(np.asarray(guidance, np.float32), device=dev)
+                wrapped = WrappedModel(
+                    _spanned("denoise", lambda x, t, c: model.denoise(x, t, c)),
+                    model_type=self.model_type,
+                    guidance_type="classifier-free", guidance_scale=scale, condition=cache,
+                    unconditional_condition=model.encode_condition(pan, torch.zeros_like(ms),
+                                                                   prompt_emb))
+                res = DPMSolver(wrapped, self.nsvp, mesh=mesh).sample(
+                    x_T, steps=steps or 50, order=2, skip_type="logSNR", method="multistep")
             else:
-                scale = torch.as_tensor(np.asarray(guidance, np.float32), device=dev)
-            wrapped = WrappedModel(
-                lambda x, t, c: model.denoise(x, t, c), model_type=self.model_type,
-                guidance_type="classifier-free", guidance_scale=scale, condition=cache,
-                unconditional_condition=model.encode_condition(pan, torch.zeros_like(ms),
-                                                               prompt_emb))
-            res = DPMSolver(wrapped, self.nsvp, mesh=mesh).sample(
-                x_T, steps=steps or 50, order=2, skip_type="logSNR", method="multistep")
-        else:
-            solver = DPMSolver(WrappedModel(denoise, self.model_type), self.nsvp, mesh=mesh)
-            if method == "dpm++":
-                res = solver.sample(x_T, steps=steps or 30, order=3, skip_type="logSNR",
-                                    method="singlestep", denoise_to_zero=True)
-            else:  # dpm++_noise
-                res = solver.sample(x_T, steps=steps or 50, order=3, skip_type="logSNR",
-                                    method="multistep", denoise_to_zero=True)
-        return gather(torch.clamp(res2img(res, ms), 0.0, 1.0)).cpu().numpy()
+                solver = DPMSolver(WrappedModel(denoise, self.model_type), self.nsvp, mesh=mesh)
+                if method == "dpm++":
+                    res = solver.sample(x_T, steps=steps or 30, order=3, skip_type="logSNR",
+                                        method="singlestep", denoise_to_zero=True)
+                else:  # dpm++_noise
+                    res = solver.sample(x_T, steps=steps or 50, order=3, skip_type="logSNR",
+                                        method="multistep", denoise_to_zero=True)
+        gather = (lambda a, lead=0: a) if mesh is None else mesh.gather
+        with profiling.span("sample.d2h"):
+            out = gather(torch.clamp(res2img(res, ms), 0.0, 1.0)).cpu().numpy()
+            if frames is None:
+                return out
+            return out, gather(torch.clamp(res2img(frames, ms[None]), 0.0, 1.0),
+                               1).cpu().numpy()
 
     def sample_tiled(self, batch: dict, sensor="QB", tile: int = 256, overlap: int = 32,
                      tile_batch: int = 8, **kw):
@@ -249,6 +264,14 @@ class Pansharpener:
                 out[:, :, y:y + tile, x:x + tile] += preds[i * B:(i + 1) * B] * win
                 wsum[y:y + tile, x:x + tile] += win
         return out / wsum
+
+
+def _spanned(kind: str, fn):
+    """`fn`, each call inside a `sample.denoise` span of `kind`."""
+    def call(*args):
+        with profiling.span("sample.denoise", kind=kind):
+            return fn(*args)
+    return call
 
 
 class _Closure(torch.nn.Module):

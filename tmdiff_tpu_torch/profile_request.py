@@ -8,8 +8,9 @@ the given 3x3x3 conv lowering (ops/modconv.py), warms up with one request
 (`dpm++`, batch 2, 256x256 unless told otherwise), times one without the
 profiler (host clock to a synchronize), then runs one under
 torch.profiler and prints the request's wall seconds, its denoise calls,
-the device's busy share (summed kernel time over wall time) and the kernel
-time by group and by name. fp32, TF32 off; `--bf16` runs the same request
+the device's busy share (the union of its operations' intervals over the
+wall time, so that operations that overlap count once) and the kernel time
+by group and by name. fp32, TF32 off; `--bf16` runs the same request
 on `WavBEST(dtype=torch.bfloat16)`, whose convs take the bf16 instances.
 `--n-timestep` sets the schedule's T, which is the ancestral sampler's step
 count.
@@ -41,6 +42,16 @@ def group_of(name: str) -> str:
         if any(k in low for k in keys):
             return group
     return "other (elementwise, copies, reductions)"
+
+
+def busy_seconds(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
 
 
 def main() -> None:
@@ -84,17 +95,20 @@ def main() -> None:
         t0 = time.perf_counter()
         sharp.sample(batch, sensor=sensor, method=args.method, seed=SEED)
         wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == cuda and e.self_device_time_total > 0]
     total_us = sum(e.self_device_time_total for e in kernels)
+    busy = busy_seconds((e.time_range.start, e.time_range.end) for e in prof.events()
+                        if e.device_type == cuda) / 1e6
     by_group: dict[str, float] = {}
     for e in kernels:
         by_group[group_of(e.key)] = by_group.get(group_of(e.key), 0.0) + e.self_device_time_total
     print(f"{smi}; {args.method} request {sensor} {args.bands}-band batch {args.batch} "
           f"{args.size}x{args.size}, {args.impl} convs, {str(dtype)[6:]}, {len(calls)} denoise "
           f"calls: wall {unprofiled:.3f} s without the profiler, {wall:.3f} s under it; device "
-          f"kernel time {total_us / 1e6:.3f} s, busy share {total_us / 1e6 / wall:.3f} under "
-          f"the profiler, {total_us / 1e6 / unprofiled:.3f} of the unprofiled wall; "
+          f"kernel time {total_us / 1e6:.3f} s, busy {busy:.3f} s: busy share {busy / wall:.3f} "
+          f"under the profiler, {busy / unprofiled:.3f} of the unprofiled wall; "
           f"{len(kernels)} kernel names, "
           f"{sum(e.count for e in kernels)} kernel launches")
     for group, us in sorted(by_group.items(), key=lambda kv: -kv[1]):

@@ -11,6 +11,13 @@ recorded on the consumer's stream, so the caching allocator does not reuse
 its memory while kernels queued there may still read it. Items come out in
 the source's order, and a finite source yields every item (the JAX
 package's feeder drops the last one, ADVICE.md: `prefetch.py:95`).
+
+Spans (utils/profiling.py, while its recorder is on): `feed.produce` on
+the Prefetcher's thread, around each `next` of its source; in the
+consumer's `next(feeder)`, `feed.handoff` (the item's hand-over across
+streams), then for the item after it `feed.source` (waiting for it from
+the Prefetcher or the source) and `feed.stage` (pinning it and issuing its
+copies).
 """
 from __future__ import annotations
 
@@ -20,6 +27,10 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
+from tmdiff_tpu_torch.utils import profiling
+
+_END = object()
 
 
 class Prefetcher:
@@ -42,7 +53,12 @@ class Prefetcher:
 
     def _worker(self):
         try:
-            for item in self._it:
+            it = iter(self._it)
+            while True:
+                with profiling.span("feed.produce"):
+                    item = next(it, _END)
+                if item is _END:
+                    break
                 if not self._put(item):
                     return
         except Exception as exc:  # raised to the consumer at its next item
@@ -92,14 +108,15 @@ class DeviceFeeder:
 
     def _stage(self):
         """Start the next item's copies; None once the source is exhausted."""
-        try:
-            item = next(self._src)
-        except StopIteration:
+        with profiling.span("feed.source"):
+            item = next(self._src, _END)
+        if item is _END:
             return None
-        if self._stream is None:
-            return self._to_device(item)
-        with torch.cuda.stream(self._stream):
-            return self._to_device(item)
+        with profiling.span("feed.stage"):
+            if self._stream is None:
+                return self._to_device(item)
+            with torch.cuda.stream(self._stream):
+                return self._to_device(item)
 
     def _hand_out(self, obj):
         if isinstance(obj, torch.Tensor):
@@ -118,9 +135,10 @@ class DeviceFeeder:
         out = self._pending if self._pending is not None else self._stage()
         if out is None:
             raise StopIteration
-        if self._stream is not None:
-            torch.cuda.current_stream(self.device).wait_stream(self._stream)
-            self._hand_out(out)
+        with profiling.span("feed.handoff"):
+            if self._stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(self._stream)
+                self._hand_out(out)
         # start the next item's copies now, beside the kernels the caller is
         # about to queue on `out`; None once the source has run out, and the
         # call after this one ends the iteration

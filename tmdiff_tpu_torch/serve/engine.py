@@ -27,6 +27,16 @@ On the GPU nothing is compiled per shape, but the first batch of a shape
 still pays for building the kernel libraries, the kernels' per-shape plans
 and the caching allocator's first blocks; `warmup()` moves that before the
 first request.
+
+Spans (utils/profiling.py, while its recorder is on): `engine.request`,
+from submit() to the future resolved (opened on the client's thread, closed
+on the worker; `batch` = its batch's seed, `sampled_ns` = the start of its
+batch's sampler call); on the worker `engine.wait` (blocked on the queue
+for a group's first request), `engine.collect` (the first request to the
+group's close; `batch`, `n`, `closed` = "full", "deadline" or "shutdown",
+`requeued` = the requests of another shape put back), `engine.assemble`
+(stack, pad, guidance), `engine.sample` (the sampler call; `batch`,
+`bucket`) and `engine.resolve`.
 """
 from __future__ import annotations
 
@@ -39,6 +49,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from tmdiff_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass
 class _Request:
@@ -48,6 +60,7 @@ class _Request:
     future: Future
     enqueued_at: float
     guidance: Optional[float] = None  # CFG scale; None: the engine's default
+    span: object = None  # its engine.request span (profiling.begin)
 
 
 class EngineOverloaded(RuntimeError):
@@ -137,7 +150,8 @@ class InferenceEngine:
             self.stats["rejected"] += 1
             raise EngineOverloaded(f"pending queue at limit ({self.max_queue}); retry later")
         fut: Future = Future()
-        self._queue.put(_Request(pan, ms, sensor, fut, time.monotonic(), guidance))
+        self._queue.put(_Request(pan, ms, sensor, fut, time.monotonic(), guidance,
+                                 profiling.begin("engine.request")))
         return fut
 
     def warmup(self, shapes: Sequence[tuple[int, int, int]], sensor: str = "QB") -> None:
@@ -162,35 +176,52 @@ class InferenceEngine:
 
     def _run(self):
         while True:
-            req = self._queue.get()
+            with profiling.span("engine.wait"):
+                req = self._queue.get()
             if req is None:
                 return
-            group = [req]
-            key = req.ms.shape  # one batch takes one MS shape, any sensors
-            deadline = time.monotonic() + self.max_delay_ms / 1e3
-            leftovers = []
-            while len(group) < self.max_batch:
-                timeout = deadline - time.monotonic()
-                if timeout <= 0:
-                    break
-                try:
-                    nxt = self._queue.get(timeout=timeout)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    # shutting down: run the group, fail what waits behind it
-                    self._execute(group, [])
-                    for r in leftovers:
-                        if not r.future.done():
-                            r.future.set_exception(RuntimeError("engine shut down"))
-                    return
-                if nxt.ms.shape == key:
-                    group.append(nxt)
-                else:
-                    leftovers.append(nxt)
-            self._execute(group, leftovers)
+            with profiling.span("engine.collect") as span:
+                group, leftovers, closed = self._collect(req)
+                with self._lock:
+                    seed = self._seed
+                    self._seed += 1
+                span.set(batch=seed, n=len(group), closed=closed,
+                         requeued=0 if closed == "shutdown" else len(leftovers))
+            if closed == "shutdown":
+                # run the group, fail what waits behind it
+                self._execute(group, [], seed)
+                for r in leftovers:
+                    if not r.future.done():
+                        r.future.set_exception(RuntimeError("engine shut down"))
+                return
+            self._execute(group, leftovers, seed)
 
-    def _execute(self, group: list, leftovers: list):
+    def _collect(self, req) -> tuple:
+        """(group, leftovers, how the group closed): requests of `req`'s MS
+        shape taken from the queue until the group is full, `max_delay_ms`
+        after `req`, or the queue hands out the shutdown mark; those of
+        another shape seen meanwhile are the leftovers."""
+        group = [req]
+        key = req.ms.shape  # one batch takes one MS shape, any sensors
+        deadline = time.monotonic() + self.max_delay_ms / 1e3
+        leftovers = []
+        while len(group) < self.max_batch:
+            timeout = deadline - time.monotonic()
+            if timeout <= 0:
+                return group, leftovers, "deadline"
+            try:
+                nxt = self._queue.get(timeout=timeout)
+            except queue.Empty:
+                return group, leftovers, "deadline"
+            if nxt is None:
+                return group, leftovers, "shutdown"
+            if nxt.ms.shape == key:
+                group.append(nxt)
+            else:
+                leftovers.append(nxt)
+        return group, leftovers, "full"
+
+    def _execute(self, group: list, leftovers: list, seed: int):
         # requests of another shape seen while collecting go back to the
         # front, in arrival order, under the queue's mutex (producers may be
         # putting; this thread is the only consumer, so no notify is needed)
@@ -198,31 +229,34 @@ class InferenceEngine:
             for r in reversed(leftovers):
                 self._queue.queue.appendleft(r)
         try:
-            n = len(group)
-            b = _bucket(n, self.buckets)
-            pan = np.stack([r.pan for r in group] + [group[-1].pan] * (b - n))
-            ms = np.stack([r.ms for r in group] + [group[-1].ms] * (b - n))
-            with self._lock:
-                seed = self._seed
-                self._seed += 1
-            sensors = [r.sensor for r in group] + [group[-1].sensor] * (b - n)
-            kw = dict(self.sampler_kw or {})
-            if self.method == "dpm++_cfg":
-                gvec = [r.guidance if r.guidance is not None else self.guidance for r in group]
-                kw["guidance"] = np.asarray(gvec + [gvec[-1]] * (b - n), np.float32)
-            out = self.sharp.sample({"PAN": pan, "MS": ms}, sensor=sensors,
-                                    method=self.method, steps=self.steps, seed=seed, **kw)
-            now = time.monotonic()
-            self.stats["requests"] += n
-            self.stats["batches"] += 1
-            self.stats["padded_slots"] += b - n
-            hist = self.stats["batch_size_hist"]
-            hist[n] = hist.get(n, 0) + 1
-            for i, r in enumerate(group):
-                self.stats["latency_ms_sum"] += (now - r.enqueued_at) * 1e3
-                r.future.placement = {"seed": seed, "bucket": b, "row": i}
-                r.future.set_result(np.asarray(out[i]))
+            with profiling.span("engine.assemble"):
+                n = len(group)
+                b = _bucket(n, self.buckets)
+                pan = np.stack([r.pan for r in group] + [group[-1].pan] * (b - n))
+                ms = np.stack([r.ms for r in group] + [group[-1].ms] * (b - n))
+                sensors = [r.sensor for r in group] + [group[-1].sensor] * (b - n)
+                kw = dict(self.sampler_kw or {})
+                if self.method == "dpm++_cfg":
+                    gvec = [r.guidance if r.guidance is not None else self.guidance
+                            for r in group]
+                    kw["guidance"] = np.asarray(gvec + [gvec[-1]] * (b - n), np.float32)
+            with profiling.span("engine.sample", batch=seed, bucket=b) as sampled:
+                out = self.sharp.sample({"PAN": pan, "MS": ms}, sensor=sensors,
+                                        method=self.method, steps=self.steps, seed=seed, **kw)
+            with profiling.span("engine.resolve"):
+                now = time.monotonic()
+                self.stats["requests"] += n
+                self.stats["batches"] += 1
+                self.stats["padded_slots"] += b - n
+                hist = self.stats["batch_size_hist"]
+                hist[n] = hist.get(n, 0) + 1
+                for i, r in enumerate(group):
+                    self.stats["latency_ms_sum"] += (now - r.enqueued_at) * 1e3
+                    r.future.placement = {"seed": seed, "bucket": b, "row": i}
+                    r.future.set_result(np.asarray(out[i]))
+                    profiling.end(r.span, batch=seed, sampled_ns=sampled.start)
         except Exception as err:  # resolve the group's futures; the worker lives on
             for r in group:
                 if not r.future.done():
                     r.future.set_exception(err)
+                    profiling.end(r.span, batch=seed, error=type(err).__name__)

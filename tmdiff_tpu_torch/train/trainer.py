@@ -53,6 +53,14 @@ needs the same sum and one collective a step serves both axes. AdamW, the
 schedule and the EMA then run alike on every rank. In a world of more than
 one rank the mesh defaults to every rank on "data", as the JAX trainer's to
 every device.
+
+Spans of a `compiled_step` call (utils/profiling.py, while its recorder is
+on): `step.copy_in` (the arguments into the static inputs), `step.begin`
+(the EMA factor, the generators seeded), on a card `step.capture` (the
+eager step and the capture; `key` = the batch shapes) or `step.replay`
+(the replay and the copy of its outputs), then `step.end` (the schedule
+and the step count). None is recorded inside the step itself: it runs in
+a capture.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from tmdiff_tpu_torch.diffusion import gaussian
 from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
 from tmdiff_tpu_torch.parallel import mesh as mesh_lib
 from tmdiff_tpu_torch.train.ema import ema_factor, ema_update
+from tmdiff_tpu_torch.utils import profiling
 
 BATCH_KEYS = ("Res", "PAN", "MS")
 # the trainer's generators: t and noise, the model call's dropout masks, its
@@ -447,31 +456,36 @@ class Trainer:
             # a rank that captured while another replays would run other
             # collectives than its peers
             fresh = self.mesh.any(fresh)
-        if fresh:
-            dev = lambda v: v.detach().to(self.device).clone() if torch.is_tensor(v) else v
-            batch_dev, prompt_dev = self._inputs(batch, prompt_emb)
-            entry = self._captured[key] = _Captured(
-                {k: v.clone() for k, v in batch_dev.items()}, prompt_dev.clone(),
-                tuple(pytree.tree_unflatten([dev(v) for v in leaves], spec)))
-        else:
-            for k in BATCH_KEYS:
-                entry.batch[k].copy_(batch[k])
-            entry.prompt.copy_(prompt_emb)
-            static = [v for v in pytree.tree_flatten(entry.extra)[0] if torch.is_tensor(v)]
-            given = [v for v in leaves if torch.is_tensor(v)]
-            if static:
-                torch._foreach_copy_(static, [v.to(self.device) for v in given])
-        gens = self._begin(state)
+        with profiling.span("step.copy_in"):
+            if fresh:
+                dev = lambda v: v.detach().to(self.device).clone() if torch.is_tensor(v) else v
+                batch_dev, prompt_dev = self._inputs(batch, prompt_emb)
+                entry = self._captured[key] = _Captured(
+                    {k: v.clone() for k, v in batch_dev.items()}, prompt_dev.clone(),
+                    tuple(pytree.tree_unflatten([dev(v) for v in leaves], spec)))
+            else:
+                for k in BATCH_KEYS:
+                    entry.batch[k].copy_(batch[k])
+                entry.prompt.copy_(prompt_emb)
+                static = [v for v in pytree.tree_flatten(entry.extra)[0] if torch.is_tensor(v)]
+                given = [v for v in leaves if torch.is_tensor(v)]
+                if static:
+                    torch._foreach_copy_(static, [v.to(self.device) for v in given])
+        with profiling.span("step.begin"):
+            gens = self._begin(state)
         if self.device.type != "cuda":
             loss, grad_norm = self._step(state, entry.batch, entry.prompt, entry.extra, gens, {})
         elif fresh:
-            loss, grad_norm = self._capture(state, entry, gens)
+            with profiling.span("step.capture", key=key[0]):
+                loss, grad_norm = self._capture(state, entry, gens)
         else:
-            entry.graph.replay()
-            loss, grad_norm = entry.loss.clone(), entry.grad_norm.clone()
+            with profiling.span("step.replay"):
+                entry.graph.replay()
+                loss, grad_norm = entry.loss.clone(), entry.grad_norm.clone()
         if fresh:
             entry.fingerprint = self._fingerprint(state)
-        return state, self._end(state, loss, grad_norm)
+        with profiling.span("step.end"):
+            return state, self._end(state, loss, grad_norm)
 
     def _capture(self, state: TrainState, entry: _Captured, gens: dict):
         """The call's own step, eagerly (it also makes every lazy allocation
