@@ -400,17 +400,19 @@ def make_batch(rng, bands):
 
 
 def record_calls(model, modconv, attr, pan, ms, prompt, x_t, t):
-    """Runs encode + denoise once; returns {(phase, shape, flags): count} of
-    the calls to `modconv.<attr>` (a kernel wrapper), shape = x's shape +
-    (Cout,), flags = which optional arguments were given."""
+    """Runs encode + denoise once; returns {(phase, shape, flags, pre): count}
+    of the calls to `modconv.<attr>` (a kernel wrapper), shape = x's shape +
+    (Cout,), flags = which optional arguments were given, pre = (shift
+    given, SiLU given), the pre-activation the call hands on."""
     seen = {}
     original = getattr(modconv, attr)
     phase = ["encode"]
 
-    def recorder(x, kernel, *rest):
-        key = (phase[0], tuple(x.shape) + (kernel.shape[-1],), tuple(a is not None for a in rest))
+    def recorder(x, kernel, *rest, **pre):
+        key = (phase[0], tuple(x.shape) + (kernel.shape[-1],), tuple(a is not None for a in rest),
+               (pre.get("shift") is not None, pre.get("act") is not None))
         seen[key] = seen.get(key, 0) + 1
-        return original(x, kernel, *rest)
+        return original(x, kernel, *rest, **pre)
 
     setattr(modconv, attr, recorder)
     try:
@@ -424,7 +426,8 @@ def record_calls(model, modconv, attr, pan, ms, prompt, x_t, t):
 
 
 def path_shapes(model, modconv, attr, gen):
-    """{(bands, shape, flags): launches per dpm++ request} of one wrapper."""
+    """{(bands, shape, flags, pre): launches per dpm++ request} of one
+    wrapper (record_calls' keys)."""
     shapes = {}
     for bands in (8, 4):
         pan = torch.rand(BATCH, 1, SIZE, SIZE, device=DEV, generator=gen)
@@ -432,18 +435,21 @@ def path_shapes(model, modconv, attr, gen):
         x_t = torch.randn(BATCH, bands, SIZE, SIZE, device=DEV, generator=gen)
         prompt = torch.randn(PROMPT_DIM, device=DEV, generator=gen)
         t = torch.full((BATCH,), 500.0, device=DEV)
-        for (phase, shape, flags), n in record_calls(model, modconv, attr, pan, ms, prompt,
-                                                     x_t, t).items():
-            key = (bands, shape, flags)
+        for (phase, shape, flags, pre), n in record_calls(model, modconv, attr, pan, ms,
+                                                          prompt, x_t, t).items():
+            key = (bands, shape, flags, pre)
             shapes[key] = shapes.get(key, 0) + n * (NFE if phase == "denoise" else 1)
     return shapes
 
 
 def kernel_phase(model, K, modconv, gen):
     # ((b, d, h, w, cin, cout), (style, bias, accumulate)) -> {bands: launches per request}
+    # (the fp32 kernel takes no pre-activation: a conv given one counts with its shape)
     shapes = {}
-    for (bands, shape, flags), n in path_shapes(model, modconv, "banded_conv3d", gen).items():
-        shapes.setdefault((shape, flags), {})[bands] = n
+    for (bands, shape, flags, _), n in path_shapes(model, modconv, "banded_conv3d",
+                                                   gen).items():
+        per = shapes.setdefault((shape, flags), {})
+        per[bands] = per.get(bands, 0) + n
     print(f"[kernel] {len(shapes)} distinct 3x3x3 conv shapes and options", flush=True)
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "fp32_ffma_bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
@@ -585,7 +591,7 @@ def conv2d_phase(model, K3, modconv, gen):
               "useful_flops": 0.0}
     max_err = max_rel = 0.0
     variants = {}
-    for (bands, shape, (has_style, has_bias)), n in sorted(shapes.items()):
+    for (bands, shape, (has_style, has_bias), _), n in sorted(shapes.items()):
         b, h, w, c2, cout2 = shape
         d, cin, cout = bands, c2 // bands, cout2 // bands
         x = torch.randn(b, h, w, c2, device=DEV, generator=gen)
@@ -802,6 +808,11 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense
 # order land at most one step apart) plus the fp32 conv bar for the tensor
 # cores' accumulation.
 BF16_CONV_RTOL = CONV_RTOL
+# A launch given the pre-activation silu(x + shift): K1's SiLU (the MUFU's
+# ex2 and rcp) rounds about one operand element in a thousand one bf16 step
+# from F.silu's, which moves each output by its weights times that step:
+# one bf16 step at the output's scale, as tests/test_torch_cuda.py holds it.
+BF16_PREACT_RTOL = 2.0 ** -7
 BF16_SAMPLE_ATOL = 1e-2  # a bf16 request against itself through the plain bf16 convs
 BF16_VS_FP32 = 5e-2      # a bf16 request against the fp32 kernel request
 BF16_VARIANTS = {"bf16", "bf16_splitk"}
@@ -813,28 +824,32 @@ def bf16_half_step(t):
     return torch.where(a > 0, torch.exp2(e - 8), torch.zeros_like(a))
 
 
-def bf16_check(got, ref, what):
+def bf16_check(got, ref, what, rtol=BF16_CONV_RTOL):
     """Holds a bf16 kernel output against its plain version (module note
-    above BF16_CONV_RTOL); returns the largest |got - ref|."""
+    above BF16_CONV_RTOL; BF16_PREACT_RTOL for a launch given a
+    pre-activation); returns the largest |got - ref|."""
     torch.cuda.synchronize()
     if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
         fail(f"{what}: dtypes {got.dtype} / {ref.dtype}, expected bfloat16")
     diff = (got.float() - ref.float()).abs()
     scale = ref.float().abs().max().item()
-    over = diff > bf16_half_step(got) + bf16_half_step(ref) + BF16_CONV_RTOL * scale
+    over = diff > bf16_half_step(got) + bf16_half_step(ref) + rtol * scale
     if over.any():
         fail(f"{what}: {int(over.sum())} elements beyond one bf16 step of the plain version")
     return diff.max().item()
 
 
 def bf16_conv_shapes(K, K3, modconv, model, gen):
-    """The bf16 K1 and K3 instances at every conv shape (with options) of the
-    bf16 model's one encode + one denoise at 8 and 4 bands, "banded" for K1
-    and "auto" for K3: each entry (the path's options, then all of them;
-    K1's shapes also through the K2 entry) against its plain version, the
-    variant taken, and times of kernel, plain version and the bf16 library
-    conv (cuDNN, benchmark mode) beside the bf16 bound. Returns per-request
-    totals (8-band request) for each kernel and the largest error."""
+    """The bf16 K1 and K3 instances at every conv shape (with options and
+    pre-activation) of the bf16 model's one encode + one denoise at 8 and 4
+    bands, "banded" for K1 and "auto" for K3: each entry (the path's
+    options, then all of them, each with the path's pre-activation; K1's
+    shapes also through the K2 entry without either) against its plain
+    version, the variant taken, and times of kernel and plain version as
+    the path calls them and of the bf16 library conv (cuDNN, benchmark
+    mode, on the activated and styled operand) beside the bf16 bound.
+    Returns per-request totals (8-band request) for each kernel and the
+    largest error."""
     out = {}
     for name, mod, impl in (("conv3d", K, "banded"), ("conv3x3_nhwc", K3, "auto")):
         model.use_conv_impl(impl)
@@ -845,7 +860,7 @@ def bf16_conv_shapes(K, K3, modconv, model, gen):
             model.use_conv_impl("banded")
         totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "ops_s": 0.0, "bytes_s": 0.0, "max_abs_err": 0.0, "shapes": len(shapes)}
-        for (bands, shape, flags), n in sorted(shapes.items()):
+        for (bands, shape, flags, (has_shift, has_act)), n in sorted(shapes.items()):
             *lead, cin, cout = shape
             taps = (3, 3, 3) if mod is K else (3, 3)
             x = torch.randn(*lead, cin, device=DEV, generator=gen).bfloat16()
@@ -855,26 +870,31 @@ def bf16_conv_shapes(K, K3, modconv, model, gen):
             s = (1.0 + 0.5 * torch.randn(lead[0], cin, device=DEV, generator=gen)).bfloat16()
             bias = torch.randn(cout, device=DEV, generator=gen).bfloat16()
             acc = torch.randn(*lead, cout, device=DEV, generator=gen).bfloat16()
+            sh = torch.randn(lead[0], cin, device=DEV, generator=gen).bfloat16()
+            pre = {"shift": sh if has_shift else None, "act": "silu"} if has_act else {}
             plain_fn = K.conv3d_plain if mod is K else K3.conv3x3_nhwc_plain
             entry = getattr(mod, "banded_conv3d" if mod is K else "conv3x3_nhwc")
-            entries = [(entry, flags), (entry, (True,) * len(flags))]
+            entries = [(entry, flags, pre), (entry, (True,) * len(flags), pre)]
             if mod is K:
-                entries.append((K.banded_conv3d_v2, (False, False, False)))
+                entries.append((K.banded_conv3d_v2, (False, False, False), {}))
             errs = []
             with torch.no_grad():
-                for fn, given in entries:
+                for fn, given, kw in entries:
                     opts = [t if f else None for t, f in zip((s, bias, acc), given)]
                     fresh = lambda: [t.clone() if t is acc else t for t in opts]
-                    got, variant = launched_variant(mod, lambda: fn(x, k, *fresh()))
+                    got, variant = launched_variant(mod, lambda: fn(x, k, *fresh(), **kw))
                     if variant not in BF16_VARIANTS:
                         fail(f"bf16 {name} {shape} took the {variant} variant")
-                    errs.append(bf16_check(got, plain_fn(x, k, *fresh()),
-                                           f"bf16 {name} {shape} {fn.__name__} {given}"))
+                    errs.append(bf16_check(got, plain_fn(x, k, *fresh(), **kw),
+                                           f"bf16 {name} {shape} {fn.__name__} {given} "
+                                           f"shift={has_shift and bool(kw)} silu={bool(kw)}",
+                                           BF16_PREACT_RTOL if kw else BF16_CONV_RTOL))
                 opts = [t if f else None for t, f in zip((s, bias, acc), flags)]
-                ms_k = cuda_ms(lambda: entry(x, k, *opts), 10)
-                ms_p = cuda_ms(lambda: plain_fn(x, k, *opts), 1)
+                ms_k = cuda_ms(lambda: entry(x, k, *opts, **pre), 10)
+                ms_p = cuda_ms(lambda: plain_fn(x, k, *opts, **pre), 1)
                 perm = (0, 4, 1, 2, 3) if mod is K else (0, 3, 1, 2)
-                xs = (x * s.view(lead[0], *[1] * (len(lead) - 1), cin) if flags[0] else x)
+                xa = K.preact(x, **pre)
+                xs = (xa * s.view(lead[0], *[1] * (len(lead) - 1), cin) if flags[0] else xa)
                 wl = k.permute(len(taps) + 1, len(taps), *range(len(taps))).contiguous()
                 conv = F.conv3d if mod is K else F.conv2d
                 bi = bias if flags[1] else None
@@ -888,10 +908,10 @@ def bf16_conv_shapes(K, K3, modconv, model, gen):
                 flops = 2.0 * b * cin * cout * valid_taps(h) * valid_taps(w)
             nbytes = 2.0 * (positions * (cin + cout * (2 if len(flags) > 2 and flags[2] else 1))
                             + n_taps * cin * cout + (lead[0] * cin if flags[0] else 0)
-                            + (cout if flags[1] else 0))
+                            + (cout if flags[1] else 0) + (lead[0] * cin if has_shift else 0))
             bnd, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
             print(f"[bf16] {name} bands={bands} {tuple(lead)} {cin}->{cout} options={flags} "
-                  f"variant={variant} launches/request={n} ms={ms_k:.4f} plain_ms={ms_p:.4f} "
+                  f"shift={int(has_shift)} silu={int(has_act)} variant={variant} launches/request={n} ms={ms_k:.4f} plain_ms={ms_p:.4f} "
                   f"library_ms(bf16)={ms_l:.4f} bound_ms={bnd:.4f} ({bound_by}) "
                   f"share_of_bound={bnd / ms_k:.3f} max abs err={max(errs):.3g}", flush=True)
             totals["max_abs_err"] = max(totals["max_abs_err"], *errs)
@@ -2011,9 +2031,10 @@ def train_graphed_phase(K, new_model, new_trainer, prompts, datasets, dtype=torc
             seq = []
             real = K._launch
 
-            def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+            def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None, **pre):
                 before = dict(K.variant_launches)
-                y = real(x, kernel, style, bias, out, input_grad=input_grad, unsharded=unsharded)
+                y = real(x, kernel, style, bias, out, input_grad=input_grad, unsharded=unsharded,
+                         **pre)
                 seq.append((input_grad, next(v for v in K.VARIANTS
                                              if K.variant_launches[v] != before[v])))
                 return y
@@ -2110,11 +2131,11 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
     shapes = {}
     launch = K._launch
 
-    def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+    def recorder(x, kernel, style, bias, out, input_grad=False, unsharded=None, **pre):
         if input_grad:
             key = tuple(x.shape) + (kernel.shape[-1],)
             shapes[key] = shapes.get(key, 0) + 1
-        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+        return launch(x, kernel, style, bias, out, input_grad, unsharded, **pre)
 
     K._launch = recorder
     try:
@@ -2852,10 +2873,10 @@ def recording(modconv, seen):
     originals = {"K1": modconv.banded_conv3d, "K3": modconv.conv3x3_nhwc}
 
     def recorder(name):
-        def call(x, kernel, *rest):
+        def call(x, kernel, *rest, **kw):
             key = (tuple(x.shape), tuple(kernel.shape), tuple(a is not None for a in rest))
             seen[name][key] = seen[name].get(key, 0) + 1
-            return originals[name](x, kernel, *rest)
+            return originals[name](x, kernel, *rest, **kw)
         return call
 
     modconv.banded_conv3d, modconv.conv3x3_nhwc = recorder("K1"), recorder("K3")
@@ -3207,15 +3228,15 @@ def live_controlnet(base, gen):
 
 
 def recorded_convs(K, lib, fn):
-    """fn()'s result and the K1 launches (x, kernel, style, bias, out) and
-    library convs (kind, x, weight, bias) it made, as tensors kept for
-    timing."""
+    """fn()'s result and the K1 launches (x, kernel, style, bias, out, pre:
+    the launch's pre-activation keywords, {} for none) and library convs
+    (kind, x, weight, bias) it made, as tensors kept for timing."""
     k1, convs = [], []
     launch, conv = K._launch, lib._Conv
 
-    def record_launch(x, kernel, style, bias, out, input_grad=False, unsharded=None):
-        k1.append((x, kernel, style, bias, None if out is None else out.clone()))
-        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+    def record_launch(x, kernel, style, bias, out, input_grad=False, unsharded=None, **pre):
+        k1.append((x, kernel, style, bias, None if out is None else out.clone(), pre))
+        return launch(x, kernel, style, bias, out, input_grad, unsharded, **pre)
 
     class Recorded(conv):
         @staticmethod
@@ -3234,8 +3255,8 @@ def controlnet_times(K, lib, k1, convs):
     """The summed device ms of the recorded K1 launches (kernel and plain
     version) and library convs, each call timed alone with events."""
     with torch.no_grad():
-        ms = sum(cuda_ms(lambda a=a: K._launch(*a), 3) for a in k1)
-        plain_ms = sum(cuda_ms(lambda a=a: K.conv3d_plain(*a[:4], None), 1) for a in k1)
+        ms = sum(cuda_ms(lambda a=a: K._launch(*a[:5], **a[5]), 3) for a in k1)
+        plain_ms = sum(cuda_ms(lambda a=a: K.conv3d_plain(*a[:4], None, **a[5]), 1) for a in k1)
         by_kind = {}
         for kind, x, w in convs:
             by_kind[kind] = by_kind.get(kind, 0.0) + cuda_ms(lambda: lib._Conv.apply(x, w, kind), 3)
@@ -3426,11 +3447,12 @@ BF16_WEIGHT_GRAD_RTOL = 2.0 ** -8
 
 
 def legacy_k1_bf16_shapes(K, k1):
-    """Each recorded bf16 K1 launch (x, kernel, style, bias, out) of a legacy
-    forward against its plain bf16 version element by element (bf16_check),
-    timed beside the plain version, the bf16 library conv (F.conv3d, cuDNN
-    benchmark mode) and the bf16 bound; and the bf16 weight gradient of its
-    operand bf16(x s) with a random dy against fp32 sums of the same
+    """Each recorded bf16 K1 launch (x, kernel, style, bias, out, pre) of a
+    legacy forward, its pre-activation included, against its plain bf16
+    version element by element (bf16_check), timed beside the plain
+    version, the bf16 library conv (F.conv3d, cuDNN benchmark mode) and the
+    bf16 bound; and the bf16 weight gradient of its operand bf16(a s) (a the
+    activated x) with a random dy against fp32 sums of the same
     operands (beyond one bf16 step: BF16_WEIGHT_GRAD_RTOL of scale). Returns
     the sums, the largest error and the weight gradient's largest excess."""
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0,
@@ -3439,20 +3461,23 @@ def legacy_k1_bf16_shapes(K, k1):
     shapes = set()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     with torch.no_grad():
-        for x, k, st, bi, out in k1:
+        for x, k, st, bi, out, pre in k1:
             fresh = lambda: None if out is None else out.clone()
             b, d, h, w, cin = x.shape
             cout = k.shape[-1]
             shapes.add((h, w, cin, cout, out is not None))
-            got, variant = launched_variant(K, lambda: K._launch(x, k, st, bi, fresh()))
+            got, variant = launched_variant(K, lambda: K._launch(x, k, st, bi, fresh(), **pre))
             if variant not in BF16_VARIANTS:
                 fail(f"legacy bf16 conv {tuple(x.shape)} -> {cout} took {variant}")
             tot["max_abs_err"] = max(tot["max_abs_err"], bf16_check(
-                got, K.conv3d_plain(x, k, st, bi, fresh()), f"legacy bf16 conv {tuple(x.shape)}"))
+                got, K.conv3d_plain(x, k, st, bi, fresh(), **pre),
+                f"legacy bf16 conv {tuple(x.shape)} {sorted(pre)}",
+                BF16_PREACT_RTOL if pre else BF16_CONV_RTOL))
             acc = fresh()
-            tot["ms"] += cuda_ms(lambda: K._launch(x, k, st, bi, acc), 3)
-            tot["plain_ms"] += cuda_ms(lambda: K.conv3d_plain(x, k, st, bi, acc), 1)
-            xs = x if st is None else x * st.view(b, 1, 1, 1, cin)
+            tot["ms"] += cuda_ms(lambda: K._launch(x, k, st, bi, acc, **pre), 3)
+            tot["plain_ms"] += cuda_ms(lambda: K.conv3d_plain(x, k, st, bi, acc, **pre), 1)
+            xa = K.preact(x, **pre)
+            xs = xa if st is None else xa * st.view(b, 1, 1, 1, cin)
             dy = torch.randn(got.shape, device=DEV, generator=gen).bfloat16()
             dw32 = K.conv3d_weight_grad(xs.float(), dy.float())
             excess = ((K.conv3d_weight_grad(xs, dy).float() - dw32).abs()
@@ -3684,10 +3709,10 @@ def launch_recorder(seen: set, launch):
     shape, the kernel's shape and strides, which of style, bias and out it
     was given, the unsharded call's (B, H)) to `seen`, then calls
     `launch`."""
-    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None):
+    def record(x, kernel, style, bias, out, input_grad=False, unsharded=None, **pre):
         seen.add((bool(input_grad), tuple(x.shape), tuple(kernel.shape), tuple(kernel.stride()),
                   style is not None, bias is not None, out is not None, unsharded))
-        return launch(x, kernel, style, bias, out, input_grad, unsharded)
+        return launch(x, kernel, style, bias, out, input_grad, unsharded, **pre)
 
     return record
 

@@ -14,7 +14,10 @@ input gradient and cuDNN's bf16 weight gradient at the training and legacy
 shapes, a concat's parts, a bf16 training step); Trainer.compiled_step on
 a (2, 1) NCCL world against train_step (two cards) and its refusal of a
 gloo world on card 0; the card-only spans of utils/profiling.py
-(compiled_step's capture and replays, K1's plan on a miss). Marked `cuda`;
+(compiled_step's capture and replays, K1's plan on a miss); K1 bf16's fused
+pre-activation (silu(x + shift) applied as it stages its operand) against
+the same launch after PyTorch's ops, at the serving shapes, split, ragged
+and concat cases, and in the bf16 model's block-cached calls. Marked `cuda`;
 each test
 skips where no GPU is present. This file imports neither jax nor the JAX
 package, so it runs where only the port is installed:
@@ -1316,10 +1319,10 @@ def _full_width_bf16_shapes(cuda, impl):
     originals = {n: getattr(modconv, n) for n in ("banded_conv3d", "conv3x3_nhwc")}
 
     def recorder(name):
-        def rec(x, kernel, *rest):
+        def rec(x, kernel, *rest, **kw):
             seen.add((name, tuple(x.shape) + (kernel.shape[-1],),
                       tuple(a is not None for a in rest)))
-            return originals[name](x, kernel, *rest)
+            return originals[name](x, kernel, *rest, **kw)
         return rec
 
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -1633,6 +1636,283 @@ def test_bf16_input_gradient_at_the_mesh_shard_shapes(cuda):
         whole = torch.empty((unsharded[0], d, unsharded[1], w, cin), device=cuda,
                             dtype=torch.bfloat16)
         assert K.plan(3, dy, d, cout, unsharded=unsharded)[1] == K.plan(3, whole, d, cout)[1]
+
+
+# -- bf16: K1's fused pre-activation ---------------------------------------
+
+
+def _preact_path_launches(cuda):
+    """{(x shape, Cout, (style, bias, out given), shift given, act)} of the
+    K1 calls of one encode_condition + denoise_deep + denoise_reuse (level
+    3, ddim_cached's) of the full-width bf16 WavBEST at 256x256, batch 2,
+    8 bands (serve-quality's) and 4 bands (serve-lowlatency's)."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops import modconv
+
+    model = WavBEST((32, 64, 128, 256), seed=0, dtype=torch.bfloat16)
+    seen, original = set(), modconv.banded_conv3d
+
+    def rec(x, kernel, *rest, shift=None, act=None, **kw):
+        seen.add((tuple(x.shape), kernel.shape[-1], tuple(a is not None for a in rest),
+                  shift is not None, act))
+        return original(x, kernel, *rest, shift=shift, act=act, **kw)
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    modconv.banded_conv3d = rec
+    try:
+        with torch.no_grad():
+            for bands in (8, 4):
+                shape = (2, bands, 256, 256)
+                cache = model.encode_condition(
+                    torch.rand(2, 1, 256, 256, device=cuda, generator=g),
+                    torch.rand(shape, device=cuda, generator=g),
+                    torch.randn(768, device=cuda, generator=g))
+                x = torch.randn(shape, device=cuda, generator=g)
+                t = torch.full((2,), 500.0, device=cuda)
+                _, deep = model.denoise_deep(x, t, cache, cache_level=3)
+                model.denoise_reuse(x, t - 25, cache, deep, cache_level=3)
+    finally:
+        modconv.banded_conv3d = original
+    return seen
+
+
+def assert_within_one_bf16_step(got, ref, what=""):
+    """`got` within one bf16 step of the output (the spacing at the largest
+    |ref|) of `ref`: the fused SiLU (the MUFU's ex2 and rcp) rounds a rare
+    operand element one bf16 step from F.silu's (test_bf16_preact_operand),
+    which moves an output by a weight times that step."""
+    assert got.dtype == ref.dtype == torch.bfloat16, (got.dtype, ref.dtype)
+    torch.cuda.synchronize()
+    step = 2 * bf16_half_step(ref.float().abs().max())
+    over = (got.float() - ref.float()).abs() > step
+    assert not over.any().item(), f"{what}: {int(over.sum())} elements beyond one bf16 step"
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 9, 17, 40), (1, 8, 64, 64, 64)])
+def test_bf16_preact_operand(cuda, shape):
+    """The fused operand itself: K1 with a one-tap identity kernel (Cout =
+    Cin, W[tap] = I) returns its staged operand a = bf16(bf16(silu(bf16(x +
+    shift))) * s), shifted by the tap. At each of the 27 taps, every element
+    within one bf16 step (the spacing at |a|) of the same ops in PyTorch,
+    and exactly 0 where the tap reads the SAME padding (a large positive
+    shift, so silu(0 + shift) would show there); over all taps at most one
+    element in a thousand a step apart. With x spread over [-80, 80] the
+    SiLU's whole range, its tails included, is read."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    b, d, h, w, c = shape
+    g = torch.Generator(device=cuda).manual_seed(15)
+    x = (torch.randn(shape, device=cuda, generator=g) * 3).bfloat16()
+    x.view(-1)[: x.numel() // 8] = torch.linspace(-80, 80, x.numel() // 8, device=cuda)
+    shift = (2 + torch.rand(b, c, device=cuda, generator=g)).bfloat16()
+    s = (1 + 0.5 * torch.randn(b, c, device=cuda, generator=g)).bfloat16()
+    a = K.preact(x, shift, "silu") * s[:, None, None, None, :]
+    ap = torch.nn.functional.pad(a.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    inside = torch.nn.functional.pad(torch.ones(shape, device=cuda), (0, 0, 1, 1, 1, 1, 1, 1))
+    off = 0
+    for tap in range(27):
+        i, j, k = tap // 9, tap // 3 % 3, tap % 3
+        kern = torch.zeros(3, 3, 3, c, c, device=cuda, dtype=torch.bfloat16)
+        kern[i, j, k] = torch.eye(c, device=cuda)
+        with torch.no_grad():
+            got = K.banded_conv3d(x, kern, s, shift=shift, act="silu").float()
+        ref = ap[:, i:i + d, j:j + h, k:k + w]
+        pad = inside[:, i:i + d, j:j + h, k:k + w] == 0
+        assert torch.equal(got[pad], torch.zeros_like(got[pad])), tap
+        diff = (got - ref).abs()
+        assert not (diff > 2 * bf16_half_step(ref)).any().item(), tap
+        off += int((diff > 0).sum())
+    assert off <= 1e-3 * 27 * x.numel(), off
+
+
+def _preact_case(cuda, shape, seed, shift_loc=0.0):
+    x, k, s, bias, out = (t.bfloat16() for t in _random_conv(cuda, shape, seed))
+    g = torch.Generator(device=cuda).manual_seed(seed + 100)
+    shift = (shift_loc + torch.randn(shape[0], shape[4], device=cuda, generator=g)).bfloat16()
+    return x, k, (1 + 0.5 * s.float()).bfloat16(), bias, out, shift
+
+
+def _fused_and_unfused(K, x, k, opts, shift, act):
+    """K1 with the pre-activation in its launch, and K1 after PyTorch's
+    ops (K.preact): the same launch on the same operand."""
+    fresh = lambda: [t.clone() if i == 2 and t is not None else t for i, t in enumerate(opts)]
+    with torch.no_grad():
+        K.reset_launches()
+        got = K.banded_conv3d(x, k, *fresh(), shift=shift, act=act)
+        assert (K.preact_fused, K.preact_unfused, K.launches) == (1, 0, 1)
+        ref = K.banded_conv3d(K.preact(x, shift, act), k, *fresh())
+        assert (K.preact_fused, K.preact_unfused, K.launches) == (1, 1, 2)
+    assert {v for v, n in K.variant_launches.items() if n} <= {"bf16", "bf16_splitk"}
+    return got, ref
+
+
+def test_bf16_preact_at_the_serving_shapes(cuda):
+    """Every K1 call (shape, options, pre-activation) of a batch of either
+    serve cell's block-cached calls, at batch 2 and 8: the fused launch
+    within one bf16 step of the output of the same launch after PyTorch's
+    add and SiLU, and the conv with every option besides (style, bias,
+    accumulation)."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    launches = _preact_path_launches(cuda)
+    fused = [c for c in launches if c[4]]
+    heights = sorted({shape[2] for shape, *_ in fused})
+    assert heights == [32, 64, 128, 256] and len(fused) < len(launches), heights
+    for i, (shape, cout, given, has_shift, act) in enumerate(sorted(fused, key=repr)):
+        for b in (2, 8):
+            x, k, s, bias, out, shift = _preact_case(cuda, (b, *shape[1:], cout), i)
+            for opts in ([t if f else None for t, f in zip((s, bias, out), given)],
+                         [s, bias, out]):
+                got, ref = _fused_and_unfused(K, x, k, opts, shift if has_shift else None, act)
+                assert_within_one_bf16_step(got, ref, f"{(b, *shape[1:])} -> {cout} {given}")
+
+
+@pytest.mark.parametrize("shape", [
+    (2, 8, 16, 16, 8, 32), (1, 3, 5, 7, 24, 5), (2, 4, 2, 2, 64, 256), (2, 8, 33, 40, 96, 33),
+    (1, 1, 1, 1, 8, 8), (2, 8, 20, 24, 40, 33), (1, 4, 9, 17, 72, 130), (2, 6, 11, 19, 200, 70),
+])
+@pytest.mark.parametrize("splits", [None, 3])
+def test_bf16_preact_off_the_tile_and_split(cuda, shape, splits):
+    """Ragged shapes (a window over a 1x1 or 2x2 image, H, W and D off the
+    tile, Cin off the channel step) with a large positive shift, so that
+    act(0 + shift) in the padding would show at every border, on every
+    (BN, channel step) instance, with the plan's split count and a forced
+    split: style-free, shift-free and all options, within one bf16 step of
+    the output of the same launch after PyTorch's ops."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, k, s, bias, out, shift = _preact_case(cuda, shape, 5, shift_loc=4.0)
+    cases = (((None, None, None), shift, "silu"), ((s, bias, out), shift, "silu"),
+             ((s, None, None), None, "silu"))
+    for opts, sh, act in cases:
+        with forced_splits(K, splits) if splits else contextlib.nullcontext():
+            got, ref = _fused_and_unfused(K, x, k, list(opts), sh, act)
+        assert_within_one_bf16_step(got, ref, f"{shape} splits={splits} {sh is not None} {act}")
+
+
+def test_bf16_preact_concat_parts_accumulate(cuda):
+    """A decoder conv over three concat parts (serve-quality's final block,
+    3 x 32 -> 32 at 256x256) through modconv.conv3d_cat: each part's launch
+    applies its own slice of the shift and accumulates into the output;
+    within one bf16 step of the output of the parts after PyTorch's ops."""
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    g = torch.Generator(device=cuda).manual_seed(12)
+    parts = tuple(torch.randn(2, 8, 256, 256, 32, device=cuda, generator=g).bfloat16()
+                  for _ in range(3))
+    k = torch.randn(3, 3, 3, 96, 32, device=cuda, generator=g) / (27 * 96) ** 0.5
+    bias = torch.randn(32, device=cuda, generator=g)
+    shift = torch.randn(2, 96, device=cuda, generator=g).bfloat16()
+    with torch.no_grad():
+        K.reset_launches()
+        got = modconv.conv3d_cat(parts, k, bias=bias, shift=shift, act="silu")
+        assert (K.preact_fused, K.preact_unfused, K.launches) == (3, 0, 3)
+        ref = modconv.conv3d_cat(tuple(K.preact(p, shift[:, 32 * i:32 * (i + 1)], "silu")
+                                       for i, p in enumerate(parts)), k, bias=bias)
+    assert_within_one_bf16_step(got, ref, "concat parts")
+
+
+def test_bf16_preact_takes_a_strided_view(cuda):
+    """A decoder input cropped to its skip's grid (the legacy models'
+    crop_to: a view, not contiguous) given a pre-activation: the fused
+    launch takes a contiguous copy and equals the launch on one."""
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(2, 8, 66, 66, 64, device=cuda, generator=g).bfloat16()[:, :, :63, :63]
+    k = (torch.randn(3, 3, 3, 64, 32, device=cuda, generator=g) / (27 * 64) ** 0.5).bfloat16()
+    shift = torch.randn(2, 64, device=cuda, generator=g).bfloat16()
+    assert not x.is_contiguous()
+    with torch.no_grad():
+        K.reset_launches()
+        got = modconv.conv3d(x, k, shift=shift, act="silu")
+        ref = modconv.conv3d(x.contiguous(), k, shift=shift, act="silu")
+    assert (K.preact_fused, K.preact_unfused, K.launches) == (2, 0, 2)
+    assert torch.equal(got, ref)
+
+
+def test_bf16_model_preact_fused_against_unfused(cuda):
+    """The full-width bf16 WavBEST at 8 bands, batch 2, 128x128 on the same
+    draws: encode_condition, denoise_deep and denoise_reuse (level 3) with
+    the pre-activations fused, against the same calls with every K1 call
+    given silu(x + shift) by PyTorch's ops first. Fused launches a call: 13
+    of encode's 13, 43 of denoise's 52, 21 of the level-3 reuse's 24; no
+    unfused one. Each output within 1e-2 of its scale of the unfused one
+    (a rare operand element a bf16 step apart, test_bf16_preact_operand,
+    moves the rest of the network)."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    model = WavBEST((32, 64, 128, 256), seed=0, dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    pan = torch.rand(2, 1, 128, 128, device=cuda, generator=g)
+    ms = torch.rand(2, 8, 128, 128, device=cuda, generator=g)
+    prompt = torch.randn(768, device=cuda, generator=g)
+    x = torch.randn(2, 8, 128, 128, device=cuda, generator=g)
+    t = torch.tensor([700.0, 240.0], device=cuda)
+
+    def calls(counts):
+        with torch.no_grad():
+            K.reset_launches()
+            cache = model.encode_condition(pan, ms, prompt)
+            counts.append((K.preact_fused, K.preact_unfused, K.launches))
+            K.reset_launches()
+            y, deep = model.denoise_deep(x, t, cache, cache_level=3)
+            counts.append((K.preact_fused, K.preact_unfused, K.launches))
+            K.reset_launches()
+            z = model.denoise_reuse(x, t - 50, cache, deep, cache_level=3)
+            counts.append((K.preact_fused, K.preact_unfused, K.launches))
+        return cache["feats"][-1], y, z
+
+    fused_counts, unfused_counts = [], []
+    got = calls(fused_counts)
+    assert fused_counts == [(13, 0, 13), (43, 0, 52), (21, 0, 24)], fused_counts
+    original = modconv.banded_conv3d
+
+    def unfused(x, kernel, *rest, shift=None, act=None, **kw):
+        return original(K.preact(x, shift, act), kernel, *rest, **kw)
+
+    modconv.banded_conv3d = unfused
+    try:
+        ref = calls(unfused_counts)
+    finally:
+        modconv.banded_conv3d = original
+    assert unfused_counts == [(0, 13, 13), (0, 43, 52), (0, 21, 24)], unfused_counts
+    torch.cuda.synchronize()
+    for name, a, b in zip(("encode", "deep", "reuse"), got, ref):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= 1e-2 * scale, name
+
+
+def test_fp32_and_training_take_the_preact_unfused(cuda):
+    """Where the fusion does not engage on the card: an fp32 model's
+    forward and a bf16 conv under a gradient compute the pre-activation
+    with PyTorch ops (preact_unfused) and launch K1 without it."""
+    from tmdiff_tpu_torch.models.wavbest import WavBEST
+    from tmdiff_tpu_torch.ops import modconv
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    model = WavBEST((8, 16, 32, 64), seed=0)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    args = (torch.randn(2, 8, 32, 32, device=cuda, generator=g),
+            torch.tensor([3.0, 600.0], device=cuda),
+            torch.rand(2, 1, 32, 32, device=cuda, generator=g),
+            torch.rand(2, 8, 32, 32, device=cuda, generator=g),
+            torch.randn(768, device=cuda, generator=g))
+    K.reset_launches()
+    with torch.no_grad():
+        model(*args)
+    assert (K.preact_fused, K.preact_unfused, K.dtype_launches["float32"]) == (0, 56, 65)
+    x = torch.randn(2, 4, 8, 8, 16, device=cuda, generator=g).bfloat16().requires_grad_()
+    k = torch.randn(3, 3, 3, 16, 8, device=cuda, generator=g)
+    K.reset_launches()
+    y = modconv.conv3d(x, k.bfloat16(), shift=torch.ones(2, 16, device=cuda).bfloat16(),
+                       act="silu")
+    y.float().sum().backward()
+    assert (K.preact_fused, K.preact_unfused, K.launches) == (0, 1, 2)
 
 
 def test_compiled_step_spans_capture_once_then_replay(cuda):

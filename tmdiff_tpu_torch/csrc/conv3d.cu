@@ -9,10 +9,12 @@
 //     run as D = 1.
 //
 //   y[b,d,h,w,o] = bias[o] (+ y[b,d,h,w,o] when accumulating)
-//                + sum_{i,j,k,c} W[i,j,k,c,o] * s[b,c] * x[b,d+i-KD/2,h+j-1,w+k-1,c]
+//                + sum_{i,j,k,c} W[i,j,k,c,o] * s[b,c] * a[b,d+i-KD/2,h+j-1,w+k-1,c]
 //
-// with zeros outside the input. `s` (B, Cin) is the per-sample style of a
-// modulated conv and `bias` (Cout) the conv bias; both are optional. The
+// with a = x, or in the bf16 K1 instance a = silu(x + shift[b,c]) (the
+// input's pre-activation, its shift optional), and zeros outside the input.
+// `s` (B, Cin) is the per-sample style of a modulated conv and `bias` (Cout)
+// the conv bias; all are optional. The
 // accumulate mode (3x3x3 entry only) lets a decoder conv over a channel concat
 // run one launch per part without materialising the concat.
 //
@@ -94,14 +96,25 @@
 //     (channel step, tap) (bulk copy), in a ring as deep as the shared
 //     memory left beside the halos (BfTile::STAGES: 4 at KD = 3, BN = 128,
 //     CK = 64, up to 16), so the producer runs far ahead of narrow tiles.
-//   * Style: applied once per staged halo, by the producer warpgroup's
-//     warps 1-3: when a halo lands they rewrite it in place as bf16(x * s)
-//     and arrive on halo_ready, which the consumers wait on instead of the
-//     TMA's barrier; the taps read ready A and the consumers never touch
-//     the style.
+//   * Operand pass: the style, and in K1 a pre-activation of the input,
+//     x -> silu(x + shift) with an optional shift (B, Cin) (the model's
+//     `silu(h + temb)` before a conv), applied once per staged
+//     halo by the producer warpgroup's warps 1-3: when a halo lands they
+//     rewrite it in place as bf16(bf16(silu(bf16(x + shift))) * s), rounded
+//     where PyTorch's unfused bf16 ops round (the add and the product one
+//     bf16 FMA a pair each, the SiLU with the MUFU's ex2 and rcp, within a
+//     bf16 step of F.silu), leaving the positions outside
+//     the image at the TMA's zeros (the SAME padding of the activated
+//     tensor), and arrive on halo_ready, which the consumers wait on
+//     instead of the TMA's barrier; the taps read ready A and the consumers
+//     never touch the style or the pre-activation. The pass runs beside the
+//     other halo buffer's taps, so the model writes neither x + shift nor
+//     its SiLU to device memory.
 //   * Persistent: one wave of blocks walks the work items (spatial tile
 //     fastest, then N tile, then split), the producer loading the next
-//     item's halo and weights during this one's last taps and epilogue.
+//     item's first halo where it would load this item's next channel step
+//     (early in the last step: the operand pass has most of a step to
+//     rewrite it), and its weights during this one's last taps and epilogue.
 //   * Waits: each row block commits its products of a tap as one group; its
 //     A of the next tap loads into the second of two register buffers as
 //     soon as its group of the previous tap is done (wait_group 2), while
@@ -410,31 +423,43 @@ __device__ __forceinline__ void init_stage_barriers(uint64_t* halo_full, uint64_
   __syncthreads();
 }
 
+// A halo's channel step and the origin of its output tile.
+struct HaloAt {
+  int c, w0, h0, d0, b;
+};
+
 // The producer thread: the halo of each channel step of CK channels (TMA,
 // two buffers) and the weight image of each (channel step, tap) (bulk copy,
 // STAGES buffers), in the consumers' order. `wblk` is this block's N tile of
 // the weight images, W_BYTES per (channel step, tap). `halos` and `steps`
 // number the halos and weight stages this thread has issued before (0 for a
-// block's one tile; a persistent block carries them from tile to tile).
+// block's one tile; a persistent block carries them from tile to tile). A
+// persistent block passes `next`, the first halo of its next work item,
+// which is issued where this item's next halo would be in its last channel
+// step, and `issued` on the next call: so a work item of one channel step
+// has its halo a whole item ahead, time for the operand pass.
 template <int KD, int TAPS, int HALO_BYTES, int W_BYTES, int CK = kCK, int STAGES = kStages>
 __device__ __forceinline__ void produce(const CUtensorMap* map, const unsigned char* wblk,
                                         unsigned char* halo, unsigned char* wst,
                                         uint64_t* halo_full, uint64_t* halo_empty,
                                         uint64_t* w_full, uint64_t* w_empty, int cb_begin,
                                         int cb_end, int w0, int h0, int d0, int b, int& halos,
-                                        int& steps) {
-  auto load_halo = [&](int c) {
+                                        int& steps, bool issued = false,
+                                        const HaloAt* next = nullptr) {
+  auto load = [&](const HaloAt& a) {
     const int i = halos++, s = i & 1;
     mbar_wait(&halo_empty[s], ((i >> 1) & 1) ^ 1);
     mbar_expect_tx(&halo_full[s], HALO_BYTES);
-    tma_load_halo(halo + s * HALO_BYTES, map, &halo_full[s], c * CK, w0 - 1, h0 - 1,
-                  d0 - KD / 2, b);
+    tma_load_halo(halo + s * HALO_BYTES, map, &halo_full[s], a.c * CK, a.w0 - 1, a.h0 - 1,
+                  a.d0 - KD / 2, a.b);
   };
+  auto load_halo = [&](int c) { load(HaloAt{c, w0, h0, d0, b}); };
   // With STAGES < TAPS the consumers have finished step (c, 0) once stage
-  // (c, STAGES) is free, so the other halo buffer (step c - 1) is free too;
-  // with a deeper ring the producer waits for it after the step's last tap.
+  // (c, STAGES) is free, so the other halo buffer (step c - 1, or the last
+  // of the previous item) is free too; with a deeper ring the producer waits
+  // for it after the step's last tap.
   constexpr int kHaloTap = STAGES < TAPS - 1 ? STAGES : TAPS - 1;
-  if (cb_begin < cb_end) load_halo(cb_begin);
+  if (cb_begin < cb_end && !issued) load_halo(cb_begin);
   for (int c = cb_begin; c < cb_end; ++c) {
     for (int tap = 0; tap < TAPS; ++tap) {
       const int step = steps++, s = step % STAGES;
@@ -444,6 +469,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* map, const unsigned c
                 &w_full[s]);
       // The next halo lands during this step.
       if (tap == kHaloTap && c + 1 < cb_end) load_halo(c + 1);
+      if (tap == kHaloTap && c + 1 == cb_end && next) load(*next);
     }
   }
 }
@@ -749,9 +775,12 @@ struct BfTile {
   static constexpr int HALO_BYTES = HD * HH * HW * ROW_BYTES;
   static constexpr int W_BYTES = BN * CK * 2;  // KSTEPS k16 images of BN x 16 bf16, K-major
   static constexpr int SMEM_CAP = tc_min_blocks(BN) == 1 ? 232448 : 115712;
-  static constexpr int FREE = (SMEM_CAP - 2 * HALO_BYTES - 512) / W_BYTES;
+  // the operand pass's shifts and styles of a channel step, two buffers
+  static constexpr int TABLE_BYTES = 2 * 2 * CK * 2;
+  static constexpr int FREE = (SMEM_CAP - 2 * HALO_BYTES - TABLE_BYTES - 512) / W_BYTES;
   static constexpr int STAGES = FREE > 16 ? 16 : FREE;
-  static constexpr int SMEM_BYTES = 2 * HALO_BYTES + STAGES * W_BYTES + (6 + 2 * STAGES) * 8;
+  static constexpr int SMEM_BYTES =
+      2 * HALO_BYTES + STAGES * W_BYTES + TABLE_BYTES + (6 + 2 * STAGES) * 8;
   static_assert(CK == 32 || CK == 64, "channel step");
   static_assert(STAGES >= 4, "weight ring");
   static_assert(SMEM_BYTES <= SMEM_CAP, "shared memory");
@@ -802,33 +831,155 @@ struct BfItem {
   int b, d0, h0, w0, nb, split, cb_begin, cb_end;
 };
 
-// The producer warpgroup's warps 1-3 when the conv is styled: each halo, as
-// it lands, rewritten in place as bf16(x * s) (16 bytes a thread and turn),
-// then announced on halo_ready. `halos` numbers the halos as produce() does.
-template <int HALO_BYTES, int CK>
-__device__ __forceinline__ void style_halos(unsigned char* halo, uint64_t* halo_full,
-                                            uint64_t* halo_ready, const bf16* __restrict__ sb,
-                                            int Cin, int cb_begin, int cb_end, int& halos) {
+// Which positions of an item's halo lie inside the image, for the operand
+// pass: bit wx (wx < HW) for the column w0 - 1 + wx, bit 18 + hy for the row
+// h0 - 1 + hy, bit 24 + dz for the depth d0 - 1 + dz (the TMA box's origin,
+// KD = 3 only).
+template <int HD, int HH, int HW>
+__device__ __forceinline__ uint32_t halo_inside(const BfItem& m, int D, int H, int W) {
+  static_assert(HW <= 18 && HH <= 6 && HD <= 8, "halo mask bits");
+  auto in = [](int v, int n) { return static_cast<uint32_t>(static_cast<unsigned>(v) < n); };
+  uint32_t mask = 0;
+#pragma unroll
+  for (int i = 0; i < HW; ++i) mask |= in(m.w0 - 1 + i, W) << i;
+#pragma unroll
+  for (int i = 0; i < HH; ++i) mask |= in(m.h0 - 1 + i, H) << (18 + i);
+#pragma unroll
+  for (int i = 0; i < HD; ++i) mask |= in(m.d0 - 1 + i, D) << (24 + i);
+  return mask;
+}
+
+// a * b + c on two bf16 pairs, each rounded once (the exact product and sum):
+// with b = 1 it is PyTorch's bf16 add (an fp32 sum of two bf16, rounded), with
+// c = -0 its bf16 product (the exact fp32 product, rounded).
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// One staged halo's pre-activation pass (operand_halos): the chunks of this
+// thread that lie inside the image, rewritten as
+// bf16(bf16(silu(bf16(x + shift))) * s), with the chunk's 8 shifts and 8
+// styles read from the channel step's table `tab` (bf16 pairs). SiLU is
+// x / (1 + 2^(-x log2(e))) with the MUFU's ex2 and rcp: within about 1e-5 of
+// PyTorch's fp32 SiLU (expf and an IEEE division) relative to it (the
+// rounding of -x log2(e) grows with |x|), far inside a bf16 step, so the two
+// are one bf16 step apart at most once rounded, down to x = -87.3; below that
+// both are under 1e-35 in magnitude and this gives -0. The eight elements of
+// a chunk run as eight independent chains, one stage of all of them after the
+// other (ex2, then rcp), which keeps the MUFU busy from few registers: the
+// pass warps run at 32 or 40 registers (setmaxnreg).
+template <int CK, int HH, int HW>
+__device__ __forceinline__ void preact_halo(unsigned char* hb, const unsigned char* tab,
+                                            uint32_t inside, int tid) {
+  constexpr int kStylers = 96, kChunks = CK / 8, kPlane = HH * HW * kChunks;
+  const unsigned char* th = tab + 16 * (tid % kChunks);  // this chunk's shifts; styles 2 CK on
+  // The depth rows inside the image are one run of chunks [k_begin, k_end),
+  // and an item off the image's H and W edges needs no test a position.
+  const uint32_t rows = inside >> 24;
+  const int k_begin = (__ffs(rows) - 1) * kPlane, k_end = (32 - __clz(rows)) * kPlane;
+  const bool edge = (inside & 0xffffffu) != (((1u << HH) - 1) << 18 | ((1u << HW) - 1));
+#pragma unroll 1
+  for (int k = k_begin + tid; k < k_end; k += kStylers) {
+    if (edge) {
+      const int p = k / kChunks, wx = p % HW, hy = p / HW % HH;
+      if (!((inside >> wx) & (inside >> (18 + hy)) & 1u)) continue;
+    }
+    const uint4 v = *reinterpret_cast<const uint4*>(hb + 16 * k);
+    const uint4 h = *reinterpret_cast<const uint4*>(th);
+    // bf16(x + shift), PyTorch's add: one bf16 FMA (x * 1 + shift) a pair
+    constexpr uint32_t kOnes = 0x3f803f80u, kNegZeros = 0x80008000u;  // bf16 (1, 1), (-0, -0)
+    uint32_t t[4] = {fma_bf16x2(v.x, kOnes, h.x), fma_bf16x2(v.y, kOnes, h.y),
+                     fma_bf16x2(v.z, kOnes, h.z), fma_bf16x2(v.w, kOnes, h.w)};
+    float e[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float x = j & 1 ? bf16_hi(t[j / 2]) : bf16_lo(t[j / 2]);
+      asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e[j]) : "f"(x * -1.4426950408889634f));
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(e[j]) : "f"(1.f + e[j]));
+#pragma unroll
+    for (int j = 0; j < 4; ++j)  // silu(x) = x / (1 + 2^(-x log2(e))), rounded
+      t[j] = pack_bf16x2(bf16_lo(t[j]) * e[2 * j], bf16_hi(t[j]) * e[2 * j + 1]);
+    const uint4 sv = *reinterpret_cast<const uint4*>(th + 2 * CK);
+    // bf16(a * s): the exact product, one rounding
+    *reinterpret_cast<uint4*>(hb + 16 * k) =
+        make_uint4(fma_bf16x2(t[0], sv.x, kNegZeros), fma_bf16x2(t[1], sv.y, kNegZeros),
+                   fma_bf16x2(t[2], sv.z, kNegZeros), fma_bf16x2(t[3], sv.w, kNegZeros));
+  }
+}
+
+// The producer warpgroup's warps 1-3 when the conv has an operand pass (a
+// style or a pre-activation): each halo, as it lands, is rewritten in
+// place (16 bytes a thread and turn), then announced on halo_ready. A styled
+// halo without a pre-activation becomes bf16(x * s). With the SiLU (`silu`;
+// `hb16` the item's row of the shift, (B, Cin), or null) it becomes
+//   a = bf16(bf16(silu(bf16(x + shift))) * s),
+// rounded where the unfused ops round: PyTorch's bf16 add, F.silu (fp32 math,
+// one rounding; preact_halo's form, within a bf16 step of it), the style
+// product, the add and the product one bf16 FMA a pair each; a missing shift
+// adds 0 and a missing style multiplies by 1, both exact. The channel step's
+// shifts and styles go first into `table` (two buffers of CK shifts and CK
+// styles, so one named barrier a step orders them), and only the positions
+// inside the image are rewritten (`inside`, halo_inside's bits): the TMA's
+// zeros outside stay zero, since silu(0 + shift) is not 0 and the SAME
+// padding pads the activated tensor. Channels past Cin take a zero shift
+// and style, so they stay zero too. `halos` numbers the halos as produce()
+// does.
+template <int KD, int HALO_BYTES, int CK, int HH, int HW>
+__device__ __forceinline__ void operand_halos(unsigned char* halo, unsigned char* table,
+                                              uint64_t* halo_full, uint64_t* halo_ready,
+                                              const bf16* __restrict__ sb,
+                                              const bf16* __restrict__ hb16, bool silu, int Cin,
+                                              int cb_begin, int cb_end, uint32_t inside,
+                                              int& halos) {
   constexpr int kStylers = 96, kChunks = CK / 8;
   static_assert(kStylers % kChunks == 0, "a styler thread keeps one channel chunk");
   const int tid = threadIdx.x - kConsumers - 32;
+  const bool pre = KD == 3 && silu;
   for (int c = cb_begin; c < cb_end; ++c) {
     const int i = halos++, hs = i & 1;
     const int ch = c * CK + 8 * (tid % kChunks);
-    float sv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) sv[e] = ch + e < Cin ? __bfloat162float(sb[ch + e]) : 0.f;
-    mbar_wait(&halo_full[hs], (i >> 1) & 1);
     unsigned char* hb = halo + hs * HALO_BYTES;
+    if (!pre) {
+      float sv[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sv[e] = ch + e < Cin ? __bfloat162float(sb[ch + e]) : 0.f;
+      mbar_wait(&halo_full[hs], (i >> 1) & 1);
 #pragma unroll 4
-    for (int k = tid; k < HALO_BYTES / 16; k += kStylers) {
-      uint4 v = *reinterpret_cast<const uint4*>(hb + 16 * k);
-      // bf16(x * s): the fp32 product of two bf16 is exact, one rounding
-      v.x = pack_bf16x2(bf16_lo(v.x) * sv[0], bf16_hi(v.x) * sv[1]);
-      v.y = pack_bf16x2(bf16_lo(v.y) * sv[2], bf16_hi(v.y) * sv[3]);
-      v.z = pack_bf16x2(bf16_lo(v.z) * sv[4], bf16_hi(v.z) * sv[5]);
-      v.w = pack_bf16x2(bf16_lo(v.w) * sv[6], bf16_hi(v.w) * sv[7]);
-      *reinterpret_cast<uint4*>(hb + 16 * k) = v;
+      for (int k = tid; k < HALO_BYTES / 16; k += kStylers) {
+        uint4 v = *reinterpret_cast<const uint4*>(hb + 16 * k);
+        // bf16(x * s): the fp32 product of two bf16 is exact, one rounding
+        v.x = pack_bf16x2(bf16_lo(v.x) * sv[0], bf16_hi(v.x) * sv[1]);
+        v.y = pack_bf16x2(bf16_lo(v.y) * sv[2], bf16_hi(v.y) * sv[3]);
+        v.z = pack_bf16x2(bf16_lo(v.z) * sv[4], bf16_hi(v.z) * sv[5]);
+        v.w = pack_bf16x2(bf16_lo(v.w) * sv[6], bf16_hi(v.w) * sv[7]);
+        *reinterpret_cast<uint4*>(hb + 16 * k) = v;
+      }
+    } else if constexpr (KD == 3) {
+      unsigned char* tab = table + (i & 1) * 4 * CK;  // [shift, style][CK] bf16
+      if (tid < kChunks) {  // the step's shifts and styles, 0 past Cin
+        uint32_t hv[4], sv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float h2[2], s2[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int cj = ch + 2 * e + j;
+            h2[j] = hb16 && cj < Cin ? __bfloat162float(hb16[cj]) : 0.f;
+            s2[j] = cj < Cin ? (sb ? __bfloat162float(sb[cj]) : 1.f) : 0.f;
+          }
+          hv[e] = pack_bf16x2(h2[0], h2[1]);
+          sv[e] = pack_bf16x2(s2[0], s2[1]);
+        }
+        *reinterpret_cast<uint4*>(tab + 16 * tid) = make_uint4(hv[0], hv[1], hv[2], hv[3]);
+        *reinterpret_cast<uint4*>(tab + 2 * CK + 16 * tid) = make_uint4(sv[0], sv[1], sv[2], sv[3]);
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(kStylers) : "memory");
+      mbar_wait(&halo_full[hs], (i >> 1) & 1);
+      preact_halo<CK, HH, HW>(hb, tab, inside, tid);
     }
     // a later TMA load into this buffer comes after these writes
     asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -1062,20 +1213,21 @@ __device__ __forceinline__ void consume_bf16(
 template <int KD, int BN, int CK>
 __global__ void __launch_bounds__(kTcThreads, tc_min_blocks(BN))
 conv_3x3_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __restrict__ wimg,
-                     const bf16* __restrict__ style, const bf16* __restrict__ bias,
-                     bf16* __restrict__ y, float* __restrict__ partial, long long plane, int B,
-                     int D, int H, int W, int Cin, int Cout, int n_nb, int cb_per_split,
-                     int splits, int accumulate) {
+                     const bf16* __restrict__ style, const bf16* __restrict__ shift, int silu,
+                     const bf16* __restrict__ bias, bf16* __restrict__ y,
+                     float* __restrict__ partial, long long plane, int B, int D, int H, int W,
+                     int Cin, int Cout, int n_nb, int cb_per_split, int splits, int accumulate) {
   using T = BfTile<KD, BN, CK>;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* halo = smem;                     // [2][HALO_BYTES]
   unsigned char* wst = smem + 2 * T::HALO_BYTES;  // [STAGES][W_BYTES]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(wst + T::STAGES * T::W_BYTES);
+  unsigned char* table = wst + T::STAGES * T::W_BYTES;  // [2][shift, style][CK] bf16
+  uint64_t* bars = reinterpret_cast<uint64_t*>(table + T::TABLE_BYTES);
   uint64_t* halo_full = bars;
   uint64_t* halo_empty = bars + 2;
   uint64_t* w_full = bars + 4;
   uint64_t* w_empty = bars + 4 + T::STAGES;
-  uint64_t* halo_ready = bars + 4 + 2 * T::STAGES;  // a styled halo: the three styler warps
+  uint64_t* halo_ready = bars + 4 + 2 * T::STAGES;  // a rewritten halo: the operand pass
 
   const int tiles_w = (W + T::TW - 1) / T::TW;
   const int tiles_h = (H + T::TH - 1) / T::TH;
@@ -1105,30 +1257,43 @@ conv_3x3_bf16_kernel(const __grid_constant__ CUtensorMap xmap, const bf16* __res
     mbar_init(&halo_ready[1], 3);
   }
   init_stage_barriers<T::STAGES>(halo_full, halo_empty, w_full, w_empty);
+  const bool pass = style || silu;  // the operand pass rewrites each halo
 
   int halos = 0, steps = 0;
   if (threadIdx.x >= kConsumers) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(tc_producer_regs(BN)));
     if (threadIdx.x == kConsumers) {  // one thread keeps the halo and weight stages in flight
+      bool issued = false;  // this item's first halo, with the previous item's
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
         const BfItem m = item_at(it);
         const bf16* wblk = wimg + (long long)m.nb * n_cb * T::TAPS * (T::W_BYTES / 2);
+        const bool more = it + static_cast<int>(gridDim.x) < items;
+        HaloAt next{};
+        if (more) {
+          const BfItem n = item_at(it + gridDim.x);
+          next = HaloAt{n.cb_begin, n.w0, n.h0, n.d0, n.b};
+        }
         produce<KD, T::TAPS, T::HALO_BYTES, T::W_BYTES, CK, T::STAGES>(
             &xmap, reinterpret_cast<const unsigned char*>(wblk), halo, wst, halo_full,
             halo_empty, w_full, w_empty, m.cb_begin, m.cb_end, m.w0, m.h0, m.d0, m.b, halos,
-            steps);
+            steps, issued, more ? &next : nullptr);
+        issued = more;
       }
-    } else if (style && threadIdx.x >= kConsumers + 32) {
+    } else if (pass && threadIdx.x >= kConsumers + 32) {
       for (int it = blockIdx.x; it < items; it += gridDim.x) {
         const BfItem m = item_at(it);
-        style_halos<T::HALO_BYTES, CK>(halo, halo_full, halo_ready,
-                                       style + (long long)m.b * Cin, Cin, m.cb_begin, m.cb_end,
-                                       halos);
+        uint32_t inside = 0;
+        if constexpr (KD == 3)
+          if (silu) inside = halo_inside<T::HD, T::HH, T::HW>(m, D, H, W);
+        operand_halos<KD, T::HALO_BYTES, CK, T::HH, T::HW>(
+            halo, table, halo_full, halo_ready, style ? style + (long long)m.b * Cin : nullptr,
+            shift ? shift + (long long)m.b * Cin : nullptr, silu, Cin, m.cb_begin, m.cb_end,
+            inside, halos);
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(tc_consumer_regs(BN)));
-    uint64_t* halo_wait = style ? halo_ready : halo_full;
+    uint64_t* halo_wait = pass ? halo_ready : halo_full;
 #pragma unroll 1
     for (int it = blockIdx.x; it < items; it += gridDim.x) {
       const BfItem m = item_at(it);
@@ -1308,9 +1473,10 @@ int launch_tc_entry(const Plan& p, const float* x, const float* w, const float* 
 }
 
 template <int KD, int BN, int CK>
-int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, const bf16* bias,
-                bf16* y, int B, int D, int H, int W, int Cin, int Cout, long long w_stride_tap,
-                long long w_stride_c, int accumulate, void* workspace, cudaStream_t stream) {
+int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, const bf16* shift,
+                int silu, const bf16* bias, bf16* y, int B, int D, int H, int W, int Cin,
+                int Cout, long long w_stride_tap, long long w_stride_c, int accumulate,
+                void* workspace, cudaStream_t stream) {
   using T = BfTile<KD, BN, CK>;
   if (!workspace || p.tiles * p.n_nb * p.splits > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1337,8 +1503,8 @@ int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, 
   const long long items = p.tiles * p.n_nb * p.splits;
   const long long wave = (long long)sm_count() * tc_min_blocks(BN);
   kernel<<<static_cast<unsigned>(items < wave ? items : wave), kTcThreads, T::SMEM_BYTES,
-           stream>>>(xmap, wimg, style, bias, y, partial, plane, B, D, H, W, Cin, Cout, p.n_nb,
-                     p.cb_per_split, p.splits, accumulate);
+           stream>>>(xmap, wimg, style, shift, silu, bias, y, partial, plane, B, D, H, W, Cin,
+                     Cout, p.n_nb, p.cb_per_split, p.splits, accumulate);
   if (p.splits > 1) {
     const int blocks = cdiv(plane, 256) < 8192 ? cdiv(plane, 256) : 8192;
     conv_3x3_splitk_reduce_bf16_kernel<<<blocks, 256, 0, stream>>>(partial, p.splits, plane, bias,
@@ -1349,41 +1515,44 @@ int launch_bf16(const Plan& p, const bf16* x, const bf16* w, const bf16* style, 
 
 template <int KD>
 int launch_bf16_entry(const Plan& p, const void* x, const void* w, const void* style,
-                      const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
-                      long long w_stride_tap, long long w_stride_c, int accumulate,
-                      void* workspace, cudaStream_t s) {
+                      const void* shift, int silu, const void* bias, void* y, int B, int D, int H,
+                      int W, int Cin, int Cout, long long w_stride_tap, long long w_stride_c,
+                      int accumulate, void* workspace, cudaStream_t s) {
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* wb = static_cast<const bf16*>(w);
   const bf16* sb = static_cast<const bf16*>(style);
+  const bf16* hb = static_cast<const bf16*>(shift);
   const bf16* bb = static_cast<const bf16*>(bias);
   bf16* yb = static_cast<bf16*>(y);
   // (BN, channel step): make_plan's rule
   if (p.bn == 32)
-    return launch_bf16<KD, 32, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                                   w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 32, 32>(p, xb, wb, sb, hb, silu, bb, yb, B, D, H, W, Cin, Cout,
+                                   w_stride_tap, w_stride_c, accumulate, workspace, s);
   if (p.bn == 64 && p.ck == 32)
-    return launch_bf16<KD, 64, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                                   w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 64, 32>(p, xb, wb, sb, hb, silu, bb, yb, B, D, H, W, Cin, Cout,
+                                   w_stride_tap, w_stride_c, accumulate, workspace, s);
   if (p.bn == 64)
-    return launch_bf16<KD, 64, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                                   w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 64, 64>(p, xb, wb, sb, hb, silu, bb, yb, B, D, H, W, Cin, Cout,
+                                   w_stride_tap, w_stride_c, accumulate, workspace, s);
   if (p.ck == 32)
-    return launch_bf16<KD, 128, 32>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                                    w_stride_c, accumulate, workspace, s);
-  return launch_bf16<KD, 128, 64>(p, xb, wb, sb, bb, yb, B, D, H, W, Cin, Cout, w_stride_tap,
-                                  w_stride_c, accumulate, workspace, s);
+    return launch_bf16<KD, 128, 32>(p, xb, wb, sb, hb, silu, bb, yb, B, D, H, W, Cin, Cout,
+                                    w_stride_tap, w_stride_c, accumulate, workspace, s);
+  return launch_bf16<KD, 128, 64>(p, xb, wb, sb, hb, silu, bb, yb, B, D, H, W, Cin, Cout,
+                                  w_stride_tap, w_stride_c, accumulate, workspace, s);
 }
 
 // One launch of either dtype's instances for the plan's variant.
 template <int KD>
 int launch_any(const Plan& p, int dtype, const void* x, const void* w, const void* style,
-               const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
-               long long w_stride_tap, long long w_stride_c, int accumulate, void* workspace,
-               cudaStream_t s) {
+               const void* shift, int silu, const void* bias, void* y, int B, int D, int H,
+               int W, int Cin, int Cout, long long w_stride_tap, long long w_stride_c,
+               int accumulate, void* workspace, cudaStream_t s) {
   if (p.variant == kNone) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kBfloat16)
-    return launch_bf16_entry<KD>(p, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                                 w_stride_c, accumulate, workspace, s);
+    return launch_bf16_entry<KD>(p, x, w, style, shift, silu, bias, y, B, D, H, W, Cin, Cout,
+                                 w_stride_tap, w_stride_c, accumulate, workspace, s);
+  // no fp32 instance applies a pre-activation
+  if (shift || silu) return static_cast<int>(cudaErrorInvalidValue);
   const float *xf = static_cast<const float*>(x), *wf = static_cast<const float*>(w);
   const float *sf = static_cast<const float*>(style), *bf = static_cast<const float*>(bias);
   float* yf = static_cast<float*>(y);
@@ -1420,15 +1589,19 @@ int tmdiff_conv_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int
 // of a larger weight (a concat part's input channels, one group of a grouped
 // conv) without copying them. `splits` and `workspace` are tmdiff_conv_plan's
 // split count and bytes for this shape, the workspace allocated by the
-// caller.
+// caller. `silu` (nonzero: on) and `shift` (B, Cin) or null are the
+// pre-activation of the input, x -> silu(x + shift), applied before the style
+// and padded after it; bf16 only (an fp32 call with either, or a shift
+// without the SiLU, is refused).
 int tmdiff_conv3d_333(int dtype, const void* x, const void* w, const void* style,
-                      const void* bias, void* y, int B, int D, int H, int W, int Cin, int Cout,
-                      long long w_stride_tap, long long w_stride_c, int accumulate, int splits,
-                      void* workspace, void* stream) {
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+                      const void* shift, int silu, const void* bias, void* y, int B, int D, int H,
+                      int W, int Cin, int Cout, long long w_stride_tap, long long w_stride_c,
+                      int accumulate, int splits, void* workspace, void* stream) {
+  if (splits < 1 || (shift && !silu)) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(3, dtype, B, D, H, W, Cin, Cout, x, splits);
-  return launch_any<3>(p, dtype, x, w, style, bias, y, B, D, H, W, Cin, Cout, w_stride_tap,
-                       w_stride_c, accumulate, workspace, static_cast<cudaStream_t>(stream));
+  return launch_any<3>(p, dtype, x, w, style, shift, silu, bias, y, B, D, H, W, Cin, Cout,
+                       w_stride_tap, w_stride_c, accumulate, workspace,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The same for a 3x3 NHWC conv, (B, H, W, Cin) -> (B, H, W, Cout): one depth
@@ -1439,8 +1612,8 @@ int tmdiff_conv2d_33(int dtype, const void* x, const void* w, const void* style,
                      void* stream) {
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = make_plan(1, dtype, B, 1, H, W, Cin, Cout, x, splits);
-  return launch_any<1>(p, dtype, x, w, style, bias, y, B, 1, H, W, Cin, Cout, w_stride_tap,
-                       w_stride_c, 0, workspace, static_cast<cudaStream_t>(stream));
+  return launch_any<1>(p, dtype, x, w, style, nullptr, 0, bias, y, B, 1, H, W, Cin, Cout,
+                       w_stride_tap, w_stride_c, 0, workspace, static_cast<cudaStream_t>(stream));
 }
 
 const char* tmdiff_cuda_error_string(int err) {

@@ -38,6 +38,14 @@ JAX Conv3d does; a Linear adds its bias after the product, in `dtype`), and
 the activations between them keep it, forward and backward (dropout divides
 by its keep probability in `dtype`, as flax's Dropout does).
 
+A SiLU before a conv, with the time embedding added before it
+(`silu(h + temb)`), is the conv's pre-activation (`act_conv`): without
+dropout the conv takes the shift and the activation as arguments and its
+3x3x3 kernel applies them as it stages its operand where it can
+(ops/modconv.py), so in bf16 serving neither h + temb nor its SiLU is
+written out; with dropout between the SiLU and the conv (`rng` given) the
+block computes them itself, as PyTorch ops.
+
 Every conv module has a `plain` attribute: False sends its 3x3x3 convs to the
 CUDA kernels on a CUDA tensor; True sends them to the kernels' plain versions
 (see WavBEST.use_plain_conv). Its `impl` attribute picks the 3x3x3 lowering,
@@ -55,7 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tmdiff_tpu_torch.ops import wavelet
-from tmdiff_tpu_torch.ops.modconv import conv3d, conv3d_cat, modulated_conv3d
+from tmdiff_tpu_torch.ops.modconv import conv3d, conv3d_cat
 
 
 def swish(x):
@@ -84,6 +92,24 @@ def dropout(x, rate: float, rng, mesh=None):
                                      device=x.device)) >= rate
     keep_prob = torch.tensor(1.0 - rate, dtype=x.dtype).item()
     return torch.where(keep, x / keep_prob, 0.0)
+
+
+def act_conv(conv, x, shift, rng, *args):
+    """conv(dropout(swish(x + shift)), *args): x a tensor or a tuple of
+    channel parts, `shift` (B, C) over their concat or None. Without dropout
+    (rng None) the shift and the SiLU go to the conv as its pre-activation;
+    with it, they run here as PyTorch ops, each part drawing its own mask in
+    turn."""
+    if rng is None:
+        return conv(x, *args, shift=shift, act="silu")
+    parts = x if isinstance(x, tuple) else (x,)
+    off, hs = 0, []
+    for p in parts:
+        if shift is not None:
+            p = p + shift[:, None, None, None, off:off + p.shape[-1]]
+        off += p.shape[-1]
+        hs.append(dropout(swish(p), DROPOUT, rng, conv.mesh))
+    return conv(tuple(hs) if isinstance(x, tuple) else hs[0], *args)
 
 
 def dropout_rng(train: bool, rng):
@@ -139,7 +165,8 @@ class Dense(nn.Module):
 
 
 class Conv3d(nn.Module):
-    """Biased SAME 3-D conv in `dtype`; `x` may be a tuple of channel parts."""
+    """Biased SAME 3-D conv in `dtype`; `x` may be a tuple of channel parts.
+    `shift` and `act`: the input's pre-activation (ops/modconv.py)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, dtype=torch.float32):
         super().__init__()
@@ -150,12 +177,13 @@ class Conv3d(nn.Module):
         self.impl = "banded"
         self.mesh = None
 
-    def forward(self, x):
+    def forward(self, x, shift=None, act=None):
         if isinstance(x, tuple):
             return conv3d_cat(tuple(p.to(self.dtype) for p in x), self.weight, bias=self.bias,
-                              plain=self.plain, impl=self.impl, mesh=self.mesh)
+                              plain=self.plain, impl=self.impl, mesh=self.mesh, shift=shift,
+                              act=act)
         return conv3d(x.to(self.dtype), self.weight, bias=self.bias, plain=self.plain,
-                      impl=self.impl, mesh=self.mesh)
+                      impl=self.impl, mesh=self.mesh, shift=shift, act=act)
 
 
 class ModConv3d(nn.Module):
@@ -170,9 +198,9 @@ class ModConv3d(nn.Module):
         self.impl = "banded"
         self.mesh = None
 
-    def forward(self, x, style):
-        return modulated_conv3d(x, self.weight, style, plain=self.plain, impl=self.impl,
-                                mesh=self.mesh)
+    def forward(self, x, style, shift=None, act=None):
+        return conv3d(x, self.weight, style=style, plain=self.plain, impl=self.impl,
+                      mesh=self.mesh, shift=shift, act=act)
 
 
 class ResBlockModulate(nn.Module):
@@ -191,22 +219,13 @@ class ResBlockModulate(nn.Module):
             self.res_conv = Conv3d(cin, features, 1, dtype)
 
     def forward(self, x, temb, zemb, rng=None):
-        parts = x if isinstance(x, tuple) else (x,)
-        hs = parts
-        if self.use_temb:
-            d = self.dense1(temb)[:, None, None, None, :]
-            off, hs = 0, []
-            for p in parts:
-                hs.append(p + d[..., off:off + p.shape[-1]])
-                off += p.shape[-1]
-        mesh = self.conv20.mesh
-        hs = tuple(dropout(swish(p), DROPOUT, rng, mesh) for p in hs)
-        h = self.conv20(hs if isinstance(x, tuple) else hs[0])
-        h = self.conv21(dropout(swish(h), DROPOUT, rng, mesh), self.dense2(zemb))
+        shift = self.dense1(temb) if self.use_temb else None
+        h = act_conv(self.conv20, x, shift, rng)
+        h = act_conv(self.conv21, h, None, rng, self.dense2(zemb))
         if hasattr(self, "res_conv"):
             x = self.res_conv(x)
         elif isinstance(x, tuple):
-            x = torch.cat(parts, dim=-1)
+            x = torch.cat(x, dim=-1)
         return h + x
 
 
@@ -220,7 +239,7 @@ class AdaptionHead(nn.Module):
         self.dense2 = Dense(embed_dim, features, 1.0, dtype)
 
     def forward(self, x, zemb):
-        return self.conv21(swish(self.conv20(x)), self.dense2(zemb))
+        return self.conv21(self.conv20(x), self.dense2(zemb), act="silu")
 
 
 class WaveletDown(nn.Module):
@@ -239,14 +258,13 @@ class WaveletDown(nn.Module):
             self.Dense_0 = linear(embed_dim, features, dtype=dtype)
 
     def forward(self, x, temb, zemb, rng=None):
-        h = self.Conv_0(swish(x))
+        h = self.Conv_0(x, act="silu")
         x = self.Conv_2(x)
         h_ll, h_lh, h_hl, h_hh = wavelet.dwt2d(h)
         h = h_ll * 0.5
         x = wavelet.dwt2d_ll(x) * 0.5
-        if self.use_temb:
-            h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(dropout(swish(h), DROPOUT, rng, self.Conv_1.mesh), self.dense1(zemb))
+        shift = self.Dense_0(temb) if self.use_temb else None
+        h = act_conv(self.Conv_1, h, shift, rng, self.dense1(zemb))
         return x + h, (h_lh, h_hl, h_hh)
 
 
@@ -287,13 +305,12 @@ class WaveletUp(nn.Module):
         self.Dense_0 = linear(embed_dim, features, dtype=dtype)
 
     def forward(self, x, temb, zemb, skip, rng=None):
-        h = self.Conv_0(swish(x))
+        h = self.Conv_0(x, act="silu")
         x = self.Conv_2(x)
         lh, hl, hh = (s * 2.0 for s in self.convH_0[0](tuple(s * 0.5 for s in skip)))
         h = wavelet.idwt2d(2.0 * h, lh, hl, hh)
         x = wavelet.idwt2d(2.0 * x, lh, hl, hh)
-        h = h + self.Dense_0(temb)[:, None, None, None, :]
-        h = self.Conv_1(dropout(swish(h), DROPOUT, rng, self.Conv_1.mesh), self.dense1(zemb))
+        h = act_conv(self.Conv_1, h, self.Dense_0(temb), rng, self.dense1(zemb))
         return x + h
 
 

@@ -2,11 +2,15 @@
 and its plain PyTorch version.
 
 Both compute, for x (B, D, H, W, Cin), kernel (3, 3, 3, Cin, Cout), an
-optional per-sample style s (B, Cin) and an optional bias (Cout),
+optional per-sample style s (B, Cin), an optional bias (Cout) and an
+optional pre-activation of the input, act="silu" with an optional shift
+(B, Cin) (a shift without the SiLU is refused),
 
-    y = conv3d_same(x * s[:, None, None, None, :], kernel) + bias
+    a = silu(x + shift[:, None, None, None, :])   (a = x without it)
+    y = conv3d_same(a * s[:, None, None, None, :], kernel) + bias
 
-with fp32 accumulation. Given `out`, the result is added into `out` in place
+with fp32 accumulation and the SAME zero padding applied to `a` (after the
+activation). Given `out`, the result is added into `out` in place
 (one launch per part of a channel concat, without materialising the concat).
 Every tensor is float32, or every tensor is bfloat16. In bf16 they compute
 what the Pallas kernel computes for bf16 operands: x * s rounded to bf16
@@ -27,6 +31,18 @@ same split-K rule) where Cin % 8 == 0, and every other bf16 shape raises.
 `variant_launches` counts the launches of each variant, `dtype_launches`
 those of each dtype. On a CPU tensor they compute the plain version; on a
 CUDA tensor they launch the kernel or raise.
+
+The pre-activation is applied in the bf16 kernel's operand pass, as it
+stages each input halo (beside the style), where x is bf16 on a CUDA device
+and no gradient is needed: the launch counts in `preact_fused`, and
+x + shift and its SiLU are never written to device memory. Everywhere else
+(float32, a gradient, the CPU) `preact` computes a with the PyTorch ops the
+model used before, x + shift in x's dtype then F.silu, and the conv runs on
+it unchanged; `preact_unfused` counts those calls. Both routes round at the
+same three points in bf16 (the add, the SiLU, the style product); the
+kernel's SiLU (the MUFU's ex2 and rcp) is within a bf16 step of F.silu's,
+so an operand element of the fused launch is the unfused one's or one bf16
+step from it (csrc/conv3d.cu, preact_halo).
 
 The split count is the one decision of the plan that depends on the number
 of output tiles, and it sets the order in which each output element is
@@ -77,8 +93,10 @@ from tmdiff_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel since the last reset_launches(), in all, by
 # variant (tmdiff_conv_plan's numbering from 0) and by dtype; of them, those
-# for input gradients; and the weight gradients computed on the card (library
-# calls, not launches of the kernel).
+# for input gradients; the weight gradients computed on the card (library
+# calls, not launches of the kernel); and the convs given a pre-activation:
+# the launches that applied it in the kernel (`preact_fused`) and the calls
+# that computed it with PyTorch ops first (`preact_unfused`, any device).
 VARIANTS = ("ffma", "tf32x3", "tf32x3_splitk", "bf16", "bf16_splitk")
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the C entries' dtype codes
 launches = 0
@@ -86,13 +104,40 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 dtype_launches = {"float32": 0, "bfloat16": 0}
 input_grad_launches = 0
 weight_grad_calls = 0
+preact_fused = 0
+preact_unfused = 0
 
 
 def reset_launches() -> None:
-    global launches, input_grad_launches, weight_grad_calls
-    launches = input_grad_launches = weight_grad_calls = 0
+    global launches, input_grad_launches, weight_grad_calls, preact_fused, preact_unfused
+    launches = input_grad_launches = weight_grad_calls = preact_fused = preact_unfused = 0
     variant_launches.update(dict.fromkeys(VARIANTS, 0))
     dtype_launches.update(dict.fromkeys(dtype_launches, 0))
+
+
+def has_preact(shift, act) -> bool:
+    """Whether (shift, act) asks for a pre-activation: act "silu", with or
+    without a shift. Raises on another activation and on a shift without
+    the SiLU."""
+    if act not in (None, "silu"):
+        raise ValueError(f"unknown activation {act!r}; expected None or 'silu'")
+    if shift is not None and act is None:
+        raise ValueError("a shift is applied only before act='silu'")
+    return act is not None
+
+
+def preact(x, shift=None, act=None):
+    """silu(x + shift[:, None, None, None, :]) with PyTorch ops in x's dtype
+    (the shift cast to it, the add left out without one): the unfused
+    pre-activation, counted in `preact_unfused`. x itself where act is
+    None."""
+    global preact_unfused
+    if not has_preact(shift, act):
+        return x
+    preact_unfused += 1
+    if shift is not None:
+        x = x + shift.to(x.dtype).reshape(shift.shape[0], *[1] * (x.dim() - 2), shift.shape[-1])
+    return F.silu(x)
 
 
 def count_launch(variants: dict, dtypes: dict, variant: str, dtype) -> None:
@@ -112,10 +157,12 @@ def bf16_operands(x, kernel, style=None, bias=None, out=None):
     return x.float(), kernel.to(torch.bfloat16).float(), f(bias), f(out)
 
 
-def conv3d_plain(x, kernel, style=None, bias=None, out=None):
+def conv3d_plain(x, kernel, style=None, bias=None, out=None, shift=None, act=None):
     """The kernel's function as 27 shifted-slice products in fp32; in bf16
     on the bf16 kernel's operands (bf16_operands), with one rounding of
-    sum + bias + out at the end."""
+    sum + bias + out at the end. A pre-activation is computed first
+    (`preact`)."""
+    x = preact(x, shift, act)
     if x.dtype == torch.bfloat16:
         xs, k, bias32, out32 = bf16_operands(x, kernel, style, bias, out)
         y = conv3d_plain(xs, k, None, bias32, out32).to(torch.bfloat16)
@@ -152,8 +199,9 @@ def library():
                                   ctypes.POINTER(ctypes.c_int)])
         lib.tmdiff_conv_plan.restype = ctypes.c_int
         lib.tmdiff_conv3d_333.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 2)
         lib.tmdiff_conv3d_333.restype = ctypes.c_int
         lib.tmdiff_conv2d_33.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
@@ -209,9 +257,9 @@ the first time is a `conv3d.plan` span (utils/profiling.py; `kd`, `shape`
     return variant, splits, workspace
 
 
-def _check(x, kernel, style, bias, out):
+def _check(x, kernel, style, bias, out, shift=None):
     build.check_operands("conv3d", tuple(DTYPES), x=x, kernel=kernel, style=style, bias=bias,
-                         out=out)
+                         out=out, shift=shift)
     if x.dim() != 5 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (B, D, H, W, Cin) tensor, got {tuple(x.shape)}")
     b, d, h, w, cin = x.shape
@@ -222,8 +270,9 @@ def _check(x, kernel, style, bias, out):
     # (a size-1 Cout dimension's stride is never read)
     if (st[4] != 1 and cout > 1) or st[0] != 3 * st[1] or st[1] != 3 * st[2]:
         raise ValueError(f"kernel strides {st} do not give one tap stride and unit Cout stride")
-    if style is not None and (tuple(style.shape) != (b, cin) or not style.is_contiguous()):
-        raise ValueError(f"style must be a contiguous ({b}, {cin}) tensor")
+    for name, t in (("style", style), ("shift", shift)):
+        if t is not None and (tuple(t.shape) != (b, cin) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({b}, {cin}) tensor")
     if bias is not None and (tuple(bias.shape) != (cout,) or bias.stride(0) != 1):
         raise ValueError(f"bias must be a unit-stride ({cout},) tensor")
     if out is not None and (tuple(out.shape) != (b, d, h, w, cout) or not out.is_contiguous()):
@@ -239,12 +288,18 @@ def _check(x, kernel, style, bias, out):
         raise ValueError(f"unsupported conv size {tuple(x.shape)} -> Cout {cout}")
 
 
-def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=None):
+def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=None,
+            shift=None, act=None):
+    """One launch of the kernel on a CUDA x (the plain version on a CPU x).
+    A pre-activation (shift, act) is applied in the launch: bf16 only."""
     if x.device.type == "cpu":
-        return conv3d_plain(x, kernel, style, bias, out)
+        return conv3d_plain(x, kernel, style, bias, out, shift, act)
     if x.device.type != "cuda":
         raise ValueError(f"no conv3d kernel for device {x.device}")
-    _check(x, kernel, style, bias, out)
+    fused = has_preact(shift, act)
+    if fused and x.dtype != torch.bfloat16:
+        raise ValueError("only the bf16 kernel applies a pre-activation; compute preact() first")
+    _check(x, kernel, style, bias, out, shift)
     b, d, h, w, cin = x.shape
     cout = kernel.shape[4]
     y = torch.empty((b, d, h, w, cout), dtype=x.dtype, device=x.device) if out is None else out
@@ -256,15 +311,16 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=Non
         lib = library()
         variant, splits, workspace = plan(3, x, d, cout, unsharded=unsharded)
         err = lib.tmdiff_conv3d_333(
-            DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(), ptr(style), ptr(bias),
-            y.data_ptr(),
+            DTYPES[x.dtype], x.data_ptr(), kernel.data_ptr(), ptr(style), ptr(shift), int(fused),
+            ptr(bias), y.data_ptr(),
             b, d, h, w, cin, cout, kernel.stride(2), kernel.stride(3),
             int(out is not None), splits, ptr(workspace), stream)
     if err:
         raise RuntimeError(f"conv3d kernel launch failed: {lib.tmdiff_cuda_error_string(err).decode()}")
-    global launches, input_grad_launches
+    global launches, input_grad_launches, preact_fused
     launches += 1
     input_grad_launches += input_grad
+    preact_fused += fused
     count_launch(variant_launches, dtype_launches, variant, x.dtype)
     return y
 
@@ -332,21 +388,35 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def _apply(x, kernel, style, bias, out, unsharded):
-    if not needs_grad(x, kernel, style, bias):
-        return _launch(x, kernel, style, bias, out, unsharded=unsharded)
+def _apply(x, kernel, style, bias, out, unsharded, shift, act):
+    grad = needs_grad(x, kernel, style, bias, shift)
+    pre = {}
+    if x.device.type == "cuda" and x.dtype == torch.bfloat16 and not grad:
+        if has_preact(shift, act):
+            # the add and SiLU it stands for wrote a fresh tensor: a view (a
+            # cropped decoder input) is copied into one for the kernel
+            x = x.contiguous()
+            pre = {"shift": None if shift is None else shift.to(x.dtype), "act": act}
+    else:
+        x = preact(x, shift, act)
+    if not grad:
+        return _launch(x, kernel, style, bias, out, unsharded=unsharded, **pre)
     y = Conv3dFunction.apply(x, kernel, style, bias, unsharded)
     return y if out is None else out.add_(y)
 
 
-def banded_conv3d(x, kernel, style=None, bias=None, out=None, unsharded=None):
+def banded_conv3d(x, kernel, style=None, bias=None, out=None, unsharded=None, *, shift=None,
+                  act=None):
     """SAME 3x3x3 conv (see module doc); the port of K1, `banded_conv3d`.
-    `unsharded`: the (B, H) of the unsharded call x is a mesh shard of."""
-    return _apply(x, kernel, style, bias, out, unsharded)
+    `unsharded`: the (B, H) of the unsharded call x is a mesh shard of.
+    (shift, act): the input's pre-activation, applied in the launch where x
+    is bf16 on a CUDA device and no gradient is needed, else by `preact`."""
+    return _apply(x, kernel, style, bias, out, unsharded, shift, act)
 
 
-def banded_conv3d_v2(x, kernel, style=None, bias=None, out=None, unsharded=None):
+def banded_conv3d_v2(x, kernel, style=None, bias=None, out=None, unsharded=None, *, shift=None,
+                     act=None):
     """The port of K2, `banded_conv3d_v2`: the same function as K1 on TPU,
     tiled differently there. On Hopper one tiling serves both, so this entry
     launches the same kernel, with the same backward."""
-    return _apply(x, kernel, style, bias, out, unsharded)
+    return _apply(x, kernel, style, bias, out, unsharded, shift, act)

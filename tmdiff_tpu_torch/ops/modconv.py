@@ -18,6 +18,15 @@ of two kernel sizes:
     kernel's plain version runs on a CPU tensor or when `plain=True`.
   * 1x1x1: a (B*D*H*W, Cin) @ (Cin, Cout) matrix product, under either impl.
 
+A conv may take a pre-activation of its input, act="silu" with an
+optional shift (B, Cin): silu(x + shift) (the blocks' `silu(h + temb)`
+before a conv), padded after the activation. The 3x3x3 kernel applies it as it
+stages its operand, beside the style, where x is bf16 on a CUDA device, no
+gradient is needed and no halo rows are exchanged; the fp32 kernel, a
+gradient, a halo exchange, the band-into-lanes form, the 1x1x1 product, the
+library route and the plain versions take it as PyTorch ops first
+(ops/cuda/conv3d.py::preact), the same ops and roundings.
+
 Every other conv of the API (another kernel size, padding "VALID" or
 explicit pairs, a stride) and the transposed `modulated_conv_transpose3d`
 go to ops/library_conv.py (cuDNN, TF32 off, deterministic), as the JAX
@@ -72,7 +81,7 @@ from __future__ import annotations
 import torch
 
 from tmdiff_tpu_torch.ops.cuda.conv2d import conv3x3_nhwc, conv3x3_nhwc_plain
-from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad
+from tmdiff_tpu_torch.ops.cuda.conv3d import banded_conv3d, conv3d_plain, needs_grad, preact
 from tmdiff_tpu_torch.ops.library_conv import (conv_nd, conv_transpose_nd, dilate, per_axis,
                                                transpose_padding, xla_padding)
 from tmdiff_tpu_torch.parallel.halo import exchange_rows
@@ -128,20 +137,29 @@ def _conv3d_bandlanes(x, kernel, style=None, bias=None, out=None, plain: bool = 
     return _sharded(x, kernel, style, bias, out, plain, mesh, fold=True)
 
 
-def _conv333(x, kernel, style, bias, out, plain, fold, unsharded=None):
+def _pre(shift, act) -> dict:
+    """The keyword arguments of a pre-activation, none where there is none."""
+    return {} if shift is None and act is None else {"shift": shift, "act": act}
+
+
+def _conv333(x, kernel, style, bias, out, plain, fold, unsharded=None, pre=None):
     """The SAME 3x3x3 conv of x as it stands (halo rows included): through
     the band-into-lanes form where `fold` asks for it and the window fits
     the global height and the width, else through the 3x3x3 kernel. On a
     mesh, `unsharded` is the (B, H) of the unsharded call: its H is the
-    global height, and the kernels are planned for it."""
+    global height, and the kernels are planned for it. `pre` (`_pre`) goes
+    to the 3x3x3 kernel's wrapper, which applies it in the launch where it
+    can; the band-into-lanes form takes it as PyTorch ops first."""
     dt = x.dtype
     b, d, hx, w, cin = x.shape
     h = hx if unsharded is None else unsharded[1]
     cout = kernel.shape[-1]
     on_mesh = {} if unsharded is None else {"unsharded": unsharded}
+    pre = pre or {}
     if not fold or h < kernel.shape[1] or w < kernel.shape[2]:
         args = (x, _as(kernel, dt), _as(style, dt), _as(bias, dt), out)
-        return conv3d_plain(*args) if plain else banded_conv3d(*args, **on_mesh)
+        return conv3d_plain(*args, **pre) if plain else banded_conv3d(*args, **on_mesh, **pre)
+    x = preact(x, **pre)
     x2 = x.permute(0, 2, 3, 1, 4).reshape(b, hx, w, d * cin)
     s2 = None if style is None else style.to(dt).repeat(1, d)
     b2 = None if bias is None else bias.to(dt).repeat(d)
@@ -165,14 +183,17 @@ def _unsharded(mesh, x):
     return shape[0], shape[2]
 
 
-def _sharded(x, kernel, style, bias, out, plain, mesh, fold):
+def _sharded(x, kernel, style, bias, out, plain, mesh, fold, pre=None):
     """`_conv333` of an unsharded x, or of a space shard with its halo rows,
-    keeping the middle rows. `out` (without a gradient) takes the sum."""
+    keeping the middle rows. `out` (without a gradient) takes the sum. A
+    shard takes its pre-activation as PyTorch ops before the exchange: the
+    image's edge rows it receives are the padding, zeros the kernel could
+    not tell from data."""
     unsharded = _unsharded(mesh, x)
     if not _halo(mesh):
-        return _conv333(x, kernel, style, bias, out, plain, fold, unsharded)
-    y = _conv333(exchange_rows(x, mesh), kernel, style, bias, None, plain, fold,
-                 unsharded)[:, :, 1:-1]
+        return _conv333(x, kernel, style, bias, out, plain, fold, unsharded, pre)
+    y = _conv333(exchange_rows(preact(x, **(pre or {})), mesh), kernel, style, bias, None,
+                 plain, fold, unsharded)[:, :, 1:-1]
     return y.contiguous() if out is None else out.add_(y)
 
 
@@ -258,10 +279,17 @@ def _library(x, kernel, style, bias, out, padding, stride, mesh):
 
 
 def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
-           impl: str = "banded", mesh=None, padding="SAME", stride=(1, 1, 1)):
+           impl: str = "banded", mesh=None, padding="SAME", stride=(1, 1, 1), shift=None,
+           act=None):
     """Conv of x (B, D, H, W, Cin) with kernel (kd, kh, kw, Cin, Cout) of
     the style-scaled input, plus bias; added into `out` when given (in
-    place without a gradient). `padding` ("SAME", "VALID" or (lo, hi)
+    place without a gradient). With a pre-activation, act="silu" and an
+    optional shift (B, Cin), the conv's input is
+    silu(x + shift[:, None, None, None, :]), padded after the activation:
+    the 3x3x3 kernel applies it as it stages its operand where x is bf16 on
+    a CUDA device, no gradient is needed and no halo rows are exchanged
+    (ops/cuda/conv3d.py); every other call computes it first with PyTorch
+    ops (`preact`), as the blocks did before. `padding` ("SAME", "VALID" or (lo, hi)
     pairs) and `stride` as the JAX package's conv3d takes them. SAME
     stride-1 3x3x3 convs take the kernel of `impl` (module doc), SAME
     stride-1 1x1x1 convs a matrix product, and every other conv
@@ -273,16 +301,20 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
     split holds, and raises elsewhere (module doc)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown conv lowering {impl!r}; expected one of {IMPLS}")
+    pre = _pre(shift, act)
     if not _kernel_route(kernel, padding, stride):
-        return _library(x, kernel, style, bias, out, padding, stride, mesh)
-    if needs_grad(x, kernel, style, bias, out):
+        return _library(preact(x, **pre), kernel, style, bias, out, padding, stride, mesh)
+    if needs_grad(x, kernel, style, bias, out, shift):
         _refuse_auto_grad(impl)
         if out is not None:
-            return out + conv3d(x, kernel, style=style, bias=bias, plain=plain, mesh=mesh)
+            return out + conv3d(x, kernel, style=style, bias=bias, plain=plain, mesh=mesh,
+                                **pre)
     size = tuple(kernel.shape[:3])
     dt = x.dtype
     if size == (3, 3, 3):
-        return _sharded(x, kernel, style, bias, out, plain, mesh, _fold(impl, x, kernel, mesh))
+        return _sharded(x, kernel, style, bias, out, plain, mesh, _fold(impl, x, kernel, mesh),
+                        pre)
+    x = preact(x, **pre)
     if style is not None:
         x = x * style.to(dt)[:, None, None, None, :]
     y = torch.matmul(x.reshape(-1, x.shape[-1]), kernel[0, 0, 0].to(dt))
@@ -293,11 +325,12 @@ def conv3d(x, kernel, *, style=None, bias=None, out=None, plain: bool = False,
 
 
 def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "banded",
-               mesh=None, padding="SAME", stride=(1, 1, 1)):
+               mesh=None, padding="SAME", stride=(1, 1, 1), shift=None, act=None):
     """conv3d(cat(parts, -1), kernel) + bias without materialising the concat:
     each part convolves with its slice of the kernel's input channels (a
     view, through which its gradient reaches the kernel), and the parts
-    accumulate into one output. On a space-sharded placement the 3x3x3
+    accumulate into one output. A pre-activation (conv3d's) takes each part
+    with its own contiguous slice of the shift (B, total Cin). On a space-sharded placement the 3x3x3
     parts each get their halo rows and accumulate into one (H + 2)-row
     buffer, cropped once. A conv of the library route (see conv3d) sums its
     parts' convs, each rounded to x's dtype, as the JAX package does."""
@@ -306,15 +339,16 @@ def conv3d_cat(parts, kernel, *, bias=None, plain: bool = False, impl: str = "ba
     off, out = 0, None
     for p in parts:
         kpart = kernel[..., off:off + p.shape[-1], :]
+        sh = None if shift is None else shift[:, off:off + p.shape[-1]].contiguous()
         off += p.shape[-1]
         b = bias if out is None else None
         if not halo:
             out = conv3d(p, kpart, bias=b, out=out, plain=plain, impl=impl, mesh=mesh,
-                         padding=padding, stride=stride)
+                         padding=padding, stride=stride, shift=sh, act=act)
             continue
-        if needs_grad(p, kpart, b, out):
+        if needs_grad(p, kpart, b, out, sh):
             _refuse_auto_grad(impl)
-        xp = exchange_rows(p, mesh)
+        xp = exchange_rows(preact(p, sh, act), mesh)
         unsharded = _unsharded(mesh, p)
         fold = _fold(impl, p, kpart, mesh)
         if out is not None and needs_grad(xp, kpart, out):
