@@ -3,11 +3,12 @@ cell's own sizes (not run by the benchmark's runs):
 
     python3 -m portbench.control --workload <cell> --seeds 11 12 13
 
-For a serve cell it puts the reference computed in the control precision
-(fp8 operands for a bf16 configuration, the card's TF32 products for an
-fp32 one) in the program's place: as many requests as a run compares, at placements
-drawn as a run's are (a batch seed, a bucket of the engine's largest size,
-a row), each image against the float32 reference. For a training cell it
+For a serve cell it puts the cell's family's reference computed in the
+control precision (fp8 operands for a bf16 configuration, the card's TF32
+products for an fp32 one) in the program's place: as many requests as a
+run compares, at placements drawn as a run's are (a batch seed, a bucket
+of the engine's largest size, a row), each image against the float32
+reference. For a training cell it
 runs the compared steps three ways from the same weights and batches: the
 control precision, and the reference with half of each batch left out of
 the loss (the mean taken over the rest), each against the float32
@@ -35,15 +36,15 @@ CONTROL = {"bfloat16": {"precision": "fp8"}, "float32": {"allow_tf32": True}}
 def serve_readings(cell, seed: int, device) -> dict:
     from portbench import inputs, reference, serve
 
-    t, m = cell.traffic, cell.config["model"]
-    spec = reference.param_spec(m["channel_multiplier"], m["embed_dim"], m["inter_dim"])
-    weights = inputs.make_weights(spec, seed, device)
+    family, t, m = cell.family, cell.traffic, cell.config["model"]
+    weights = inputs.make_weights(family.weight_spec(m), seed, device)
     pool = inputs.scene_pool(seed, t["bands"], t["pool"], t["bands"], t["size"])
     n = cell.check["sample"]
     rng = np.random.default_rng([seed, 6])
     bucket = t["engine"]["max_batch"]
-    reqs = [{"sensor": s, "scene": int(i)} for s, i in zip(
-        inputs.assign(t["sensors"], n, seed, 2), rng.integers(0, t["pool"], n))]
+    reqs = [{"sensor": s, "scene": int(i), "extra": family.request_extra(t, seed, k)}
+            for k, (s, i) in enumerate(zip(inputs.assign(t["sensors"], n, seed, 2),
+                                           rng.integers(0, t["pool"], n)))]
     places = [{"seed": int(rng.integers(0, 2**31)), "bucket": bucket,
                "row": int(rng.integers(0, bucket))} for _ in range(n)]
     # the control's images, then each against the float32 reference
@@ -61,8 +62,7 @@ def serve_images(cell, weights, pool, reqs, places, device, precision: str = "fp
     m, t, e = cell.config["model"], cell.traffic, cell.traffic["engine"]
     kw = e.get("sampler_kw") or {}
     sab = reference.sqrt_alpha_bar(m["schedule"], m["n_timestep"], device)
-    params = {n: reference.to_reference_layout(n, w) for n, w in weights.items()}
-    model = reference.WavBEST(params, m["inter_dim"], precision)
+    model = cell.family.reference(weights, m, precision)
     out = []
     with reference.products(allow_tf32), torch.no_grad():
         for r, p in zip(reqs, places):
@@ -73,16 +73,17 @@ def serve_images(cell, weights, pool, reqs, places, device, precision: str = "fp
             ms = inputs.as_tensor(pool["lms"][r["scene"]][None], device)
             prompt = inputs.as_tensor(inputs.prompt_table([r["sensor"]]), device)
             img = reference.sample(model, sab, pan, ms, prompt, x_T, e["method"], e["steps"],
-                                   kw.get("refresh_every", 2), kw.get("cache_level", 1))
+                                   kw.get("refresh_every", 2), kw.get("cache_level", 1),
+                                   inputs.stack([r["extra"]]))
             out.append(img[0].cpu().numpy())
     return out
 
 
 def train_readings(cell, seed: int, device) -> dict:
-    from portbench import inputs, reference, train
+    from portbench import inputs, train
 
     t, m = cell.traffic, cell.config["model"]
-    spec = reference.param_spec(m["channel_multiplier"], m["embed_dim"], m["inter_dim"])
+    spec = cell.family.weight_spec(m)
     names = [n for n, _, _, _ in spec]
     weights = inputs.make_weights(spec, seed, device)
     pools = {s: inputs.Pool(inputs.scene_pool(seed, 10 + i, t["pool"], t["bands"][s], t["size"]))

@@ -195,3 +195,9 @@ def train_batches(traffic: dict, pools: dict, seed: int, steps: int) -> list:
 def as_tensor(a, device):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
+
+
+def stack(extras: list) -> dict:
+    """What several requests carry beyond PAN, MS and the prompt (their
+    family's `request_extra`), stacked per key over them as rows."""
+    return {k: np.stack([e[k] for e in extras]) for k in (extras[0] if extras else ())}

@@ -6,10 +6,9 @@ for a training mix."""
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional
 
-from portbench import counts, reference
+from portbench import counts
 from portbench.trace import Spans
 
 
@@ -45,11 +44,6 @@ class Record:
     def peak_bytes(self) -> float:
         return float(self.cell.config["peak_bytes_per_s"])
 
-    @functools.cached_property
-    def _spec(self):
-        m = self.cell.config["model"]
-        return reference.param_spec(m["channel_multiplier"], m["embed_dim"], m["inter_dim"])
-
     @property
     def elem_bytes(self) -> int:
         return {"bfloat16": 2, "float32": 4}[self.cell.config["model"]["dtype"]]
@@ -57,18 +51,16 @@ class Record:
     def serve_work(self, bucket: int) -> dict:
         """The counted work of one served batch of `bucket` rows."""
         if ("serve", bucket) not in self._work:
-            t = self.cell.traffic
             self._work["serve", bucket] = counts.serve_batch(
-                self._spec, self.cell.config["model"], t["engine"], bucket, t["bands"],
-                t["size"], self.elem_bytes)
+                self.cell.family, self.cell.config["model"], self.cell.traffic, bucket,
+                self.elem_bytes)
         return self._work["serve", bucket]
 
     def train_work(self, bands: int) -> dict:
         """The counted work of one training step on `bands`-band images."""
         if ("train", bands) not in self._work:
-            t = self.cell.traffic
             self._work["train", bands] = counts.train_step(
-                self._spec, self.cell.config["model"], t["batch"], bands, t["size"],
+                self.cell.family, self.cell.config["model"], self.cell.traffic, bands,
                 self.elem_bytes)
         return self._work["train", bands]
 

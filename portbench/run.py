@@ -10,9 +10,12 @@ end-to-end metrics, or with `--trace 1` its per-layer ones), `device`,
 with `--trace 1` a `breakdown`, and last `check`, each compared number
 beside its limit (also the last lines on standard error).
 
-Everything about a cell is data that BENCHMARK.json names (portbench/spec.py);
-this file and the drivers it calls (portbench/serve.py, portbench/train.py,
-by the mix's "kind") hold no cell. It exits non-zero and prints no result
+Everything about a cell is data that BENCHMARK.json names (portbench/spec.py),
+and the model is the family its configuration names
+(portbench/families/<family>.py, whose plain reference is
+portbench/references/<family>.py); this file and the drivers it calls
+(portbench/serve.py, portbench/train.py, by the mix's "kind") hold no cell
+and no model. It exits non-zero and prints no result
 without a CUDA card (or with fewer than the cell asks for), and if JAX,
 flax or the JAX package `tmdiff_tpu` is loaded once the window has closed.
 Build and kernel caches go to fixed directories inside the checkout.

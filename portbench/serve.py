@@ -1,9 +1,14 @@
 """A serve mix: the program's InferenceEngine in process, driven by an open
 loop of requests due on a schedule drawn from the seed, then the served
-images held against the plain reference.
+images held against the plain reference. What knows the model is the
+cell's family (`portbench/families/<family>.py`): its weights' spec, its
+model, what a request carries beyond PAN, MS and the sensor, the engine
+call that hands a request over, and its plain reference. The rest (the
+clock, the open loop, the window, the trace, the comparison) is this
+file's and the mix's data.
 
-Set-up builds the model in the configuration's dtype, loads the harness's
-weights into it, hands the Pansharpener the harness's prompt table, starts
+Set-up builds the family's model in the configuration's dtype with the
+harness's weights, hands the Pansharpener the harness's prompt table, starts
 the engine with the mix's recipe and warms its buckets at the mix's one
 image shape (the engine's own warm-up: each bucket, in turn, through
 `submit`). The window then submits each request at its due time, whether
@@ -11,8 +16,8 @@ or not earlier ones have finished; the engine's worker batches and runs
 them. After the window every request due in it is awaited (a minute at
 most), the peak memory is read, the program is freed, and a sample of the
 served images, drawn from the seed, is computed again by the reference from
-the same inputs and each request's placement (its batch's seed, bucket and
-row)."""
+the same inputs (the request's extras with them) and each request's
+placement (its batch's seed, bucket and row)."""
 from __future__ import annotations
 
 import gc
@@ -49,19 +54,14 @@ def build(cell, seed: int, device):
     """(sharp, weights, pool) of the cell: the program at the
     configuration, on the harness's weights and prompt table."""
     import torch
-    from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.pipeline import Pansharpener
 
-    m, t = cell.config["model"], cell.traffic
+    family, m, t = cell.family, cell.config["model"], cell.traffic
     # as the server sets it: bf16 products accumulate in fp32
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    spec = reference.param_spec(m["channel_multiplier"], m["embed_dim"], m["inter_dim"])
-    weights = inputs.make_weights(spec, seed, device)
-    model = WavBEST(tuple(m["channel_multiplier"]), m["embed_dim"], m["inter_dim"],
-                    device=device, dtype=getattr(torch, m["dtype"]))
-    model.load_state_dict(weights, strict=True)
-    sharp = Pansharpener(model, schedule_name=m["schedule"], n_timestep=m["n_timestep"],
-                         device=device)
+    weights = inputs.make_weights(family.weight_spec(m), seed, device)
+    sharp = Pansharpener(family.build(m, weights, device), schedule_name=m["schedule"],
+                         n_timestep=m["n_timestep"], device=device)
     sensors = sorted(sharp.prompt_index, key=sharp.prompt_index.get)
     sharp.prompt_table.copy_(torch.as_tensor(inputs.prompt_table(sensors)))
     pool = inputs.scene_pool(seed, t["bands"], t["pool"], t["bands"], t["size"])
@@ -87,26 +87,37 @@ def start(cell, seed: int, device, alter=None):
     return engine, spanned, weights, pool
 
 
-def window(engine, pool, schedule: list, seconds: float, record: Record, trace: bool) -> list:
-    """Submits each request of `schedule` at its due time from now, whether
-    or not earlier ones have finished, then awaits every one (DRAIN_S past
-    the window's close at most). Fills the record's window, requests,
-    engine counters and device trace; returns the requests."""
+def schedule(cell, seconds: float, seed: int, traffic=None) -> list:
+    """[(due seconds, sensor, pool index, extra)] of one run of the cell's
+    mix (or of `traffic` in its place): inputs.serve_requests, and what
+    each request carries beyond PAN, MS and the sensor from the family."""
+    t = cell.traffic if traffic is None else traffic
+    return [(due, sensor, scene, cell.family.request_extra(t, seed, i))
+            for i, (due, sensor, scene) in enumerate(inputs.serve_requests(t, seconds, seed))]
+
+
+def window(engine, pool, requests: list, seconds: float, record: Record, trace: bool) -> list:
+    """Submits each request of `requests` (`schedule`) through the family's
+    engine call at its due time from now, whether or not earlier ones have
+    finished, then awaits every one (DRAIN_S past the window's close at
+    most). Fills the record's window, requests, engine counters and device
+    trace; returns the requests."""
     from tmdiff_tpu_torch.serve.engine import EngineOverloaded
 
+    submit = record.cell.family.submit
     before = {k: engine.stats[k] for k in ("requests", "batches", "padded_slots")}
     reqs = []
     with DeviceTrace(trace) as dt:
         record.start = now_ns()
         start = time.perf_counter()
-        for due, sensor, idx in schedule:
+        for due, sensor, idx, extra in requests:
             wait = start + due - time.perf_counter()
             if wait > 0:
                 time.sleep(wait)
             r = {"due": record.start + int(due * 1e9), "done": None, "ok": False,
-                 "sensor": sensor, "scene": idx, "future": None}
+                 "sensor": sensor, "scene": idx, "extra": extra, "future": None}
             try:
-                fut = engine.submit(pool["pan"][idx], pool["lms"][idx], sensor)
+                fut = submit(engine, pool["pan"][idx], pool["lms"][idx], sensor, extra)
             except EngineOverloaded:
                 fut = None
             if fut is not None:
@@ -142,8 +153,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         if device.type == "cuda":
             torch.cuda.synchronize()
         record = Record(cell, time.perf_counter() - t_start)
-        reqs = window(engine, pool, inputs.serve_requests(cell.traffic, seconds, seed), seconds,
-                      record, trace)
+        reqs = window(engine, pool, schedule(cell, seconds, seed), seconds, record, trace)
     finally:
         engine.shutdown()
     record.batches = spanned.batches
@@ -190,14 +200,13 @@ def image_gap(gaps: list) -> float:
 
 def reference_gaps(cell, weights, pool, reqs, outputs, device, block: int = 4) -> list:
     """Each image's (RMS gap to the reference, RMS of the reference's
-    residual), the reference run in blocks of rows."""
+    residual), the family's reference run in blocks of rows."""
     import torch
 
     m, t, e = cell.config["model"], cell.traffic, cell.traffic["engine"]
     kw = e.get("sampler_kw") or {}
     sab = reference.sqrt_alpha_bar(m["schedule"], m["n_timestep"], device)
-    params = {n: reference.to_reference_layout(n, w) for n, w in weights.items()}
-    model = reference.WavBEST(params, m["inter_dim"])
+    model = cell.family.reference(weights, m)
     gaps = []
     with reference.products(), torch.no_grad():
         for lo in range(0, len(reqs), block):
@@ -211,9 +220,10 @@ def reference_gaps(cell, weights, pool, reqs, outputs, device, block: int = 4) -
             pan = inputs.as_tensor(np.stack([pool["pan"][r["scene"]] for r in rs]), device)
             ms = inputs.as_tensor(np.stack([pool["lms"][r["scene"]] for r in rs]), device)
             prompt = inputs.as_tensor(inputs.prompt_table([r["sensor"] for r in rs]), device)
+            extra = inputs.stack([r["extra"] for r in rs])
             ref = reference.sample(model, sab, pan, ms, prompt, torch.stack(x_T),
                                    e["method"], e["steps"], kw.get("refresh_every", 2),
-                                   kw.get("cache_level", 1))
+                                   kw.get("cache_level", 1), extra)
             for i, (img, _) in enumerate(outs):
                 got = torch.as_tensor(img, device=device)
                 gaps.append((float(torch.sqrt(torch.mean((got - ref[i]) ** 2))),

@@ -26,7 +26,7 @@ if ROOT not in sys.path:
 def main(argv=None) -> int:
     import torch
 
-    from portbench import arith, inputs, serve, spec
+    from portbench import arith, serve, spec
     from portbench.record import Record
 
     parser = argparse.ArgumentParser(prog="python3 -m portbench.sweep")
@@ -40,9 +40,9 @@ def main(argv=None) -> int:
     try:
         for rate in args.rates:
             record = Record(cell, 0.0)
-            schedule = inputs.serve_requests({**cell.traffic, "rate_per_s": rate}, args.seconds,
-                                             args.seed)
-            reqs = serve.window(engine, pool, schedule, args.seconds, record, False)
+            requests = serve.schedule(cell, args.seconds, args.seed,
+                                      {**cell.traffic, "rate_per_s": rate})
+            reqs = serve.window(engine, pool, requests, args.seconds, record, False)
             lat = [(r["done"] - r["due"]) / 1e6 if r["ok"] else math.inf for r in reqs]
             done = sum(1 for r in reqs if r["ok"] and r["done"] <= record.end)
             d = record.engine_delta

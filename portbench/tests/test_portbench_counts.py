@@ -2,11 +2,12 @@
 import pytest
 import torch
 
-from portbench import counts, reference
+from portbench import counts, spec
 
 torch.set_num_threads(2)
 CH = (8, 16, 16, 32)
-CFG = {"inter_dim": 32, "n_timestep": 1000}
+CFG = {"channel_multiplier": list(CH), "embed_dim": 128, "inter_dim": 32, "n_timestep": 1000}
+FAMILY = spec.load("wavbest-bf16.serve-quality").family
 
 
 def conv3_shapes(bands, size):
@@ -58,9 +59,9 @@ def test_conv_work_hand_count():
 @pytest.mark.parametrize("method,steps,kw", [
     ("ddim", 1, None), ("ddim_cached", 4, {"refresh_every": 2, "cache_level": 3})])
 def test_serve_batch_k1_work(method, steps, kw):
-    spec = reference.param_spec(CH)
-    got = counts.serve_batch(spec, CFG, {"method": method, "steps": steps, "sampler_kw": kw},
-                             bucket=2, bands=4, size=32, elem_bytes=2)
+    traffic = {"bands": 4, "size": 32,
+               "engine": {"method": method, "steps": steps, "sampler_kw": kw}}
+    got = counts.serve_batch(FAMILY, CFG, traffic, bucket=2, elem_bytes=2)
     enc, full, reuse = conv3_shapes(4, 32)
     n_full = steps if method == "ddim" else steps // 2
     n_reuse = steps - n_full
@@ -73,8 +74,7 @@ def test_serve_batch_k1_work(method, steps, kw):
 
 
 def test_train_step_counts_forward_and_both_gradients():
-    spec = reference.param_spec(CH)
-    got = counts.train_step(spec, CFG, batch=2, bands=4, size=16, elem_bytes=4)
+    got = counts.train_step(FAMILY, CFG, {"batch": 2, "size": 16}, bands=4, elem_bytes=4)
     enc, full, _ = conv3_shapes(4, 16)
     assert got["k1_flops"] == 2 * flops(enc + full, 2, 4) and got["k1_convs"] == 2 * 57
     # forward, input and weight gradients of every conv: at least three times

@@ -4,9 +4,10 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import inputs, reference
+from portbench import inputs, spec
 
 torch.set_num_threads(2)
+WAVBEST = spec.load("wavbest-fp32.train-joint").family
 
 
 def test_arrivals_same_seed_same_schedule():
@@ -105,7 +106,8 @@ def test_batch_order_is_the_ports_batch_iterator():
 
 
 def test_weights_are_the_seeds_and_at_their_scale():
-    spec = reference.param_spec((8, 16, 16, 32))
+    spec = WAVBEST.weight_spec({"channel_multiplier": [8, 16, 16, 32], "embed_dim": 128,
+                                "inter_dim": 32})
     a = inputs.make_weights(spec, 2**31 + 1, "cpu")
     b = inputs.make_weights(spec, 2**31 + 1, "cpu")
     c = inputs.make_weights(spec, 2**31 + 2, "cpu")

@@ -1,5 +1,7 @@
 """BENCHMARK.json against the benchmark's contract, the data-driven look-up
-of a cell's files, and the check for JAX in the measuring process."""
+of a cell's files and model family, and the check for JAX in the measuring
+process."""
+import ast
 import json
 import os
 import re
@@ -88,18 +90,44 @@ def test_workloads_and_metrics():
         assert got["per_layer"]
 
 
+FAMILY_API = ("weight_spec", "build", "request_extra", "submit", "batch_extra", "train_call",
+              "reference", "reference_train")
+
+
 def test_every_name_has_its_file():
     for w in BENCH["workloads"]:
         cell = spec.load(w["name"])
         assert cell.traffic["kind"] in run.DRIVERS
         for m in cell.metrics:
             assert callable(cell.reader(m[1]["name"]).read)
+        assert all(callable(getattr(cell.family, f)) for f in FAMILY_API)
+        assert cell.family is cell.family
 
 
-def test_a_dropped_cell_is_found_with_no_code_edit(tmp_path):
+def copy_checkout(tmp_path):
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(spec.ROOT, "portbench"), root / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    return root
+
+
+@pytest.mark.parametrize("model,says", [
+    ({"channel_multiplier": [32, 64, 128, 256]}, '"family" key'),
+    ({"family": "no-such-family"}, "families/no-such-family.py")])
+def test_a_configuration_without_its_family_fails_at_load(tmp_path, model, says):
+    root = copy_checkout(tmp_path)
+    path = root / "portbench" / "configs" / "wavbest-bf16.json"
+    config = json.loads(path.read_text())
+    config["model"] = model
+    path.write_text(json.dumps(config))
+    (root / "BENCHMARK.json").write_text(json.dumps(BENCH))
+    with pytest.raises(ValueError, match=re.escape(says)):
+        spec.load("wavbest-bf16.serve-quality", str(root))
+    assert spec.load("wavbest-fp32.train-joint", str(root)).config["model"]["family"] == "wavbest"
+
+
+def test_a_dropped_cell_is_found_with_no_code_edit(tmp_path):
+    root = copy_checkout(tmp_path)
     bench = json.loads(json.dumps(BENCH))
     bench["workloads"].append({"name": "wavbest-bf16.serve-bursty", "config": "wavbest-bf16",
                                "traffic": "serve-bursty", "chips": 1, "why": "bursts"})
@@ -135,10 +163,35 @@ def test_forbidden_modules_compare_whole_top_level_names():
 
 def test_the_harness_sources_import_no_jax():
     pat = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|flax|tmdiff_tpu)\b(?!_torch)", re.M)
+    seen = set()
     for dirpath, _, files in os.walk(os.path.join(spec.ROOT, "portbench")):
         for f in files:
             if f.endswith(".py"):
                 assert not pat.search(open(os.path.join(dirpath, f)).read()), f
+                seen.add(os.path.basename(dirpath))
+    assert {"portbench", "families", "references", "metrics", "tests"} <= seen
+
+
+def imported(path: str) -> set:
+    """The modules a Python file imports, at any depth."""
+    names = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+    return names
+
+
+def test_a_plain_reference_imports_torch_numpy_and_the_shared_reference_only():
+    allowed = {"__future__", "contextlib", "math", "numpy", "torch", "torch.nn.functional",
+               "portbench.reference"}
+    refs = os.path.join(spec.ROOT, "portbench", "references")
+    paths = [os.path.join(spec.ROOT, "portbench", "reference.py")] + [
+        os.path.join(refs, f) for f in sorted(os.listdir(refs)) if f.endswith(".py")]
+    assert len(paths) >= 2
+    for path in paths:
+        assert imported(path) <= allowed, (path, imported(path) - allowed)
 
 
 def test_no_card_no_result(monkeypatch, capsys):

@@ -1,9 +1,13 @@
 """A training mix: the CLI's training loop in process (SensorMixer's
 per-step sensor over shuffled batch iterators, DeviceFeeder one step ahead,
 `Trainer.compiled_step`), then its first steps held against the plain
-reference.
+reference. What knows the model is the cell's family
+(`portbench/families/<family>.py`): its weights' spec, its model, what a
+step carries beyond PAN, MS and the sensor prompt, the call that hands a
+step over, and its plain reference; the feed, the clock, the window, the
+optimiser's replay and the comparisons are this file's.
 
-Set-up builds the model, loads the harness's weights, makes the trainer
+Set-up builds the family's model with the harness's weights, makes the trainer
 with the configuration's optimiser and schedule, the scene pools of every
 sensor and the feed, and runs the mix's first `warm_steps` steps through
 the window's own call: each batch shape's first call runs its step and
@@ -40,17 +44,12 @@ BETA1 = 0.9
 
 def build(cell, seed: int, device):
     """(trainer, state, weights, pools, prompts) of the cell."""
-    import torch
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
-    from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.train.trainer import Trainer
 
-    m, tc, t = cell.config["model"], cell.config["train"], cell.traffic
-    spec = reference.param_spec(m["channel_multiplier"], m["embed_dim"], m["inter_dim"])
-    weights = inputs.make_weights(spec, seed, device)
-    model = WavBEST(tuple(m["channel_multiplier"]), m["embed_dim"], m["inter_dim"],
-                    device=device, dtype=getattr(torch, m["dtype"]))
-    model.load_state_dict(weights, strict=True)
+    family, m, tc, t = cell.family, cell.config["model"], cell.config["train"], cell.traffic
+    weights = inputs.make_weights(family.weight_spec(m), seed, device)
+    model = family.build(m, weights, device)
     trainer = Trainer(model, NoiseSchedule.create(m["schedule"], m["n_timestep"]),
                       lr=tc["lr"], weight_decay=tc["weight_decay"],
                       warmup_steps=tc["warmup_steps"], max_iter=tc["max_iter"],
@@ -100,12 +99,13 @@ def first_moments(optimizer, params) -> list:
             for p in params]
 
 
-def ema_step(state, step, batch, prompt, decay: float) -> tuple:
-    """One more step through the window's call; returns each EMA leaf's
-    change and (1 - decay) (parameter after the step - EMA before), as
-    per-leaf norms worked out in float64 from the program's own tensors."""
+def ema_step(state, call, decay: float) -> tuple:
+    """One more step, `call(state)` through the window's call; returns each
+    EMA leaf's change and (1 - decay) (parameter after the step - EMA
+    before), as per-leaf norms worked out in float64 from the program's own
+    tensors."""
     before = [e.detach().clone() for e in state.ema_params]
-    state, _ = step(state, batch, prompt)
+    state, _ = call(state)
     got = leaf_norms(e.double() - b.double() for e, b in zip(state.ema_params, before))
     want = leaf_norms((1.0 - decay) * (p.detach().double() - b.double())
                       for p, b in zip(state.model.parameters(), before))
@@ -119,7 +119,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     step and may break it."""
     import torch
 
-    t = cell.traffic
+    family, t = cell.family, cell.traffic
     trainer, state, weights, pools, prompts = build(cell, seed, device)
     if fault is not None:
         fault(trainer)
@@ -131,9 +131,11 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
     losses, seen = [], {"grads": []}
     moments = [torch.zeros_like(p) for p in trainer.model.parameters()]
     try:
-        for k in range(max(t["warm_steps"], n_check)):
+        count = max(t["warm_steps"], n_check)  # steps run before the window
+        for k in range(count):
             batch, sensor = next(feeder)
-            state, metrics = step(state, batch, prompts[sensor])
+            state, metrics = family.train_call(step, state, batch, prompts[sensor],
+                                               family.batch_extra(t, seed, k))
             if k < n_check:
                 losses.append(metrics["l_pix"])
                 now = first_moments(optimizer, trainer.model.parameters())
@@ -156,8 +158,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
                 f0 = now_ns()
                 batch, sensor = next(feeder)
                 record.spans.add("feed", f0, now_ns())
+                extra = family.batch_extra(t, seed, count)
+                count += 1
                 s0 = now_ns()
-                state, metrics = step(state, batch, prompts[sensor])
+                state, metrics = family.train_call(step, state, batch, prompts[sensor], extra)
                 record.spans.add("step", s0, now_ns())
                 record.steps.append(int(batch["MS"].shape[1]))
                 if prev is not None:
@@ -171,8 +175,10 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
         record.failed = bad
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
         batch, sensor = next(feeder)
-        seen["ema"] = ema_step(state, step, batch, prompts[sensor],
-                               cell.config["train"]["ema_decay"])
+        extra = family.batch_extra(t, seed, count)
+        seen["ema"] = ema_step(
+            state, lambda s: family.train_call(step, s, batch, prompts[sensor], extra),
+            cell.config["train"]["ema_decay"])
     finally:
         feeder.close()
     trainer.release_compiled()
@@ -188,21 +194,22 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t_start: float,
 
 def reference_steps(cell, seed: int, weights: dict, pools: dict, device, steps: int,
                     loss_rows=None, allow_tf32: bool = False) -> dict:
-    """The reference's losses, gradients, changes and EMA of `steps`
-    steps from the harness's weights, on the batches the benchmark works
-    out for the seed; `allow_tf32` lets cuDNN and cuBLAS compute the fp32
-    products in TF32 (a control)."""
+    """The family's reference's losses, gradients, changes and EMA of
+    `steps` steps from the harness's weights, on the batches the benchmark
+    works out for the seed, each with what the family's `batch_extra` gives
+    the program's step of that count; `allow_tf32` lets cuDNN and cuBLAS
+    compute the fp32 products in TF32 (a control)."""
     import torch
 
-    m, tc, t = cell.config["model"], cell.config["train"], cell.traffic
+    family, m, tc, t = cell.family, cell.config["model"], cell.config["train"], cell.traffic
     batches = []
-    for sensor, b in inputs.train_batches(t, pools, seed, steps):
+    for k, (sensor, b) in enumerate(inputs.train_batches(t, pools, seed, steps)):
         prompt = inputs.as_tensor(inputs.prompt_table([sensor]), device)
-        batches.append(tuple(inputs.as_tensor(b[k], device) for k in ("Res", "PAN", "MS"))
-                       + (prompt.expand(len(b["Res"]), -1),))
+        batches.append(tuple(inputs.as_tensor(b[key], device) for key in ("Res", "PAN", "MS"))
+                       + (prompt.expand(len(b["Res"]), -1), family.batch_extra(t, seed, k)))
     sab = reference.sqrt_alpha_bar(m["schedule"], m["n_timestep"], device)
     with reference.products(allow_tf32):
-        out = reference.train_steps(weights, batches, seed, tc, sab, m["inter_dim"], loss_rows)
+        out = family.reference_train(weights, m, batches, seed, tc, sab, loss_rows)
     out["change"] = {n: float(torch.linalg.vector_norm(out["params"][n] - weights[n]))
                      for n in weights}
     del out["params"]
