@@ -2,7 +2,10 @@
 package's: every preset, parsed with debug on and off, gives the same tree
 and the same printed form; the port's preset copies equal the JAX package's
 files in every key and value but their `info` strings (and comments), which
-name the port's entry points and no TPU figure."""
+name the port's entry points and no TPU figure. PORT_ONLY names the presets
+of what the port serves and the JAX package does not (the ControlNet's
+serving recipe); every preset, those too, parses as the JAX package's
+parser reads it."""
 import os
 import re
 
@@ -15,12 +18,17 @@ from tmdiff_tpu_torch.config import config
 torch.set_num_threads(2)
 
 PRESETS = sorted(n for n in os.listdir(config.PRESETS) if n.endswith(".json"))
+PORT_ONLY = ["serve_controlnet.json"]
 
 
 def test_presets_are_the_jax_packages():
     jax_dir = os.path.join(os.path.dirname(jax_config.__file__), "presets")
-    assert PRESETS == sorted(n for n in os.listdir(jax_dir) if n.endswith(".json"))
-    for name in PRESETS:
+    shared = sorted(n for n in os.listdir(jax_dir) if n.endswith(".json"))
+    assert PRESETS == sorted(shared + PORT_ONLY)
+    for name in PORT_ONLY:
+        with open(os.path.join(config.PRESETS, name)) as f:
+            assert not re.search(r"tmdiff_tpu\.|BASELINE|orbax|/chip|TPU", f.read()), name
+    for name in shared:
         ours = config.load_commented_json(os.path.join(config.PRESETS, name))
         ref = jax_config.load_commented_json(os.path.join(jax_dir, name))
         assert set(ours) == set(ref), name

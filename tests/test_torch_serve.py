@@ -4,7 +4,9 @@ on a Pansharpener filled from the same flax params as the JAX suite's
 `shared_sharp` (channels (4, 8, 8, 16), 4 bands, 16x16, T = 10), plus the
 entry point's own contracts: its argv overlay and sampler settings against
 the JAX functions, the /v1/stats schema against the JAX server's, the
-device default, the refusals, and a bf16 EMA checkpoint served end to end.
+device default, the refusals, a bf16 EMA checkpoint served end to end, and
+serve_controlnet.json's controlled model answering a request with a hint
+and a task over HTTP.
 """
 import argparse
 import io
@@ -303,7 +305,9 @@ def test_http_overload_is_503_with_retry_after(engine_of, served):
 def test_stats_schema_equals_the_jax_server(served):
     """/v1/stats of the port's server and of the JAX package's, each on an
     engine with the same stand-in sampler after the same two requests:
-    the same keys and the same counts."""
+    the same keys and the same counts, but the port's `task_groups` (the
+    distinct tasks of its batches, 0 for requests without tasks), which
+    the JAX package's engine does not count."""
     results = []
     for engine_cls, server_fn in ((InferenceEngine, make_server),
                                   (JaxInferenceEngine, jax_make_server)):
@@ -330,6 +334,7 @@ def test_stats_schema_equals_the_jax_server(served):
         after.pop("mean_latency_ms")
         results.append((before, after))
     (port_before, port_after), (jax_before, jax_after) = results
+    assert port_before.pop("task_groups") == port_after.pop("task_groups") == 0
     assert port_before.keys() == jax_before.keys() and port_before == jax_before
     assert port_after == jax_after == {"requests": 2, "batches": 1, "padded_slots": 0,
                                        "batch_size_hist": {"2": 1}, "rejected": 0}
@@ -556,3 +561,48 @@ def test_serves_a_bf16_ema_checkpoint_end_to_end(tmp_path, served):
             {"PAN": np.stack([pan] * b), "MS": np.stack([ms] * b)}, sensor=["GF2"] * b,
             method="ddim", steps=2, seed=int(reply["seed"]))
         np.testing.assert_array_equal(reply["sr"], direct[row])
+
+
+def test_serves_the_controlnet_preset_with_a_hint_and_a_task(tmp_path, served):
+    """serve_controlnet.json at small widths (channel_multiplier (8, 8, 16,
+    16), a 2-step ddim, no warm-up), a port checkpoint of a
+    ControlledLegacyUNet: the engine holds the controlled bf16 model, a
+    request with a `hint` and a `task` is answered with the image a direct
+    request gives at its placement, and a request without them is a 400."""
+    from tmdiff_tpu_torch.config.config import load_commented_json
+    from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.controlnet import ControlledLegacyUNet
+    from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
+    from tmdiff_tpu_torch.train.trainer import Trainer
+
+    small = (8, 8, 16, 16)
+    model = ControlledLegacyUNet(small, device="cpu", seed=5)
+    state = Trainer(model, NoiseSchedule.create("cosine", 10)).init_state()
+    root = str(tmp_path / "checkpoint")
+    ckpt_lib.save_checkpoint(root, state)
+    cfg = load_commented_json(os.path.join(PRESETS, "serve_controlnet.json"))
+    cfg["model"]["unet"]["channel_multiplier"] = list(small)
+    cfg["model"]["beta_schedule"]["val"]["n_timestep"] = 10
+    cfg["serve"].update(steps=2, warmup=None, max_delay_ms=1.0)
+    path = tmp_path / "serve_controlnet.json"
+    path.write_text(json.dumps(cfg))
+    args, opt, kw = serve_main.prepare(["-c", str(path), "--ckpt", root, "--device", "cpu"])
+    engine = serve_main.build_engine(args, opt, kw)
+    pan, ms = _image(6, bands=8)
+    hint = np.random.default_rng(6).random((16, 16, 3), np.float32)
+    try:
+        sharp = engine.sharp
+        assert isinstance(sharp.model, ControlledLegacyUNet)
+        assert sharp.model.dtype == torch.bfloat16 and engine.method == "ddim"
+        base = served(engine)
+        reply = _post(base, pan=pan, ms=ms, sensor="WV3", hint=hint, task="control_depth")
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(base, pan=pan, ms=ms, sensor="WV3")
+        assert ei.value.code == 400 and "hint" in json.loads(ei.value.read())["error"]
+    finally:
+        engine.shutdown()
+    b, row = int(reply["bucket"]), int(reply["row"])
+    direct = sharp.sample({"PAN": np.stack([pan] * b), "MS": np.stack([ms] * b),
+                           "HINT": np.stack([hint] * b), "TASK": np.full(b, 3)},
+                          sensor=["WV3"] * b, method="ddim", steps=2, seed=int(reply["seed"]))
+    np.testing.assert_array_equal(reply["sr"], direct[row])

@@ -275,9 +275,10 @@ def test_torchrun_serves_over_a_mesh_and_stops_on_sigint(tmp_path):
     tmdiff_tpu_torch.serve --device cpu --mesh-space 2` with a port
     checkpoint: rank 0 names the mesh, warms up, binds; three concurrent
     HTTP requests (two sensors) equal their one-process replays to
-    MESH_RTOL of scale; /v1/stats has the JAX server's keys and counts the
-    warm-up's and the requests; SIGINT to both ranks stops both with exit 0
-    within STOP_TIMEOUT, each printing its tagged launch line."""
+    MESH_RTOL of scale; /v1/stats has the JAX server's keys (and the port's
+    `task_groups`) and counts the warm-up's and the requests; SIGINT to both
+    ranks stops both with exit 0 within STOP_TIMEOUT, each printing its
+    tagged launch line."""
     model = WavBEST(CHANNELS, device="cpu", seed=3)
     root = str(tmp_path / "checkpoint")
     ckpt_lib.save_checkpoint(root, Trainer(model, NoiseSchedule.create("cosine", N_TIMESTEP))
@@ -329,7 +330,9 @@ def test_torchrun_serves_over_a_mesh_and_stops_on_sigint(tmp_path):
     assert sorted(l["rank"] for l in lines) == [0, 1]
     assert all(l["mesh"]["failed_batches"] == 0 for l in lines)
     assert len({l["mesh"]["batches"] for l in lines}) == 1
-    assert set(stats) == _jax_stats_keys()
+    # the JAX server's keys, and the port's count of distinct tasks a batch
+    # (0: these requests carry no task)
+    assert set(stats) == _jax_stats_keys() | {"task_groups"} and stats["task_groups"] == 0
     assert stats["requests"] == 3 + 3  # the warm-up's buckets of 1 and 2, then the requests
     placements = [{k: int(r[k]) for k in ("seed", "bucket", "row")} for r in replies]
     replays = _replays({k: v.numpy() for k, v in model.state_dict().items()}, "float32",

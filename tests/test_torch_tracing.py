@@ -3,7 +3,8 @@ its layer boundaries, on the CPU: off records nothing; parents on one
 thread and a span that crosses threads; the bounded buffer; the clock
 shared with torch.profiler and `trace`'s spans.json; InferenceEngine's
 worker spans on a stub sampler; a tiny WavBEST through
-`Pansharpener.sample`; DeviceFeeder and its Prefetcher; the CPU
+`Pansharpener.sample`; the ControlNet's `sample.hint` span and the engine's
+count of tasks a batch; DeviceFeeder and its Prefetcher; the CPU
 `compiled_step`. The card-only spans (`step.capture` then `step.replay`,
 `conv3d.plan`) are tested in tests/test_torch_cuda.py."""
 import json
@@ -182,7 +183,7 @@ def test_engine_spans_full_and_deadline():
     spans, futs = engine_spans(2000.0, [(4, 8), (4, 8)])
     collect, sample = check_batches(spans, futs)
     assert collect[0].attrs == {"batch": 0, "n": 2, "closed": "full", "requeued": 0}
-    assert sample[0].attrs == {"batch": 0, "bucket": 2}
+    assert sample[0].attrs == {"batch": 0, "bucket": 2, "tasks": 0}
     spans, futs = engine_spans(5.0, [(4, 8)])
     collect, _ = check_batches(spans, futs)
     assert collect[0].attrs == {"batch": 0, "n": 1, "closed": "deadline", "requeued": 0}
@@ -193,7 +194,7 @@ def test_engine_spans_requeue_a_second_shape():
     collect, sample = check_batches(spans, futs)
     assert collect[0].attrs == {"batch": 0, "n": 2, "closed": "full", "requeued": 1}
     assert collect[1].attrs == {"batch": 1, "n": 1, "closed": "deadline", "requeued": 0}
-    assert sample[1].attrs == {"batch": 1, "bucket": 1}
+    assert sample[1].attrs == {"batch": 1, "bucket": 1, "tasks": 0}
     assert futs[1].placement == {"seed": 1, "bucket": 1, "row": 0}
 
 
@@ -235,6 +236,41 @@ def test_sampler_spans(sharp, method, steps, kinds):
     assert [s.attrs["kind"] for s in denoise] == kinds
     assert all(s.parent == loop.id and loop.start <= s.start <= s.end <= loop.end
                for s in denoise)
+
+
+def test_controlnet_hint_span_and_task_counts():
+    """A tiny ControlledLegacyUNet behind the engine: two batches of mixed
+    tasks give `engine.sample` spans with their distinct tasks, the
+    `task_groups` counter their sum, and one `sample.hint` span inside each
+    `sample.encode` with the batch's rows and distinct tasks."""
+    from tmdiff_tpu_torch.models.controlnet import ControlledLegacyUNet
+
+    model = ControlledLegacyUNet((8, 8, 16, 16), embed_dim=16, inter_dim=8, device="cpu")
+    engine = InferenceEngine(Pansharpener(model, n_timestep=100, device="cpu"),
+                             method="ddim", steps=1, max_batch=4, max_delay_ms=2000.0)
+    rng = np.random.default_rng(1)
+    tasks = [["control_canny", "control_depth", "control_canny", "control_seg"],
+             ["control_hed", "control_hed"]]
+    try:
+        with profiling.recording():
+            for group in tasks:
+                futs = [engine.submit(rng.random((1, 16, 16), np.float32),
+                                      rng.random((4, 16, 16), np.float32), "WV3",
+                                      hint=rng.random((16, 16, 3), np.float32), task=t)
+                        for t in group]
+                for f in futs:
+                    f.result(timeout=60)
+    finally:
+        engine.shutdown()
+    spans = by_name(profiling.drain())
+    sample = {s.attrs["batch"]: s for s in spans["engine.sample"]}
+    assert [sample[k].attrs["tasks"] for k in (0, 1)] == [3, 1]
+    assert engine.stats["task_groups"] == 4 and engine.stats["batches"] == 2
+    hints = sorted(spans["sample.hint"], key=lambda s: s.start)
+    encodes = sorted(spans["sample.encode"], key=lambda s: s.start)
+    assert [h.attrs for h in hints] == [{"rows": 4, "tasks": 3}, {"rows": 2, "tasks": 1}]
+    for h, e in zip(hints, encodes):
+        assert h.parent == e.id and e.start <= h.start <= h.end <= e.end
 
 
 def test_feeder_spans():

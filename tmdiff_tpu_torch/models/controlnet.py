@@ -32,6 +32,21 @@ so utils/weights.py::from_flax fills them. Every module takes `dtype`,
 float32 or bfloat16, as the JAX package's do: parameters stay float32, the
 hint and the task feature are cast to `dtype`, and a zero conv computes
 conv(x · s) + b in it.
+
+Serving (pipeline.py, serve/engine.py) goes through the facade's contract:
+`encode_condition(pan, ms, prompt_emb, hint=, task=)` holds what no
+diffusion step changes, `denoise(x_t, t, cache)` the rest, and `forward`
+equals the two together bit for bit. The hint encoder reads only the hint
+and the task embedding, so it runs once per image, in `encode_condition`
+(inside a `sample.hint` span, utils/profiling.py), exactly as it would at
+every step. `task` is one id for the batch (an int: the JAX package's
+path) or one id per row (a sequence, an array or a tensor of ids), so one
+batch mixes tasks: each row's stems are its task's experts, run as one
+grouped conv over the batch (ops/library_conv.py::library_conv3d_rows),
+and the hypernetwork and the zero convs' styles take one task embedding
+per row. The task features come from the model's `task_features` buffer
+(ALL_TASKS_NUM, 768), filled from `task_feature` by default, unless a
+caller passes `task_feat`.
 """
 from __future__ import annotations
 
@@ -49,8 +64,9 @@ from tmdiff_tpu_torch.models.clip_text import placeholder_text_embedding
 from tmdiff_tpu_torch.models.legacy_blocks import LibraryConv3d, StridedDownStage
 from tmdiff_tpu_torch.models.legacy_unet import LegacyUNet
 from tmdiff_tpu_torch.models.wavbest import PromptMLP, TimeMLP
-from tmdiff_tpu_torch.ops.library_conv import library_conv3d
+from tmdiff_tpu_torch.ops.library_conv import library_conv3d, library_conv3d_rows
 from tmdiff_tpu_torch.ops.modconv import modulated_conv3d
+from tmdiff_tpu_torch.utils import profiling
 
 # `cldm_unicontrol.py:146-150`: the 13 UniControl task ids.
 TASKS_TO_ID = {
@@ -135,9 +151,11 @@ class HintEncoderMoE(nn.Module):
     a zero conv, the shared trunk (32 -> 32 -> 96 -> 96 -> 256, SiLU) and a
     zero conv to `model_channels`, every conv (1, 3, 3) SAME at stride 1 on
     the depth-1 hint. Each stem layer is one stacked parameter over every
-    task (the checkpoint is task-independent); `task_id` picks its slice.
-    The hint is (B, H, W, hint_channels), cast to `dtype`; the output
-    (B, 1, H, W, model_channels) broadcasts over the bands."""
+    task (the checkpoint is task-independent); `task_id` picks its slice:
+    an int for the whole batch, or a (B,) tensor of ids, each row through
+    its own task's stems in one grouped conv. The hint is (B, H, W,
+    hint_channels), cast to `dtype`; the output (B, 1, H, W,
+    model_channels) broadcasts over the bands."""
 
     STEM = ((None, 16), (16, 16), (16, 32))
     TRUNK = ((32, 32), (32, 96), (96, 96), (96, 256))
@@ -159,12 +177,13 @@ class HintEncoderMoE(nn.Module):
                 cin, cout, "hint", bias=torch_conv_bias_init(9 * cin, (cout,)), dtype=dtype))
         self.zeroconv1 = ModulatedZeroConv(256, model_channels, task_dim, dtype)
 
-    def forward(self, hint, task_id: int, task_emb):
+    def forward(self, hint, task_id, task_emb):
         h = hint.to(self.dtype)[:, None]
+        conv = library_conv3d if isinstance(task_id, int) else library_conv3d_rows
         for li in range(len(self.STEM)):
             kernel = getattr(self, f"stem{li}_kernel")[task_id]
             bias = getattr(self, f"stem{li}_bias")[task_id]
-            h = swish(library_conv3d(h, kernel, bias, kind="hint"))
+            h = swish(conv(h, kernel, bias, kind="hint"))
         h = self.zeroconv0(h, task_emb)
         for li in range(len(self.TRUNK)):
             h = swish(getattr(self, f"share{li}")(h))
@@ -193,10 +212,12 @@ class ControlBranch(nn.Module):
         for i, f in enumerate((c0, c1, c2, c3, c3)):
             self.add_module(f"zero{i}", ModulatedZeroConv(f, f, 4 * c0, d))
 
-    def forward(self, xt, gemb, prompt_emb, hint, task_id: int, task_emb, rng=None):
+    def forward(self, xt, gemb, zemb, hint_feat, task_emb, rng=None):
+        """The five residuals; `zemb` (the branch's prompt MLP of the prompt)
+        and `hint_feat` (its hint encoder's output) are what no step
+        changes (ControlledLegacyUNet.encode_condition)."""
         temb = swish(self.embed(gemb))
-        zemb = swish(self.embed2(prompt_emb))
-        h0 = self.conv2(xt, zemb) + self.hint(hint, task_id, task_emb)
+        h0 = self.conv2(xt, zemb) + hint_feat
         h1 = self.down1(h0, temb, zemb, rng)
         h2 = self.down2(h1, temb, zemb, rng)
         h3 = self.down3(h2, temb, zemb, rng)
@@ -211,48 +232,96 @@ class ControlledLegacyUNet(LegacyUNet):
     `seed`; the control branch and the task hypernetwork from `seed + 1`.
     With `hint=None`, or at the zero-init of the control branch, the
     forward equals the plain LegacyUNet's bit for bit. `dtype` as
-    LegacyUNet's."""
+    LegacyUNet's. `hint_channels` and `task_index` (task name -> id) tell
+    the serving engine what a request carries."""
+
+    # an unconditional hint's meaning is not defined for the guided sampler
+    REFUSED_SAMPLERS = {**LegacyUNet.REFUSED_SAMPLERS,
+                        "dpm++_cfg": "its unconditional branch would need an "
+                                     "unconditional hint and task, which it does not define"}
+    task_index = TASKS_TO_ID
 
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), hint_channels: int = 3,
                  embed_dim: int = 128, inter_dim: int = 32, only_mid_control: bool = False,
                  control_scales: Sequence[float] = (1.0,) * 5, *, device=None, seed: int = 0,
                  dtype=torch.float32):
         super().__init__(channels, embed_dim, inter_dim, device=device, seed=seed, dtype=dtype)
+        self.hint_channels = hint_channels
         self.only_mid_control = only_mid_control
         self.control_scales = tuple(control_scales)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed + 1)
             self.task_hypernet = TaskHypernet(4 * channels[0], dtype=dtype)
             self.control = ControlBranch(channels, hint_channels, embed_dim, inter_dim, dtype)
+        names = sorted(TASKS_TO_ID, key=TASKS_TO_ID.get)
+        self.register_buffer("task_features",
+                             torch.as_tensor(np.stack([task_feature(n) for n in names])))
         self.to(self.device)
         self.eval()
 
-    def forward(self, x_t, t, pan, ms, prompt_emb, *, hint=None, task_id: int = 0,
-                task_feat=None, train: bool = False, rng=None):
-        rng = dropout_rng(train, rng)
-        if prompt_emb.dim() == 1:
-            prompt_emb = prompt_emb.expand(x_t.shape[0], prompt_emb.shape[0])
-        cond = (pan - ms).to(self.dtype)[..., None]
-        xt = x_t.to(self.dtype)[..., None]
-        # the reference's torch.no_grad() over the base embeddings, input
-        # blocks and middle block (`cldm_unicontrol.py:72-79`)
+    def encode_condition(self, pan, ms, prompt_emb, *, hint=None, task=None, task_feat=None):
+        """LegacyUNet's cache (the base's embedding MLP under no_grad, as
+        in `forward`) and, with a hint, the task embedding `task_emb`, the
+        control branch's prompt MLP `control_zemb` and the hint encoder's
+        output `hint_feat`. `hint` (B, H, W, hint_channels); `task` an int
+        id for the batch or one id per row; `task_feat` the 768-d task
+        feature(s) in place of the `task_features` rows."""
+        if hint is None and (task is not None or task_feat is not None):
+            raise ValueError("a task without a hint: pass hint= with it")
         with torch.no_grad():
-            gemb, temb, zemb = legacy_unet.embeds(self, x_t, t, prompt_emb)
-            c_taps, x_taps = legacy_unet.encode(self, cond, xt, temb, zemb, rng)
+            cache = LegacyUNet.encode_condition(self, pan, ms, prompt_emb)
+        if hint is None:
+            return cache
+        if task is None:
+            raise ValueError("hint conditioning needs a task: an id of TASKS_TO_ID, or one "
+                             "per row")
+        if isinstance(task, (int, np.integer)):
+            task, ids = int(task), [int(task)]
+        else:
+            ids = (task.tolist() if torch.is_tensor(task) else np.asarray(task).tolist())
+            if len(ids) != ms.shape[0]:
+                raise ValueError(f"{len(ids)} task ids for a batch of {ms.shape[0]}")
+            task = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        if task_feat is None:
+            task_feat = self.task_features[task]
+        task_emb = self.task_hypernet(torch.as_tensor(task_feat, dtype=torch.float32,
+                                                      device=self.device).to(self.dtype))
+        with profiling.span("sample.hint", rows=int(ms.shape[0]), tasks=len(set(ids))):
+            hint_feat = self.control.hint(hint, task, task_emb)
+        cache.update(task_emb=task_emb, hint_feat=hint_feat,
+                     control_zemb=swish(self.control.embed2(cache["prompt"])))
+        return cache
+
+    def denoise(self, x_t, t, cache, *, train: bool = False, rng=None):
+        """(B, bands, H, W) float32 x0-prediction from `encode_condition`'s
+        cache: the base's embeddings, encoders and middle under no_grad (the
+        reference's torch.no_grad(), `cldm_unicontrol.py:72-79`), the
+        control residuals where the cache holds a hint, the decoder."""
+        rng = dropout_rng(train, rng)
+        xt = x_t.to(self.dtype)[..., None]
+        zemb = cache["zemb"]
+        with torch.no_grad():
+            gemb, temb = legacy_unet.time_embeds(self, t)
+            c_taps, x_taps = legacy_unet.encode(self, cache["cond"], xt, temb, zemb, rng)
             h = legacy_unet.middle(self, x_taps[3], temb, zemb, rng)
         x_taps = list(x_taps)
-        if hint is not None:
-            if task_feat is None:
-                raise ValueError("hint conditioning requires task_feat (768-d, see "
-                                 "task_feature())")
-            task_emb = self.task_hypernet(torch.as_tensor(task_feat, dtype=torch.float32,
-                                                          device=self.device).to(self.dtype))
-            res = self.control(xt, gemb, prompt_emb, hint, task_id, task_emb, rng)
+        if "hint_feat" in cache:
+            res = self.control(xt, gemb, cache["control_zemb"], cache["hint_feat"],
+                               cache["task_emb"], rng)
             s = self.control_scales
             h = h + s[4] * res[4]  # `h += control.pop()`
             if not self.only_mid_control:
                 x_taps = [x + s[i] * r for i, (x, r) in enumerate(zip(x_taps, res))]
         return legacy_unet.decode(self, h, c_taps, x_taps, xt, temb, zemb, rng)
+
+    def forward(self, x_t, t, pan, ms, prompt_emb, *, hint=None, task_id=0, task_feat=None,
+                train: bool = False, rng=None):
+        """`denoise(encode_condition(...))`: `task_id` an int or one id per
+        row, `task_feat` the 768-d feature(s) or None for `task_features`'
+        rows; both are read only with a hint."""
+        control = {} if hint is None else dict(hint=hint, task=task_id, task_feat=task_feat)
+        cache = self.encode_condition(pan, ms, prompt_emb, **control)
+        return self.denoise(x_t, t, cache, train=train, rng=rng)
 
 
 # -- parameter plumbing ----------------------------------------------------------

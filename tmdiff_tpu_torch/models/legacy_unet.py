@@ -7,13 +7,22 @@ The legacy blocks' spatial math (VALID stride-2 down: H -> (H - 1) // 2; the
 transposed conv up: h -> 2 h + 2, cropped to the skip's grid) needs H and W
 at least 16 and divisible by 8 (256 maps to 127, 63, 31 and back).
 
-`embeds`, `encode`, `middle` and `decode` are the forward's pieces, shared
-with models/controlnet.py::ControlledLegacyUNet as in the JAX package, so
-the plain and the controlled model run one wiring on identically named
-modules. Inputs as WavBEST's: x_t (B, bands, H, W), t (B,), pan (B, 1, H, W)
-(or a tensor that broadcasts against ms), ms (B, bands, H, W), a prompt
-embedding (768,) or (B, 768). With train=True dropout draws from `rng`, a
-torch.Generator on the model's device.
+`prompt_embed`, `time_embeds`, `encode`, `middle` and `decode` are the
+forward's pieces, shared with models/controlnet.py::ControlledLegacyUNet as
+in the JAX package, so the plain and the controlled model run one wiring on
+identically named modules. Inputs as WavBEST's: x_t (B, bands, H, W), t
+(B,), pan (B, 1, H, W) (or a tensor that broadcasts against ms), ms (B,
+bands, H, W), a prompt embedding (768,) or (B, 768). With train=True dropout
+draws from `rng`, a torch.Generator on the model's device.
+
+The facade's contract is WavBEST's: `encode_condition(pan, ms, prompt_emb)`
+holds what no diffusion step changes (the condition `pan - ms` and the
+embedded prompt), `denoise(x_t, t, cache)` the rest, and `forward` is the
+two together. Unlike WavBEST's, the legacy condition encoder reads the time
+embedding, so it runs in `denoise`, at every step. There is no deep-trunk
+split (`denoise_deep` / `denoise_reuse`), so the block-cached sampler
+refuses these models (`REFUSED_SAMPLERS`, read by pipeline.py), and they
+run on one process: `use_mesh` takes None only.
 
 `dtype` (float32, or bfloat16 as the JAX package's `LegacyUNet(dtype=...)`)
 is the type the blocks compute in; parameters stay float32. The time
@@ -39,15 +48,18 @@ from tmdiff_tpu_torch.ops.embedding import gamma_embedding
 from tmdiff_tpu_torch.utils.device import resolve_device
 
 
-def embeds(mod, x_t, t, prompt_emb):
-    """(gemb, temb, zemb): the gamma time embedding and the two
-    conditioning MLPs of `mod`."""
+def prompt_embed(mod, prompt_emb, batch: int):
+    """(the prompt embedding (batch, 768), zemb): a (768,) prompt expanded
+    over the batch, and `mod`'s prompt MLP of it."""
     if prompt_emb.dim() == 1:
-        prompt_emb = prompt_emb.expand(x_t.shape[0], prompt_emb.shape[0])
+        prompt_emb = prompt_emb.expand(batch, prompt_emb.shape[0])
+    return prompt_emb, swish(mod.embed2(prompt_emb.to(mod.dtype)))
+
+
+def time_embeds(mod, t):
+    """(gemb, temb): the gamma time embedding and `mod`'s time MLP of it."""
     gemb = gamma_embedding(t.reshape(-1), mod.inter_dim).to(mod.dtype)
-    zemb = swish(mod.embed2(prompt_emb.to(mod.dtype)))
-    temb = swish(mod.embed(gemb))
-    return gemb, temb, zemb
+    return gemb, swish(mod.embed(gemb))
 
 
 def encode(mod, cond, xt, temb, zemb, rng=None):
@@ -90,6 +102,10 @@ class LegacyUNet(nn.Module):
     device given and no GPU, construction raises. `dtype`: float32 or
     bfloat16 (module doc)."""
 
+    # the samplers of pipeline.py this model cannot run, with the reason
+    REFUSED_SAMPLERS = {"ddim_cached": "it has no deep-trunk cache (denoise_deep, "
+                                       "denoise_reuse)"}
+
     def __init__(self, channels: Sequence[int] = (32, 64, 128, 256), embed_dim: int = 128,
                  inter_dim: int = 32, *, device=None, seed: int = 0, dtype=torch.float32):
         super().__init__()
@@ -124,6 +140,17 @@ class LegacyUNet(nn.Module):
     def device(self) -> torch.device:
         return self.out_proj.weight.device
 
+    def use_mesh(self, mesh=None) -> "LegacyUNet":
+        """The entry points' call (WavBEST.use_mesh): the legacy models run
+        on one process, so `mesh` must be None (an unsharded call)."""
+        if mesh is not None:
+            raise ValueError(f"{type(self).__name__} runs on one process: it takes no "
+                             "sharded call (use_mesh(None))")
+        for m in self.modules():
+            if hasattr(m, "mesh"):
+                m.mesh = None
+        return self
+
     def use_plain_conv(self, flag: bool = True) -> "LegacyUNet":
         """Route every SAME 3x3x3 conv to the plain PyTorch version (True) or
         to the CUDA kernel on a CUDA device (False, the default). The
@@ -133,11 +160,25 @@ class LegacyUNet(nn.Module):
                 m.plain = flag
         return self
 
-    def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
+    def encode_condition(self, pan, ms, prompt_emb):
+        """{"cond": (pan - ms) as (B, bands, H, W, 1) in the model's dtype,
+        "prompt": the (B, 768) prompt embedding, "zemb": its MLP}: what no
+        step changes (no dropout site)."""
+        prompt, zemb = prompt_embed(self, prompt_emb, ms.shape[0])
+        return {"cond": (pan - ms).to(self.dtype)[..., None], "prompt": prompt, "zemb": zemb}
+
+    def denoise(self, x_t, t, cache, *, train: bool = False, rng=None):
+        """(B, bands, H, W) float32 x0-prediction from `encode_condition`'s
+        cache: the time embedding, both encoders, the middle and the
+        decoder."""
         rng = dropout_rng(train, rng)
-        _, temb, zemb = embeds(self, x_t, t, prompt_emb)
-        cond = (pan - ms).to(self.dtype)[..., None]
+        _, temb = time_embeds(self, t)
+        zemb = cache["zemb"]
         xt = x_t.to(self.dtype)[..., None]
-        c_taps, x_taps = encode(self, cond, xt, temb, zemb, rng)
+        c_taps, x_taps = encode(self, cache["cond"], xt, temb, zemb, rng)
         h = middle(self, x_taps[3], temb, zemb, rng)
         return decode(self, h, c_taps, x_taps, xt, temb, zemb, rng)
+
+    def forward(self, x_t, t, pan, ms, prompt_emb, *, train: bool = False, rng=None):
+        cache = self.encode_condition(pan, ms, prompt_emb)
+        return self.denoise(x_t, t, cache, train=train, rng=rng)

@@ -27,6 +27,9 @@ Conv, `out + bias.astype(out.dtype)` of the transposed conv, the hint
 stems): in bf16 that is a second rounding, as there (aten's cuDNN route
 adds a given bias after the conv too). `calls` counts the forward calls by
 kind on every device, for the smoke run's report beside K1's launches.
+`library_conv3d_rows` runs a conv of a kind with one kernel per batch row
+(the ControlNet hint encoder's task-routed stems) as one grouped conv, the
+batch folded into the groups.
 
 `conv_nd` is XLA's conv_general_dilated for the library modules that reach
 no TPU kernel (ops/dynamic_conv.py, ops/pgcu.py, utils/image_ops.py) and
@@ -81,30 +84,31 @@ def widen_on_cpu(*tensors):
 
 
 class _Conv(torch.autograd.Function):
-    """aten.convolution of an NCDHW x and a torch-layout weight (no bias),
-    and its backward, both under `cudnn_fp32`."""
+    """aten.convolution of an NCDHW x and a torch-layout weight (no bias)
+    in `groups` feature groups, and its backward, both under
+    `cudnn_fp32`."""
 
     @staticmethod
-    def forward(ctx, x, weight, kind):
+    def forward(ctx, x, weight, kind, groups=1):
         _, stride, padding, transposed, out_pad = KINDS[kind]
         ctx.save_for_backward(x, weight)
-        ctx.kind = kind
+        ctx.kind, ctx.groups = kind, groups
         with cudnn_fp32():
             y = torch.ops.aten.convolution(*widen_on_cpu(x, weight), None, stride, padding,
-                                           [1, 1, 1], transposed, out_pad, 1)
+                                           [1, 1, 1], transposed, out_pad, groups)
         return y.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, weight = ctx.saved_tensors
         _, stride, padding, transposed, out_pad = KINDS[ctx.kind]
-        need_x, need_w, _ = ctx.needs_input_grad
+        need_x, need_w = ctx.needs_input_grad[:2]
         with cudnn_fp32():
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 *widen_on_cpu(dy, x, weight), None, stride, padding, [1, 1, 1], transposed,
-                out_pad, 1, [need_x, need_w, False])
+                out_pad, ctx.groups, [need_x, need_w, False])
         cast = lambda g: None if g is None else g.to(x.dtype)
-        return cast(dx), cast(dw), None
+        return cast(dx), cast(dw), None, None
 
 
 def library_conv3d(x, kernel, bias=None, *, kind: str):
@@ -123,6 +127,28 @@ def library_conv3d(x, kernel, bias=None, *, kind: str):
     calls[kind] += 1
     y = y.permute(0, 2, 3, 4, 1).contiguous()
     return y if bias is None else y + bias.to(dt)
+
+
+def library_conv3d_rows(x, kernels, bias=None, *, kind: str):
+    """The conv `kind` (not "transposed") of each row of x (B, D, H, W, Cin)
+    with its own kernel, `kernels` (B, kd, kh, kw, Cin, Cout), plus its own
+    bias (B, Cout): (B, D', H', W', Cout) in x's dtype. One grouped conv:
+    the rows are folded into the channels, row b's kernel is group b."""
+    size = KINDS[kind][0]
+    b, cin = x.shape[0], x.shape[-1]
+    if KINDS[kind][3]:
+        raise ValueError("library_conv3d_rows takes no transposed kind")
+    if tuple(kernels.shape[1:4]) != size or kernels.shape[0] != b or kernels.shape[4] != cin:
+        raise ValueError(f'a "{kind}" conv of rows takes ({b},) + {size + (cin,)} + (Cout,) '
+                         f"kernels, got {tuple(kernels.shape)}")
+    dt = x.dtype
+    folded = x.permute(0, 4, 1, 2, 3).reshape(1, b * cin, *x.shape[1:4])
+    # (B, kd, kh, kw, Cin, Cout) -> (B Cout, Cin, kd, kh, kw): group b's block is row b's kernel
+    weight = kernels.to(dt).permute(0, 5, 4, 1, 2, 3).reshape(-1, cin, *size)
+    y = _Conv.apply(folded, weight, kind, b)
+    calls[kind] += 1
+    y = y.reshape(b, -1, *y.shape[2:]).permute(0, 2, 3, 4, 1).contiguous()
+    return y if bias is None else y + bias.to(dt)[:, None, None, None, :]
 
 
 def per_axis(v, rank: int) -> tuple:

@@ -42,6 +42,12 @@ Spans of a `sample` call (utils/profiling.py, while its recorder is on):
 (`encode_condition`), `sample.loop` (x_T to the residual) with one
 `sample.denoise` around every network call (`kind` = "denoise", "deep" or
 "reuse"), and `sample.d2h` (res2img, clamp, gather and the copy to numpy).
+
+A batch may carry `HINT` (B, H, W, C) and `TASK` (B,) task ids for a model
+that takes them (models/controlnet.py::ControlledLegacyUNet, whose
+`hint_channels` says so): they go to its `encode_condition` as `hint` and
+`task`, one task per row; a model that takes none refuses them. A model's
+`REFUSED_SAMPLERS` (method -> reason) names the samplers it cannot run.
 """
 from __future__ import annotations
 
@@ -104,6 +110,13 @@ class Pansharpener:
         data, and the port's host loop runs both the same way."""
         if method not in METHODS:
             raise ValueError(f"unknown sampler {method!r}; expected one of {METHODS}")
+        refused = getattr(self.model, "REFUSED_SAMPLERS", {})
+        if method in refused:
+            raise ValueError(f"{type(self.model).__name__} does not run {method!r}: "
+                             f"{refused[method]}")
+        if ("HINT" in batch or "TASK" in batch) and not getattr(self.model, "hint_channels",
+                                                                 None):
+            raise ValueError(f"{type(self.model).__name__} takes no HINT or TASK")
         if method != "ddim_cached":
             refresh_every, cache_level, forecast, refresh_mask = 2, 1, False, None
         if refresh_mask is not None:
@@ -138,8 +151,13 @@ class Pansharpener:
             prompt_emb = self.prompt_embedding(sensor)
             if prompt_emb.dim() == 2:
                 prompt_emb = shard(prompt_emb)
+            control = {}
+            if "HINT" in batch or "TASK" in batch:  # the model refuses one without the other
+                control = {"hint": self._tensor(batch.get("HINT")),
+                           "task": None if batch.get("TASK") is None
+                           else np.asarray(batch["TASK"]).astype(np.int64)}
         with profiling.span("sample.encode"):
-            cache = model.encode_condition(pan, ms, prompt_emb)
+            cache = model.encode_condition(pan, ms, prompt_emb, **control)
         frames = None
         with profiling.span("sample.loop"):
             gen = torch.Generator(device=dev).manual_seed(seed)

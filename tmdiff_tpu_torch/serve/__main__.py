@@ -9,7 +9,10 @@
       -c config.json --ckpt <ckpt> [--mesh-space S] ...
 
 Builds the model from the config (`model.unet.channel_multiplier`,
-`model.beta_schedule.val`), loads the weights through train/checkpoint.py
+`model.beta_schedule.val`; with a `model.controlnet` block, as
+config/presets/serve_controlnet.json has, the UniControl ControlNet over
+the legacy UNet, models/controlnet.py::ControlledLegacyUNet, whose requests
+carry a hint and a task), loads the weights through train/checkpoint.py
 (the port's own checkpoints or a reference `.pth`; the JAX package's orbax
 checkpoints are refused), runs the warm-up batches, then binds the port and
 blocks. A config's "serve" block (config/presets/serve_*.json) sets the
@@ -189,6 +192,7 @@ def build_sharp(args, opt, mesh=None):
     import torch
 
     from tmdiff_tpu_torch.diffusion.schedules import NoiseSchedule
+    from tmdiff_tpu_torch.models.controlnet import ControlledLegacyUNet
     from tmdiff_tpu_torch.models.wavbest import WavBEST
     from tmdiff_tpu_torch.pipeline import Pansharpener
     from tmdiff_tpu_torch.train import checkpoint as ckpt_lib
@@ -202,8 +206,15 @@ def build_sharp(args, opt, mesh=None):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sched_opt = opt["model"]["beta_schedule"]["val"]
     channels = tuple(opt["model"]["unet"]["channel_multiplier"] or (32, 64, 128, 256))
-    model = WavBEST(channels, device=device,
-                    dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    control = opt["model"]["controlnet"]
+    if control is None:
+        model = WavBEST(channels, device=device, dtype=dtype)
+    else:
+        model = ControlledLegacyUNet(
+            channels, hint_channels=control["hint_channels"],
+            only_mid_control=control["only_mid_control"],
+            control_scales=tuple(control["control_scales"]), device=device, dtype=dtype)
     trainer = Trainer(model, NoiseSchedule.create(sched_opt["schedule"], sched_opt["n_timestep"]),
                       lr=1e-4)
     state, _ = ckpt_lib.restore_path(args.ckpt, trainer.init_state())

@@ -16,6 +16,12 @@ What the engine keeps from the JAX package's:
 serves over every rank of a torchrun world, each batch sharded over the
 ("data", "space") mesh (the JAX package's engine likewise runs unchanged on
 a meshed sampler).
+A model that takes a hint and a task (models/controlnet.py::
+ControlledLegacyUNet: its `hint_channels` and `task_index`) gets both with
+every request, checked at submit; requests of different tasks share a
+batch (the hints and the task ids go to the sampler as the batch's `HINT`
+and `TASK`, one row each, padded rows copying the last), so the engine
+never splits a group by task.
 Batch k (counted from 0) samples with seed k. A request's future carries
 `placement` = {"seed", "bucket", "row"} once resolved: the batch's seed and
 padded size and the request's row in it, which reproduce its image through
@@ -36,7 +42,8 @@ for a group's first request), `engine.collect` (the first request to the
 group's close; `batch`, `n`, `closed` = "full", "deadline" or "shutdown",
 `requeued` = the requests of another shape put back), `engine.assemble`
 (stack, pad, guidance), `engine.sample` (the sampler call; `batch`,
-`bucket`) and `engine.resolve`.
+`bucket`, `tasks` = the distinct tasks of its requests, 0 without tasks)
+and `engine.resolve`. `stats["task_groups"]` sums `tasks` over the batches.
 """
 from __future__ import annotations
 
@@ -61,12 +68,22 @@ class _Request:
     enqueued_at: float
     guidance: Optional[float] = None  # CFG scale; None: the engine's default
     span: object = None  # its engine.request span (profiling.begin)
+    hint: Optional[np.ndarray] = None  # (H, W, hint channels), with `task`
+    task: Optional[int] = None  # the task's id in the model's `task_index`
 
 
 class EngineOverloaded(RuntimeError):
     """Raised by submit() when the pending queue holds `max_queue` requests:
     backpressure that the HTTP layer turns into a 503, rather than letting
     latency grow without bound."""
+
+
+def _model_of(sharp):
+    """The model behind `sharp`: a Pansharpener's `model`, or that of the
+    sampler an object holds as its `sharp` (a MeshLeader, a wrapper)."""
+    while sharp is not None and not hasattr(sharp, "model"):
+        sharp = getattr(sharp, "sharp", None)
+    return getattr(sharp, "model", None)
 
 
 def _bucket(n: int, buckets: Sequence[int]) -> int:
@@ -116,17 +133,24 @@ class InferenceEngine:
             "batch_size_hist": {},
             "latency_ms_sum": 0.0,
             "rejected": 0,  # present from the start, so /v1/stats keeps one schema
+            "task_groups": 0,  # distinct tasks summed over batches
         }
+        model = _model_of(self.sharp)
+        self.hint_channels = getattr(model, "hint_channels", None)
+        self.task_index = getattr(model, "task_index", {})
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
     # -- public API ----------------------------------------------------------
 
-    def submit(self, pan, ms, sensor: str = "QB",
-               guidance: Optional[float] = None) -> Future:
+    def submit(self, pan, ms, sensor: str = "QB", guidance: Optional[float] = None,
+               hint=None, task: Optional[str] = None) -> Future:
         """`guidance` (dpm++_cfg engines only) overrides the engine's default
         for this request; requests at different scales share a batch, the
-        scales going to the sampler as one (B,) vector."""
+        scales going to the sampler as one (B,) vector. `hint` (H, W, the
+        model's `hint_channels`) and `task` (a name of its `task_index`)
+        come with every request to a model that takes them, and with none
+        to another."""
         pan = np.asarray(pan, np.float32)
         ms = np.asarray(ms, np.float32)
         if pan.ndim == 2:
@@ -146,13 +170,33 @@ class InferenceEngine:
             raise ValueError(
                 f"guidance= is only meaningful on a dpm++_cfg engine "
                 f"(this engine runs {self.method!r})")
+        hint, task_id = self._control(hint, task, ms.shape[-2:])
         if self.max_queue is not None and self._queue.qsize() >= self.max_queue:
             self.stats["rejected"] += 1
             raise EngineOverloaded(f"pending queue at limit ({self.max_queue}); retry later")
         fut: Future = Future()
         self._queue.put(_Request(pan, ms, sensor, fut, time.monotonic(), guidance,
-                                 profiling.begin("engine.request")))
+                                 profiling.begin("engine.request"), hint, task_id))
         return fut
+
+    def _control(self, hint, task, size) -> tuple:
+        """(hint as float32, the task's id), both None for a model that takes
+        neither; refused here, as a bad `pan` is, since stacked with its
+        group a bad one would fail the whole batch."""
+        if self.hint_channels is None:
+            if hint is not None or task is not None:
+                raise ValueError("this engine's model takes no hint or task")
+            return None, None
+        if hint is None or task is None:
+            raise ValueError(f"this engine's model takes a hint (H, W, {self.hint_channels}) "
+                             "and a task with every request")
+        hint = np.asarray(hint, np.float32)
+        if hint.shape != (*size, self.hint_channels):
+            raise ValueError(f"hint shape {hint.shape}: expected {(*size, self.hint_channels)} "
+                             "(the MS image's H and W, the model's hint channels)")
+        if task not in self.task_index:
+            raise ValueError(f"unknown task {task!r}; expected one of {sorted(self.task_index)}")
+        return hint, self.task_index[task]
 
     def warmup(self, shapes: Sequence[tuple[int, int, int]], sensor: str = "QB") -> None:
         """Runs every (shape, bucket) batch once before traffic arrives,
@@ -163,8 +207,12 @@ class InferenceEngine:
         for bands, h, w in shapes:
             ms = np.zeros((bands, h, w), np.float32)
             pan = np.zeros((1, h, w), np.float32)
+            control = {}
+            if self.hint_channels is not None:  # a zero hint and the task of id 0
+                control = {"hint": np.zeros((h, w, self.hint_channels), np.float32),
+                           "task": min(self.task_index, key=self.task_index.get)}
             for b in self.buckets:
-                futs = [self.submit(pan, ms, sensor) for _ in range(b)]
+                futs = [self.submit(pan, ms, sensor, **control) for _ in range(b)]
                 for f in futs:
                     f.result()
 
@@ -240,14 +288,22 @@ class InferenceEngine:
                     gvec = [r.guidance if r.guidance is not None else self.guidance
                             for r in group]
                     kw["guidance"] = np.asarray(gvec + [gvec[-1]] * (b - n), np.float32)
-            with profiling.span("engine.sample", batch=seed, bucket=b) as sampled:
-                out = self.sharp.sample({"PAN": pan, "MS": ms}, sensor=sensors,
-                                        method=self.method, steps=self.steps, seed=seed, **kw)
+                batch = {"PAN": pan, "MS": ms}
+                tasks = 0
+                if group[0].hint is not None:
+                    rows = group + [group[-1]] * (b - n)
+                    batch["HINT"] = np.stack([r.hint for r in rows])
+                    batch["TASK"] = np.asarray([r.task for r in rows], np.int64)
+                    tasks = len({r.task for r in group})
+            with profiling.span("engine.sample", batch=seed, bucket=b, tasks=tasks) as sampled:
+                out = self.sharp.sample(batch, sensor=sensors, method=self.method,
+                                        steps=self.steps, seed=seed, **kw)
             with profiling.span("engine.resolve"):
                 now = time.monotonic()
                 self.stats["requests"] += n
                 self.stats["batches"] += 1
                 self.stats["padded_slots"] += b - n
+                self.stats["task_groups"] += tasks
                 hist = self.stats["batch_size_hist"]
                 hist[n] = hist.get(n, 0) + 1
                 for i, r in enumerate(group):

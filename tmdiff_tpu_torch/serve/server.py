@@ -5,7 +5,10 @@ Endpoints:
   POST /v1/pansharpen   body = .npz bytes with arrays `pan` (1,H,W) or (H,W)
                         and `ms` (bands,H,W); optional scalar string array
                         `sensor` (default "QB") and scalar `guidance`
-                        (dpm++_cfg engines). Response: .npz with `sr`
+                        (dpm++_cfg engines); for a model that takes
+                        them (the ControlNet), `hint` (H,W,C) and a
+                        scalar string `task` (a UniControl task name).
+                        Response: .npz with `sr`
                         (bands,H,W) float32 in [0,1], and `seed`, `bucket`
                         and `row`, where the request rode (the engine's
                         `placement`).
@@ -78,7 +81,10 @@ class _Handler(BaseHTTPRequestHandler):
             pan, ms = data["pan"], data["ms"]
             sensor = str(data["sensor"]) if "sensor" in data else "QB"
             guidance = float(data["guidance"]) if "guidance" in data else None
-            fut = self.engine.submit(pan, ms, sensor=sensor, guidance=guidance)
+            hint = data["hint"] if "hint" in data else None
+            task = str(data["task"]) if "task" in data else None
+            fut = self.engine.submit(pan, ms, sensor=sensor, guidance=guidance, hint=hint,
+                                     task=task)
             sr = fut.result()
         except EngineOverloaded as err:
             self._reply_json(503, {"error": str(err)}, headers=[("Retry-After", "1")])

@@ -107,14 +107,21 @@ def is_dead_reference_param(key: str, sd: Mapping) -> bool:
 
 
 def _load_strict(model: torch.nn.Module, arrays: Mapping[str, np.ndarray], leftover_ok=None):
+    """Every parameter of `model` from `arrays`; a buffer that `arrays` lacks
+    (ControlledLegacyUNet's `task_features`, which neither the reference's
+    checkpoints nor flax trees hold) keeps the model's own value."""
     own = model.state_dict()
+    buffers = {k for k, _ in model.named_buffers()}
     unknown = sorted(k for k in arrays if k not in own
                      and not (leftover_ok and leftover_ok(k)))
-    missing = sorted(k for k in own if k not in arrays)
+    missing = sorted(k for k in own if k not in arrays and k not in buffers)
     if unknown or missing:
         raise KeyError(f"unknown keys {unknown[:8]}, missing keys {missing[:8]}")
     new = {}
     for k, ref in own.items():
+        if k not in arrays:
+            new[k] = ref
+            continue
         t = torch.as_tensor(np.asarray(arrays[k], dtype=np.float32))
         if tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"{k}: shape {tuple(t.shape)}, the model has {tuple(ref.shape)}")
