@@ -310,6 +310,9 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 PEAK_TF32X3_FLOPS = 495e12 / 3  # H100 SXM TF32 tensor cores, three products per multiply-add
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 CONV_RTOL = 1e-4
+# the weight-gradient kernel against cuDNN's fp32 weight gradient, of the
+# gradient's scale: tests/test_torch_cuda.py's WGRAD_RTOL
+WGRAD_RTOL = 5e-5
 # K1 at its deepest sums (K = 27 x 256): one accumulation chain over the 16
 # channel steps gave up to 5.96e-5 of the output's scale, a chain at every
 # step (N tiles of 64, or 16 splits) 3.0-3.4e-6 (NVIDIA H100 80GB HBM3, 700 W)
@@ -1618,6 +1621,7 @@ def fixed_loss(model, schedule, batch, prompt, t, noise):
 def counts(K, K3, K4) -> dict:
     return {"k1_forward": K.launches - K.input_grad_launches,
             "k1_input_grad": K.input_grad_launches, "weight_grad": K.weight_grad_calls,
+            "weight_grad_kernel": K.weight_grad_launches,
             "k1_off_tensor_cores": K.variant_launches["ffma"], "k3": K3.launches,
             "k4": K4.launches}
 
@@ -1760,7 +1764,8 @@ def train_main_phase(K, K3, K4, new_model, new_trainer, prompts, datasets):
     if not all(np.isfinite(losses)) or not moved > 0 or not ema_moved > 0:
         fail("training losses not finite, or parameters or EMA did not move")
     expected = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
-                "weight_grad": TRAIN_CONVS, "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
+                "weight_grad": TRAIN_CONVS, "weight_grad_kernel": TRAIN_CONVS,
+                "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
     if per_step != expected:
         fail(f"launches per training step {per_step}, expected {expected}")
 
@@ -1828,7 +1833,9 @@ def profile_breakdown(prof, wall: float, steps: int, k1_input_grad_ms: float) ->
     it was launched from (_step_part), K1's kernels (conv_3x3_*) inside the
     conv backward to the input gradient. Where the profiler links K1's
     ctypes launches to no op, its input gradients take `k1_input_grad_ms`,
-    their time by CUDA events at each shape of a step."""
+    their time by CUDA events at each shape of a step, and the weight
+    gradient the device time of the kernels named wgrad_* (its kernel's and
+    cuDNN's)."""
     from torch.autograd import DeviceType
 
     parts = dict.fromkeys(("k1_forward", "k1_input_grad", "weight_grad",
@@ -1854,10 +1861,13 @@ def profile_breakdown(prof, wall: float, steps: int, k1_input_grad_ms: float) ->
     parts = {k: ms(v) for k, v in parts.items()}
     total = ms(sum(by_name.values()))
     k1_total = ms(sum(us for name, us in by_name.items() if "conv_3x3" in name))
+    wgrad_total = ms(sum(us for name, us in by_name.items() if "wgrad" in name))
     linked = parts["k1_input_grad"] > 0
     if not linked:
         parts["k1_input_grad"] = k1_input_grad_ms
         parts["k1_forward"] = k1_total - k1_input_grad_ms
+    if parts["weight_grad"] == 0:  # ctypes launches linked to no op: by kernel name
+        parts["weight_grad"] = wgrad_total
     parts["unattributed"] = total - sum(parts.values())
     host = sorted((e for e in prof.key_averages() if e.key not in PROFILE_LABELS),
                   key=lambda e: -e.self_cpu_time_total)[:8]
@@ -2119,8 +2129,10 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
     against the library's (aten.convolution_backward for the input, TF32
     off, cuDNN in benchmark mode) and the plain version (fp32: CONV_RTOL;
     bf16: one bf16 step, bf16_check), beside its bound; and the weight
-    gradient's time at the same shapes (bf16: also within one bf16 step
-    plus 1e-4 of scale of the fp32 sums of the same bf16 operands)."""
+    gradient at the same shapes, its route's time (fp32: the weight-gradient
+    kernel, within WGRAD_RTOL of scale of cuDNN's; bf16: cuDNN's, within one
+    bf16 step plus 1e-4 of scale of the fp32 sums of the same bf16 operands)
+    beside cuDNN's and its bound."""
     bf16 = dtype == torch.bfloat16
     tag = "[train] bf16" if bf16 else "[train]"
     peak, elem = (PEAK_BF16_FLOPS, 2) if bf16 else (PEAK_TF32X3_FLOPS, 4)
@@ -2143,8 +2155,9 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
     finally:
         K._launch = launch
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "weight_grad_ms": 0.0,
-           "weight_grad_bound_ms": 0.0, "weight_grad_fp32_bound_ms": 0.0, "ops_s": 0.0,
-           "bytes_s": 0.0, "weight_grad_err_of_scale": 0.0}
+           "weight_grad_library_ms": 0.0, "weight_grad_bound_ms": 0.0,
+           "weight_grad_fp32_bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0,
+           "weight_grad_err_of_scale": 0.0}
     max_err = 0.0
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     for (b, d, h, w, cout, cin), n in sorted(shapes.items()):
@@ -2173,6 +2186,12 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
                 if not err <= CONV_RTOL:
                     fail(f"{what}: {err} of scale")
                 max_err = max(max_err, (got - ref).abs().max().item())
+                before = K.weight_grad_launches
+                werr = rel_to_scale(K.conv3d_weight_grad(x, dy), K.weight_grad_library(x, dy))
+                if K.weight_grad_launches != before + 1 or not werr <= WGRAD_RTOL:
+                    fail(f"weight gradient {(b, d, h, w, cin, cout)}: {werr} of scale from "
+                         f"cuDNN's, kernel launches {K.weight_grad_launches - before}")
+                tot["weight_grad_err_of_scale"] = max(tot["weight_grad_err_of_scale"], werr)
             ms_k = cuda_ms(lambda: K._launch(dy, kt, None, None, None, True), 10)
             ms_p = cuda_ms(lambda: K.conv3d_plain(dy, kt), 3)
             wl = k.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
@@ -2180,31 +2199,36 @@ def input_grad_phase(K, new_model, new_trainer, prompts, datasets, sensor,
                 dy.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3), wl, None, [1, 1, 1],
                 [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [True, False, False]), 10)
             ms_w = cuda_ms(lambda: K.conv3d_weight_grad(x, dy), 10)
+            ms_wl = cuda_ms(lambda: K.weight_grad_library(x, dy), 10)
         bnd, bound_by = conv_bound(b, d, h, w, cout, cin, False, False, False, peak, elem)
         # the weight gradient: the forward's multiply-adds, x and dy read, dW written
         wg_flops = 2.0 * b * cin * cout * valid_taps(d) * valid_taps(h) * valid_taps(w)
         wg_bytes = elem * (b * d * h * w * (cin + cout) + 27 * cin * cout)
         wg_bnd, _ = bound(wg_flops, wg_bytes, peak)
         wg_fp32, _ = bound(wg_flops, wg_bytes, PEAK_FP32_FLOPS)
+        route = "cuDNN" if bf16 else "kernel"
         print(f"{tag} input gradient B{b} D{d} {h}x{w} {cout}->{cin} x{n}/step: K1 "
               f"{ms_k:.4f} ms, plain {ms_p:.4f}, library {ms_l:.4f}, bound {bnd:.4f} "
-              f"({bound_by}); weight gradient (cuDNN, deterministic) {ms_w:.4f} ms, bound "
-              f"{wg_bnd:.4f} (fp32 FMA {wg_fp32:.4f}); err {err:.3g} of scale", flush=True)
+              f"({bound_by}); weight gradient ({route}) {ms_w:.4f} ms, cuDNN {ms_wl:.4f}, "
+              f"bound {wg_bnd:.4f} (fp32 FMA {wg_fp32:.4f}); err {err:.3g} of scale",
+              flush=True)
         for key, v in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l), ("bound_ms", bnd),
-                       ("weight_grad_ms", ms_w), ("weight_grad_bound_ms", wg_bnd),
-                       ("weight_grad_fp32_bound_ms", wg_fp32)):
+                       ("weight_grad_ms", ms_w), ("weight_grad_library_ms", ms_wl),
+                       ("weight_grad_bound_ms", wg_bnd), ("weight_grad_fp32_bound_ms", wg_fp32)):
             tot[key] += n * v
         tot["ops_s" if bound_by == "operations" else "bytes_s"] += n * bnd
     tot["bound_by"] = "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes"
     rate = "bf16" if bf16 else "3xTF32"
-    against = (f"; the bf16 weight gradients within {tot['weight_grad_err_of_scale']:.3g} of "
-               "their scale of fp32 sums" if bf16 else "")
+    against = (f"; the {'bf16' if bf16 else 'kernel'} weight gradients within "
+               f"{tot['weight_grad_err_of_scale']:.3g} of their scale of "
+               f"{'fp32 sums' if bf16 else 'cuDNN'}")
     print(f"{tag} one {TRAIN_SENSORS[sensor][0]}-band step's input gradients, summed: K1 "
           f"{tot['ms']:.2f} ms, plain "
           f"{tot['plain_ms']:.2f}, library {tot['library_ms']:.2f}, bound {tot['bound_ms']:.2f} "
-          f"({tot['bound_by']}); weight gradients {tot['weight_grad_ms']:.2f} ms, bound "
-          f"{tot['weight_grad_bound_ms']:.2f} at {rate} ({tot['weight_grad_fp32_bound_ms']:.2f} "
-          f"at fp32 FMA){against}; {sum(shapes.values())} launches at {len(shapes)} shapes",
+          f"({tot['bound_by']}); weight gradients {tot['weight_grad_ms']:.2f} ms, cuDNN "
+          f"{tot['weight_grad_library_ms']:.2f}, bound {tot['weight_grad_bound_ms']:.2f} at "
+          f"{rate} ({tot['weight_grad_fp32_bound_ms']:.2f} at fp32 FMA){against}; "
+          f"{sum(shapes.values())} launches at {len(shapes)} shapes",
           flush=True)
     return tot, max_err
 
@@ -2356,6 +2380,7 @@ def train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen,
             torch.cuda.synchronize()
             n = {"k1_forward": K.launches - K.input_grad_launches,
                  "k1_input_grad": K.input_grad_launches, "weight_grad": K.weight_grad_calls,
+                 "weight_grad_kernel": K.weight_grad_launches,
                  "bf16": K.dtype_launches["bfloat16"], "fp32": K.dtype_launches["float32"],
                  "plain": len(plain_calls)}
             variants = {v for v, c in K.variant_launches.items() if c}
@@ -2370,7 +2395,8 @@ def train_bf16_phase(K, modconv, new_model, new_trainer, prompts, datasets, gen,
           f"{sorted(variants)}; parameters, AdamW moments ({len(moments)}) and EMA float32: "
           f"{fp32_state}", flush=True)
     want = {"k1_forward": 2 * TRAIN_CONVS, "k1_input_grad": TRAIN_CONVS,
-            "weight_grad": TRAIN_CONVS, "bf16": 3 * TRAIN_CONVS, "fp32": 0, "plain": 0}
+            "weight_grad": TRAIN_CONVS, "weight_grad_kernel": 0, "bf16": 3 * TRAIN_CONVS,
+            "fp32": 0, "plain": 0}
     if per_step != want or not variants <= BF16_VARIANTS:
         fail(f"bf16 launches per training step {per_step}, variants {variants}; want {want}")
     if not all(np.isfinite(losses)) or not fp32_state or len(moments) != 2 * len(names):
@@ -3147,6 +3173,7 @@ def distill_phase(K, K3, K4, root):
     expected = {"k1_forward": 2 * captures * 4 * TRAIN_CONVS + val_convs,
                 "k1_input_grad": 2 * captures * TRAIN_CONVS,
                 "weight_grad": 2 * captures * TRAIN_CONVS,
+                "weight_grad_kernel": 2 * captures * TRAIN_CONVS,
                 "k1_off_tensor_cores": 0, "k3": 0, "k4": 0}
     ckpt_root = os.path.join(root, "distill", "checkpoint")
     kept = sorted(os.path.relpath(os.path.join(d, s), ckpt_root)
@@ -4888,7 +4915,8 @@ def main() -> int:
                                f"{TRAIN_SIZE}x{TRAIN_SIZE}, full width, remat on",
          "train_input_grad": {k: train["input_grad"][k] for k in
                               ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                               "weight_grad_ms")},
+                               "weight_grad_ms", "weight_grad_library_ms",
+                               "weight_grad_bound_ms", "weight_grad_err_of_scale")},
          "train_input_grad_max_abs_err": train["input_grad_err"],
          "train_grad_max_err_of_scale": train["grad_err"],
          "train_step": {f"{b}_band": {k: v for k, v in tm.items()

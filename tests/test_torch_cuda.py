@@ -899,7 +899,8 @@ def test_spatial_transformer_kernel_matches_plain(cuda):
 def test_conv_gradients_match_plain(cuda, shape, variant):
     """Every operand's gradient through Conv3dFunction (forward and input
     gradient on the kernel: tensor cores, FMA at Cin and Cout % 4 != 0, and
-    split-K; weight gradient on cuDNN) against autograd through the plain
+    split-K; weight gradient on its kernel, on cuDNN at Cin 3) against
+    autograd through the plain
     version on the card, with style and bias, with concat parts whose kernel
     slices are views, and with Cout views of one weight; to 1e-4 of each
     gradient's largest magnitude."""
@@ -1281,6 +1282,148 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         other.train_step(fresh, batch, prompt)
 
 
+# -- the fp32 weight gradient's kernel -----------------------------------------
+
+# every distinct (H = W, Cin, Cout) of a full-width training step (batch 8,
+# 64x64; the concat parts' weight gradients are their own), at 8 and 4 bands
+WGRAD_STEP_SHAPES = [(8, d, h, h, cin, cout) for d in (8, 4) for h, cin, cout in (
+    (64, 32, 32), (64, 32, 64), (64, 64, 64), (32, 32, 32), (32, 64, 32), (32, 64, 64),
+    (32, 64, 128), (32, 128, 128), (16, 64, 64), (16, 128, 64), (16, 128, 128), (16, 128, 256),
+    (16, 256, 256), (8, 128, 128), (8, 256, 128), (8, 256, 256))]
+# tile edges: Cin and Cout below and past a tile, odd and tiny H and W, one
+# position, a partial channel group (Cin 20) and a partial N tile (36, 132)
+WGRAD_EDGE_SHAPES = [(1, 3, 5, 7, 4, 4), (2, 8, 33, 40, 96, 32), (1, 1, 1, 1, 8, 8),
+                     (2, 4, 2, 2, 64, 256), (1, 5, 17, 19, 20, 36), (3, 2, 3, 50, 132, 132),
+                     (2, 4, 31, 31, 12, 8)]
+WGRAD_SEEDS = (0, 1, 2)
+# The kernel against cuDNN's fp32 weight gradient (TF32 off) at the step's
+# shapes, of the gradient's scale: the largest gap over WGRAD_SEEDS at any
+# shape was 1.73e-5 (cuDNN's own gap to float64 sums reached 1.47e-5, the
+# kernel's 3.98e-6; NVIDIA H100 80GB HBM3, 700 W), times about 3.
+WGRAD_RTOL = 5e-5
+
+
+def _wgrad_operands(cuda, shape, seed):
+    b, d, h, w, cin, cout = shape
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(b, d, h, w, cin, device=cuda, generator=g)
+    dy = torch.randn(b, d, h, w, cout, device=cuda, generator=g)
+    s = 1.0 + 0.5 * torch.randn(b, cin, device=cuda, generator=g)
+    return x, dy, s
+
+
+def _rel(got, ref) -> float:
+    return (got.double() - ref.double()).abs().max().item() / ref.double().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", WGRAD_STEP_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_wgrad_kernel_matches_cudnn(cuda, shape):
+    """At every weight-gradient shape of a training step, with the style:
+    the kernel (one launch, the style applied in it) within WGRAD_RTOL of
+    the gradient's scale of cuDNN's fp32 weight gradient of x * s, over
+    WGRAD_SEEDS; both against float64 sums printed beside."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    worst = 0.0
+    for seed in WGRAD_SEEDS:
+        x, dy, s = _wgrad_operands(cuda, shape, seed)
+        K.reset_launches()
+        got = K.conv3d_weight_grad(x, dy, s)
+        assert K.weight_grad_launches == 1 and K.weight_grad_calls == 1
+        ref = K.weight_grad_library(x, dy, s)
+        f64 = K.conv3d_weight_grad_plain(x.double(), dy.double(), s.double())
+        gap = _rel(got, ref)
+        print(f"{shape} seed {seed}: kernel - cuDNN {gap:.3g}, kernel - fp64 "
+              f"{_rel(got, f64):.3g}, cuDNN - fp64 {_rel(ref, f64):.3g} of scale")
+        worst = max(worst, gap)
+    assert worst <= WGRAD_RTOL
+
+
+@pytest.mark.parametrize("shape", WGRAD_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("style", [False, True], ids=["plain", "style"])
+def test_wgrad_kernel_at_tile_edges(cuda, shape, style):
+    """At tile edges the kernel against float64 sums of its plain version,
+    to 1e-4 of the gradient's scale (K1's bar against its plain version)."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, dy, s = _wgrad_operands(cuda, shape, seed=4)
+    s = s if style else None
+    K.reset_launches()
+    got = K.conv3d_weight_grad(x, dy, s)
+    assert K.weight_grad_launches == 1
+    ref = K.conv3d_weight_grad_plain(x.double(), dy.double(), None if s is None else s.double())
+    assert _rel(got, ref) <= 1e-4
+
+
+def _wgrad_split(K, x, dy, s, splits):
+    """dW through the kernel's C entry with `splits` asked of its plan."""
+    import ctypes
+
+    b, d, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    lib = K.library()
+    nbytes, count = ctypes.c_longlong(0), ctypes.c_int(splits)
+    assert lib.tmdiff_wgrad_plan(b, d, h, w, cin, cout, x.data_ptr(), dy.data_ptr(),
+                                 ctypes.byref(nbytes), ctypes.byref(count)) == 1
+    ws = torch.empty(max(nbytes.value, 1), dtype=torch.uint8, device=x.device)
+    dw = torch.empty(3, 3, 3, cin, cout, device=x.device)
+    err = lib.tmdiff_wgrad_333(x.data_ptr(), s.data_ptr(), dy.data_ptr(), dw.data_ptr(), b, d, h,
+                               w, cin, cout, count.value, ws.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return dw, count.value
+
+
+def test_wgrad_kernel_split_counts(cuda):
+    """One shape at split counts 1 to one a stage: each against float64
+    sums, within WGRAD_RTOL of scale (printed: a split of many stages adds
+    its accumulation chains in fp32); the plan's own count is the
+    wrapper's."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, dy, s = _wgrad_operands(cuda, (2, 8, 32, 32, 64, 64), seed=6)
+    ref = K.conv3d_weight_grad_plain(x.double(), dy.double(), s.double())
+    errs = {}
+    for want in (1, 2, 7, 64, 10**6):
+        dw, got = _wgrad_split(K, x, dy, s, want)
+        errs[got] = _rel(dw, ref)
+    print(f"weight gradient error by split count {errs}")
+    assert max(errs.values()) <= WGRAD_RTOL and 2 * 8 * 16 * 2 in errs
+    planned, _ = K.wgrad_plan(x, dy)
+    assert torch.equal(_wgrad_split(K, x, dy, s, planned)[0], K.conv3d_weight_grad(x, dy, s))
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 64, 64, 32, 32), (8, 4, 8, 8, 256, 256),
+                                   (2, 8, 33, 40, 96, 32)], ids=lambda s: "x".join(map(str, s)))
+def test_wgrad_kernel_is_deterministic_and_takes_the_style(cuda, shape):
+    """Two launches on one input agree bit for bit (the splits' partial sums
+    are added in split order, no atomics), and the style applied in the
+    kernel equals the kernel on x * s bit for bit (the same fp32 product)."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    x, dy, s = _wgrad_operands(cuda, shape, seed=8)
+    K.reset_launches()
+    a, b = K.conv3d_weight_grad(x, dy, s), K.conv3d_weight_grad(x, dy, s)
+    c = K.conv3d_weight_grad(x * s[:, None, None, None, :], dy)
+    assert K.weight_grad_launches == 3
+    assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("bands", [8, 4])
+def test_fp32_step_takes_every_weight_gradient_on_the_kernel(cuda, bands):
+    """A full-width fp32 training step at batch 8, 64x64 (the train-joint
+    cell's): its 65 weight gradients all launch the kernel, none goes to
+    cuDNN."""
+    from tmdiff_tpu_torch.ops.cuda import conv3d as K
+
+    trainer = _full_width_trainer(cuda, torch.float32)
+    state = trainer.init_state()
+    K.reset_launches()
+    trainer.train_step(state, _full_width_batch(cuda, 1, bands), torch.zeros(768, device=cuda))
+    torch.cuda.synchronize()
+    assert K.weight_grad_launches == 65 and K.weight_grad_calls == 65
+
+
 # -- the bf16 instances (K1/K2 with KD = 3, K3 with KD = 1) --------------------
 
 # Held against their plain versions: every element within half a bf16 step
@@ -1592,6 +1735,7 @@ def test_bf16_training_step_launches_no_fp32_kernel(cuda):
     assert all(map(math.isfinite, losses))
     assert K.dtype_launches == {"float32": 0, "bfloat16": 2 * 195}
     assert K.input_grad_launches == 2 * 65 and K.weight_grad_calls == 2 * 65
+    assert K.weight_grad_launches == 0  # bf16 weight gradients stay on cuDNN
     assert {v for v, n in K.variant_launches.items() if n} <= {"bf16", "bf16_splitk"}
     moments = [v for st in state.optimizer.state.values() for key, v in st.items()
                if key != "step"]

@@ -148,6 +148,55 @@
 // aligned x; there is no bf16 FMA variant, so the plan refuses every other
 // bf16 shape (variant -1) and the entries return cudaErrorInvalidValue for
 // it.
+//
+// The weight gradient (tmdiff_wgrad_333, fp32): the gradient of the 3x3x3
+// entry's kernel,
+//
+//   dW[i,j,k,c,o] = sum_{b,d,h,w} (x s)[b,d+i-1,h+j-1,w+k-1,c] * dy[b,d,h,w,o]
+//
+// with zeros outside x. The JAX package takes it from XLA's conv VJP outside
+// its Pallas kernel, so it replaces no TPU kernel; it replaces cuDNN's fp32
+// weight gradient, an Ampere FMA kernel that ran at 1/14.5 of the bound
+// below. The same operations as the forward, so the same bound: 3xTF32 at
+// 495 / 3 TFLOP/s. An implicit GEMM with M = 27 taps x Cin, N = Cout and the
+// positions as the reduction K; wgrad_3x3_tf32x3_kernel<BN>:
+//   * Rows: a block holds 8 RB (channel group of 16, tap) pairs of 16 rows
+//     (RB = 2, 4, 7 row blocks a consumer warpgroup at BN = 128, 64, 32:
+//     about 128 accumulators a thread), pairs numbered channel group major,
+//     so a block reads 2-4 channel groups. A warp's row block is one pair;
+//     A comes from registers, so the pair's tap only moves where its lanes
+//     read the halo.
+//   * A: x from a halo per stage and channel group (TMA, box 16 x 18 x 4 x 3,
+//     the SAME padding by the out-of-bounds zero fill). A stage is 32
+//     positions, two lines of 16; a k8 step is half a line. Rows g and g + 8
+//     of a lane are two neighbouring channels, one 8-byte load a row; the
+//     64-byte swizzle and the channel order of wg_channel put a half warp's
+//     loads on 32 distinct banks. Each lane splits into hi and lo and issues
+//     its row blocks' three products, one or two k8 steps between waits
+//     (wg_k8_per_group).
+//   * B: dy, which does not move with the tap, is the shared operand (tf32
+//     wgmma reads only K-major B from shared memory): its tile lands by TMA
+//     as [position][BN]. A ring of three stages of halos and dy tiles.
+//   * Operand pass: the producer warpgroup's warps 1-3 split each landed dy
+//     tile and write it K-major (b_desc's layout) into one of two image
+//     buffers, while the consumers run the previous stage; every row block
+//     of the block reads the image. The style (the same fp32 product as
+//     x * s) is applied by this pass to the halo in place at BN = 32 and by
+//     the consumers as they load A at BN = 64 and 128 (wg_style_in_pass).
+//   * Splits: the stages are split over blocks so that the row tiles, N tiles
+//     and splits fill the SMs once (tmdiff_wgrad_plan, asked once per shape);
+//     each split writes its partial dW and wgrad_splitk_reduce_kernel adds
+//     them in split order: no atomics, one input gives one output, and
+//     nothing allocated or synchronised, so a CUDA graph captures it.
+//   * Chains: every kWgChain stages each thread adds its accumulators into
+//     its split's partial dW with IEEE fp32 adds and starts a new chain, as
+//     K1 promotes its chains: the tensor cores' accumulation loses precision
+//     with the chain's length, which here would be a split's whole share of
+//     the positions.
+// It takes Cin % 4 == 0, Cout % 4 == 0 and a 16-byte aligned x and dy (the
+// tensor maps); the wrapper sends every other shape to cuDNN. Its kernels
+// are named wgrad_*, never conv_3x3_*: the benchmark charges the latter to
+// the forward and input gradient.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -1319,6 +1368,348 @@ __global__ void conv_3x3_splitk_reduce_bf16_kernel(const float* __restrict__ par
 }
 
 // ---------------------------------------------------------------------------
+// fp32 weight gradient, 3xTF32 tensor cores (header: "The weight gradient").
+// ---------------------------------------------------------------------------
+
+// A stage: 32 output positions, two lines of 16 W positions at one depth of
+// one image, with the x halo of its 27 taps, 3 x 4 x 18 positions of 16
+// channels (one TMA box, 64-byte rows, 64-byte swizzle).
+constexpr int kWgTH = 2, kWgTW = 16, kWgP = kWgTH * kWgTW;
+constexpr int kWgHH = kWgTH + 2, kWgHW = kWgTW + 2;
+constexpr int kWgHaloBytes = 3 * kWgHH * kWgHW * kCK * 4;
+constexpr int kWgHaloStride = (kWgHaloBytes + 1023) / 1024 * 1024;  // swizzle atoms aligned
+constexpr int kWgStages = 3;
+constexpr int kWgPassThreads = 96;  // producer warps 1-3: the dy pass
+constexpr int kWgConsumerRegs = 232, kWgProducerRegs = 40;
+// Stages a chain of tensor-core accumulation runs before the consumers add
+// it into the block's partial sums in device memory (IEEE fp32 adds): the
+// tensor cores' fp32 accumulation loses precision with the chain's length
+// (at 512 stages 1.4e-4 of the gradient's scale, at 8 stages 2.0e-6; an
+// NVIDIA H100 80GB HBM3 at 700 W).
+constexpr int kWgChain = 16;
+
+// Row blocks a consumer warpgroup holds: about 128 accumulators a thread.
+__host__ __device__ constexpr int wg_row_blocks(int bn) { return bn == 128 ? 2 : bn == 64 ? 4 : 7; }
+// k8 steps a consumer warpgroup issues between waits: two at BN = 128 (its 2
+// row blocks issue 6 products a step; two steps a wait ran 4-7% faster at
+// most of the training step's shapes on an H100), one at BN = 64 and 32
+// (their 4 and 7 row blocks issue 12 and 21 products a step, and the second
+// step's A fragments spill at BN = 64).
+__host__ __device__ constexpr int wg_k8_per_group(int bn) { return bn == 128 ? 2 : 1; }
+// Where the style is applied: by the operand pass in place at BN = 32 (its
+// consumers have no registers to spare for it), by the consumers as they load
+// A otherwise (the pass's extra shared-memory traffic cost more there).
+__host__ __device__ constexpr bool wg_style_in_pass(int bn) { return bn == 32; }
+
+template <int BN>
+struct WgTile {
+  static constexpr int RB = wg_row_blocks(BN);
+  static constexpr int SLOTS = 8 * RB;               // (channel group, tap) rows of 16 a block
+  static constexpr int NCG = (SLOTS + 25) / 27 + 1;  // channel groups SLOTS consecutive pairs span
+  static constexpr int RAW_BYTES = kWgP * BN * 4;    // dy as the TMA lands it, [position][BN]
+  static constexpr int IMG_BYTES = kWgP * BN * 8;    // 4 k8 steps of [hi, lo] BN x 8, K-major
+  static constexpr int STAGE_BYTES = NCG * kWgHaloStride + RAW_BYTES;
+  static constexpr int BARS = 3 * kWgStages + 4;
+  static constexpr int SMEM_BYTES = 1024 + kWgStages * STAGE_BYTES + 2 * IMG_BYTES + BARS * 8;
+  static_assert(SMEM_BYTES <= 232448, "shared memory");
+  static_assert(RAW_BYTES % 1024 == 0 && IMG_BYTES % 1024 == 0, "stage alignment");
+};
+
+// The channel pair of rows g and g + 8 of a warp's 16-channel group: lanes
+// of one half warp (g < 4 or g >= 4) read the 16-byte chunks {0, 2} or
+// {1, 3} of a halo row, which the 64-byte swizzle spreads over distinct banks
+// for any four consecutive rows.
+__device__ __forceinline__ int wg_channel(int g) {
+  return 8 * ((g >> 1) & 1) + 4 * (g >> 2) + 2 * (g & 1);
+}
+
+// Byte offset of the 8-byte word at channel c (even) of halo row r under the
+// TMA's 64-byte swizzle (address bits 4-5 ^= bits 7-8).
+__device__ __forceinline__ int wg_halo_at(int r, int c) {
+  return r * 64 + (((c >> 2) ^ ((r >> 1) & 3)) << 4) + (c & 3) * 4;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kTcThreads, 1)
+wgrad_3x3_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap dymap, const float* __restrict__ style,
+                        float* __restrict__ out, long long plane, int D, int H, int W, int Cin,
+                        int Cout, int m_tiles, int n_tiles, long long tiles, int tiles_per_split) {
+  using T = WgTile<BN>;
+  constexpr int RB = T::RB, KS = wg_k8_per_group(BN);
+  constexpr bool kPassStyle = wg_style_in_pass(BN);
+  extern __shared__ unsigned char wg_smem[];
+  unsigned char* smem = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  unsigned char* img = smem + kWgStages * T::STAGE_BYTES;  // [2][IMG_BYTES]
+  uint64_t* full = reinterpret_cast<uint64_t*>(img + 2 * T::IMG_BYTES);  // x halos and raw dy
+  uint64_t* x_empty = full + kWgStages;
+  uint64_t* raw_empty = x_empty + kWgStages;
+  uint64_t* img_full = raw_empty + kWgStages;
+  uint64_t* img_empty = img_full + 2;
+
+  int blk = blockIdx.x;
+  const int mt = blk % m_tiles;
+  blk /= m_tiles;
+  const int nb = blk % n_tiles;
+  const int split = blk / n_tiles;
+  const long long t_begin = (long long)split * tiles_per_split;
+  const int items = static_cast<int>(min((long long)tiles_per_split, tiles - t_begin));
+  const int n_cg = (Cin + kCK - 1) / kCK;
+  const int q0 = mt * T::SLOTS;
+  const int cg_first = q0 / 27;
+  const int cg_count = min(n_cg - 1, (q0 + T::SLOTS - 1) / 27) - cg_first + 1;
+  const int tiles_w = (W + kWgTW - 1) / kWgTW, tiles_h = (H + kWgTH - 1) / kWgTH;
+  auto origin = [&](int i, int& b, int& d, int& h0, int& w0) {
+    long long t = t_begin + i;
+    w0 = static_cast<int>(t % tiles_w) * kWgTW;
+    t /= tiles_w;
+    h0 = static_cast<int>(t % tiles_h) * kWgTH;
+    t /= tiles_h;
+    d = static_cast<int>(t % D);
+    b = static_cast<int>(t / D);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWgStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&x_empty[i], kConsumers / 32);
+      mbar_init(&raw_empty[i], kWgPassThreads / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&img_full[i], kWgPassThreads / 32);
+      mbar_init(&img_empty[i], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kWgProducerRegs));
+    if (threadIdx.x == kConsumers) {
+      // The copies: each stage's halos (one per channel group the block's
+      // rows read) and its dy tile, on one barrier.
+      for (int i = 0; i < items; ++i) {
+        const int s = i % kWgStages, parity = ((i / kWgStages) & 1) ^ 1;
+        mbar_wait(&x_empty[s], parity);
+        mbar_wait(&raw_empty[s], parity);
+        int b, d, h0, w0;
+        origin(i, b, d, h0, w0);
+        unsigned char* st = smem + s * T::STAGE_BYTES;
+        mbar_expect_tx(&full[s], cg_count * kWgHaloBytes + T::RAW_BYTES);
+        for (int c = 0; c < cg_count; ++c)
+          tma_load_halo(st + c * kWgHaloStride, &xmap, &full[s], (cg_first + c) * kCK, w0 - 1,
+                        h0 - 1, d - 1, b);
+        tma_load_halo(st + T::NCG * kWgHaloStride, &dymap, &full[s], nb * BN, w0, h0, d, b);
+      }
+    } else if (threadIdx.x >= kConsumers + 32) {
+      // The operand pass: each stage's halos multiplied by the style in place
+      // (the 64-byte swizzle puts logical chunk pc ^ ((r >> 1) & 3) of row r
+      // at 16-byte chunk pc), then its dy tile split into hi and lo and
+      // written K-major (b_desc's layout), k8 step j holding positions 8j ..
+      // 8j + 7.
+      const int pt = threadIdx.x - kConsumers - 32;
+      for (int i = 0; i < items; ++i) {
+        const int s = i % kWgStages, m = i & 1;
+        mbar_wait(&full[s], (i / kWgStages) & 1);
+        if (kPassStyle && style) {
+          int b, d, h0, w0;
+          origin(i, b, d, h0, w0);
+          for (int cl = 0; cl < cg_count; ++cl) {
+            float4* halo = reinterpret_cast<float4*>(smem + s * T::STAGE_BYTES + cl * kWgHaloStride);
+            const float* sb = style + (long long)b * Cin + (cg_first + cl) * kCK;
+            for (int f = pt; f < kWgHaloBytes / 16; f += kWgPassThreads) {
+              const int r = f >> 2, ch = 4 * ((f & 3) ^ ((r >> 1) & 3));
+              if ((cg_first + cl) * kCK + ch >= Cin) continue;  // TMA zeros past Cin
+              float4 v = halo[f];
+              v.x *= sb[ch]; v.y *= sb[ch + 1]; v.z *= sb[ch + 2]; v.w *= sb[ch + 3];
+              halo[f] = v;
+            }
+          }
+        }
+        mbar_wait(&img_empty[m], ((i >> 1) & 1) ^ 1);
+        const float* raw =
+            reinterpret_cast<const float*>(smem + s * T::STAGE_BYTES + T::NCG * kWgHaloStride);
+        float* dst = reinterpret_cast<float*>(img + m * T::IMG_BYTES);
+        for (int e = pt; e < 8 * BN; e += kWgPassThreads) {
+          const int n = e % BN, kq = e / BN;  // positions 4 kq .. 4 kq + 3
+          uint32_t hi[4], lo[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) split_tf32(raw[(4 * kq + r) * BN + n], hi[r], lo[r]);
+          float* p = dst + (kq >> 1) * 16 * BN + (n >> 3) * 64 + (kq & 1) * 32 + (n & 7) * 4;
+          *reinterpret_cast<uint4*>(p) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(p + 8 * BN) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        }
+        // the consumers' wgmma reads the image through the async proxy
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        __syncwarp();
+        if ((threadIdx.x & 31) == 0) {
+          mbar_arrive(&img_full[m]);
+          mbar_arrive(&raw_empty[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kWgConsumerRegs));
+  // Consumers: warpgroup wg holds row blocks wg * RB .. + RB - 1; in row block
+  // rb, warp `warp` holds the 16 rows of pair q = q0 + 4 (wg RB + rb) + warp:
+  // channel group q / 27 at tap q % 27, row g and g + 8 its channels c, c + 1.
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c = wg_channel(g);
+  const int pairs = 27 * n_cg;
+  // shift: halo row of column 0 of the stage at the pair's tap, counted from
+  // the first halo buffer (a buffer is a whole number of swizzle atoms, so
+  // the swizzle reads the same from any of them)
+  int shift[RB];
+  bool valid[RB];
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb) {
+    const int q = q0 + 4 * (wg * RB + rb) + warp;
+    valid[rb] = q < pairs;
+    const int tap = q % 27, cg = q / 27;
+    shift[rb] = ((tap / 9) * kWgHH + (tap / 3) % 3) * kWgHW + tap % 3 +
+                (valid[rb] ? (cg - cg_first) * (kWgHaloStride / 64) : 0);
+  }
+  float acc[RB][BN / 2];
+#pragma unroll
+  for (int rb = 0; rb < RB; ++rb)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[rb][e] = 0.f;
+
+  // Adds the chain into this split's partial dW (stores it at the first
+  // flush) and starts a new one. Accumulator 4 jn + e of a row block holds
+  // rows g (e < 2) and g + 8 (channels c and c + 1), column 8 jn + 2 t + e % 2
+  // (Cout % 4 == 0, so a pair of columns is in range or out together). Each
+  // element has one thread, which alone reads and writes it.
+  float* o = out + (long long)split * plane;
+  const int n0 = nb * BN;
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb) {
+      const int q = q0 + 4 * (wg * RB + rb) + warp, ch = q / 27 * kCK + c;
+      if (valid[rb] && ch < Cin) {
+        float* row = o + ((long long)(q % 27) * Cin + ch) * Cout;
+#pragma unroll
+        for (int jn = 0; jn < BN / 8; ++jn) {
+          const int n = n0 + 8 * jn + 2 * t;
+          if (n >= Cout) continue;
+          float2 v0 = make_float2(acc[rb][4 * jn], acc[rb][4 * jn + 1]);
+          float2 v1 = make_float2(acc[rb][4 * jn + 2], acc[rb][4 * jn + 3]);
+          float2* p0 = reinterpret_cast<float2*>(row + n);
+          float2* p1 = reinterpret_cast<float2*>(row + Cout + n);
+          if (!first) {
+            const float2 a = *p0, b = *p1;
+            v0.x += a.x; v0.y += a.y; v1.x += b.x; v1.y += b.y;
+          }
+          *p0 = v0;
+          *p1 = v1;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) acc[rb][e] = 0.f;
+    }
+  };
+
+  for (int i = 0; i < items; ++i) {
+    const int s = i % kWgStages, m = i & 1;
+    float2 sv[RB];  // the style of the lane's two channels, where the consumers apply it
+    int b = 0, d, h0, w0;
+    if (!kPassStyle && style) origin(i, b, d, h0, w0);
+#pragma unroll
+    for (int rb = 0; rb < RB; ++rb) {
+      sv[rb] = make_float2(1.f, 1.f);
+      const int ch = (q0 + 4 * (wg * RB + rb) + warp) / 27 * kCK + c;
+      if (!kPassStyle && style && valid[rb] && ch < Cin) {
+        const float* sb = style + (long long)b * Cin + ch;
+        sv[rb] = make_float2(sb[0], sb[1]);
+      }
+    }
+    mbar_wait(&full[s], (i / kWgStages) & 1);
+    mbar_wait(&img_full[m], (i >> 1) & 1);
+    const unsigned char* xs = smem + s * T::STAGE_BYTES;
+    const uint32_t ib = smem_u32(img + m * T::IMG_BYTES);
+#pragma unroll 1
+    for (int j0 = 0; j0 < 4; j0 += KS) {
+      uint32_t ahi[KS][RB][4], alo[KS][RB][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        // column t of k8 step j: line j / 2, position 8 (j % 2) + t of it
+        const int j = j0 + kk, r_base = (j >> 1) * kWgHW + 8 * (j & 1) + t;
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb) {
+          float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+          if (valid[rb]) {
+            const int r0 = r_base + shift[rb];
+            v0 = *reinterpret_cast<const float2*>(xs + wg_halo_at(r0, c));
+            v1 = *reinterpret_cast<const float2*>(xs + wg_halo_at(r0 + 4, c));
+            if (!kPassStyle && style) {
+              v0.x *= sv[rb].x; v0.y *= sv[rb].y;
+              v1.x *= sv[rb].x; v1.y *= sv[rb].y;
+            }
+          }
+          // Fragment: (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4).
+          split_tf32(v0.x, ahi[kk][rb][0], alo[kk][rb][0]);
+          split_tf32(v0.y, ahi[kk][rb][1], alo[kk][rb][1]);
+          split_tf32(v1.x, ahi[kk][rb][2], alo[kk][rb][2]);
+          split_tf32(v1.y, ahi[kk][rb][3], alo[kk][rb][3]);
+        }
+      }
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) {
+        fence_regs<BN / 2>(acc[rb]);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          fence_regs<4>(ahi[kk][rb]);
+          fence_regs<4>(alo[kk][rb]);
+        }
+      }
+      wgmma_fence();
+      // every row block, those past the last pair on zeros: a branch
+      // around a wgmma serializes the warpgroup's wgmmas (ptxas C7520)
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int j = j0 + kk;
+        const uint64_t dhi = b_desc(ib + j * BN * 64), dlo = b_desc(ib + j * BN * 64 + BN * 32);
+#pragma unroll
+        for (int rb = 0; rb < RB; ++rb) {
+          Wgmma<BN>::mma(acc[rb], ahi[kk][rb], dlo);
+          Wgmma<BN>::mma(acc[rb], alo[kk][rb], dhi);
+          Wgmma<BN>::mma(acc[rb], ahi[kk][rb], dhi);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+#pragma unroll
+      for (int rb = 0; rb < RB; ++rb) fence_regs<BN / 2>(acc[rb]);
+    }
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&x_empty[s]);
+      mbar_arrive(&img_empty[m]);
+    }
+    if ((i + 1) % kWgChain == 0 || i + 1 == items) flush(i < kWgChain);
+  }
+}
+
+// dw = partial[0] + partial[1] + ..., in that order: the split sum is the
+// same from run to run. plane % 4 == 0 (Cout % 4 == 0).
+__global__ void wgrad_splitk_reduce_kernel(const float* __restrict__ partial, int splits,
+                                           long long plane, float* __restrict__ dw) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < plane / 4;
+       i += stride) {
+    float4 v = reinterpret_cast<const float4*>(partial)[i];
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = reinterpret_cast<const float4*>(partial + s * plane)[i];
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    reinterpret_cast<float4*>(dw)[i] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
 
@@ -1403,7 +1794,8 @@ Plan make_plan(int kd, int dtype, int B, int D, int H, int W, int Cin, int Cout,
 // elements; out-of-bounds elements (the SAME padding, channels past Cin)
 // read as zeros.
 bool encode_halo_map(CUtensorMap* map, bool bf, const void* x, int B, int D, int H, int W,
-                     int Cin, int ck, int hw, int hh, int hd) {
+                     int Cin, int ck, int hw, int hh, int hd,
+                     CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t e = bf ? 2 : 4;
@@ -1414,7 +1806,7 @@ bool encode_halo_map(CUtensorMap* map, bool bf, const void* x, int B, int D, int
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   return encode(map, bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
                 const_cast<void*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -1563,6 +1955,70 @@ int launch_any(const Plan& p, int dtype, const void* x, const void* w, const voi
                              w_stride_c, accumulate, workspace, s);
 }
 
+// The weight gradient's tiling of one shape (header: "The weight
+// gradient"): the N tile, the blocks' row tiles of (channel group, tap) pairs,
+// the stages (position tiles) and their split over blocks. splits <= 0
+// chooses the split count: the SMs over the row and N tiles, at least 1 and
+// at most the stages; splits > 0 takes that count, at most one split a stage.
+// Refused (ok false): Cin or Cout not a multiple of 4, or an x or dy that is
+// not 16-byte aligned (the TMA maps' strides and bases).
+struct WgPlan {
+  bool ok = false;
+  int bn = 0, m_tiles = 0, n_tiles = 0, splits = 1, tiles_per_split = 0;
+  long long tiles = 0, bytes = 0;
+};
+
+WgPlan make_wgrad_plan(int B, int D, int H, int W, int Cin, int Cout, const void* x,
+                       const void* dy, int splits) {
+  WgPlan p;
+  if (Cin < 1 || Cout < 1 || Cin % 4 != 0 || Cout % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(dy) % 16 != 0)
+    return p;
+  p.ok = true;
+  p.bn = Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128;
+  p.m_tiles = cdiv(27LL * cdiv(Cin, kCK), 8 * wg_row_blocks(p.bn));
+  p.n_tiles = cdiv(Cout, p.bn);
+  p.tiles = (long long)B * D * cdiv(H, kWgTH) * cdiv(W, kWgTW);
+  const long long blocks = (long long)p.m_tiles * p.n_tiles;
+  long long s = splits > 0 ? splits : sm_count() / blocks;
+  s = s < 1 ? 1 : s;
+  s = s > p.tiles ? p.tiles : s;
+  p.tiles_per_split = s > 0 ? cdiv(p.tiles, s) : 0;
+  p.splits = s > 0 ? cdiv(p.tiles, p.tiles_per_split) : 1;
+  p.bytes = p.splits > 1 ? 4LL * p.splits * 27 * Cin * Cout : 0;
+  return p;
+}
+
+template <int BN>
+int launch_wgrad(const WgPlan& p, const float* x, const float* style, const float* dy, float* dw,
+                 int B, int D, int H, int W, int Cin, int Cout, void* workspace,
+                 cudaStream_t stream) {
+  using T = WgTile<BN>;
+  const long long blocks = (long long)p.m_tiles * p.n_tiles * p.splits;
+  if ((p.splits > 1 && !workspace) || blocks > 0x7fffffffLL || p.tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!encode_tiled()) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap xmap, dymap;
+  if (!encode_halo_map(&xmap, false, x, B, D, H, W, Cin, kCK, kWgHW, kWgHH, 3,
+                       CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_halo_map(&dymap, false, dy, B, D, H, W, Cout, BN, kWgTW, kWgTH, 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long plane = 27LL * Cin * Cout;
+  float* out = p.splits > 1 ? static_cast<float*>(workspace) : dw;
+  auto kernel = wgrad_3x3_tf32x3_kernel<BN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), kTcThreads, T::SMEM_BYTES, stream>>>(
+      xmap, dymap, style, out, plane, D, H, W, Cin, Cout, p.m_tiles, p.n_tiles, p.tiles,
+      p.tiles_per_split);
+  if (p.splits > 1) {
+    const int n = cdiv(plane / 4, 256) < 8192 ? cdiv(plane / 4, 256) : 8192;
+    wgrad_splitk_reduce_kernel<<<n, 256, 0, stream>>>(out, p.splits, plane, dw);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1614,6 +2070,41 @@ int tmdiff_conv2d_33(int dtype, const void* x, const void* w, const void* style,
   const Plan p = make_plan(1, dtype, B, 1, H, W, Cin, Cout, x, splits);
   return launch_any<1>(p, dtype, x, w, style, nullptr, 0, bias, y, B, 1, H, W, Cin, Cout,
                        w_stride_tap, w_stride_c, 0, workspace, static_cast<cudaStream_t>(stream));
+}
+
+// The fp32 weight gradient of the SAME 3x3x3 conv: whether the kernel takes
+// this shape (1) or not (0: Cin or Cout not a multiple of 4, an x or dy not
+// 16-byte aligned), the split count to pass tmdiff_wgrad_333 and the
+// workspace bytes it needs, on the current device. *splits comes in as the
+// split count wanted (0: the plan's rule) and goes out as the count taken.
+int tmdiff_wgrad_plan(int B, int D, int H, int W, int Cin, int Cout, const void* x,
+                      const void* dy, long long* workspace_bytes, int* splits) {
+  const WgPlan p = make_wgrad_plan(B, D, H, W, Cin, Cout, x, dy, *splits);
+  *workspace_bytes = p.bytes;
+  *splits = p.splits;
+  return p.ok ? 1 : 0;
+}
+
+// dw (3, 3, 3, Cin, Cout) = sum over (b, d, h, w) of
+// (x * s)[b, d + i - 1, h + j - 1, w + k - 1, c] * dy[b, d, h, w, o], zeros
+// outside x; x (B, D, H, W, Cin), dy (B, D, H, W, Cout), s (B, Cin) or null,
+// all fp32 and contiguous. `splits` and `workspace` are tmdiff_wgrad_plan's.
+// Returns a cudaError_t value: 0 when the launches were accepted.
+int tmdiff_wgrad_333(const void* x, const void* style, const void* dy, void* dw, int B, int D,
+                     int H, int W, int Cin, int Cout, int splits, void* workspace,
+                     void* stream) {
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const WgPlan p = make_wgrad_plan(B, D, H, W, Cin, Cout, x, dy, splits);
+  if (!p.ok) return static_cast<int>(cudaErrorInvalidValue);
+  const float *xf = static_cast<const float*>(x), *sf = static_cast<const float*>(style),
+              *df = static_cast<const float*>(dy);
+  float* wf = static_cast<float*>(dw);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.bn == 32)
+    return launch_wgrad<32>(p, xf, sf, df, wf, B, D, H, W, Cin, Cout, workspace, s);
+  if (p.bn == 64)
+    return launch_wgrad<64>(p, xf, sf, df, wf, B, D, H, W, Cin, Cout, workspace, s);
+  return launch_wgrad<128>(p, xf, sf, df, wf, B, D, H, W, Cin, Cout, workspace, s);
 }
 
 const char* tmdiff_cuda_error_string(int err) {

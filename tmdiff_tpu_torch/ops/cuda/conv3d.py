@@ -59,12 +59,19 @@ conv(x * s, W) + b,
 
 which is the forward function with Cin and Cout swapped. Then dx = d(x * s)
 * s, ds = sum over (D, H, W) of x * d(x * s), and db = sum of dy. The weight
-gradient goes to `aten.convolution_backward` (cuDNN on the card, TF32 off,
-deterministic algorithms), as the JAX package takes it from XLA's conv VJP
-outside its Pallas kernel. `input_grad_launches` counts the kernel's
-launches for input gradients (a part of `launches`), `weight_grad_calls` the
-weight gradients computed on the card. Without a gradient the entries launch
-the kernel directly, so serving pays no autograd bookkeeping.
+gradient (`conv3d_weight_grad`; the JAX package takes it from XLA's conv VJP
+outside its Pallas kernel) goes by what its input shows: fp32 on a CUDA
+device with Cin % 4 == 0, Cout % 4 == 0 and a 16-byte aligned x and dy
+launches the csrc/conv3d.cu weight-gradient kernel (3xTF32 tensor cores,
+deterministic, the style applied in the kernel, so x * s is never written);
+every other call (bf16, another fp32 shape, the CPU) goes to
+`aten.convolution_backward` (cuDNN on the card, TF32 off, deterministic
+algorithms) on x * s (`weight_grad_route`). `input_grad_launches` counts the
+kernel's launches for input gradients (a part of `launches`),
+`weight_grad_launches` the weight-gradient kernel's launches and
+`weight_grad_calls` every weight gradient computed on the card, by either
+route. Without a gradient the entries launch the kernel directly, so serving
+pays no autograd bookkeeping.
 
 The backward runs in the forward's dtype. In bf16 it computes what XLA's
 bf16 conv VJP computes in the JAX package: bf16 operands, fp32 sums, one
@@ -93,8 +100,9 @@ from tmdiff_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel since the last reset_launches(), in all, by
 # variant (tmdiff_conv_plan's numbering from 0) and by dtype; of them, those
-# for input gradients; the weight gradients computed on the card (library
-# calls, not launches of the kernel); and the convs given a pre-activation:
+# for input gradients; the weight gradients computed on the card (either
+# route) and, of them, the weight-gradient kernel's launches (not counted in
+# `launches`); and the convs given a pre-activation:
 # the launches that applied it in the kernel (`preact_fused`) and the calls
 # that computed it with PyTorch ops first (`preact_unfused`, any device).
 VARIANTS = ("ffma", "tf32x3", "tf32x3_splitk", "bf16", "bf16_splitk")
@@ -104,13 +112,16 @@ variant_launches = dict.fromkeys(VARIANTS, 0)
 dtype_launches = {"float32": 0, "bfloat16": 0}
 input_grad_launches = 0
 weight_grad_calls = 0
+weight_grad_launches = 0
 preact_fused = 0
 preact_unfused = 0
 
 
 def reset_launches() -> None:
-    global launches, input_grad_launches, weight_grad_calls, preact_fused, preact_unfused
-    launches = input_grad_launches = weight_grad_calls = preact_fused = preact_unfused = 0
+    global launches, input_grad_launches, weight_grad_calls, weight_grad_launches
+    global preact_fused, preact_unfused
+    launches = input_grad_launches = weight_grad_calls = weight_grad_launches = 0
+    preact_fused = preact_unfused = 0
     variant_launches.update(dict.fromkeys(VARIANTS, 0))
     dtype_launches.update(dict.fromkeys(dtype_launches, 0))
 
@@ -207,6 +218,13 @@ def library():
             [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
             + [ctypes.c_longlong] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
         lib.tmdiff_conv2d_33.restype = ctypes.c_int
+        lib.tmdiff_wgrad_plan.argtypes = (
+            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)])
+        lib.tmdiff_wgrad_plan.restype = ctypes.c_int
+        lib.tmdiff_wgrad_333.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+        lib.tmdiff_wgrad_333.restype = ctypes.c_int
         lib.tmdiff_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tmdiff_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -325,15 +343,116 @@ def _launch(x, kernel, style, bias, out, input_grad: bool = False, unsharded=Non
     return y
 
 
-def conv3d_weight_grad(xs, dy):
-    """dW (3, 3, 3, Cin, Cout) of the SAME conv of xs (B, D, H, W, Cin) with
-    output gradient dy (B, D, H, W, Cout), in their dtype (float32, or
-    bfloat16 with fp32 accumulation and one rounding):
-    `aten.convolution_backward` on channels-last-3d views of both (no copy),
-    under the library convs' flags (ops/library_conv.py::cudnn_fp32: TF32
-    off, deterministic algorithms, so that a step repeats bit for bit); a
-    bf16 one on the CPU in fp32 on the bf16 values (`widen_on_cpu`)."""
+def weight_grad_route(device_type: str, dtype, cin: int, cout: int, aligned: bool) -> str:
+    """Where a weight gradient goes: "kernel" (the csrc/conv3d.cu weight
+    gradient) for float32 on a CUDA device with Cin % 4 == 0, Cout % 4 == 0
+    and x and dy 16-byte aligned (`aligned`: the kernel's TMA maps), else
+    "cudnn" (`aten.convolution_backward`)."""
+    if (device_type == "cuda" and dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0
+            and aligned):
+        return "kernel"
+    return "cudnn"
+
+
+# (B, D, H, W, Cin, Cout, device) -> (split count, workspace bytes): the C
+# side's weight-gradient plan, asked once per shape
+_wgrad_plans = {}
+
+
+def wgrad_plan(x, dy):
+    """(split count, workspace) of the weight-gradient kernel for x
+    (B, D, H, W, Cin) and dy (..., Cout) on the current device: the C side's
+    choice by shape, and a workspace of the bytes it asks for (the splits'
+    partial sums), allocated here so that the kernel allocates nothing."""
+    b, d, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    key = (b, d, h, w, cin, cout, x.device.index)
+    if key not in _wgrad_plans:
+        nbytes, count = ctypes.c_longlong(0), ctypes.c_int(0)
+        ok = library().tmdiff_wgrad_plan(b, d, h, w, cin, cout, x.data_ptr(), dy.data_ptr(),
+                                         ctypes.byref(nbytes), ctypes.byref(count))
+        if not ok:
+            raise ValueError(f"no weight-gradient kernel for Cin {cin}, Cout {cout} (needs both "
+                             "% 4 == 0) or an x or dy that is not 16-byte aligned")
+        _wgrad_plans[key] = (count.value, nbytes.value)
+    splits, nbytes = _wgrad_plans[key]
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
+    return splits, workspace
+
+
+def _wgrad_launch(x, dy, style):
+    """dW through the weight-gradient kernel (float32, CUDA, the route's
+    shapes): x and dy contiguous, the style applied in the kernel."""
+    global weight_grad_launches
+    build.check_operands("wgrad", (torch.float32,), x=x, dy=dy, style=style)
+    b, d, h, w, cin = x.shape
+    cout = dy.shape[-1]
+    if dy.shape[:4] != x.shape[:4] or not (x.is_contiguous() and dy.is_contiguous()):
+        raise ValueError(f"x {tuple(x.shape)} and dy {tuple(dy.shape)} must be contiguous and "
+                         "share (B, D, H, W)")
+    if style is not None and (tuple(style.shape) != (b, cin) or not style.is_contiguous()):
+        raise ValueError(f"style must be a contiguous ({b}, {cin}) tensor")
+    if max(x.numel(), dy.numel(), 27 * cin * cout) >= 2**31:
+        raise ValueError(f"unsupported weight-gradient size {tuple(x.shape)} -> Cout {cout}")
+    dw = torch.empty((3, 3, 3, cin, cout), dtype=x.dtype, device=x.device)
+    if x.numel() == 0 or dy.numel() == 0:
+        return dw.zero_()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        lib = library()
+        splits, workspace = wgrad_plan(x, dy)
+        err = lib.tmdiff_wgrad_333(x.data_ptr(), None if style is None else style.data_ptr(),
+                                   dy.data_ptr(), dw.data_ptr(), b, d, h, w, cin, cout, splits,
+                                   None if workspace is None else workspace.data_ptr(), stream)
+    if err:
+        raise RuntimeError("weight-gradient kernel launch failed: "
+                           f"{lib.tmdiff_cuda_error_string(err).decode()}")
+    weight_grad_launches += 1
+    return dw
+
+
+def conv3d_weight_grad_plain(x, dy, style=None):
+    """The weight gradient's function as 27 shifted-slice products, in the
+    manner of `conv3d_plain`: dW[i, j, k] = sum over positions of
+    pad(x * s)[.., d + i, h + j, w + k, :]^T dy, in x's dtype."""
+    if style is not None:
+        x = x * style[:, None, None, None, :]
+    b, d, h, w, cin = x.shape
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    g = dy.reshape(-1, dy.shape[-1])
+    return torch.stack([
+        torch.stack([
+            torch.stack([xp[:, i:i + d, j:j + h, k:k + w, :].reshape(-1, cin).T @ g
+                         for k in range(3)])
+            for j in range(3)])
+        for i in range(3)])
+
+
+def conv3d_weight_grad(xs, dy, style=None):
+    """dW (3, 3, 3, Cin, Cout) of the SAME conv of xs * style (xs (B, D, H,
+    W, Cin), style (B, Cin) or None) with output gradient dy (B, D, H, W,
+    Cout), in their dtype (float32, or bfloat16 with fp32 accumulation and
+    one rounding). The kernel where `weight_grad_route` says so (the style
+    applied in it); else `aten.convolution_backward` on channels-last-3d
+    views of xs * style and dy (no copy), under the library convs' flags
+    (ops/library_conv.py::cudnn_fp32: TF32 off, deterministic algorithms, so
+    that a step repeats bit for bit); a bf16 one on the CPU in fp32 on the
+    bf16 values (`widen_on_cpu`)."""
     global weight_grad_calls
+    if xs.device.type == "cuda":
+        weight_grad_calls += 1
+    aligned = xs.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    if weight_grad_route(xs.device.type, xs.dtype, xs.shape[-1], dy.shape[-1],
+                         aligned) == "kernel":
+        return _wgrad_launch(xs.contiguous(), dy.contiguous(), style)
+    return weight_grad_library(xs, dy, style)
+
+
+def weight_grad_library(xs, dy, style=None):
+    """The cuDNN route of `conv3d_weight_grad` (module doc), uncounted: also
+    the yardstick the kernel is timed and checked against on the card."""
+    if style is not None:
+        xs = xs * style[:, None, None, None, :]
     cin, cout = xs.shape[-1], dy.shape[-1]
     # read for its shape, dtype and layout only
     weight = torch.empty((cout, cin, 3, 3, 3), dtype=xs.dtype, device=xs.device,
@@ -342,10 +461,7 @@ def conv3d_weight_grad(xs, dy):
         _, dw, _ = torch.ops.aten.convolution_backward(
             *widen_on_cpu(dy.permute(0, 4, 1, 2, 3), xs.permute(0, 4, 1, 2, 3), weight), None,
             [1, 1, 1], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], 1, [False, True, False])
-    dw = dw.to(xs.dtype)
-    if xs.device.type == "cuda":
-        weight_grad_calls += 1
-    return dw.permute(2, 3, 4, 1, 0)
+    return dw.to(xs.dtype).permute(2, 3, 4, 1, 0)
 
 
 class Conv3dFunction(torch.autograd.Function):
@@ -375,9 +491,8 @@ class Conv3dFunction(torch.autograd.Function):
             if need_s:  # fp32 products and sum, one rounding in bf16
                 ds = (x.float() * dxs.float()).sum((1, 2, 3)).to(x.dtype)
         if need_k:
-            xs = x if style is None else x * style[:, None, None, None, :]
             with torch.profiler.record_function("conv3d.weight_grad"):
-                dk = conv3d_weight_grad(xs, dy)
+                dk = conv3d_weight_grad(x, dy, style)
         if need_b:
             db = dy.sum((0, 1, 2, 3))
         return dx, dk, ds, db, None
